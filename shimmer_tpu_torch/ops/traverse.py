@@ -1,0 +1,402 @@
+"""BVH8 traversal: the hand-written CUDA kernel, its wrapper, and its plain
+torch version.
+
+Replaces ``shimmer_tpu/ops/pallas/traverse.py::_traverse_kernel`` (the TPU
+packet kernel) and the glue of ``traverse_packets_raw``.  The kernel
+(``csrc/traverse.cu`` over the per-ray body ``csrc/traverse_body.cuh``)
+traces one ray per thread, 128 threads per block, with a per-thread stack
+of ``child_base << 8 | pending bits`` entries.  On the H100 it is bound by
+chains of dependent row reads and warp divergence, not by FLOPs; the row
+table is read through the read-only path and, at the bench size (39 MB),
+stays in the 50 MB L2.  The rays are sorted by origin/direction keys before
+the launch, on by default as in the reference, where the sort grouped
+rays into coherent packets.  For this per-ray kernel it does not pay on
+an H100: bounce and shadow batches in pixel order trace faster unsorted,
+and the argsort costs more than the launch (PERF.md); the default stays
+until a benchmark decides.
+
+``traverse_raw`` dispatches on the rays' device: CUDA tensors launch the
+kernel or raise; CPU tensors run ``traverse_raw_plain``, a lock-step port
+of the reference's XLA bitstack traversal (``shapes/triangle.py::_traverse``
+in raw mode).  Nothing falls back from CUDA to the plain version.
+
+The kernel library is built at first use from the sources in ``csrc/``
+with nvcc (``-gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``) into
+``shimmer_tpu_torch/_build/``, and rebuilt when a source is newer than the
+library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+_SOURCES = (CSRC / "traverse.cu", CSRC / "traverse_body.cuh")
+_LIB_PATH = BUILD_DIR / "libshimmer_traverse.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-fmad=false", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# Per-thread stack entries in the kernel (csrc/traverse_body.cuh kMaxStack).
+KERNEL_MAX_STACK = 64
+# Rays per traversal packet in the reference; batches up to this size are
+# not sorted (the reference skips the sort there too).
+SORT_MIN_RAYS = 128
+# Lock-step steps between the plain version's any-lane-active checks
+# (each check is a device-to-host sync on CUDA).
+TRAVERSE_CHUNK = 8
+
+_lock = threading.Lock()
+_lib = None
+
+
+class TraverseBuildError(RuntimeError):
+    pass
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise TraverseBuildError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def build_library(force: bool = False) -> dict:
+    """Compile ``csrc/traverse.cu`` into ``_build/`` if the library is
+    missing or older than a source.  Returns {"built", "seconds", "log"}."""
+    newest = max(s.stat().st_mtime for s in _SOURCES)
+    if not force and _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= newest:
+        return {"built": False, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / "traverse.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise TraverseBuildError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, _LIB_PATH)
+    return {"built": True, "seconds": seconds, "log": proc.stdout + proc.stderr}
+
+
+def _library():
+    global _lib
+    with _lock:
+        if _lib is None:
+            build_library()
+            lib = ctypes.CDLL(str(_LIB_PATH))
+            p = ctypes.c_void_p
+            lib.shimmer_traverse_launch.argtypes = [
+                p, p, ctypes.c_int, p, p, p, p, p, p, p, ctypes.c_int, p,
+            ]
+            lib.shimmer_traverse_launch.restype = ctypes.c_int
+            lib.shimmer_traverse_max_stack.argtypes = []
+            lib.shimmer_traverse_max_stack.restype = ctypes.c_int
+            if lib.shimmer_traverse_max_stack() != KERNEL_MAX_STACK:
+                raise TraverseBuildError("kernel stack bound disagrees with the wrapper")
+            _lib = lib
+        return _lib
+
+
+def _check(name, x, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps):
+    """Launch the CUDA kernel on (N,) rays already laid out for it.
+    Returns (t, tri, steps or None); t = +inf where tri = -1."""
+    dev = o.device
+    n = o.shape[0]
+    n_rows = rows8.shape[0]
+    _check("rows8", rows8, torch.float32, (n_rows, 128), dev)
+    _check("meta", meta, torch.int32, (n_rows,), dev)
+    _check("o", o, torch.float32, (n, 3), dev)
+    _check("d", d, torch.float32, (n, 3), dev)
+    _check("t_max", t_max, torch.float32, (n,), dev)
+    _check("any_hit", any_hit, torch.bool, (n,), dev)
+    if int(stack_depth) + 8 > KERNEL_MAX_STACK:
+        raise ValueError(
+            f"BVH needs a stack of {int(stack_depth) + 8} entries; the kernel "
+            f"holds {KERNEL_MAX_STACK}"
+        )
+    if n_rows == 0:
+        raise ValueError("empty BVH table")
+    lib = _library()
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    steps = torch.empty(n, dtype=torch.int32, device=dev) if return_steps else None
+    flags = any_hit.view(torch.uint8)
+    err = lib.shimmer_traverse_launch(
+        rows8.data_ptr(), meta.data_ptr(), n_rows, o.data_ptr(), d.data_ptr(),
+        t_max.data_ptr(), flags.data_ptr(), t.data_ptr(), tri.data_ptr(),
+        steps.data_ptr() if steps is not None else None, n,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
+    traverse_raw.kernel_launches += 1
+    return t, tri, steps
+
+
+def _popcount8(v):
+    """Popcount of a value in [0, 255]."""
+    v = v - ((v >> 1) & 0x55)
+    v = (v & 0x33) + ((v >> 2) & 0x33)
+    return (v + (v >> 4)) & 0x0F
+
+
+def _part1by2(x):
+    """Spread the low 10 bits of x so consecutive bits land 3 apart."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def ray_sort_keys(world_min, world_max, ray_o, ray_d, want_any):
+    """Coherence sort keys (the reference's ``ray_sort_keys``): extension
+    rays origin-Morton-major, then octant and coarse direction; shadow rays
+    direction-major, with a flag bit above both classes."""
+    ext = torch.clamp(world_max - world_min, min=1e-6)
+    q = (ray_o - world_min[None, :]) / ext[None, :]
+    q = torch.clamp((q * 64.0).to(torch.int32), 0, 63)
+    morton = _part1by2(q[:, 0]) | (_part1by2(q[:, 1]) << 1) | (_part1by2(q[:, 2]) << 2)
+    octant = (
+        (ray_d[:, 0] < 0).to(torch.int32)
+        + 2 * (ray_d[:, 1] < 0).to(torch.int32)
+        + 4 * (ray_d[:, 2] < 0).to(torch.int32)
+    )
+    dq = torch.clamp(((ray_d + 1.0) * 2.0).to(torch.int32), 0, 3)
+    fine = dq[:, 0] | (dq[:, 1] << 2) | (dq[:, 2] << 4)
+    key_ext = (morton << 9) | (octant << 6) | fine
+    key_sh = (octant << 27) | (fine << 21) | (morton << 3)
+    return torch.where(want_any, (1 << 30) | key_sh, key_ext)
+
+
+def ray_order(tris, ray_o, ray_d, t_max, want):
+    """The permutation the wrapper traces rays in: sorted by
+    ``ray_sort_keys``, dead lanes (t_max <= 0) last."""
+    keys = torch.where(
+        t_max > 0.0,
+        ray_sort_keys(tris.world_min, tris.world_max, ray_o, ray_d, want),
+        0x7FFFFFFF,
+    )
+    return torch.argsort(keys, stable=True)
+
+
+def traverse_raw(tris, ray_o, ray_d, t_max, any_hit=False, sort_rays=True,
+                 return_steps=False):
+    """Closest-hit traversal with per-lane any-hit, in the original ray
+    order: returns (t, tri[, steps]) with t = +inf and tri = -1 on a miss.
+
+    tris: a ``TriangleSceneData`` (rows8, meta, stack_depth, world bounds).
+    t_max: scalar or (N,); lanes with t_max <= 0 are dead and miss.
+    any_hit: bool or (N,) bool; those lanes stop at their first hit (only
+    their occlusion bit is meaningful).
+    """
+    n = ray_o.shape[0]
+    dev = ray_o.device
+    for name, x in (("ray_o", ray_o), ("ray_d", ray_d), ("t_max", t_max)):
+        if isinstance(x, torch.Tensor) and x.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {x.dtype}, expected torch.float32")
+    ray_o = ray_o.contiguous()
+    ray_d = ray_d.contiguous()
+    t_max = torch.broadcast_to(
+        torch.as_tensor(t_max, dtype=torch.float32, device=dev), (n,)
+    ).contiguous()
+    want = torch.broadcast_to(
+        torch.as_tensor(any_hit, dtype=torch.bool, device=dev), (n,)
+    ).contiguous()
+    order = None
+    if sort_rays and n > SORT_MIN_RAYS:
+        order = ray_order(tris, ray_o, ray_d, t_max, want)
+        ray_o, ray_d, t_max, want = ray_o[order], ray_d[order], t_max[order], want[order]
+    if dev.type == "cuda":
+        out = _launch_kernel(
+            tris.rows8, tris.meta, tris.stack_depth, ray_o, ray_d, t_max, want,
+            return_steps,
+        )
+    elif dev.type == "cpu":
+        out = traverse_raw_plain(
+            tris.rows8, tris.stack_depth, ray_o, ray_d, t_max, want,
+            return_steps=True,
+        )
+    else:
+        raise ValueError(f"no traversal for device {dev}")
+    t, tri, steps = out
+    if order is not None:
+        t, tri, steps = (
+            None if x is None else torch.empty_like(x).index_copy_(0, order, x)
+            for x in (t, tri, steps)
+        )
+    t = torch.where(tri >= 0, t, torch.inf)
+    return (t, tri, steps) if return_steps else (t, tri)
+
+
+traverse_raw.kernel_launches = 0
+
+
+def traverse_raw_plain(rows8, stack_depth, ray_o, ray_d, t_max, any_hit,
+                       return_steps=False):
+    """Plain torch version of the kernel: a lock-step port of the
+    reference's XLA bitstack traversal (``shapes/triangle.py::_traverse``,
+    raw mode).  Every lane advances one node visit per step and each step
+    gathers one (N, 128) row per lane.  Internal visits descend into the
+    nearest hit child and push the remainders with conservative entry
+    distances; popped groups beyond the current best are pruned.  Returns
+    (t, tri[, steps]) with t = +inf where tri = -1."""
+    from shimmer_tpu_torch.shapes.triangle import intersect_triangle
+
+    traverse_raw_plain.calls += 1
+    dev = ray_o.device
+    n = ray_o.shape[0]
+    depth = int(stack_depth) + 2
+    inv_d = 1.0 / torch.where(ray_d == 0.0, torch.full_like(ray_d, 1e-30), ray_d)
+    want = torch.broadcast_to(torch.as_tensor(any_hit, device=dev), (n,))
+    lane8 = torch.arange(8, dtype=torch.int32, device=dev)
+    ids8 = torch.arange(72, 80, device=dev)
+    bit_pow = torch.ones(8, dtype=torch.int32, device=dev) << lane8
+    lane_idx = torch.arange(n, device=dev)
+
+    group = torch.ones(n, dtype=torch.int32, device=dev)
+    group_t = torch.zeros(n, dtype=torch.float32, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    stack = torch.zeros(n, depth, dtype=torch.int32, device=dev)
+    stack_t = torch.zeros(n, depth, dtype=torch.float32, device=dev)
+    t_best = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev), (n,)).clone()
+    tri_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    visits = torch.zeros(n, dtype=torch.int32, device=dev)
+    ox, oy, oz = ray_o[:, 0:1], ray_o[:, 1:2], ray_o[:, 2:3]
+    ix, iy, iz = inv_d[:, 0:1], inv_d[:, 1:2], inv_d[:, 2:3]
+    ro = ray_o[:, None, :]
+    rd = ray_d[:, None, :]
+
+    def lane_active():
+        alive = ((group & 255) > 0) | (sp > 0)
+        return alive & ~(want & (tri_best >= 0))
+
+    def push(mask, pos, value, value_t):
+        ok = mask & (pos < depth)
+        pos = torch.clamp(pos, max=depth - 1)
+        stack[lane_idx, pos] = torch.where(ok, value, stack[lane_idx, pos])
+        stack_t[lane_idx, pos] = torch.where(ok, value_t, stack_t[lane_idx, pos])
+
+    def step():
+        nonlocal group, group_t, sp, t_best, tri_best, visits
+        active = lane_active()
+        need_pop = active & ((group & 255) == 0)
+        sp_p = sp - need_pop.to(torch.int64)
+        pos = torch.clamp(sp_p, 0, depth - 1)
+        popped = torch.where(need_pop, stack[lane_idx, pos], 0)
+        popped_t = torch.where(need_pop, stack_t[lane_idx, pos], 0.0)
+        pruned = need_pop & (popped_t >= t_best)
+        group = torch.where(need_pop, torch.where(pruned, 0, popped), group)
+        group_t = torch.where(need_pop, popped_t, group_t)
+        sp = sp_p
+        active = active & ~pruned
+
+        mask = group & 255
+        t_low = mask & -mask
+        k = _popcount8(t_low - 1)
+        row_idx = torch.where(active, (group >> 8) + k, 0)
+        group_rem = group - t_low
+        row = rows8[row_idx.long()]
+        visits = visits + active.to(torch.int32)
+
+        count = row[:, 80].to(torch.int32)
+        is_leaf = active & (count > 0)
+        is_int = active & (count == 0)
+
+        t0x = (row[:, 0:8] - ox) * ix
+        t1x = (row[:, 24:32] - ox) * ix
+        t0y = (row[:, 8:16] - oy) * iy
+        t1y = (row[:, 32:40] - oy) * iy
+        t0z = (row[:, 16:24] - oz) * iz
+        t1z = (row[:, 40:48] - oz) * iz
+        t_near = torch.maximum(
+            torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+            torch.minimum(t0z, t1z),
+        )
+        t_far = torch.minimum(
+            torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+            torch.maximum(t0z, t1z),
+        )
+        hit8 = (
+            (t_near <= t_far * 1.0001)
+            & (t_far > 0.0)
+            & (t_near < t_best[:, None])
+            & (row[:, 88:96] > 0.0)
+            & is_int[:, None]
+        )
+        hmask = torch.sum(torch.where(hit8, bit_pow, 0), dim=1, dtype=torch.int32)
+        child_base = row[:, 48].to(torch.int32)
+        tn = torch.where(hit8, torch.clamp(t_near, min=0.0), torch.inf)
+        k_near = torch.argmin(tn, dim=-1).to(torch.int32)
+        near_t = torch.min(tn, dim=-1).values
+        near_bit = torch.ones_like(k_near) << k_near
+        child_rem = hmask & ~near_bit
+        tn2 = torch.where(lane8[None, :] == k_near[:, None], torch.inf, tn)
+        child_rem_t = torch.min(tn2, dim=-1).values
+        child_group = ((child_base + k_near) << 8) | 1
+
+        p0 = torch.stack([row[:, 0:8], row[:, 8:16], row[:, 16:24]], dim=-1)
+        p1 = torch.stack([row[:, 24:32], row[:, 32:40], row[:, 40:48]], dim=-1)
+        p2 = torch.stack([row[:, 48:56], row[:, 56:64], row[:, 64:72]], dim=-1)
+        h, t, _, _, _ = intersect_triangle(ro, rd, t_best[:, None], p0, p1, p2)
+        in_leaf = is_leaf[:, None] & (lane8[None, :] < count[:, None])
+        t = torch.where(h & in_leaf, t, torch.inf)
+        k_best = torch.argmin(t, dim=-1)
+        t_new = torch.min(t, dim=-1).values
+        closer = t_new < t_best
+        win_id = row[lane_idx, ids8[k_best]].to(torch.int32)
+        t_best = torch.where(closer, t_new, t_best)
+        tri_best = torch.where(closer, win_id, tri_best)
+
+        descend = is_int & (hmask > 0)
+        push1 = descend & ((group_rem & 255) > 0)
+        push2 = descend & (child_rem > 0)
+        push(push1, sp, group_rem, group_t)
+        push(push2, sp + push1.to(torch.int64), (child_base << 8) | child_rem, child_rem_t)
+        sp = sp + push1.to(torch.int64) + push2.to(torch.int64)
+        group_next = torch.where(descend, child_group, group_rem)
+        group = torch.where(active, group_next, group)
+        group_t = torch.where(descend, near_t, group_t)
+
+    # Python loop in place of lax.while_loop: the any() test is one
+    # device-to-host sync per chunk of lock-step steps.
+    while bool(lane_active().any()):
+        for _ in range(TRAVERSE_CHUNK):
+            step()
+    t_out = torch.where(tri_best >= 0, t_best, torch.inf)
+    return (t_out, tri_best, visits) if return_steps else (t_out, tri_best)
+
+
+traverse_raw_plain.calls = 0

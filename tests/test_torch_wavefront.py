@@ -1,0 +1,100 @@
+"""The slice as a whole: the port's wavefront render of the bench scene
+against the reference's, on the CPU at 24x16 pixels, 2 spp, depth 5.
+
+The reference runs ``make_wavefront_renderer`` (XLA traversal on the CPU);
+the port runs the same estimator through its plain traversal, on tables
+carried across with ``scene_from_numpy`` and on tables from its own
+builders.  The sampler is counter-based, so the two renders agree per
+sample up to float32 rounding (XLA contracts FMAs, transcendentals differ
+in the last ulp).  Criteria, as chip_smoke.py uses them: images finite
+with a positive mean, at least 99% of pixels within rtol 1e-3 / atol 1e-4,
+image means within 1e-3 relative; the margin covers a path that branches
+differently on a last-ulp difference.  The traced-ray count must match
+exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench
+from shimmer_tpu.render import make_wavefront_renderer as jax_wavefront
+from shimmer_tpu.render import pixel_blocks as jax_blocks
+from shimmer_tpu.render import render as jax_render
+from shimmer_tpu.samplers import ZSobolSampler as JaxZSobol
+from shimmer_tpu_torch import bench_scene
+from shimmer_tpu_torch.convert import scene_from_numpy
+from shimmer_tpu_torch.render import make_wavefront_renderer as torch_wavefront
+from shimmer_tpu_torch.render import pixel_blocks as torch_blocks
+from shimmer_tpu_torch.render import render as torch_render
+from shimmer_tpu_torch.samplers import ZSobolSampler as TorchZSobol
+from torch_parity import jax_scene_to_numpy
+
+torch.set_num_threads(1)
+
+RES = (24, 16)
+SPP = 2
+DEPTH = 5
+N_TRIS = 1280
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BENCH_RES", f"{RES[0]}x{RES[1]}")
+        jscene, jcam, jfilm, _ = bench.build_bench_scene(N_TRIS)
+    tscene, tcam, tfilm = bench_scene.build_bench_scene(N_TRIS, RES)
+    arrays, census = jax_scene_to_numpy(jscene)
+    return {
+        "jax": (jscene, jcam, jfilm),
+        "torch": (tscene, tcam, tfilm),
+        "converted": (scene_from_numpy(arrays, census), tcam, tfilm),
+    }
+
+
+@pytest.fixture(scope="module")
+def jax_wave(scenes):
+    jscene, jcam, jfilm = scenes["jax"]
+    wave = jax_wavefront(jscene, jcam, jfilm, JaxZSobol(SPP, RES), max_depth=DEPTH,
+                         with_stats=True)
+    blocks, valids = jax_blocks(jfilm, RES[0] * RES[1])
+    state, stats = wave(jfilm.init_state(), jnp.arange(SPP, dtype=jnp.uint32),
+                        blocks[0], valids[0])
+    return np.asarray(jfilm.get_image(state)), float(stats["rays"]), float(stats["iters"])
+
+
+def assert_images_agree(img, ref):
+    assert np.isfinite(img).all() and np.isfinite(ref).all()
+    assert img.mean() > 0 and ref.mean() > 0
+    close = np.isclose(img, ref, rtol=1e-3, atol=1e-4).all(axis=-1)
+    print(f"fraction of pixels that differ: {1.0 - close.mean():.6f}")
+    assert close.mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
+
+
+@pytest.mark.parametrize("tables", ["converted", "torch"])
+def test_wavefront_matches_reference(scenes, jax_wave, tables):
+    ref, rays, iters = jax_wave
+    tscene, tcam, tfilm = scenes[tables]
+    wave = torch_wavefront(tscene, tcam, tfilm, TorchZSobol(SPP, RES), max_depth=DEPTH)
+    blocks, valids = torch_blocks(tfilm, RES[0] * RES[1])
+    state, stats = wave(tfilm.init_state(), torch.arange(SPP), blocks[0], valids[0])
+    assert float(stats["rays"]) == rays
+    assert float(stats["iters"]) == iters
+    assert_images_agree(tfilm.get_image(state).numpy(), ref)
+
+
+def test_render_two_pixel_blocks_with_padding(scenes):
+    """render() over 2 pixel blocks of 200 (16 padded lanes)."""
+    jscene, jcam, jfilm = scenes["jax"]
+    tscene, tcam, tfilm = scenes["converted"]
+    block = 200
+    assert torch_blocks(tfilm, block)[0].shape[0] == 2
+    ref, _ = jax_render(jscene, jcam, jfilm, JaxZSobol(SPP, RES), spp=SPP, max_depth=DEPTH,
+                        wave_spp=SPP, pixel_block=block)
+    img, state, stats = torch_render(tscene, tcam, tfilm, TorchZSobol(SPP, RES), spp=SPP,
+                                     max_depth=DEPTH, wave_spp=SPP, pixel_block=block)
+    assert (state.weight_sum.numpy() == SPP).all()  # every pixel got SPP samples
+    assert stats["rays"] > 0
+    assert_images_agree(img.numpy(), np.asarray(ref))
