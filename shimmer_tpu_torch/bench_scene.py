@@ -6,6 +6,11 @@ seen by a 40-degree perspective camera; three diffuse materials.  The
 geometry generator is ``bench.py::make_displaced_sphere``, repeated here
 so that the port and ``chip_smoke.py`` do not import the reference's
 benchmark script (tests hold the two generators equal).
+
+Two legs, as in ``bench.py``: ``bench`` (``BENCH_TRIS``, the main render)
+and ``large`` (``LARGE_TRIS`` = 1,310,720 sphere triangles, the leg of
+``bench.py::streaming_benchmark``, whose BVH8 table of about 157 MB no
+longer fits the H100's 50 MB L2).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from shimmer_tpu_torch.shapes.triangle import build_triangle_scene
 from shimmer_tpu_torch.spectra.spectrum import ConstantSpectrum
 
 BENCH_TRIS = 300_000
+LARGE_TRIS = 1_310_720
 BENCH_RESOLUTION = (1280, 720)
 
 
@@ -137,7 +143,9 @@ def bench_lights(n_tri_total: int, colorspace) -> list[dict]:
 
 
 def build_bench_scene(n_tris: int = BENCH_TRIS, resolution=BENCH_RESOLUTION, device=None):
-    """Returns (scene, camera, film) with the tables on ``device``."""
+    """Returns (scene, camera, film) with the tables on ``device`` (default:
+    the CUDA card), packed for ``TraverseConfig()``; another configuration
+    is ``scene.triangles.with_traverse(cfg)``."""
     cam, film = bench_camera_film(resolution)
     r2w = cam.camera_transform.render_from_world()
     tris = build_triangle_scene(bench_meshes(n_tris, r2w), device=device)

@@ -13,10 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from shimmer_tpu_torch.config import f32, i32
+from shimmer_tpu_torch.config import f32, i32, resolve_device
 from shimmer_tpu_torch.lights import lights as lt
 from shimmer_tpu_torch.materials import material as mtl
 from shimmer_tpu_torch.materials.material import MaterialTable
+from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.scene import Scene
 from shimmer_tpu_torch.shapes.triangle import TriangleSceneData
 
@@ -38,7 +39,12 @@ _UNPORTED_GROUPS = ("spheres", "patches", "instanced", "media", "env", "textures
 
 
 def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
-    """Build a port Scene on ``device`` from reference-scene numpy leaves."""
+    """Build a port Scene on ``device`` (default: the CUDA card) from
+    reference-scene numpy leaves.  The reference's ``rows8`` always holds
+    watertight leaves, so the table's configuration is
+    ``TraverseConfig(leaf="watertight")`` (kernel and winner from the
+    environment flags); ``scene.triangles.with_traverse(cfg)`` repacks it
+    for Moller-Trumbore leaves."""
     for key, want in _UNPORTED_CENSUS.items():
         got = census.get(key, want)
         if (tuple(got) if isinstance(want, tuple) else got) != want:
@@ -48,6 +54,8 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
             raise NotImplementedError(f"scene field {key} is not ported yet")
     mtl.check_kinds(tuple(census["material_kinds"]))
     lt.check_kinds(tuple(census["light_kinds"]))
+
+    device = resolve_device(device)
 
     def a(key):
         return np.asarray(arrays[key])
@@ -69,6 +77,7 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         stack_depth=int(census["triangles.stack_depth"]),
         has_normals=bool(census["triangles.has_normals"]),
         has_uv=bool(census["triangles.has_uv"]),
+        traverse=TraverseConfig(leaf="watertight"),
     )
     materials = MaterialTable(
         kind=i32(a("materials.kind"), device),

@@ -10,6 +10,7 @@ import math
 import numpy as np
 import torch
 
+from shimmer_tpu_torch.config import resolve_device
 from shimmer_tpu_torch.ops.math import safe_div
 from shimmer_tpu_torch.spectra.sampled import SampledWavelengths
 from shimmer_tpu_torch.spectra.spectrum import (
@@ -74,6 +75,8 @@ class RgbFilm:
         self.output_rgb_from_sensor_rgb = colorspace.rgb_from_xyz @ sensor.xyz_from_sensor_rgb
 
     def init_state(self, device=None) -> FilmState:
+        """Zeroed accumulators on ``device`` (default: the CUDA card)."""
+        device = resolve_device(device)
         w, h = self.resolution
         return FilmState(
             rgb_sum=torch.zeros((h, w, 3), dtype=torch.float32, device=device),

@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from shimmer_tpu_torch.config import f32, i32
+from shimmer_tpu_torch.config import f32, i32, resolve_device
 from shimmer_tpu_torch.materials import bxdf as bx
 from shimmer_tpu_torch.materials.bxdf import BSDFSample, select_sample
 from shimmer_tpu_torch.ops.math import take_clamped
@@ -38,7 +38,7 @@ class MaterialTable:
 
 def make_material_table(mats: list[dict], device=None) -> MaterialTable:
     """Host: build the table from material dicts (``kind``,
-    ``reflectance_coeffs``)."""
+    ``reflectance_coeffs``) on ``device`` (default: the CUDA card)."""
     for m in mats:
         if int(m.get("kind", DIFFUSE)) not in PORTED_KINDS:
             raise NotImplementedError(
@@ -47,6 +47,7 @@ def make_material_table(mats: list[dict], device=None) -> MaterialTable:
         unported = set(m) - {"kind", "reflectance_coeffs"}
         if unported:
             raise NotImplementedError(f"material parameters {sorted(unported)} are not ported yet")
+    device = resolve_device(device)
     refl = (
         np.stack([np.asarray(m.get("reflectance_coeffs", [0.0, 0.0, 0.0]), np.float32) for m in mats])
         if mats

@@ -1,34 +1,45 @@
-"""BVH8 traversal: the hand-written CUDA kernel, its wrapper, and its plain
-torch version.
+"""BVH8 traversal: the hand-written CUDA kernels, their wrapper, and their
+plain torch version.
 
-Replaces ``shimmer_tpu/ops/pallas/traverse.py::_traverse_kernel`` (the TPU
-packet kernel) and the glue of ``traverse_packets_raw``.  The kernel
-(``csrc/traverse.cu`` over the per-ray body ``csrc/traverse_body.cuh``)
-traces one ray per thread, 128 threads per block, with a per-thread stack
-of ``child_base << 8 | pending bits`` entries.  On the H100 it is bound by
-chains of dependent row reads and warp divergence, not by FLOPs; the row
-table is read through the read-only path and, at the bench size (39 MB),
-stays in the 50 MB L2.  The rays are sorted by origin/direction keys before
-the launch, on by default as in the reference, where the sort grouped
-rays into coherent packets.  For this per-ray kernel it does not pay on
-an H100: bounce and shadow batches in pixel order trace faster unsorted,
-and the argsort costs more than the launch (PERF.md); the default stays
-until a benchmark decides.
+Replaces the reference's packet traversal
+(``shimmer_tpu/ops/pallas/traverse.py``: ``_traverse_kernel`` with its
+streamed, Moller-Trumbore and min-winner forms, ``_traverse_kernel_v2``,
+and the glue of ``traverse_packets_raw``).  :class:`TraverseConfig` picks
+the form.  One CUDA source, ``csrc/traverse.cu``, holds both kernels
+behind one C entry point:
+
+* v1 (``csrc/traverse_body.cuh``): one ray per thread with a stack of
+  ``child_base << 8 | pending bits`` entries, as templates over the leaf
+  test (watertight or Moller-Trumbore) and the winner among equal t in a
+  leaf (lowest slot or lowest id);
+* v2 (``csrc/traverse_v2_body.cuh``): ordered near-first internal pops
+  plus a postponed-leaf backlog.
+
+On the H100 both are bound by chains of dependent row reads and warp
+divergence, not by FLOPs; the row table is read through the read-only
+path and, at the bench size (39 MB), stays in the 50 MB L2.  The rays are
+sorted by origin/direction keys before the launch, on by default as in
+the reference, where the sort grouped rays into coherent packets.  For a
+per-ray kernel it does not pay on an H100: bounce and shadow batches in
+pixel order trace faster unsorted, and the argsort costs more than the
+launch (PERF.md); the default stays until a benchmark decides.
 
 ``traverse_raw`` dispatches on the rays' device: CUDA tensors launch the
-kernel or raise; CPU tensors run ``traverse_raw_plain``, a lock-step port
-of the reference's XLA bitstack traversal (``shapes/triangle.py::_traverse``
-in raw mode).  Nothing falls back from CUDA to the plain version.
+kernel of the scene's configuration or raise; CPU tensors run
+``traverse_raw_plain``, a lock-step port of the reference's XLA bitstack
+traversal (``shapes/triangle.py::_traverse`` in raw mode) with the
+configuration's leaf test and winner.  Nothing falls back from CUDA to the
+plain version.
 
 The kernel library is built at first use from the sources in ``csrc/``
 with nvcc (``-gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``) into
-``shimmer_tpu_torch/_build/``, and rebuilt when a source is newer than the
-library.
+``shimmer_tpu_torch/_build/``, and rebuilt when a source is newer than it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -42,15 +53,19 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = (CSRC / "traverse.cu", CSRC / "traverse_body.cuh")
-_LIB_PATH = BUILD_DIR / "libshimmer_traverse.so"
+LIB_PATH = BUILD_DIR / "libshimmer_traverse.so"
+_SOURCES = ("traverse.cu", "traverse_body.cuh", "traverse_v2_body.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Per-thread stack entries in the kernel (csrc/traverse_body.cuh kMaxStack).
+# Per-thread internal stack entries in the kernels (traverse_body.cuh
+# kMaxStack).
 KERNEL_MAX_STACK = 64
+# Leaf backlog entries of the v2 kernel (traverse_v2_body.cuh kLeafStack,
+# the reference's LEAF_STACK).
+LEAF_STACK = 32
 # Rays per traversal packet in the reference; batches up to this size are
 # not sorted (the reference skips the sort there too).
 SORT_MIN_RAYS = 128
@@ -59,7 +74,58 @@ SORT_MIN_RAYS = 128
 TRAVERSE_CHUNK = 8
 
 _lock = threading.Lock()
-_lib = None
+_launch_fn = None
+
+
+def _env_kernel() -> str:
+    return "v1" if os.environ.get("SHIMMER_KERNEL_V1", "1") == "1" else "v2"
+
+
+def _env_leaf() -> str:
+    return "mt" if os.environ.get("SHIMMER_LEAF_MT", "0") == "1" else "watertight"
+
+
+def _env_winner() -> str:
+    return "min" if os.environ.get("SHIMMER_WINID_MIN", "0") == "1" else "slot"
+
+
+@dataclasses.dataclass(frozen=True)
+class TraverseConfig:
+    """Which traversal runs.  Defaults follow the reference's environment
+    flags, read when the config is made: ``SHIMMER_KERNEL_V1`` (``"0"`` ->
+    v2), ``SHIMMER_LEAF_MT`` (``"1"`` -> Moller-Trumbore leaves) and
+    ``SHIMMER_WINID_MIN`` (``"1"`` -> lowest id wins among equal t).
+
+    The leaf layout of ``rows8`` is fixed when the table is packed, so the
+    config lives on ``TriangleSceneData``.  MT leaves and the min-id winner
+    run only under v1: with ``kernel="v2"`` they raise (the reference
+    silently pins v1 for MT leaves and runs v2 with the slot winner)."""
+
+    kernel: str = dataclasses.field(default_factory=_env_kernel)
+    leaf: str = dataclasses.field(default_factory=_env_leaf)
+    winner: str = dataclasses.field(default_factory=_env_winner)
+
+    def __post_init__(self):
+        for name, allowed in (("kernel", ("v1", "v2")), ("leaf", ("watertight", "mt")),
+                              ("winner", ("slot", "min"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name}={getattr(self, name)!r}: expected one of {allowed}")
+        if self.kernel == "v2" and self.leaf == "mt":
+            raise ValueError("Moller-Trumbore leaves run only under kernel='v1'")
+        if self.kernel == "v2" and self.winner == "min":
+            raise ValueError("the min-id winner runs only under kernel='v1'")
+
+    @property
+    def name(self) -> str:
+        """The launch-counter key: v1, v1_mt, v1_min, v1_mt_min, v2."""
+        return "_".join(
+            [self.kernel] + (["mt"] if self.leaf == "mt" else [])
+            + (["min"] if self.winner == "min" else [])
+        )
+
+
+V1 = TraverseConfig("v1", "watertight", "slot")
+KERNEL_NAMES = ("v1", "v1_mt", "v1_min", "v1_mt_min", "v2")
 
 
 class TraverseBuildError(RuntimeError):
@@ -78,44 +144,46 @@ def _nvcc() -> str:
 
 
 def build_library(force: bool = False) -> dict:
-    """Compile ``csrc/traverse.cu`` into ``_build/`` if the library is
-    missing or older than a source.  Returns {"built", "seconds", "log"}."""
-    newest = max(s.stat().st_mtime for s in _SOURCES)
-    if not force and _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= newest:
+    """Compile the kernel library into ``_build/`` when it is missing or
+    older than a source (or ``force``).  Returns {"built", "seconds",
+    "log"}, the log holding nvcc's ``-Xptxas -v`` report."""
+    if not force and LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= max(
+            (CSRC / f).stat().st_mtime for f in _SOURCES):
         return {"built": False, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Build to a private name and rename, so a concurrent loader never
+    # sees a partial library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / "traverse.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / _SOURCES[0])]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise TraverseBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}"
         )
-    os.replace(tmp, _LIB_PATH)
-    return {"built": True, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    os.replace(tmp, LIB_PATH)
+    return {"built": True, "seconds": time.perf_counter() - t0, "log": proc.stdout}
 
 
-def _library():
-    global _lib
+def _launcher():
+    """The library's C launch function, built and loaded at first use."""
+    global _launch_fn
     with _lock:
-        if _lib is None:
+        if _launch_fn is None:
             build_library()
-            lib = ctypes.CDLL(str(_LIB_PATH))
-            p = ctypes.c_void_p
-            lib.shimmer_traverse_launch.argtypes = [
-                p, p, ctypes.c_int, p, p, p, p, p, p, p, ctypes.c_int, p,
-            ]
-            lib.shimmer_traverse_launch.restype = ctypes.c_int
+            lib = ctypes.CDLL(str(LIB_PATH))
+            p, ci = ctypes.c_void_p, ctypes.c_int
+            lib.shimmer_traverse_launch.argtypes = [ci, ci, ci, p, p, ci, p, p, p, p, p, p, p,
+                                                    p, ci, p]
+            lib.shimmer_traverse_launch.restype = ci
             lib.shimmer_traverse_max_stack.argtypes = []
-            lib.shimmer_traverse_max_stack.restype = ctypes.c_int
+            lib.shimmer_traverse_max_stack.restype = ci
             if lib.shimmer_traverse_max_stack() != KERNEL_MAX_STACK:
                 raise TraverseBuildError("kernel stack bound disagrees with the wrapper")
-            _lib = lib
-        return _lib
+            _launch_fn = lib.shimmer_traverse_launch
+        return _launch_fn
 
 
 def _check(name, x, dtype, shape, device):
@@ -129,9 +197,15 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps):
-    """Launch the CUDA kernel on (N,) rays already laid out for it.
-    Returns (t, tri, steps or None); t = +inf where tri = -1."""
+def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps,
+                   config: TraverseConfig = V1, touched=None):
+    """Launch the CUDA kernel of ``config`` on (N,) rays already laid out
+    for it.  Returns (t, tri, steps or None); t = +inf where tri = -1.
+
+    ``touched``, a zeroed (2 * R,) uint8 tensor or None, records what the
+    launch reads: 1 at ``touched[r]`` for each row visited and at
+    ``touched[R + r]`` for each meta word read (the work behind the
+    launch's bound; csrc/traverse_body.cuh, touch_row)."""
     dev = o.device
     n = o.shape[0]
     n_rows = rows8.shape[0]
@@ -146,22 +220,26 @@ def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps)
             f"BVH needs a stack of {int(stack_depth) + 8} entries; the kernel "
             f"holds {KERNEL_MAX_STACK}"
         )
+    if touched is not None:
+        _check("touched", touched, torch.uint8, (2 * n_rows,), dev)
     if n_rows == 0:
         raise ValueError("empty BVH table")
-    lib = _library()
+    launch = _launcher()
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev) if return_steps else None
     flags = any_hit.view(torch.uint8)
-    err = lib.shimmer_traverse_launch(
+    err = launch(
+        1 if config.kernel == "v1" else 2, int(config.leaf == "mt"), int(config.winner == "min"),
         rows8.data_ptr(), meta.data_ptr(), n_rows, o.data_ptr(), d.data_ptr(),
         t_max.data_ptr(), flags.data_ptr(), t.data_ptr(), tri.data_ptr(),
-        steps.data_ptr() if steps is not None else None, n,
+        steps.data_ptr() if steps is not None else None,
+        touched.data_ptr() if touched is not None else None, n,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
-    traverse_raw.kernel_launches += 1
+        raise RuntimeError(f"traversal kernel {config.name} launch failed: CUDA error {err}")
+    traverse_raw.launches[config.name] += 1
     return t, tri, steps
 
 
@@ -217,7 +295,8 @@ def traverse_raw(tris, ray_o, ray_d, t_max, any_hit=False, sort_rays=True,
     """Closest-hit traversal with per-lane any-hit, in the original ray
     order: returns (t, tri[, steps]) with t = +inf and tri = -1 on a miss.
 
-    tris: a ``TriangleSceneData`` (rows8, meta, stack_depth, world bounds).
+    tris: a ``TriangleSceneData`` (rows8, meta, stack_depth, world bounds,
+    and the traversal configuration ``traverse``).
     t_max: scalar or (N,); lanes with t_max <= 0 are dead and miss.
     any_hit: bool or (N,) bool; those lanes stop at their first hit (only
     their occlusion bit is meaningful).
@@ -242,12 +321,12 @@ def traverse_raw(tris, ray_o, ray_d, t_max, any_hit=False, sort_rays=True,
     if dev.type == "cuda":
         out = _launch_kernel(
             tris.rows8, tris.meta, tris.stack_depth, ray_o, ray_d, t_max, want,
-            return_steps,
+            return_steps, tris.traverse,
         )
     elif dev.type == "cpu":
         out = traverse_raw_plain(
             tris.rows8, tris.stack_depth, ray_o, ray_d, t_max, want,
-            return_steps=True,
+            return_steps=True, leaf=tris.traverse.leaf, winner=tris.traverse.winner,
         )
     else:
         raise ValueError(f"no traversal for device {dev}")
@@ -261,20 +340,26 @@ def traverse_raw(tris, ray_o, ray_d, t_max, any_hit=False, sort_rays=True,
     return (t, tri, steps) if return_steps else (t, tri)
 
 
-traverse_raw.kernel_launches = 0
+# Kernel launches by configuration name, counted where each is launched.
+traverse_raw.launches = dict.fromkeys(KERNEL_NAMES, 0)
 
 
 def traverse_raw_plain(rows8, stack_depth, ray_o, ray_d, t_max, any_hit,
-                       return_steps=False):
-    """Plain torch version of the kernel: a lock-step port of the
-    reference's XLA bitstack traversal (``shapes/triangle.py::_traverse``,
-    raw mode).  Every lane advances one node visit per step and each step
-    gathers one (N, 128) row per lane.  Internal visits descend into the
-    nearest hit child and push the remainders with conservative entry
-    distances; popped groups beyond the current best are pruned.  Returns
+                       return_steps=False, leaf="watertight", winner="slot"):
+    """Plain torch version of the kernels (v1 and v2 compute the same
+    function): a lock-step port of the reference's XLA bitstack traversal
+    (``shapes/triangle.py::_traverse``, raw mode).  Every lane advances one
+    node visit per step and each step gathers one (N, 128) row per lane.
+    Internal visits descend into the nearest hit child and push the
+    remainders with conservative entry distances; popped groups beyond the
+    current best are pruned.  ``leaf`` is the leaf test the rows are packed
+    for ("watertight" or "mt"); ``winner`` picks among equal t in a leaf
+    ("slot": the lowest slot, "min": the lowest triangle id).  Returns
     (t, tri[, steps]) with t = +inf where tri = -1."""
-    from shimmer_tpu_torch.shapes.triangle import intersect_triangle
+    from shimmer_tpu_torch.shapes.triangle import intersect_triangle, intersect_triangle_mt
 
+    if leaf not in ("watertight", "mt") or winner not in ("slot", "min"):
+        raise ValueError(f"unknown leaf test {leaf!r} or winner {winner!r}")
     traverse_raw_plain.calls += 1
     dev = ray_o.device
     n = ray_o.shape[0]
@@ -370,13 +455,21 @@ def traverse_raw_plain(rows8, stack_depth, ray_o, ray_d, t_max, any_hit,
         p0 = torch.stack([row[:, 0:8], row[:, 8:16], row[:, 16:24]], dim=-1)
         p1 = torch.stack([row[:, 24:32], row[:, 32:40], row[:, 40:48]], dim=-1)
         p2 = torch.stack([row[:, 48:56], row[:, 56:64], row[:, 64:72]], dim=-1)
-        h, t, _, _, _ = intersect_triangle(ro, rd, t_best[:, None], p0, p1, p2)
+        if leaf == "mt":  # the rows hold (p0, e1, e2)
+            h, t = intersect_triangle_mt(ro, rd, t_best[:, None], p0, p1, p2)
+        else:
+            h, t, _, _, _ = intersect_triangle(ro, rd, t_best[:, None], p0, p1, p2)
         in_leaf = is_leaf[:, None] & (lane8[None, :] < count[:, None])
         t = torch.where(h & in_leaf, t, torch.inf)
-        k_best = torch.argmin(t, dim=-1)
         t_new = torch.min(t, dim=-1).values
         closer = t_new < t_best
-        win_id = row[lane_idx, ids8[k_best]].to(torch.int32)
+        if winner == "min":
+            ids = row[:, 72:80]
+            win_id = torch.min(torch.where(t == t_new[:, None], ids, torch.inf), dim=-1).values
+            win_id = torch.where(closer, win_id, 0.0).to(torch.int32)
+        else:
+            k_best = torch.argmin(t, dim=-1)
+            win_id = row[lane_idx, ids8[k_best]].to(torch.int32)
         t_best = torch.where(closer, t_new, t_best)
         tri_best = torch.where(closer, win_id, tri_best)
 

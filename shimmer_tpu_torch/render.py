@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from shimmer_tpu_torch.config import resolve_device
 from shimmer_tpu_torch.film.film import RgbFilm
 from shimmer_tpu_torch.integrators.wavefront import render_wave_wavefront
 from shimmer_tpu_torch.scene import Scene
@@ -34,7 +35,9 @@ def make_wavefront_renderer(scene: Scene, camera, film: RgbFilm, sampler,
 
 
 def pixel_blocks(film: RgbFilm, block: int, device=None):
-    """Split the image into fixed-size pixel blocks (+ validity masks)."""
+    """Split the image into fixed-size pixel blocks (+ validity masks) on
+    ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     w, h = film.resolution
     n = w * h
     block = min(block, n)

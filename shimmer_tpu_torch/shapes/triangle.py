@@ -2,11 +2,13 @@
 traversal entry and solid-angle light sampling (port of
 ``shimmer_tpu/shapes/triangle.py``: the triangle-only forward path).
 
-The BVH8 build and row packing are the reference's own numpy code
-(``shimmer_tpu.ops.bvh8.pack_bvh8`` and the native SAH builder), so both
-packages traverse bit-identical ``rows8`` / ``meta`` tables.  The port keeps
+The BVH8 build and row packing are the port's copies of the reference's
+numpy code and native SAH builder (``ops/bvh8.py``, ``native/``), so both
+packages traverse byte-identical ``rows8`` / ``meta`` tables.  The port keeps
 ``rows8`` (R, 128) f32 and ``meta`` (R,) i32 and drops ``tiles8``, the
-TPU-only sublane repack of the same rows.
+TPU-only sublane repack of the same rows.  The traversal configuration
+(``ops/traverse.py::TraverseConfig``) lives on the table, because the leaf
+layout of ``rows8`` is fixed when it is packed.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from shimmer_tpu.ops.bvh8 import pack_bvh8
-from shimmer_tpu_torch.config import f32, i32
+from shimmer_tpu_torch.config import f32, i32, resolve_device
+from shimmer_tpu_torch.ops.bvh8 import pack_bvh8, pack_leaves_mt
 from shimmer_tpu_torch.ops.math import difference_of_products
+from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.ops.sampling import (
     sample_spherical_triangle,
     sample_uniform_triangle,
@@ -72,6 +75,21 @@ class TriangleSceneData:
     has_normals: bool = False
     has_uv: bool = False
     has_iface_media: bool = False
+    # Which traversal kernel runs and how leaf rows are packed.
+    traverse: TraverseConfig = dataclasses.field(default_factory=TraverseConfig)
+
+    def with_traverse(self, traverse: TraverseConfig) -> "TriangleSceneData":
+        """The same scene under another traversal configuration.  A
+        watertight table repacks its leaf rows for ``leaf="mt"``; an MT
+        table cannot go back (the edges are rounded)."""
+        if traverse.leaf == self.traverse.leaf:
+            return dataclasses.replace(self, traverse=traverse)
+        if self.traverse.leaf != "watertight":
+            raise ValueError("an MT-packed table cannot be unpacked; rebuild the scene")
+        rows8 = pack_leaves_mt(self.rows8.cpu().numpy(), self.meta.cpu().numpy())
+        return dataclasses.replace(
+            self, rows8=f32(rows8, self.rows8.device), traverse=traverse
+        )
 
 
 def _concat_meshes(meshes: list[dict]) -> dict:
@@ -140,17 +158,23 @@ def _attr_for(cat: dict, perm: np.ndarray) -> np.ndarray:
     return attr
 
 
-def build_triangle_scene(meshes: list[dict], device=None) -> TriangleSceneData:
+def build_triangle_scene(meshes: list[dict], device=None,
+                         traverse: TraverseConfig | None = None) -> TriangleSceneData:
     """Host: concatenate meshes, build the BVH8, pack the tables, and move
-    them to ``device``.  Mesh dicts as in the reference (``p``, ``indices``,
-    optional ``n``, ``uv``, ``material_id``, ``area_light_id``,
-    ``reverse_orientation``)."""
+    them to ``device`` (default: the CUDA card).  Mesh dicts as in the
+    reference (``p``, ``indices``, optional ``n``, ``uv``, ``material_id``,
+    ``area_light_id``, ``reverse_orientation``).  ``traverse`` defaults to
+    ``TraverseConfig()`` (the reference's environment flags); ``leaf="mt"``
+    packs the leaf rows as ``(p0, e1, e2)``."""
+    device = resolve_device(device)
+    traverse = TraverseConfig() if traverse is None else traverse
     cat = _concat_meshes(meshes)
     if (cat["medium_in"] > -2).any() or (cat["medium_out"] > -2).any():
         raise NotImplementedError("medium interfaces are not ported yet")
     indices, rev, tri_p = cat["indices"], cat["rev"], cat["tri_p"]
     lo, hi = cat["lo"], cat["hi"]
     bvh8 = pack_bvh8(lo, hi, tri_p)
+    rows8 = pack_leaves_mt(bvh8.rows, bvh8.meta) if traverse.leaf == "mt" else bvh8.rows
     perm = bvh8.perm
     e1 = tri_p[:, 1] - tri_p[:, 0]
     e2 = tri_p[:, 2] - tri_p[:, 0]
@@ -167,7 +191,7 @@ def build_triangle_scene(meshes: list[dict], device=None) -> TriangleSceneData:
         orig_indices=i32(indices, device),
         orig_rev=torch.from_numpy(np.asarray(rev, bool)).to(device),
         tri_area=f32(area, device),
-        rows8=f32(bvh8.rows, device),
+        rows8=f32(rows8, device),
         meta=i32(bvh8.meta, device),
         attr_rows=f32(_attr_for(cat, perm), device),
         light_rows=f32(light_rows, device),
@@ -176,6 +200,7 @@ def build_triangle_scene(meshes: list[dict], device=None) -> TriangleSceneData:
         stack_depth=int(bvh8.max_depth),
         has_normals=bool(cat["has_normals"]),
         has_uv=bool(cat["has_uv"]),
+        traverse=traverse,
     )
 
 
@@ -241,11 +266,49 @@ def intersect_triangle(ray_o, ray_d, t_max, p0, p1, p2):
     return hit, torch.where(hit, t, torch.inf), b0, b1, b2
 
 
+def intersect_triangle_mt(ray_o, ray_d, t_max, p0, e1, e2):
+    """Moller-Trumbore test on pack-time edges ``e1 = p1 - p0``,
+    ``e2 = p2 - p0`` (the reference kernel's SHIMMER_LEAF_MT leaf body,
+    ``shimmer_tpu/ops/pallas/traverse.py:234-253``, in the same operand
+    order, as the CUDA kernel evaluates it).  All arguments broadcast over
+    leading dims.  Returns (hit, t) with t = inf where there is no hit."""
+    ox, oy, oz = ray_o[..., 0], ray_o[..., 1], ray_o[..., 2]
+    dx, dy, dz = ray_d[..., 0], ray_d[..., 1], ray_d[..., 2]
+    e1x, e1y, e1z = e1[..., 0], e1[..., 1], e1[..., 2]
+    e2x, e2y, e2z = e2[..., 0], e2[..., 1], e2[..., 2]
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    tvx, tvy, tvz = ox - p0[..., 0], oy - p0[..., 1], oz - p0[..., 2]
+    u_s = tvx * pvx + tvy * pvy + tvz * pvz
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v_s = dx * qvx + dy * qvy + dz * qvz
+    t_scaled = e2x * qvx + e2y * qvy + e2z * qvz
+    w_s = det - u_s - v_s
+    same_sign = ((u_s >= 0) & (v_s >= 0) & (w_s >= 0)) | (
+        (u_s <= 0) & (v_s <= 0) & (w_s <= 0)
+    )
+    det_ok = det != 0.0
+    neg = det < 0.0
+    t_ok = torch.where(
+        neg,
+        (t_scaled <= 1e-7 * det) & (t_scaled > t_max * det),
+        (t_scaled >= 1e-7 * det) & (t_scaled < t_max * det),
+    )
+    hit = same_sign & det_ok & t_ok
+    inv_det = 1.0 / torch.where(det_ok, det, torch.ones_like(det))
+    return hit, torch.where(hit, t_scaled * inv_det, torch.inf)
+
+
 def _traverse_raw(tris: TriangleSceneData, ray_o, ray_d, t_max, any_hit):
     """Closest-hit / per-lane any-hit traversal returning ``(t, tri)`` with
     t = +inf on a miss.  Dispatches by the rays' device inside
     ``ops.traverse.traverse_raw``: CUDA tensors launch the hand-written
-    kernel, CPU tensors run its plain torch version."""
+    kernel of the table's configuration, CPU tensors run the plain torch
+    version."""
     from shimmer_tpu_torch.ops.traverse import traverse_raw
 
     return traverse_raw(tris, ray_o, ray_d, t_max, any_hit=any_hit)
@@ -254,15 +317,22 @@ def _traverse_raw(tris: TriangleSceneData, ray_o, ray_d, t_max, any_hit):
 def triangle_interaction_from_raw(tris: TriangleSceneData, ray_o, ray_d, tri) -> SurfaceInteraction:
     """Interaction from a raw traversal result: re-intersect the winning
     triangle (identical watertight formulas, so the hit decision
-    reproduces the traversal's given equal inputs) from ONE packed
-    attribute-row gather per lane."""
+    reproduces the watertight traversal's given equal inputs) from ONE
+    packed attribute-row gather per lane.
+
+    A lane counts as a hit only where the re-intersection hits too.  A
+    Moller-Trumbore leaf test can accept a triangle that the watertight
+    test misses at an edge; such a lane becomes a clean miss (tri = -1,
+    t = inf, ids -1) instead of reaching shading with t = inf.  The
+    reference keeps ``tri >= 0`` there."""
     attr = tris.attr_rows[torch.clamp(tri, min=0).long()]
     p0 = attr[..., _A_P0 + 0 : _A_P0 + 3]
     p1 = attr[..., _A_P0 + 3 : _A_P0 + 6]
     p2 = attr[..., _A_P0 + 6 : _A_P0 + 9]
     t_inf = torch.full(ray_o.shape[:-1], torch.inf, device=ray_o.device)
-    _, t, b0, b1, b2 = intersect_triangle(ray_o, ray_d, t_inf, p0, p1, p2)
-    hit = tri >= 0
+    rehit, t, b0, b1, b2 = intersect_triangle(ray_o, ray_d, t_inf, p0, p1, p2)
+    hit = (tri >= 0) & rehit
+    tri = torch.where(hit, tri, -1)
     b0 = torch.where(hit, b0, 0.0)
     b1 = torch.where(hit, b1, 0.0)
     b2 = torch.where(hit, b2, 0.0)

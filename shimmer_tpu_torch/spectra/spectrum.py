@@ -2,8 +2,8 @@
 
 Host classes (numpy) build scene spectra and bake them to 471-entry dense
 tables (1 nm bins over [360, 830]); device code samples the tables at the
-hero wavelengths.  The data tables are read from the reference package's
-``spectra/data/spectra_data.npz``; nothing is copied.
+hero wavelengths.  The data tables are read from the port's own copy of
+the reference's ``spectra/data/spectra_data.npz``.
 """
 
 from __future__ import annotations
@@ -14,13 +14,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-import shimmer_tpu
 from shimmer_tpu_torch.spectra.sampled import LAMBDA_MAX, LAMBDA_MIN
 
 CIE_Y_INTEGRAL = 106.856895
 N_DENSE = 471
 
-_DATA_PATH = Path(shimmer_tpu.__file__).parent / "spectra" / "data" / "spectra_data.npz"
+_DATA_PATH = Path(__file__).resolve().parent / "data" / "spectra_data.npz"
 
 
 @functools.cache

@@ -1,6 +1,7 @@
-"""The PyTorch port imports no JAX: every module of shimmer_tpu_torch, the
-reference's shared host-only modules it uses, and chip_smoke.py import in a
-fresh interpreter with ``jax`` blocked."""
+"""The PyTorch port imports neither JAX nor the JAX package: every module of
+shimmer_tpu_torch, the port's own copies of the host-only builders, and
+chip_smoke.py import in a fresh interpreter with ``jax`` and
+``shimmer_tpu`` blocked."""
 
 import os
 import subprocess
@@ -15,6 +16,7 @@ _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+sys.modules["shimmer_tpu"] = None
 names = {names}
 if names == "package":
     import shimmer_tpu_torch
@@ -23,7 +25,15 @@ if names == "package":
     ]
 for name in names:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m] is not None)
+if "shimmer_tpu_torch.ops.bvh8" in names:
+    # The builders run, not only import: native SAH build and 8-wide pack.
+    import numpy as np
+    from shimmer_tpu_torch.ops.bvh8 import bvh8_validate, pack_bvh8
+    tri = np.random.default_rng(0).random((64, 3, 3)).astype(np.float32)
+    arrs = pack_bvh8(tri.min(1), tri.max(1), tri)
+    assert bvh8_validate(arrs, tri.min(1), tri.max(1))
+blocked = ("jax", "jaxlib", "shimmer_tpu")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m] is not None)
 assert not leaked, leaked
 print(len(names))
 """
@@ -33,10 +43,10 @@ print(len(names))
     "names",
     [
         "package",
-        ["shimmer_tpu.ops.bvh", "shimmer_tpu.ops.bvh8", "shimmer_tpu.native"],
+        ["shimmer_tpu_torch.ops.bvh", "shimmer_tpu_torch.ops.bvh8", "shimmer_tpu_torch.native"],
         ["chip_smoke"],
     ],
-    ids=["shimmer_tpu_torch", "shared_host_modules", "chip_smoke"],
+    ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke"],
 )
 def test_imports_without_jax(names):
     env = dict(os.environ, PYTHONPATH=str(ROOT))

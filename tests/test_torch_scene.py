@@ -17,6 +17,7 @@ from shimmer_tpu_torch.color.colorspace import get_named_color_space as torch_cs
 from shimmer_tpu_torch.convert import scene_from_numpy
 from shimmer_tpu_torch.lights import lights as tlt
 from shimmer_tpu_torch.materials import material as tmtl
+from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.scene_builder import build_scene as torch_build_scene
 from shimmer_tpu_torch.shapes.triangle import build_triangle_scene
 from shimmer_tpu_torch.spectra.spectrum import ConstantSpectrum
@@ -41,7 +42,7 @@ def jax_scene():
 
 @pytest.fixture(scope="module")
 def torch_scene():
-    scene, _, _ = bench_scene.build_bench_scene(N_TRIS, (24, 16))
+    scene, _, _ = bench_scene.build_bench_scene(N_TRIS, (24, 16), device="cpu")
     return scene
 
 
@@ -123,6 +124,20 @@ def test_scene_from_numpy_round_trip(jax_scene, torch_scene):
     assert conv.device == torch.device("cpu")
 
 
+def test_scene_from_numpy_mt_leaves(jax_scene, torch_scene):
+    """The reference's rows always hold watertight leaves; carried across
+    for Moller-Trumbore they are repacked as the port's builder packs them."""
+    arrays, census = jax_scene_to_numpy(jax_scene)
+    mt = TraverseConfig("v1", "mt", "slot")
+    conv = scene_from_numpy(arrays, census, device="cpu")
+    assert conv.triangles.traverse.leaf == "watertight"
+    conv_mt = conv.triangles.with_traverse(mt)
+    assert conv_mt.traverse == mt
+    own = torch_scene.triangles.with_traverse(mt)
+    assert conv_mt.rows8.numpy().tobytes() == own.rows8.numpy().tobytes()
+    assert own.rows8.numpy().tobytes() != torch_scene.triangles.rows8.numpy().tobytes()
+
+
 @pytest.mark.parametrize(
     "change",
     [{"has_spheres": True}, {"material_kinds": (0, 1)}, {"light_kinds": (0, 3)},
@@ -133,14 +148,15 @@ def test_scene_from_numpy_refuses_unported(jax_scene, change):
     arrays, census = jax_scene_to_numpy(jax_scene)
     census.update(change)
     with pytest.raises(NotImplementedError):
-        scene_from_numpy(arrays, census)
+        scene_from_numpy(arrays, census, device="cpu")
 
 
 def test_builders_refuse_unported():
     with pytest.raises(NotImplementedError):
-        tmtl.make_material_table([{"kind": tmtl.CONDUCTOR}])
+        tmtl.make_material_table([{"kind": tmtl.CONDUCTOR}], device="cpu")
     cam, _ = bench_scene.bench_camera_film((8, 8))
-    tris = build_triangle_scene(bench_scene.bench_meshes(20, cam.camera_transform.render_from_world()))
+    tris = build_triangle_scene(bench_scene.bench_meshes(20, cam.camera_transform.render_from_world()),
+                                device="cpu")
     with pytest.raises(NotImplementedError):
         torch_build_scene(tris, materials=[{"kind": 0}],
                           lights=[{"kind": tlt.POINT, "spectrum": ConstantSpectrum(1.0)}])

@@ -9,18 +9,14 @@ winner is allowed only at an exact tie in t; t itself must be bit-equal
 compare only their occlusion bit.
 """
 
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
 
-from shimmer_tpu_torch.ops.traverse import CSRC, KERNEL_MAX_STACK
 from torch_parity import (
     CASES,
+    build_host_bodies,
+    host_traverse,
     port_traverse,
     traverse_case_rays,
     traverse_scene,
@@ -32,21 +28,9 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def host_body(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
+    lib = build_host_bodies(tmp_path_factory.mktemp("traverse_host"))
+    if lib is None:
         pytest.skip("g++ is not installed: the host build of the kernel body needs it")
-    out = Path(tmp_path_factory.mktemp("traverse_host")) / "libtraverse_host.so"
-    subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-         "-I", str(CSRC), str(CSRC / "traverse_host.cpp"), "-o", str(out)],
-        check=True, capture_output=True, timeout=300,
-    )
-    lib = ctypes.CDLL(str(out))
-    p = ctypes.c_void_p
-    lib.shimmer_traverse_host.argtypes = [p, p, ctypes.c_int, p, p, p, p, p, p, p, ctypes.c_int]
-    lib.shimmer_traverse_host.restype = None
-    lib.shimmer_traverse_max_stack.restype = ctypes.c_int
-    assert lib.shimmer_traverse_max_stack() == KERNEL_MAX_STACK
     return lib
 
 
@@ -55,30 +39,12 @@ def scenes():
     return {name: traverse_scene(name) for name in ("soup", "bench")}
 
 
-def _host(lib, tt, o, d, t_max, want):
-    rows = np.ascontiguousarray(tt.rows8.numpy())
-    meta = np.ascontiguousarray(tt.meta.numpy())
-    o, d = np.ascontiguousarray(o, np.float32), np.ascontiguousarray(d, np.float32)
-    t_max = np.ascontiguousarray(t_max, np.float32)
-    flags = np.ascontiguousarray(want, np.uint8)
-    n = len(o)
-    t = np.empty(n, np.float32)
-    tri = np.empty(n, np.int32)
-    steps = np.empty(n, np.int32)
-    lib.shimmer_traverse_host(
-        rows.ctypes.data, meta.ctypes.data, rows.shape[0], o.ctypes.data,
-        d.ctypes.data, t_max.ctypes.data, flags.ctypes.data, t.ctypes.data,
-        tri.ctypes.data, steps.ctypes.data, n,
-    )
-    return t, tri, steps
-
-
 @pytest.mark.parametrize("case", CASES + ["grazing"])
 @pytest.mark.parametrize("scene", ["soup", "bench"])
 def test_body_matches_plain(host_body, scenes, scene, case):
     sc = scenes[scene]
     o, d, t_max, want = traverse_case_rays(sc, case)
-    t_h, tri_h, steps = _host(host_body, sc["tt"], o, d, t_max, want)
+    t_h, tri_h, steps = host_traverse(host_body, sc["tt"], o, d, t_max, want)
     t_p, tri_p = port_traverse(sc, o, d, t_max, want)
     hit = tri_h >= 0
     np.testing.assert_array_equal(hit, tri_p >= 0)

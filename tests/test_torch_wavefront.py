@@ -11,7 +11,15 @@ with a positive mean, at least 99% of pixels within rtol 1e-3 / atol 1e-4,
 image means within 1e-3 relative; the margin covers a path that branches
 differently on a last-ulp difference.  The traced-ray count must match
 exactly.
+
+The slice runs under every traversal configuration (ops/traverse.py
+TraverseConfig) against the same reference render: v2 and the min-id
+winner change only which of two triangles at an exact tie wins, and
+Moller-Trumbore leaves change hit decisions only at triangle edges, where
+the re-intersection gate turns a disagreement into a miss.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +33,7 @@ from shimmer_tpu.render import render as jax_render
 from shimmer_tpu.samplers import ZSobolSampler as JaxZSobol
 from shimmer_tpu_torch import bench_scene
 from shimmer_tpu_torch.convert import scene_from_numpy
+from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.render import make_wavefront_renderer as torch_wavefront
 from shimmer_tpu_torch.render import pixel_blocks as torch_blocks
 from shimmer_tpu_torch.render import render as torch_render
@@ -44,12 +53,12 @@ def scenes():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("BENCH_RES", f"{RES[0]}x{RES[1]}")
         jscene, jcam, jfilm, _ = bench.build_bench_scene(N_TRIS)
-    tscene, tcam, tfilm = bench_scene.build_bench_scene(N_TRIS, RES)
+    tscene, tcam, tfilm = bench_scene.build_bench_scene(N_TRIS, RES, device="cpu")
     arrays, census = jax_scene_to_numpy(jscene)
     return {
         "jax": (jscene, jcam, jfilm),
         "torch": (tscene, tcam, tfilm),
-        "converted": (scene_from_numpy(arrays, census), tcam, tfilm),
+        "converted": (scene_from_numpy(arrays, census, device="cpu"), tcam, tfilm),
     }
 
 
@@ -78,8 +87,8 @@ def test_wavefront_matches_reference(scenes, jax_wave, tables):
     ref, rays, iters = jax_wave
     tscene, tcam, tfilm = scenes[tables]
     wave = torch_wavefront(tscene, tcam, tfilm, TorchZSobol(SPP, RES), max_depth=DEPTH)
-    blocks, valids = torch_blocks(tfilm, RES[0] * RES[1])
-    state, stats = wave(tfilm.init_state(), torch.arange(SPP), blocks[0], valids[0])
+    blocks, valids = torch_blocks(tfilm, RES[0] * RES[1], device="cpu")
+    state, stats = wave(tfilm.init_state("cpu"), torch.arange(SPP), blocks[0], valids[0])
     assert float(stats["rays"]) == rays
     assert float(stats["iters"]) == iters
     assert_images_agree(tfilm.get_image(state).numpy(), ref)
@@ -90,7 +99,7 @@ def test_render_two_pixel_blocks_with_padding(scenes):
     jscene, jcam, jfilm = scenes["jax"]
     tscene, tcam, tfilm = scenes["converted"]
     block = 200
-    assert torch_blocks(tfilm, block)[0].shape[0] == 2
+    assert torch_blocks(tfilm, block, device="cpu")[0].shape[0] == 2
     ref, _ = jax_render(jscene, jcam, jfilm, JaxZSobol(SPP, RES), spp=SPP, max_depth=DEPTH,
                         wave_spp=SPP, pixel_block=block)
     img, state, stats = torch_render(tscene, tcam, tfilm, TorchZSobol(SPP, RES), spp=SPP,
@@ -98,3 +107,22 @@ def test_render_two_pixel_blocks_with_padding(scenes):
     assert (state.weight_sum.numpy() == SPP).all()  # every pixel got SPP samples
     assert stats["rays"] > 0
     assert_images_agree(img.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize(
+    "config",
+    [("v1", "watertight", "slot"), ("v2", "watertight", "slot"), ("v1", "mt", "slot"),
+     ("v1", "watertight", "min"), ("v1", "mt", "min")],
+    ids=["v1", "v2", "v1_mt", "v1_min", "v1_mt_min"],
+)
+def test_wavefront_under_each_traverse_config(scenes, jax_wave, config):
+    ref, rays, iters = jax_wave
+    tscene, tcam, tfilm = scenes["torch"]
+    tris = tscene.triangles.with_traverse(TraverseConfig(*config))
+    tscene = dataclasses.replace(tscene, triangles=tris)
+    wave = torch_wavefront(tscene, tcam, tfilm, TorchZSobol(SPP, RES), max_depth=DEPTH)
+    blocks, valids = torch_blocks(tfilm, RES[0] * RES[1], device="cpu")
+    state, stats = wave(tfilm.init_state("cpu"), torch.arange(SPP), blocks[0], valids[0])
+    assert float(stats["rays"]) == rays
+    assert float(stats["iters"]) == iters
+    assert_images_agree(tfilm.get_image(state).numpy(), ref)

@@ -7,7 +7,11 @@ come back as numpy arrays and are compared with a stated tolerance.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +19,7 @@ import torch
 
 from shimmer_tpu.shapes.triangle import build_triangle_scene as jax_build
 from shimmer_tpu_torch.bench_scene import bench_camera_film, bench_meshes
-from shimmer_tpu_torch.ops.traverse import traverse_raw
+from shimmer_tpu_torch.ops.traverse import CSRC, KERNEL_MAX_STACK, LEAF_STACK, traverse_raw
 from shimmer_tpu_torch.shapes.triangle import (
     build_triangle_scene as torch_build,
     intersect_triangle as torch_intersect,
@@ -154,7 +158,7 @@ def traverse_scene(name):
         cam, _ = bench_camera_film((16, 8))
         meshes = bench_meshes(1280, cam.camera_transform.render_from_world())
     jt = jax_build(meshes, traversal="pallas")
-    tt = torch_build(meshes)
+    tt = torch_build(meshes, device="cpu")
     light_rows = tt.light_rows.numpy()
     o_b, d_b, targets = aimed_triangle_rays(rng, light_rows, N_RAYS // 2)
     o_g, d_g, _ = aimed_triangle_rays(rng, light_rows, N_RAYS, grazing=True)
@@ -226,3 +230,55 @@ def triangle_t(sc, o, d, tri):
         attr[:, 19:22], attr[:, 22:25], attr[:, 25:28],
     )
     return t.numpy()
+
+
+# --- the kernels' per-ray bodies, built for the host with g++ ---
+
+
+def build_host_bodies(out_dir):
+    """Compile csrc/traverse_host.cpp (the v1 and v2 bodies) with g++ and
+    no FMA contraction; returns the ctypes library, or None without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    out = Path(out_dir) / "libtraverse_host.so"
+    subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+         "-I", str(CSRC), str(CSRC / "traverse_host.cpp"), "-o", str(out)],
+        check=True, capture_output=True, timeout=300,
+    )
+    lib = ctypes.CDLL(str(out))
+    p, ci = ctypes.c_void_p, ctypes.c_int
+    lib.shimmer_traverse_host.argtypes = [ci, ci, ci, p, p, ci, p, p, p, p, p, p, p, p, ci]
+    lib.shimmer_traverse_host.restype = ci
+    lib.shimmer_traverse_max_stack.restype = ci
+    lib.shimmer_traverse_leaf_stack.restype = ci
+    assert lib.shimmer_traverse_max_stack() == KERNEL_MAX_STACK
+    assert lib.shimmer_traverse_leaf_stack() == LEAF_STACK
+    return lib
+
+
+def host_traverse(lib, tt, o, d, t_max, want, config=None, touched=None):
+    """Run the host build of the body selected by ``config`` (default: the
+    table's own) over the rays; returns (t, tri, steps) as numpy arrays.
+    ``touched``, a zeroed (2 * R,) uint8 array, records the rows and meta
+    words the body reads."""
+    config = tt.traverse if config is None else config
+    rows = np.ascontiguousarray(tt.rows8.numpy())
+    meta = np.ascontiguousarray(tt.meta.numpy())
+    o, d = np.ascontiguousarray(o, np.float32), np.ascontiguousarray(d, np.float32)
+    t_max = np.ascontiguousarray(t_max, np.float32)
+    flags = np.ascontiguousarray(want, np.uint8)
+    n = len(o)
+    t = np.empty(n, np.float32)
+    tri = np.empty(n, np.int32)
+    steps = np.empty(n, np.int32)
+    rc = lib.shimmer_traverse_host(
+        1 if config.kernel == "v1" else 2, int(config.leaf == "mt"),
+        int(config.winner == "min"), rows.ctypes.data, meta.ctypes.data, rows.shape[0],
+        o.ctypes.data, d.ctypes.data, t_max.ctypes.data, flags.ctypes.data, t.ctypes.data,
+        tri.ctypes.data, steps.ctypes.data,
+        None if touched is None else touched.ctypes.data, n,
+    )
+    assert rc == 0, config
+    return t, tri, steps
