@@ -3,17 +3,19 @@
 Drives the port's forward render path on one CUDA card at the bench
 configuration (the scene of bench.py: 327,684 triangles, 1280x720, 16 spp,
 depth 5, pixel blocks of 2^17 lanes, 16 samples per wave) under every
-traversal configuration, and the 1.3M-triangle leg of bench.py, and checks
-each hand-written traversal kernel against its plain torch version on the
-card.
+traversal configuration, the 1.3M-triangle leg of bench.py, and the
+row-gather micro-benchmarks (shimmer_tpu_torch.experiments.gather) at the
+reference scripts' sizes, and checks each hand-written kernel against its
+plain torch version on the card.
 
     python3 chip_smoke.py
 
 Phases, each printing its own numbers:
   1. device: a CUDA card is required (no card -> exception, non-zero exit);
-  2. build: the traversal kernel library from shimmer_tpu_torch/csrc (one
-     nvcc run), and the native SAH BVH builder (g++), which must load: the
-     scenes' tables are built with it;
+  2. build: every kernel library from shimmer_tpu_torch/csrc (traverse.cu
+     and gather.cu, one nvcc process each, started together), and the
+     native SAH BVH builder (g++), which must load: the scenes' tables are
+     built with it;
   3. each traversal configuration (v1, v2, v1 with Moller-Trumbore leaves,
      v1 with the min-id winner, and the combined v1 MT + min-id) against
      the plain version on the card: primary, bounce and merged wavefront
@@ -24,10 +26,17 @@ Phases, each printing its own numbers:
   6. the full bench render under v2, v1 with MT leaves and v1 with the
      min-id winner, each compared with the v1 image;
   7. the 1.3M-triangle leg: v1 and v2 against the plain version on one
-     merged batch, then pixel-block waves 0-2 rendered under v1 and v2.
-Launch counters are set to 0 just before each render path and read just
-after it.  No phase catches its own failure.  The last lines are the kernel
-table as JSON, the card's name and power limit, and the result object.
+     merged batch, then pixel-block waves 0-2 rendered under v1 and v2;
+  8. the row-gather kernels (gather, transposed gather, gather-sum, float32
+     and bf16 row chase) through the entry point's every case, each
+     against its plain version on the same tensors (gathers and chases
+     bit-equal, the gather-sum within SUM_RTOL), with the library call
+     that computes the same function timed beside the kernel where there
+     is one (index_select, embedding_bag).
+Launch counters are set to 0 just before each render path and the
+row-gather entry point, and read just after it.  No phase catches its own
+failure.  The last lines are the kernel table as JSON, the card's name
+and power limit, and the result object.
 """
 
 from __future__ import annotations
@@ -48,7 +57,10 @@ from shimmer_tpu_torch.bench_scene import (
     bench_camera_film,
     build_bench_scene,
 )
+from shimmer_tpu_torch.experiments import gather as eg
 from shimmer_tpu_torch.film.filters import get_camera_sample
+from shimmer_tpu_torch.ops import cuda_build
+from shimmer_tpu_torch.ops import gather as gk
 from shimmer_tpu_torch.ops import traverse as tv
 from shimmer_tpu_torch.ops.ray import offset_ray_origin
 from shimmer_tpu_torch.ops.sampling import sample_cosine_hemisphere
@@ -119,6 +131,37 @@ KERNEL_ROWS = {
                                     "shimmer_tpu/ops/pallas/traverse.py:295"),
     "bvh8_traverse_v2": ("v2", "shimmer_tpu_torch/csrc/traverse.cu",
                          "shimmer_tpu/ops/pallas/traverse.py:456"),
+}
+# The row-gather kernels of kernel-table rows 6-9 -> (the entry point's
+# case whose times the kernel table carries, the TPU functions it ports).
+# Their bound uses the rates above and the work the entry point counts on
+# each case's inputs: bytes count each input once (the distinct rows read,
+# by the columns the function needs) and each output once; operations are
+# float32 additions (the chase's 8 a step plus its index conversion).
+GATHER_SOURCE = "shimmer_tpu_torch/csrc/gather.cu"
+GATHER_ROWS = {
+    "row_gather": (
+        "8/9 row_gather R=16384 N=131072 W=128 K=1",
+        "experiments/pallas_gather2.py:43 (check_and_bench_taa0, its gather); "
+        "experiments/exp_pallas_gather.py:51 (make_take); experiments/exp_pallas_gather.py:84 "
+        "(make_scalar); experiments/exp_pallas_gather2.py:36 (make_scalar); "
+        "experiments/exp_pallas_gather2.py:101 (make_taa)"),
+    "row_gather_cols": (
+        "7G row_gather_cols R=8192 N=8192 W=128 K=1",
+        "experiments/pallas_gather2.py:116 (check_and_bench_taa1)"),
+    "row_gather_sum": (
+        "9 row_gather_sum R=16384 N=131072 W=128 K=1",
+        "experiments/exp_pallas_gather2.py:74 (make_scalar_reduce); "
+        "experiments/pallas_gather.py:181 (bench_pallas_dma)"),
+    "row_chase_f32": (
+        "6A/6B/6B2 row_chase_f32 R=16384 N=131072 W=128 K=32",
+        "experiments/pallas_gather.py:72 (bench_pallas_vmem_take); experiments/pallas_gather.py:106 "
+        "(bench_pallas_vmem_take_cols); experiments/pallas_gather.py:232 "
+        "(bench_pallas_scalar_rows); experiments/pallas_gather2.py:73 (check_and_bench_taa0, "
+        "its chase)"),
+    "row_chase_bf16": (
+        "6C row_chase_bf16 R=16384 N=131072 W=128 K=8",
+        "experiments/pallas_gather.py:140 (bench_pallas_onehot)"),
 }
 
 
@@ -493,7 +536,91 @@ def phase7(dev) -> dict:
     return {"table_bytes": table_bytes, "compare": compares, "render": renders}
 
 
-def kernel_rows(batches: dict, renders: dict, large: dict) -> list[dict]:
+def library_call(kernel: str, table, idx):
+    """The one PyTorch call that computes a gather kernel's function on
+    the same inputs (timed as a yardstick only; no single PyTorch call
+    computes a dependent chase)."""
+    if kernel == "row_gather":
+        return lambda: torch.index_select(table, 0, idx)
+    if kernel == "row_gather_cols":
+        return lambda: torch.index_select(table, 1, idx)
+    return lambda: torch.nn.functional.embedding_bag(idx[None], table, mode="sum")
+
+
+def gather_bound(res: dict) -> dict:
+    """The bound of one row-gather case from the work the entry point
+    counted on its inputs (GATHER_ROWS): bound_ms and bound_by."""
+    t_bytes = res["bytes"] / HBM_BYTES_PER_S
+    t_ops = res["ops"] / FP32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase8(dev) -> dict:
+    """The row-gather entry point, every case at the reference sizes, its
+    launches counted from 0; then the library yardsticks and the bounds."""
+    torch.cuda.synchronize()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    rows = eg.main(device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = gk.launch_counts()
+    for name, res in rows.items():
+        check(res["ok"], f"phase 8 {name}: the kernel disagrees with its plain version "
+                         f"(max |d| {res['max_abs_err']})")
+    for kernel in eg.KERNELS:
+        check(launches[kernel] > 0, f"phase 8: the {kernel} kernel was not launched")
+    oob = {name: res["oob_lanes"] for name, res in rows.items() if res["kernel"] == "row_chase_bf16"}
+    check(sum(oob.values()) > 0, "phase 8: no bf16 chase lane met an index rounded out of range")
+    log(f"phase 8 entry point: {len(rows)} cases in {seconds:.1f}s, launches {json.dumps(launches)}, "
+        f"bf16 chase lanes that met an out-of-range index {json.dumps(oob)}")
+    # The library yardsticks, on each case's own inputs (made again from
+    # the entry point's SEED), after the counted run.
+    library = {}
+    for case in eg.cases():
+        if case.kernel.startswith("row_chase"):
+            continue
+        table, idx = eg.make_inputs(case, dev)
+        lib = library_call(case.kernel, table, idx)
+        if case.kernel != "row_gather_sum":
+            kernel = gk.row_gather_cols if case.kernel == "row_gather_cols" else gk.row_gather
+            check(torch.equal(lib(), kernel(table, idx)),
+                  f"phase 8 {case.name}: index_select disagrees with the kernel")
+        library[case.name] = eg.time_ms(lib, dev)
+    for name, res in rows.items():
+        keys = ("ms", "plain_ms", "max_abs_err", "max_rel_err", "distinct_rows", "ns_per_step",
+                "oob_lanes", "checksum")
+        line = {**{k: res[k] for k in keys if k in res}, **gather_bound(res),
+                "library_ms": library.get(name)}
+        log(f"phase 8 case {name}: {json.dumps(line)}")
+
+    out = {}
+    for kernel, (case_name, _) in GATHER_ROWS.items():
+        res = rows[case_name]
+        out[kernel] = {
+            "case": case_name,
+            "launches": launches[kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values() if r["kernel"] == kernel),
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "library_ms": library.get(case_name),
+            **gather_bound(res),
+            "distinct_rows": res["distinct_rows"],
+            "bytes": res["bytes"],
+            "ops": res["ops"],
+        }
+        if "ns_per_step" in res:
+            out[kernel]["ns_per_step"] = res["ns_per_step"]
+        if "max_rel_err" in res:
+            out[kernel]["max_rel_err"] = max(r["max_rel_err"] for r in rows.values()
+                                             if r["kernel"] == kernel)
+            out[kernel]["rel_tolerance"] = eg.SUM_RTOL
+        log(f"phase 8 {kernel}: {json.dumps(out[kernel])}")
+    return out
+
+
+def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict) -> list[dict]:
     rows = []
     for row, (cfg, source, replaces) in KERNEL_ROWS.items():
         if row.endswith("large_table"):
@@ -517,6 +644,16 @@ def kernel_rows(batches: dict, renders: dict, large: dict) -> list[dict]:
             "bound_by": merged["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a BVH traversal
         })
+    for kernel, (_, replaces) in GATHER_ROWS.items():
+        res = gathers[kernel]
+        rows.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": GATHER_SOURCE,
+            "replaces": replaces,
+            **{k: res[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+        })
     return rows
 
 
@@ -530,9 +667,13 @@ def main():
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build
-    build = tv.build_library(force=True)
-    ptx = [ln.strip() for ln in build["log"].splitlines() if "registers" in ln or "spill" in ln]
-    log(f"phase 2 build: {build['seconds']:.2f}s; {' | '.join(ptx)}")
+    t0 = time.perf_counter()
+    build = cuda_build.build(force=True)
+    log(f"phase 2 build: {time.perf_counter() - t0:.2f}s for {len(build)} libraries")
+    for name, b in build.items():
+        check(b["built"], f"phase 2: the {name} library was not built")
+        ptx = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln or "spill" in ln]
+        log(f"phase 2 build {name}: {b['seconds']:.2f}s; {' | '.join(ptx)}")
     check(native.sah_available(), f"the native SAH builder did not load: {native.sah_error()}")
     log("phase 2 BVH builder: native binned SAH (shimmer_tpu_torch/native/sah.cpp, g++)")
 
@@ -557,8 +698,11 @@ def main():
     torch.cuda.empty_cache()
     # 7. the 1.3M-triangle leg
     large = phase7(dev)
+    torch.cuda.empty_cache()
+    # 8. the row-gather kernels through their micro-benchmark entry point
+    gathers = phase8(dev)
 
-    print(json.dumps({"kernels": kernel_rows(batches, renders, large)}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers)}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({
         "ok": True,

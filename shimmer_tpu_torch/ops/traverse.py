@@ -31,8 +31,8 @@ traversal (``shapes/triangle.py::_traverse`` in raw mode) with the
 configuration's leaf test and winner.  Nothing falls back from CUDA to the
 plain version.
 
-The kernel library is built at first use from the sources in ``csrc/``
-with nvcc (``-gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``) into
+The kernel library ``traverse`` is built at first use from the sources
+in ``csrc/`` by the port's shared nvcc build (``ops/cuda_build.py``) into
 ``shimmer_tpu_torch/_build/``, and rebuilt when a source is newer than it.
 """
 
@@ -41,25 +41,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-import shutil
-import subprocess
-import tempfile
 import threading
-import time
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-LIB_PATH = BUILD_DIR / "libshimmer_traverse.so"
-_SOURCES = ("traverse.cu", "traverse_body.cuh", "traverse_v2_body.cuh")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-fmad=false", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from shimmer_tpu_torch.ops import cuda_build
+
 # Per-thread internal stack entries in the kernels (traverse_body.cuh
 # kMaxStack).
 KERNEL_MAX_STACK = 64
@@ -128,52 +115,12 @@ V1 = TraverseConfig("v1", "watertight", "slot")
 KERNEL_NAMES = ("v1", "v1_mt", "v1_min", "v1_mt_min", "v2")
 
 
-class TraverseBuildError(RuntimeError):
-    pass
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise TraverseBuildError("nvcc not found (set CUDA_HOME)")
-    return found
-
-
-def build_library(force: bool = False) -> dict:
-    """Compile the kernel library into ``_build/`` when it is missing or
-    older than a source (or ``force``).  Returns {"built", "seconds",
-    "log"}, the log holding nvcc's ``-Xptxas -v`` report."""
-    if not force and LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= max(
-            (CSRC / f).stat().st_mtime for f in _SOURCES):
-        return {"built": False, "seconds": 0.0, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build to a private name and rename, so a concurrent loader never
-    # sees a partial library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / _SOURCES[0])]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise TraverseBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}"
-        )
-    os.replace(tmp, LIB_PATH)
-    return {"built": True, "seconds": time.perf_counter() - t0, "log": proc.stdout}
-
-
 def _launcher():
     """The library's C launch function, built and loaded at first use."""
     global _launch_fn
     with _lock:
         if _launch_fn is None:
-            build_library()
-            lib = ctypes.CDLL(str(LIB_PATH))
+            lib = cuda_build.load("traverse")
             p, ci = ctypes.c_void_p, ctypes.c_int
             lib.shimmer_traverse_launch.argtypes = [ci, ci, ci, p, p, ci, p, p, p, p, p, p, p,
                                                     p, ci, p]
@@ -181,7 +128,7 @@ def _launcher():
             lib.shimmer_traverse_max_stack.argtypes = []
             lib.shimmer_traverse_max_stack.restype = ci
             if lib.shimmer_traverse_max_stack() != KERNEL_MAX_STACK:
-                raise TraverseBuildError("kernel stack bound disagrees with the wrapper")
+                raise cuda_build.KernelBuildError("kernel stack bound disagrees with the wrapper")
             _launch_fn = lib.shimmer_traverse_launch
         return _launch_fn
 

@@ -25,6 +25,14 @@ if names == "package":
     ]
 for name in names:
     importlib.import_module(name)
+if "shimmer_tpu_torch.experiments.gather" in names:
+    # The entry point runs, not only imports: every case at a small size.
+    import dataclasses
+    from shimmer_tpu_torch.experiments import gather
+    for case in gather.cases():
+        case = dataclasses.replace(case, n_rows=case.n_rows // 256, n=max(1, case.n // 256),
+                                   steps=min(case.steps, 32))
+        assert gather.run_case(case, *gather.make_inputs(case, "cpu"))["ok"]
 if "shimmer_tpu_torch.ops.bvh8" in names:
     # The builders run, not only import: native SAH build and 8-wide pack.
     import numpy as np
@@ -45,8 +53,10 @@ print(len(names))
         "package",
         ["shimmer_tpu_torch.ops.bvh", "shimmer_tpu_torch.ops.bvh8", "shimmer_tpu_torch.native"],
         ["chip_smoke"],
+        ["shimmer_tpu_torch.ops.cuda_build", "shimmer_tpu_torch.ops.gather",
+         "shimmer_tpu_torch.experiments.gather"],
     ],
-    ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke"],
+    ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules"],
 )
 def test_imports_without_jax(names):
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -19,7 +19,8 @@ import torch
 
 from shimmer_tpu.shapes.triangle import build_triangle_scene as jax_build
 from shimmer_tpu_torch.bench_scene import bench_camera_film, bench_meshes
-from shimmer_tpu_torch.ops.traverse import CSRC, KERNEL_MAX_STACK, LEAF_STACK, traverse_raw
+from shimmer_tpu_torch.ops.cuda_build import CSRC
+from shimmer_tpu_torch.ops.traverse import KERNEL_MAX_STACK, LEAF_STACK, traverse_raw
 from shimmer_tpu_torch.shapes.triangle import (
     build_triangle_scene as torch_build,
     intersect_triangle as torch_intersect,
