@@ -3,19 +3,20 @@
 Drives the port's forward render path on one CUDA card at the bench
 configuration (the scene of bench.py: 327,684 triangles, 1280x720, 16 spp,
 depth 5, pixel blocks of 2^17 lanes, 16 samples per wave) under every
-traversal configuration, the 1.3M-triangle leg of bench.py, and the
-row-gather micro-benchmarks (shimmer_tpu_torch.experiments.gather) at the
-reference scripts' sizes, and checks each hand-written kernel against its
-plain torch version on the card.
+traversal configuration, the 1.3M-triangle leg of bench.py, the
+row-gather micro-benchmarks (shimmer_tpu_torch.experiments.gather) and the
+packet-step micro-benchmarks (shimmer_tpu_torch.experiments.packet_step)
+at the reference scripts' sizes, and checks each hand-written kernel
+against its plain torch version on the card.
 
     python3 chip_smoke.py
 
 Phases, each printing its own numbers:
   1. device: a CUDA card is required (no card -> exception, non-zero exit);
-  2. build: every kernel library from shimmer_tpu_torch/csrc (traverse.cu
-     and gather.cu, one nvcc process each, started together), and the
-     native SAH BVH builder (g++), which must load: the scenes' tables are
-     built with it;
+  2. build: every kernel library from shimmer_tpu_torch/csrc (traverse.cu,
+     gather.cu and packet_step.cu, one nvcc process each, started
+     together), and the native SAH BVH builder (g++), which must load: the
+     scenes' tables are built with it;
   3. each traversal configuration (v1, v2, v1 with Moller-Trumbore leaves,
      v1 with the min-id winner, and the combined v1 MT + min-id) against
      the plain version on the card: primary, bounce and merged wavefront
@@ -32,11 +33,17 @@ Phases, each printing its own numbers:
      against its plain version on the same tensors (gathers and chases
      bit-equal, the gather-sum within SUM_RTOL), with the library call
      that computes the same function timed beside the kernel where there
-     is one (index_select, embedding_bag).
-Launch counters are set to 0 just before each render path and the
-row-gather entry point, and read just after it.  No phase catches its own
-failure.  The last lines are the kernel table as JSON, the card's name
-and power limit, and the result object.
+     is one (index_select, embedding_bag);
+  9. the packet-step kernels (the packet slab chase, the step attribution
+     over the bench scene's BVH8 of phase 2, the bf16 hi|lo step
+     ablation) through the entry point's every case, each at every step
+     count against its plain version on the same tensors, bit for bit,
+     with ns per step as the reference scripts report it.
+Launch counters are set to 0 just before each render path and each
+micro-benchmark entry point, and read just after it.  No phase catches its
+own failure.  The last lines are the kernel table as JSON, the card's name
+and power limit, and the result object; every log line before them also
+goes to chiprun_out/chip_smoke.log.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import dataclasses
 import json
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -58,9 +66,11 @@ from shimmer_tpu_torch.bench_scene import (
     build_bench_scene,
 )
 from shimmer_tpu_torch.experiments import gather as eg
+from shimmer_tpu_torch.experiments import packet_step as eps
 from shimmer_tpu_torch.film.filters import get_camera_sample
 from shimmer_tpu_torch.ops import cuda_build
 from shimmer_tpu_torch.ops import gather as gk
+from shimmer_tpu_torch.ops import packet_step as pk
 from shimmer_tpu_torch.ops import traverse as tv
 from shimmer_tpu_torch.ops.ray import offset_ray_origin
 from shimmer_tpu_torch.ops.sampling import sample_cosine_hemisphere
@@ -165,8 +175,43 @@ GATHER_ROWS = {
 }
 
 
+# The packet-step kernels of kernel-table rows 10-16 -> (kernel, the entry
+# point's case whose times the row carries, the TPU function it ports).
+# Launches and max_abs_err cover every case of the row; the bound is the
+# entry point's (experiments/packet_step.py: bytes of the rows, nxt and
+# meta words this run's chain reads, by the columns a step uses, plus the
+# rays and the output; float operations of the steps this run's data
+# takes), at the case's largest step count.
+PACKET_SOURCE = "shimmer_tpu_torch/csrc/packet_step.cu"
+PACKET_ROWS = {
+    "10": ("packet_slab_chase", "10 make packet_slab_chase/slab transposed",
+           "experiments/exp_scaling.py:38 (make; pallas_call :47)"),
+    "11": ("packet_slab_chase", "11 step_kernel packet_slab_chase/slab_stack transposed",
+           "experiments/exp_packet_step.py:40 (step_kernel; pallas_call :87)"),
+    "12": ("packet_slab_chase", "12 A roll packet_slab_chase/slab transposed",
+           "experiments/exp_packet_step2.py:65 (make, fetch A-D; pallas_call :66)"),
+    "13": ("packet_slab_chase", "13 A roll packet_slab_chase/slab transposed",
+           "experiments/exp_fetch_honest.py:82 (make, empty and A-D; pallas_call :92)"),
+    "14": ("packet_slab_chase", "14 k6 fetch+slab while packet_slab_chase/slab transposed",
+           "experiments/exp_loop_overhead.py:57 (make, k1-k6; pallas_call :58)"),
+    "15": ("step_attrib", "15 full step_attrib/full",
+           "experiments/exp_step_attrib.py:43 (kern; pallas_call :208)"),
+    "16": ("step_ablate", "16 v4 step_ablate/v4",
+           "experiments/exp_ablate_step.py:32 (kern; run :127, pallas_call :128)"),
+}
+
+
+# Every log line also goes to this file (opened once the card is found),
+# since a run prints more than the tail of its output that a caller keeps.
+LOG_PATH = Path("chiprun_out") / "chip_smoke.log"
+_log_file = None
+
+
 def log(msg):
     print(msg, flush=True)
+    if _log_file is not None:
+        _log_file.write(msg + "\n")
+        _log_file.flush()
 
 
 def check(ok, msg: str):
@@ -620,7 +665,56 @@ def phase8(dev) -> dict:
     return out
 
 
-def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict) -> list[dict]:
+def phase9(dev, tables) -> dict:
+    """The packet-step entry point, every case at the reference sizes
+    (row 15 on the bench scene's ``tables``), its launches counted from 0;
+    returns the kernel-table rows 10-16."""
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    rows = eps.main(device=dev, tables=tables)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = pk.launch_counts()
+    for name, res in rows.items():
+        check(res["ok"], f"phase 9 {name}: the kernel disagrees with its plain version "
+                         f"(max |d| {res['max_abs_err']})")
+    for kernel in pk.KERNELS:
+        # The cases count their timed launches, not the ones compared
+        # with the plain version.
+        timed = sum(r["launches"] for r in rows.values() if r["kernel"] == kernel)
+        check(timed > 0, f"phase 9: the {kernel} kernel was not launched")
+        check(launches[kernel] > timed, f"phase 9: {kernel} launched {launches[kernel]} times, "
+                                        f"its cases timed {timed}")
+    smi = nvidia_smi_line()
+    log(f"phase 9 entry point: {len(rows)} cases in {seconds:.1f}s, launches {json.dumps(launches)}")
+    for name, res in rows.items():
+        keys = ("ns_per_step", "ns_per_step_per_program", "marginal_ns", "ms", "plain_ms",
+                "bound_ms", "bound_by", "bytes", "ops", "launches", "max_abs_err")
+        line = {k: res[k] for k in keys if k in res}
+        line["steps"] = {s: {k: p[k] for k in ("ms", "plain_ms", "checksum") if k in p}
+                         for s, p in res["steps"].items()}
+        log(f"phase 9 case {name} [{smi}]: {json.dumps(line)}")
+    out = {}
+    for row, (kernel, case_name, replaces) in PACKET_ROWS.items():
+        res = rows[case_name]
+        of_row = [r for r in rows.values() if r["row"] == row]
+        out[row] = {
+            "name": f"{kernel}:row{row}",
+            "route": "cuda",
+            "source": PACKET_SOURCE,
+            "replaces": replaces,
+            "launches": sum(r["launches"] for r in of_row),
+            "max_abs_err": max(r["max_abs_err"] for r in of_row),
+            **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,  # no single PyTorch call computes a packet step
+        }
+        log(f"phase 9 row {row} ({case_name}): {json.dumps(out[row])}")
+    return out
+
+
+def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
+                packets: dict) -> list[dict]:
     rows = []
     for row, (cfg, source, replaces) in KERNEL_ROWS.items():
         if row.endswith("large_table"):
@@ -654,6 +748,7 @@ def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict) -> lis
             **{k: res[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms")},
         })
+    rows.extend(packets.values())
     return rows
 
 
@@ -662,6 +757,9 @@ def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; none is available")
     dev = torch.device("cuda", 0)
+    global _log_file
+    LOG_PATH.parent.mkdir(exist_ok=True)
+    _log_file = open(LOG_PATH, "w")
     smi = nvidia_smi_line()
     log(f"phase 1 device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -684,6 +782,8 @@ def main():
     tris = scene_gpu.triangles
     log(f"scene: {tris.orig_indices.shape[0]} triangles, {tris.rows8.shape[0]} BVH8 rows, "
         f"stack depth {tris.stack_depth}, built in {time.perf_counter() - t0:.1f}s")
+    # Row 15 of phase 9 steps over these tables.
+    bench_tables = (tris.rows8, tris.meta, tris.stack_depth)
 
     # 3. every configuration against the plain version on the card
     batches = phase3(scene_gpu, bench_batches(scene_gpu, cam, film, dev))
@@ -701,8 +801,11 @@ def main():
     torch.cuda.empty_cache()
     # 8. the row-gather kernels through their micro-benchmark entry point
     gathers = phase8(dev)
+    # 9. the packet-step kernels through theirs
+    packets = phase9(dev, bench_tables)
 
-    print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers)}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets)}),
+          flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({
         "ok": True,

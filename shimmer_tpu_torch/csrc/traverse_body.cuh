@@ -149,6 +149,23 @@ SHIMMER_HD Ray make_ray(float ox, float oy, float oz, float dx, float dy,
   return ray;
 }
 
+// Slab test of one box against (0, t_best), with the reference's 1.0001
+// slack on the exit distance; tn receives the entry distance.
+SHIMMER_HD bool slab_hit(float lox, float loy, float loz, float hix,
+                         float hiy, float hiz, const Ray& ray, float t_best,
+                         float& tn) {
+  const float t0x = (lox - ray.ox) * ray.ix;
+  const float t0y = (loy - ray.oy) * ray.iy;
+  const float t0z = (loz - ray.oz) * ray.iz;
+  const float t1x = (hix - ray.ox) * ray.ix;
+  const float t1y = (hiy - ray.oy) * ray.iy;
+  const float t1z = (hiz - ray.oz) * ray.iz;
+  tn = fmax_(fmax_(fmin_(t0x, t1x), fmin_(t0y, t1y)), fmin_(t0z, t1z));
+  const float tf =
+      fmin_(fmin_(fmax_(t0x, t1x), fmax_(t0y, t1y)), fmax_(t0z, t1z));
+  return tn <= tf * 1.0001f && tf > 0.0f && tn < t_best;
+}
+
 // Slab test of an internal row's 8 child boxes against (0, t_best):
 // returns the hit slot bits and each slot's entry distance in tn[].
 SHIMMER_HD int slab_test8(const float* __restrict__ row, const Ray& ray,
@@ -156,21 +173,13 @@ SHIMMER_HD int slab_test8(const float* __restrict__ row, const Ray& ray,
   int hit_bits = 0;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const float t0x = (SHIMMER_LDG(row + 0 + k) - ray.ox) * ray.ix;
-    const float t0y = (SHIMMER_LDG(row + 8 + k) - ray.oy) * ray.iy;
-    const float t0z = (SHIMMER_LDG(row + 16 + k) - ray.oz) * ray.iz;
-    const float t1x = (SHIMMER_LDG(row + 24 + k) - ray.ox) * ray.ix;
-    const float t1y = (SHIMMER_LDG(row + 32 + k) - ray.oy) * ray.iy;
-    const float t1z = (SHIMMER_LDG(row + 40 + k) - ray.oz) * ray.iz;
-    const float tnk = fmax_(fmax_(fmin_(t0x, t1x), fmin_(t0y, t1y)),
-                            fmin_(t0z, t1z));
-    const float tfk = fmin_(fmin_(fmax_(t0x, t1x), fmax_(t0y, t1y)),
-                            fmax_(t0z, t1z));
+    const bool hit = slab_hit(
+        SHIMMER_LDG(row + 0 + k), SHIMMER_LDG(row + 8 + k),
+        SHIMMER_LDG(row + 16 + k), SHIMMER_LDG(row + 24 + k),
+        SHIMMER_LDG(row + 32 + k), SHIMMER_LDG(row + 40 + k), ray, t_best,
+        tn[k]);
     const bool valid = SHIMMER_LDG(row + kColValid + k) > 0.0f;
-    tn[k] = tnk;
-    if (valid && tnk <= tfk * 1.0001f && tfk > 0.0f && tnk < t_best) {
-      hit_bits |= 1 << k;
-    }
+    if (valid && hit) hit_bits |= 1 << k;
   }
   return hit_bits;
 }
@@ -179,6 +188,43 @@ SHIMMER_HD int slab_test8(const float* __restrict__ row, const Ray& ray,
 SHIMMER_HD bool t_in_range(float ts, float det, float t_best) {
   return det < 0.0f ? (ts <= 1e-7f * det && ts > t_best * det)
                     : (ts >= 1e-7f * det && ts < t_best * det);
+}
+
+// pbrt's watertight test of triangle (p0, p1, p2) against (0, t_best):
+// translate to the ray origin, permute the |d|-max axis to z, shear; on a
+// hit, t is its distance.
+SHIMMER_HD bool watertight_hit(float p0x, float p0y, float p0z, float p1x,
+                               float p1y, float p1z, float p2x, float p2y,
+                               float p2z, const Ray& ray, float t_best,
+                               float& t) {
+  float q0x, q0y, q0z, q1x, q1y, q1z, q2x, q2y, q2z;
+  permute_to_max_z(ray.kz, p0x - ray.ox, p0y - ray.oy, p0z - ray.oz, q0x, q0y,
+                   q0z);
+  permute_to_max_z(ray.kz, p1x - ray.ox, p1y - ray.oy, p1z - ray.oz, q1x, q1y,
+                   q1z);
+  permute_to_max_z(ray.kz, p2x - ray.ox, p2y - ray.oy, p2z - ray.oz, q2x, q2y,
+                   q2z);
+  const float x0 = q0x + ray.sx * q0z;
+  const float y0 = q0y + ray.sy * q0z;
+  const float x1 = q1x + ray.sx * q1z;
+  const float y1 = q1y + ray.sy * q1z;
+  const float x2 = q2x + ray.sx * q2z;
+  const float y2 = q2y + ray.sy * q2z;
+  const float e0 = difference_of_products(x1, y2, y1, x2);
+  const float e1 = difference_of_products(x2, y0, y2, x0);
+  const float e2 = difference_of_products(x0, y1, y0, x1);
+  const bool same_sign = (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) ||
+                         (e0 <= 0.0f && e1 <= 0.0f && e2 <= 0.0f);
+  const float det = e0 + e1 + e2;
+  const float ts =
+      e0 * (q0z * ray.sz) + e1 * (q1z * ray.sz) + e2 * (q2z * ray.sz);
+  if (!(same_sign && det != 0.0f && t_in_range(ts, det, t_best) &&
+        ray.dz_ok)) {
+    return false;
+  }
+  const float inv_det = 1.0f / det;
+  t = ts * inv_det;
+  return true;
 }
 
 // Slot k of a leaf row against (0, t_best); on a hit, t is its distance.
@@ -219,37 +265,12 @@ SHIMMER_HD bool leaf_hit(const float* __restrict__ row, int k, const Ray& ray,
     t = ts * inv_det;
     return true;
   } else {
-    float q0x, q0y, q0z, q1x, q1y, q1z, q2x, q2y, q2z;
-    permute_to_max_z(ray.kz, SHIMMER_LDG(row + 0 + k) - ray.ox,
-                     SHIMMER_LDG(row + 8 + k) - ray.oy,
-                     SHIMMER_LDG(row + 16 + k) - ray.oz, q0x, q0y, q0z);
-    permute_to_max_z(ray.kz, SHIMMER_LDG(row + 24 + k) - ray.ox,
-                     SHIMMER_LDG(row + 32 + k) - ray.oy,
-                     SHIMMER_LDG(row + 40 + k) - ray.oz, q1x, q1y, q1z);
-    permute_to_max_z(ray.kz, SHIMMER_LDG(row + 48 + k) - ray.ox,
-                     SHIMMER_LDG(row + 56 + k) - ray.oy,
-                     SHIMMER_LDG(row + 64 + k) - ray.oz, q2x, q2y, q2z);
-    const float x0 = q0x + ray.sx * q0z;
-    const float y0 = q0y + ray.sy * q0z;
-    const float x1 = q1x + ray.sx * q1z;
-    const float y1 = q1y + ray.sy * q1z;
-    const float x2 = q2x + ray.sx * q2z;
-    const float y2 = q2y + ray.sy * q2z;
-    const float e0 = difference_of_products(x1, y2, y1, x2);
-    const float e1 = difference_of_products(x2, y0, y2, x0);
-    const float e2 = difference_of_products(x0, y1, y0, x1);
-    const bool same_sign = (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) ||
-                           (e0 <= 0.0f && e1 <= 0.0f && e2 <= 0.0f);
-    const float det = e0 + e1 + e2;
-    const float ts = e0 * (q0z * ray.sz) + e1 * (q1z * ray.sz) +
-                     e2 * (q2z * ray.sz);
-    if (!(same_sign && det != 0.0f && t_in_range(ts, det, t_best) &&
-          ray.dz_ok)) {
-      return false;
-    }
-    const float inv_det = 1.0f / det;
-    t = ts * inv_det;
-    return true;
+    return watertight_hit(
+        SHIMMER_LDG(row + 0 + k), SHIMMER_LDG(row + 8 + k),
+        SHIMMER_LDG(row + 16 + k), SHIMMER_LDG(row + 24 + k),
+        SHIMMER_LDG(row + 32 + k), SHIMMER_LDG(row + 40 + k),
+        SHIMMER_LDG(row + 48 + k), SHIMMER_LDG(row + 56 + k),
+        SHIMMER_LDG(row + 64 + k), ray, t_best, t);
   }
 }
 

@@ -1,5 +1,6 @@
 """The nvcc build of the port's CUDA kernel libraries, shared by every
-kernel wrapper (``ops/traverse.py``, ``ops/gather.py``).
+kernel wrapper (``ops/traverse.py``, ``ops/gather.py``,
+``ops/packet_step.py``).
 
 Each library is one ``.cu`` source in ``csrc/`` (plus the headers it
 includes) with a plain C interface, compiled by nvcc
@@ -21,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -28,6 +31,7 @@ BUILD_DIR = _PKG / "_build"
 LIBRARIES = {
     "traverse": ("traverse.cu", ("traverse_body.cuh", "traverse_v2_body.cuh")),
     "gather": ("gather.cu", ("gather_body.cuh",)),
+    "packet_step": ("packet_step.cu", ("packet_step_body.cuh", "traverse_body.cuh")),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -116,3 +120,30 @@ def load(name: str) -> ctypes.CDLL:
             build((name,))
             _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return _loaded[name]
+
+
+# --- shared by the wrappers of every library ---
+
+
+def check_tensor(name: str, x, dtype, shape, device):
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (what a kernel's C entry point takes)."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on_error(err: int, name: str):
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of ``t``'s device, as the entry points take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream

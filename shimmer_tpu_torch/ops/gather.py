@@ -92,15 +92,6 @@ def _check_args(table, idx, dtypes):
     return table.device.type
 
 
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def row_gather(table, idx):
     """``table[idx]`` of a (R, W) float32 table, W a multiple of 4 -> (N,
     W).  Out-of-range indices give zero rows."""
@@ -112,9 +103,9 @@ def row_gather(table, idx):
         return row_gather_plain(table, idx)
     n = idx.shape[0]
     out = torch.empty(n, width, dtype=torch.float32, device=table.device)
-    _raise_on(_library().shimmer_row_gather(
-        table.data_ptr(), n_rows, width, idx.data_ptr(), n, out.data_ptr(), _stream(table)),
-        "row_gather")
+    cuda_build.raise_on_error(_library().shimmer_row_gather(
+        table.data_ptr(), n_rows, width, idx.data_ptr(), n, out.data_ptr(),
+        cuda_build.stream_of(table)), "row_gather")
     row_gather.launches["row_gather"] += 1
     return out
 
@@ -131,9 +122,9 @@ def row_gather_cols(table_t, idx):
     width, n_rows = table_t.shape
     n = idx.shape[0]
     out = torch.empty(width, n, dtype=torch.float32, device=table_t.device)
-    _raise_on(_library().shimmer_row_gather_cols(
-        table_t.data_ptr(), n_rows, width, idx.data_ptr(), n, out.data_ptr(), _stream(table_t)),
-        "row_gather_cols")
+    cuda_build.raise_on_error(_library().shimmer_row_gather_cols(
+        table_t.data_ptr(), n_rows, width, idx.data_ptr(), n, out.data_ptr(),
+        cuda_build.stream_of(table_t)), "row_gather_cols")
     row_gather_cols.launches["row_gather_cols"] += 1
     return out
 
@@ -152,9 +143,9 @@ def row_gather_sum(table, idx):
     if dev == "cpu":
         return row_gather_sum_plain(table, idx)
     out = torch.empty(width, dtype=torch.float32, device=table.device)
-    _raise_on(_library().shimmer_row_gather_sum(
+    cuda_build.raise_on_error(_library().shimmer_row_gather_sum(
         table.data_ptr(), n_rows, width, idx.data_ptr(), idx.shape[0], out.data_ptr(),
-        _stream(table)), "row_gather_sum")
+        cuda_build.stream_of(table)), "row_gather_sum")
     row_gather_sum.launches["row_gather_sum"] += 1
     return out
 
@@ -179,9 +170,9 @@ def row_chase(table, idx, steps: int):
     bf16 = table.dtype == torch.bfloat16
     name = "row_chase_bf16" if bf16 else "row_chase_f32"
     out = torch.empty(idx.shape[0], dtype=torch.float32, device=table.device)
-    _raise_on(_library().shimmer_row_chase(
+    cuda_build.raise_on_error(_library().shimmer_row_chase(
         int(bf16), table.data_ptr(), n_rows, width, idx.data_ptr(), idx.shape[0], steps,
-        out.data_ptr(), _stream(table)), name)
+        out.data_ptr(), cuda_build.stream_of(table)), name)
     row_chase.launches[name] += 1
     return out
 

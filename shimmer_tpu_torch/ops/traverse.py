@@ -133,17 +133,6 @@ def _launcher():
         return _launch_fn
 
 
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps,
                    config: TraverseConfig = V1, touched=None):
     """Launch the CUDA kernel of ``config`` on (N,) rays already laid out
@@ -156,19 +145,19 @@ def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps,
     dev = o.device
     n = o.shape[0]
     n_rows = rows8.shape[0]
-    _check("rows8", rows8, torch.float32, (n_rows, 128), dev)
-    _check("meta", meta, torch.int32, (n_rows,), dev)
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
-    _check("t_max", t_max, torch.float32, (n,), dev)
-    _check("any_hit", any_hit, torch.bool, (n,), dev)
+    cuda_build.check_tensor("rows8", rows8, torch.float32, (n_rows, 128), dev)
+    cuda_build.check_tensor("meta", meta, torch.int32, (n_rows,), dev)
+    cuda_build.check_tensor("o", o, torch.float32, (n, 3), dev)
+    cuda_build.check_tensor("d", d, torch.float32, (n, 3), dev)
+    cuda_build.check_tensor("t_max", t_max, torch.float32, (n,), dev)
+    cuda_build.check_tensor("any_hit", any_hit, torch.bool, (n,), dev)
     if int(stack_depth) + 8 > KERNEL_MAX_STACK:
         raise ValueError(
             f"BVH needs a stack of {int(stack_depth) + 8} entries; the kernel "
             f"holds {KERNEL_MAX_STACK}"
         )
     if touched is not None:
-        _check("touched", touched, torch.uint8, (2 * n_rows,), dev)
+        cuda_build.check_tensor("touched", touched, torch.uint8, (2 * n_rows,), dev)
     if n_rows == 0:
         raise ValueError("empty BVH table")
     launch = _launcher()
@@ -182,10 +171,9 @@ def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps,
         t_max.data_ptr(), flags.data_ptr(), t.data_ptr(), tri.data_ptr(),
         steps.data_ptr() if steps is not None else None,
         touched.data_ptr() if touched is not None else None, n,
-        torch.cuda.current_stream(dev).cuda_stream,
+        cuda_build.stream_of(o),
     )
-    if err != 0:
-        raise RuntimeError(f"traversal kernel {config.name} launch failed: CUDA error {err}")
+    cuda_build.raise_on_error(err, f"traversal kernel {config.name}")
     traverse_raw.launches[config.name] += 1
     return t, tri, steps
 

@@ -19,7 +19,7 @@ from shimmer_tpu.ops import bvh8 as jbvh8
 from shimmer_tpu_torch.bench_scene import bench_camera_film, bench_meshes, make_displaced_sphere
 from shimmer_tpu_torch.ops import bvh8 as tbvh8
 from shimmer_tpu_torch.shapes.triangle import _concat_meshes
-from torch_parity import random_mesh
+from torch_parity import ensure_reference_sah, random_mesh
 
 torch.set_num_threads(1)
 
@@ -47,6 +47,7 @@ def _geometry(name):
 @pytest.mark.parametrize("builder", ["auto", "lbvh"])
 @pytest.mark.parametrize("geometry", ["bench", "soup", "sphere20k"])
 def test_pack_bvh8_byte_identical(geometry, builder):
+    ensure_reference_sah()
     lo, hi, tri = _geometry(geometry)
     ref = jbvh8.pack_bvh8(lo, hi, tri, builder=builder)
     got = tbvh8.pack_bvh8(lo, hi, tri, builder=builder)

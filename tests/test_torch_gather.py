@@ -26,46 +26,26 @@ differ by a few float32 roundings of their partial sums; a row read from
 the wrong index moves a lane by O(1).
 """
 
-import ast
 import dataclasses
 import importlib.util
-import types
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
 from shimmer_tpu_torch.experiments import gather as eg
 from shimmer_tpu_torch.ops import gather as g
+from torch_parity import EXPERIMENTS, interpret_pl, load_defs
 
 torch.set_num_threads(1)
 
-EXPERIMENTS = Path(__file__).resolve().parent.parent / "experiments"
 W = 128
 RTOL = 1e-5
 # Chase sums of up to 8 K unit-normal terms: a few roundings of partial
 # sums of magnitude <= ~100 in absolute terms.
 CHASE_ATOL = 1e-4
-
-
-def interpret_pl(records):
-    """``pl`` with ``pallas_call`` in interpret mode, appending [*inputs,
-    output] as numpy arrays to ``records`` at every call."""
-    def pallas_call(*args, **kwargs):
-        call = pl.pallas_call(*args, interpret=True, **kwargs)
-
-        def run(*xs):
-            out = call(*xs)
-            jax.debug.callback(lambda *v: records.append([np.asarray(a) for a in v]), *xs, out)
-            return out
-
-        return run
-
-    return types.SimpleNamespace(**{**vars(pl), "pallas_call": pallas_call})
 
 
 def once(f, make_args, reps=3, warmup=1):
@@ -82,20 +62,6 @@ def load_script(name, records):
     mod.honest = once
     mod.report = lambda *a, **k: None
     return mod
-
-
-def load_defs(name, defs, **sizes):
-    """The imports and the named function definitions of a script that
-    runs its benchmark at import, executed with ``sizes`` as globals."""
-    tree = ast.parse((EXPERIMENTS / f"{name}.py").read_text())
-    keep = [n for n in tree.body
-            if isinstance(n, (ast.Import, ast.ImportFrom))
-            or (isinstance(n, ast.FunctionDef) and n.name in defs)]
-    assert {n.name for n in keep if isinstance(n, ast.FunctionDef)} == set(defs)
-    ns = dict(sizes)
-    exec(compile(ast.Module(body=keep, type_ignores=[]), str(EXPERIMENTS / f"{name}.py"), "exec"), ns)
-    ns["pl"] = interpret_pl([])
-    return ns
 
 
 def chase_table(rng, n_rows, width=W):

@@ -33,6 +33,18 @@ if "shimmer_tpu_torch.experiments.gather" in names:
         case = dataclasses.replace(case, n_rows=case.n_rows // 256, n=max(1, case.n // 256),
                                    steps=min(case.steps, 32))
         assert gather.run_case(case, *gather.make_inputs(case, "cpu"))["ok"]
+if "shimmer_tpu_torch.experiments.packet_step" in names:
+    # The entry point runs, not only imports: every case at a small size
+    # (row 15 on a small scene of the port's own builder).
+    import dataclasses
+    from shimmer_tpu_torch import bench_scene
+    from shimmer_tpu_torch.experiments import packet_step
+    t = bench_scene.build_bench_scene(320, (8, 8), device="cpu")[0].triangles
+    for case in packet_step.cases():
+        case = dataclasses.replace(case, n_rows=256, steps=tuple(8 * (i + 1) for i in range(len(case.steps))),
+                                   programs=min(case.programs, 2))
+        x = packet_step.make_inputs(case, "cpu", (t.rows8, t.meta, t.stack_depth))
+        assert packet_step.run_case(case, x)["ok"]
 if "shimmer_tpu_torch.ops.bvh8" in names:
     # The builders run, not only import: native SAH build and 8-wide pack.
     import numpy as np
@@ -55,8 +67,11 @@ print(len(names))
         ["chip_smoke"],
         ["shimmer_tpu_torch.ops.cuda_build", "shimmer_tpu_torch.ops.gather",
          "shimmer_tpu_torch.experiments.gather"],
+        ["shimmer_tpu_torch.ops.cuda_build", "shimmer_tpu_torch.ops.packet_step",
+         "shimmer_tpu_torch.experiments.packet_step"],
     ],
-    ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules"],
+    ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules",
+         "packet_step_modules"],
 )
 def test_imports_without_jax(names):
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -21,7 +21,8 @@ from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.scene_builder import build_scene as torch_build_scene
 from shimmer_tpu_torch.shapes.triangle import build_triangle_scene
 from shimmer_tpu_torch.spectra.spectrum import ConstantSpectrum
-from torch_parity import jax_scene_to_numpy
+import shimmer_tpu.native as reference_native
+from torch_parity import ensure_reference_sah, jax_scene_to_numpy
 
 torch.set_num_threads(1)
 
@@ -36,6 +37,7 @@ BIT_EQUAL_FIELDS = [
 
 @pytest.fixture(scope="module")
 def jax_scene():
+    ensure_reference_sah()
     scene, _, _, _ = bench.build_bench_scene(N_TRIS)
     return scene
 
@@ -60,6 +62,29 @@ def test_triangle_tables_bit_equal(jax_scene, torch_scene, field):
     b = getattr(torch_scene.triangles, field).numpy()
     assert b.dtype == a.dtype
     np.testing.assert_array_equal(b, a)
+
+
+def test_reference_sah_failure_cache_is_repaired(torch_scene):
+    """A failure the reference's SAH loader cached (as when a worker loads
+    a _sah.so that another is still writing) makes the reference build with
+    LBVH; ensure_reference_sah clears it, and the tables are bit-equal
+    again."""
+    with reference_native._LOCK:
+        saved = reference_native._LIB
+        reference_native._LIB = None
+        reference_native._LIB_ERR = OSError("a half-written _sah.so")
+    try:
+        assert not reference_native.sah_available()
+        ensure_reference_sah()
+    finally:
+        with reference_native._LOCK:
+            if reference_native._LIB is None:
+                reference_native._LIB, reference_native._LIB_ERR = saved, None
+    assert reference_native.sah_available()
+    scene, _, _, _ = bench.build_bench_scene(N_TRIS)
+    for field in ("rows8", "meta"):
+        a = np.asarray(getattr(scene.triangles, field))
+        assert a.tobytes() == getattr(torch_scene.triangles, field).numpy().tobytes(), field
 
 
 def test_triangle_statics_and_area(jax_scene, torch_scene):

@@ -38,7 +38,7 @@ from shimmer_tpu_torch.render import make_wavefront_renderer as torch_wavefront
 from shimmer_tpu_torch.render import pixel_blocks as torch_blocks
 from shimmer_tpu_torch.render import render as torch_render
 from shimmer_tpu_torch.samplers import ZSobolSampler as TorchZSobol
-from torch_parity import jax_scene_to_numpy
+from torch_parity import ensure_reference_sah, jax_scene_to_numpy
 
 torch.set_num_threads(1)
 
@@ -50,6 +50,7 @@ N_TRIS = 1280
 
 @pytest.fixture(scope="module")
 def scenes():
+    ensure_reference_sah()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("BENCH_RES", f"{RES[0]}x{RES[1]}")
         jscene, jcam, jfilm, _ = bench.build_bench_scene(N_TRIS)

@@ -7,16 +7,24 @@ come back as numpy arrays and are compared with a stated tolerance.
 
 from __future__ import annotations
 
+import ast
 import ctypes
 import dataclasses
+import fcntl
+import os
 import shutil
 import subprocess
+import tempfile
+import types
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from jax.experimental import pallas as pl
 
+import shimmer_tpu.native as reference_native
 from shimmer_tpu.shapes.triangle import build_triangle_scene as jax_build
 from shimmer_tpu_torch.bench_scene import bench_camera_film, bench_meshes
 from shimmer_tpu_torch.ops.cuda_build import CSRC
@@ -25,6 +33,118 @@ from shimmer_tpu_torch.shapes.triangle import (
     build_triangle_scene as torch_build,
     intersect_triangle as torch_intersect,
 )
+
+
+EXPERIMENTS = Path(__file__).resolve().parent.parent / "experiments"
+
+
+# --- the reference's native SAH builder, loaded before it builds a scene ---
+
+# The reference's own g++ command line (shimmer_tpu/native/__init__.py).
+REFERENCE_SAH_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+
+
+def _reference_sah_paths():
+    native_dir = Path(reference_native._DIR)
+    return native_dir / "sah.cpp", native_dir / "_sah.so"
+
+
+def build_reference_sah(src: Path, so: Path):
+    """g++ ``src`` into ``so`` with the reference's flags, through a
+    temporary name in the same directory and a rename, so that no process
+    ever loads a half-written library."""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    try:
+        subprocess.run(["g++", *REFERENCE_SAH_FLAGS, str(src), "-o", tmp],
+                       check=True, capture_output=True, timeout=300)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _reload_reference_sah() -> bool:
+    """Drop what the reference's loader cached (a library or a failure)
+    and load again."""
+    with reference_native._LOCK:
+        reference_native._LIB = None
+        reference_native._LIB_ERR = None
+    return reference_native.sah_available()
+
+
+def ensure_reference_sah():
+    """Make sure the reference's native SAH builder is loaded before the
+    reference builds a BVH.
+
+    The reference builds ``shimmer_tpu/native/_sah.so`` in place at first
+    use and caches the first failure to load it; under pytest-xdist one
+    worker can load the file while another is still writing it, and the
+    reference then builds every later BVH with its LBVH fallback, without
+    a word, so its tables no longer equal the port's.  Under a lock on a
+    file in the temp dir, this builds the library atomically when it is
+    missing, stale or does not load, clears a cached failure, and fails
+    with the loader's error if the builder still does not load."""
+    src, so = _reference_sah_paths()
+    lock_path = Path(tempfile.gettempdir()) / "shimmer_tpu_reference_sah.lock"
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+                build_reference_sah(src, so)
+            if reference_native._LIB is None and not _reload_reference_sah():
+                build_reference_sah(src, so)
+                _reload_reference_sah()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    assert reference_native.sah_available(), (
+        f"the reference's native SAH builder ({so}) does not load: "
+        f"{reference_native._LIB_ERR!r}; its BVH would fall back to LBVH"
+    )
+
+
+# --- the reference's experiment scripts, run in interpret mode ---
+
+
+def interpret_pl(records):
+    """``pl`` with ``pallas_call`` in interpret mode, appending [*inputs,
+    output] as numpy arrays to ``records`` at every call."""
+    def pallas_call(*args, **kwargs):
+        call = pl.pallas_call(*args, interpret=True, **kwargs)
+
+        def run(*xs):
+            out = call(*xs)
+            jax.debug.callback(lambda *v: records.append([np.asarray(a) for a in v]), *xs, out)
+            return out
+
+        return run
+
+    return types.SimpleNamespace(**{**vars(pl), "pallas_call": pallas_call})
+
+
+def load_defs(name, defs, **sizes):
+    """The imports and the named top-level definitions (functions, or
+    assignments to a name) of an experiment script that runs its benchmark
+    at import, executed with ``sizes`` as globals and ``pl`` in interpret
+    mode.  The script's file is read, never edited."""
+    path = EXPERIMENTS / f"{name}.py"
+    tree = ast.parse(path.read_text())
+
+    def named(n):
+        if isinstance(n, ast.FunctionDef):
+            return n.name
+        if isinstance(n, ast.Assign) and len(n.targets) == 1 and isinstance(n.targets[0], ast.Name):
+            return n.targets[0].id
+        return None
+
+    imports = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    keep = [n for n in tree.body if named(n) in defs]
+    assert {named(n) for n in keep} == set(defs)
+    ns = dict(sizes)
+    exec(compile(ast.Module(body=imports, type_ignores=[]), str(path), "exec"), ns)
+    ns["pl"] = interpret_pl([])
+    exec(compile(ast.Module(body=keep, type_ignores=[]), str(path), "exec"), ns)
+    return ns
 
 
 def to_jax(x):
@@ -158,6 +278,7 @@ def traverse_scene(name):
     else:
         cam, _ = bench_camera_film((16, 8))
         meshes = bench_meshes(1280, cam.camera_transform.render_from_world())
+    ensure_reference_sah()
     jt = jax_build(meshes, traversal="pallas")
     tt = torch_build(meshes, device="cpu")
     light_rows = tt.light_rows.numpy()
