@@ -15,12 +15,15 @@ Phases, each printing its own numbers:
   1. device: a CUDA card is required (no card -> exception, non-zero exit);
   2. build: every kernel library from shimmer_tpu_torch/csrc (traverse.cu,
      gather.cu and packet_step.cu, one nvcc process each, started
-     together), and the native SAH BVH builder (g++), which must load: the
-     scenes' tables are built with it;
+     together), with each kernel's registers, stack frame, spills and
+     static shared memory, and the native SAH BVH builder (g++), which
+     must load: the scenes' tables are built with it;
   3. each traversal configuration (v1, v2, v1 with Moller-Trumbore leaves,
      v1 with the min-id winner, and the combined v1 MT + min-id) against
      the plain version on the card: primary, bounce and merged wavefront
-     batches on the full bench scene;
+     batches on the full bench scene, each timed on the sorted and the
+     unsorted ray layout with its visit statistics, SIMD efficiency,
+     resident blocks per SM and bound;
   4. a small render (64x48, 4 spp) on the card and on the CPU under each
      configuration, compared;
   5. the full bench render under v1 through shimmer_tpu_torch.render.render;
@@ -67,13 +70,21 @@ from shimmer_tpu_torch.bench_scene import (
 )
 from shimmer_tpu_torch.experiments import gather as eg
 from shimmer_tpu_torch.experiments import packet_step as eps
-from shimmer_tpu_torch.film.filters import get_camera_sample
+from shimmer_tpu_torch.measure import (
+    BLOCK,
+    FP32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    SPP,
+    bench_batches,
+    cuda_ms,
+    launch_bound,
+    layouts,
+    ptxas_report,
+)
 from shimmer_tpu_torch.ops import cuda_build
 from shimmer_tpu_torch.ops import gather as gk
 from shimmer_tpu_torch.ops import packet_step as pk
 from shimmer_tpu_torch.ops import traverse as tv
-from shimmer_tpu_torch.ops.ray import offset_ray_origin
-from shimmer_tpu_torch.ops.sampling import sample_cosine_hemisphere
 from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.render import make_wavefront_renderer, pixel_blocks, render
 from shimmer_tpu_torch.samplers import ZSobolSampler
@@ -84,8 +95,6 @@ from shimmer_tpu_torch.shapes.triangle import (
     triangle_interaction_from_raw,
 )
 
-BLOCK = 1 << 17
-SPP = 16
 WAVE_SPP = 16
 MAX_DEPTH = 5
 SMALL_RES = (64, 48)
@@ -111,24 +120,11 @@ CONFIGS = {
 COMBINED_CONFIGS = {
     "v1_mt_min": TraverseConfig("v1", "mt", "min"),
 }
-# The least time of a traversal launch: the larger of bytes over the HBM
-# rate and float32 operations over the non-tensor-core float32 peak
-# (NVIDIA H100 SXM data sheet rates).  Bytes: each input read once and
-# each output written once, counting only the table entries these rays
-# read (the kernel's own `touched` record of one launch): per internal row
-# visited its 6 box-coordinate and 1 valid-flag groups of 8 floats, per
-# leaf row visited its 9 vertex-coordinate groups (the id group, read only
-# on a hit, is left out), per meta word read 4 bytes; plus the rays.
-# Operations: the kernel's own per-ray visit counts at 208 a visit (the
-# slab test of 8 child boxes, 26 each; a leaf visit of 8 triangles costs
-# more, so this is a lower bound).
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-OPS_PER_VISIT = 8 * 26
-INTERNAL_ROW_BYTES = 7 * 8 * 4
-LEAF_ROW_BYTES = 9 * 8 * 4
-RAY_BYTES_IN = 12 + 12 + 4 + 1    # o, d, t_max, any-hit flag
-RAY_BYTES_OUT = 4 + 4             # t, tri
+# The bound of a traversal launch is measure.traversal_bound: the rows,
+# meta words and visits of that launch itself, so the v1 kernel's
+# near-first order, which visits less, lowers its own bound.  The bound
+# from the visits of the kernel before its redesign, on the same rays,
+# comes from experiments/kernel_ab.py run on that checkout (PERF.md).
 # Kernel-table rows (PERF.md) -> (configuration, source).
 KERNEL_ROWS = {
     "bvh8_traverse_v1": ("v1", "shimmer_tpu_torch/csrc/traverse.cu",
@@ -228,20 +224,6 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def reset_counts():
     tv.traverse_raw.launches = dict.fromkeys(tv.KERNEL_NAMES, 0)
     tv.traverse_raw_plain.calls = 0
@@ -268,26 +250,6 @@ def winner_t(tris, o, d, tri):
     return intersect_triangle(o, d, inf, p0, p1, p2)[1]
 
 
-def bound(tris, touched, n_rays: int, visits: int) -> dict:
-    """The bound of one traversal launch (see HBM_BYTES_PER_S) from the
-    launch's ``touched`` record: bound_ms, bound_by and the work counted."""
-    n_rows = tris.meta.shape[0]
-    rows = touched[:n_rows].bool()
-    leaf = (tris.meta & 15) > 0
-    work = {
-        "internal_rows_read": int((rows & ~leaf).sum()),
-        "leaf_rows_read": int((rows & leaf).sum()),
-        "meta_words_read": int(touched[n_rows:].sum()),
-    }
-    work["bytes"] = (work["internal_rows_read"] * INTERNAL_ROW_BYTES
-                     + work["leaf_rows_read"] * LEAF_ROW_BYTES + work["meta_words_read"] * 4
-                     + n_rays * (RAY_BYTES_IN + RAY_BYTES_OUT))
-    t_bytes = work["bytes"] / HBM_BYTES_PER_S
-    t_ops = visits * OPS_PER_VISIT / FP32_OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", **work}
-
-
 def compare_traversal(tris, o, d, t_max, any_hit, name: str, plain=None) -> dict:
     """The kernel of ``tris.traverse`` (traverse_raw on CUDA tensors)
     against traverse_raw_plain on the same tensors: equal hit masks (so
@@ -295,11 +257,13 @@ def compare_traversal(tris, o, d, t_max, any_hit, name: str, plain=None) -> dict
     equal tri except at exact t ties.  Counts the closest-hit lanes whose
     watertight re-intersection misses the kernel's winner (0 for
     watertight leaves) and checks that the interaction turns each into a
-    miss."""
+    miss.  Then times the kernel on the sorted and the unsorted layout,
+    with its visit statistics, bound and occupancy (resident blocks per SM,
+    and the blocks of the launch resident at once on the card)."""
     cfg = tris.traverse
     n = o.shape[0]
-    want = torch.broadcast_to(torch.as_tensor(any_hit, device=o.device), (n,))
-    t_k, tri_k, steps = tv.traverse_raw(tris, o, d, t_max, any_hit=want, return_steps=True)
+    want = torch.broadcast_to(torch.as_tensor(any_hit, device=o.device), (n,)).contiguous()
+    t_k, tri_k = tv.traverse_raw(tris, o, d, t_max, any_hit=want)
     if plain is None:
         plain = tv.traverse_raw_plain(tris.rows8, tris.stack_depth, o, d, t_max, want,
                                       leaf=cfg.leaf, winner=cfg.winner)
@@ -329,97 +293,35 @@ def compare_traversal(tris, o, d, t_max, any_hit, name: str, plain=None) -> dict
     check(cfg.leaf == "mt" or int(rehit_miss.sum()) == 0,
           f"{name}: {int(rehit_miss.sum())} watertight kernel hits miss on re-intersection")
 
-    sorted_args = _sorted_layout(tris, o, d, t_max, want)
-    touched = torch.zeros(2 * tris.meta.shape[0], dtype=torch.uint8, device=o.device)
-    tv._launch_kernel(*sorted_args, False, cfg, touched=touched)
-    kernel_ms = cuda_ms(lambda: tv._launch_kernel(*sorted_args, False, cfg), reps=10)
-    wrapper_ms = cuda_ms(lambda: tv.traverse_raw(tris, o, d, t_max, any_hit=want), reps=10)
-    plain_ms = cuda_ms(
-        lambda: tv.traverse_raw_plain(tris.rows8, tris.stack_depth, o, d, t_max, want,
-                                      leaf=cfg.leaf, winner=cfg.winner), reps=2
-    )
-    live = t_max > 0
-    visits = int(steps.sum())
+    lay = layouts(tris, o, d, t_max, want)
+    srt = lay["sorted"]
+    kernel_bound, stats = launch_bound(tris, srt, cfg)
+    blocks_per_sm = tv.blocks_per_sm(cfg)
+    sms = torch.cuda.get_device_properties(o.device).multi_processor_count
     res = {
         "kernel": cfg.name,
         "batch": name,
         "rays": n,
-        "live": int(live.sum()),
+        "live": int((t_max > 0).sum()),
         "hits": int(hit_k.sum()),
         "tri_ties": int(tri_diff.sum()),
         "anyhit_mismatch": int((hit_k != hit_p)[want].sum()),
         "rehit_miss": int(rehit_miss.sum()),
         "max_abs_err_t": max_err,
-        "kernel_ms": kernel_ms,
-        "wrapper_ms": wrapper_ms,
-        "plain_ms": plain_ms,
-        "visits": visits,
-        "steps_per_live_ray": float(steps[live].float().mean()),
-        **bound(tris, touched, n, visits),
+        "kernel_ms": cuda_ms(lambda: tv._launch_kernel(*srt, False, cfg), reps=10),
+        "kernel_ms_unsorted": cuda_ms(lambda: tv._launch_kernel(*lay["unsorted"], False, cfg),
+                                      reps=10),
+        "wrapper_ms": cuda_ms(lambda: tv.traverse_raw(tris, o, d, t_max, any_hit=want), reps=10),
+        "plain_ms": cuda_ms(
+            lambda: tv.traverse_raw_plain(tris.rows8, tris.stack_depth, o, d, t_max, want,
+                                          leaf=cfg.leaf, winner=cfg.winner), reps=2),
+        **stats,
+        **kernel_bound,
+        "blocks_per_sm": blocks_per_sm,
+        "resident_blocks": blocks_per_sm * sms,
     }
     log(f"phase 3 {cfg.name} {name}: {json.dumps(res)}")
     return res
-
-
-def _sorted_layout(tris, o, d, t_max, want):
-    """The kernel's inputs as traverse_raw lays them out (sorted rays)."""
-    order = tv.ray_order(tris, o, d, t_max, want)
-    return (tris.rows8, tris.meta, tris.stack_depth, o[order].contiguous(),
-            d[order].contiguous(), t_max[order].contiguous(), want[order].contiguous())
-
-
-def primary_rays(cam, film, sampler, pixel_xy):
-    s = sampler.start_pixel_sample(pixel_xy, 0)
-    _, s = sampler.get_1d(s)
-    u_f, s = sampler.get_pixel_2d(s)
-    u_l, s = sampler.get_2d(s)
-    p_film, _, u_l = get_camera_sample(film.filter, pixel_xy, u_f, u_l)
-    ray = cam.generate_ray(p_film, u_l)
-    return ray.o.contiguous(), ray.d.contiguous(), s
-
-
-def bench_batches(scene, cam, film, dev) -> dict:
-    """The three traversal batches of the first pixel block: primary,
-    bounce and the merged wavefront launch, as (o, d, t_max, any_hit)."""
-    tris = scene.triangles.with_traverse(CONFIGS["v1"])
-    sampler = ZSobolSampler(SPP, film.resolution)
-    blocks, _ = pixel_blocks(film, BLOCK, dev)
-    inf = torch.full((BLOCK,), float("inf"), device=dev)
-    o, d, s_state = primary_rays(cam, film, sampler, blocks[0])
-
-    # Bounce rays: cosine-hemisphere directions around the shading normal
-    # of the primary hits (missed lanes borrow a hit lane's point).
-    _, tri = tv.traverse_raw(tris, o, d, inf)
-    hit_lanes = torch.nonzero(tri >= 0).squeeze(1)
-    src = hit_lanes[torch.arange(BLOCK, device=dev) % hit_lanes.numel()]
-    si = triangle_interaction_from_raw(tris, o[src], d[src], tri[src])
-    frame = si.shading_frame()
-    u2, _ = sampler.get_2d(s_state)
-    wi = frame.from_local(sample_cosine_hemisphere(u2))
-    bo = offset_ray_origin(si.p, si.n, wi).contiguous()
-    bd = wi.contiguous()
-
-    # Merged wavefront launch: extension rays, then shadow rays toward
-    # points on the light quad (any hit, t_max just short of the light),
-    # with about half the lanes of each half dead (t_max = -inf).
-    rng = np.random.default_rng(0)
-    lq = tris.light_rows[-2:, 0:9].reshape(2, 3, 3)
-    bary = torch.from_numpy(rng.dirichlet([1.0, 1.0, 1.0], BLOCK).astype(np.float32)).to(dev)
-    which = torch.from_numpy(rng.integers(0, 2, BLOCK)).to(dev)
-    target = torch.einsum("nk,nkc->nc", bary, lq[which])
-    sh_d = (target - bo).contiguous()
-    dead = torch.from_numpy(rng.random(2 * BLOCK) < 0.5).to(dev)
-    t_ext = torch.where(dead[:BLOCK], -float("inf"), float("inf"))
-    t_sh = torch.where(dead[BLOCK:], -float("inf"), 1.0 - 1e-3)
-    merged = (
-        torch.cat([bo, bo]).contiguous(), torch.cat([bd, sh_d]).contiguous(),
-        torch.cat([t_ext, t_sh]).contiguous(), torch.arange(2 * BLOCK, device=dev) >= BLOCK,
-    )
-    return {
-        "primary": (o, d, inf, False),
-        "bounce": (bo, bd, inf, False),
-        "merged": merged,
-    }
 
 
 def phase3(scene, batches) -> dict:
@@ -770,8 +672,9 @@ def main():
     log(f"phase 2 build: {time.perf_counter() - t0:.2f}s for {len(build)} libraries")
     for name, b in build.items():
         check(b["built"], f"phase 2: the {name} library was not built")
-        ptx = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln or "spill" in ln]
-        log(f"phase 2 build {name}: {b['seconds']:.2f}s; {' | '.join(ptx)}")
+        log(f"phase 2 build {name}: {b['seconds']:.2f}s")
+        for kernel in ptxas_report(b["log"]):
+            log(f"phase 2 build {name} kernel: {json.dumps(kernel)}")
     check(native.sah_available(), f"the native SAH builder did not load: {native.sah_error()}")
     log("phase 2 BVH builder: native binned SAH (shimmer_tpu_torch/native/sah.cpp, g++)")
 

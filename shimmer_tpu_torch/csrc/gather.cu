@@ -32,6 +32,19 @@
 //   * gather: bytes.  The output (N x 512 B) dominates; one warp moves one
 //     row, 16 bytes per lane, so each row is one coalesced 512-byte read
 //     (from L2 for a table that fits its 50 MB) and one coalesced write.
+//   * transposed gather: out[:, i] = Tt[:, idx[i]].  Read straight from
+//     the table, every value costs a 32-byte sector of L2 traffic (the
+//     indices are scattered): about 8x its bytes, ~32 MB at R = N = 8192,
+//     W = 128, and that sector rate bounds it (and index_select; a thread
+//     reading a group of columns with its index loaded once measured no
+//     faster).  So a table whose two columns fit in 96 KB of shared memory
+//     is staged: a block copies kStageCols consecutive columns of the
+//     (W, R) table (contiguous, so fully used sectors) into shared memory,
+//     then each thread loads an index once and gathers the pair from the
+//     copy, for a chunk of kStageChunk outputs with stores coalesced along
+//     i.  The table is read once per chunk (4 MB x 4 at that size) and idx
+//     once per column pair; the grid is 4 x 64 blocks of 512 threads, ~2
+//     per SM.  A larger table takes the direct form, one element a thread.
 //   * gather-sum: bytes of the distinct rows read, and the latency of
 //     reaching them, since the output is one row.  Each warp keeps 8 rows in
 //     flight in a shared-memory ring filled by cp.async (16 bytes per lane,
@@ -60,7 +73,8 @@ using namespace shimmer::gather;
 
 constexpr int kWarp = 32;
 constexpr int kGatherWarps = 8;       // rows per block of row_gather
-constexpr int kColsThreads = 256;     // output elements per block, cols form
+constexpr int kColsThreads = 256;     // output elements per block, direct cols form
+constexpr int kStageThreads = 512;    // staged cols form
 constexpr int kChaseThreads = 128;
 constexpr int kRing = 8;              // rows in flight per warp, gather-sum
 
@@ -73,6 +87,26 @@ __global__ void __launch_bounds__(kGatherWarps * kWarp)
   gather_row_part(table, n_rows, width, __ldg(idx + i),
                   out + static_cast<size_t>(i) * width, threadIdx.x % kWarp,
                   kWarp);
+}
+
+__global__ void __launch_bounds__(kStageThreads)
+    row_gather_cols_staged_kernel(const float* __restrict__ table_t,
+                                  int n_rows, int width,
+                                  const int* __restrict__ idx, int n,
+                                  float* __restrict__ out) {
+  extern __shared__ float cols[];
+  const int col0 = blockIdx.y * kStageCols;
+  const int n_cols = min(kStageCols, width - col0);
+  const float* src = table_t + static_cast<size_t>(col0) * n_rows;
+  for (int k = threadIdx.x; k < n_cols * n_rows; k += kStageThreads) {
+    cols[k] = __ldg(src + k);
+  }
+  __syncthreads();
+  const int end = min(n, (blockIdx.x + 1) * kStageChunk);
+  for (int i = blockIdx.x * kStageChunk + threadIdx.x; i < end;
+       i += kStageThreads) {
+    gather_staged_elem(cols, n_rows, width, __ldg(idx + i), out, n, i, col0);
+  }
 }
 
 __global__ void __launch_bounds__(kColsThreads)
@@ -195,11 +229,23 @@ extern "C" int shimmer_row_gather_cols(const float* table_t, int n_rows,
                                        int width, const int* idx, int n,
                                        float* out, void* stream) {
   if (n_rows <= 0 || width <= 0 || width > 65535 || n < 0) return invalid();
-  if (n > 0) {
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_rows <= kStageMaxRows) {
+    const size_t smem = sizeof(float) * kStageCols * n_rows;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          row_gather_cols_staged_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const dim3 grid(blocks_for(n, kStageChunk), blocks_for(width, kStageCols));
+    row_gather_cols_staged_kernel<<<grid, kStageThreads, smem, s>>>(
+        table_t, n_rows, width, idx, n, out);
+  } else {
     const dim3 grid(blocks_for(n, kColsThreads), width);
-    row_gather_cols_kernel<<<grid, kColsThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        table_t, n_rows, idx, n, out);
+    row_gather_cols_kernel<<<grid, kColsThreads, 0, s>>>(table_t, n_rows, idx,
+                                                        n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

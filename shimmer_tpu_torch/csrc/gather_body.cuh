@@ -154,8 +154,33 @@ SHIMMER_GATHER_HD void gather_row_part(const float* table, int n_rows,
   }
 }
 
-// One element of the transposed gather: Tt[col, idx] from the column-major
-// row `table_t_col` (= Tt + col * R).
+// The transposed gather, out[c * N + i] = Tt[c * R + idx[i]], in two
+// forms.  Staged (R at most kStageMaxRows): a block copies kStageCols
+// consecutive columns of the (W, R) table -- contiguous in memory -- into
+// shared memory with coalesced reads, then gathers kStageChunk outputs
+// from the copy.  Direct (larger R): one element per lane, read from the
+// table (gather_col_elem).
+constexpr int kStageCols = 2;
+constexpr int kStageChunk = 2048;
+constexpr int kStageMaxRows = 12288;  // kStageCols * R floats within 96 KB
+
+// Output element i of the staged form's columns [col0, col0 + kStageCols)
+// (those below W) from `cols`, their copy laid out back to back.
+SHIMMER_GATHER_HD void gather_staged_elem(const float* cols, int n_rows,
+                                          int width, int idx, float* out,
+                                          int n, int i, int col0) {
+  const bool ok = in_range(idx, n_rows);
+#pragma unroll
+  for (int j = 0; j < kStageCols; ++j) {
+    if (col0 + j < width) {
+      out[static_cast<size_t>(col0 + j) * n + i] =
+          ok ? cols[static_cast<size_t>(j) * n_rows + idx] : 0.0f;
+    }
+  }
+}
+
+// One element of the direct form: Tt[col, idx] from the column-major row
+// `table_t_col` (= Tt + col * R).
 SHIMMER_GATHER_HD float gather_col_elem(const float* table_t_col, int n_rows,
                                         int idx) {
   if (!in_range(idx, n_rows)) return 0.0f;

@@ -7,6 +7,9 @@
 // as gather.cu's entry points, less the stream; each returns 0, or -1 for
 // arguments the kernels do not take.
 
+#include <algorithm>
+#include <vector>
+
 #include "gather_body.cuh"
 
 using namespace shimmer::gather;
@@ -22,10 +25,30 @@ extern "C" int shimmer_row_gather_host(const float* table, int n_rows,
   return 0;
 }
 
+// The kernel's two forms, chosen by R as the kernel chooses: the staged
+// one per (column pair, chunk of outputs) from a copy of the columns, the
+// direct one element by element.
 extern "C" int shimmer_row_gather_cols_host(const float* table_t, int n_rows,
                                             int width, const int* idx, int n,
                                             float* out) {
   if (n_rows <= 0 || width <= 0 || n < 0) return -1;
+  if (n_rows <= kStageMaxRows) {
+    std::vector<float> cols(static_cast<size_t>(kStageCols) * n_rows);
+    for (int col0 = 0; col0 < width; col0 += kStageCols) {
+      const int n_cols = width - col0 < kStageCols ? width - col0 : kStageCols;
+      for (int begin = 0; begin < n; begin += kStageChunk) {
+        std::copy(table_t + static_cast<size_t>(col0) * n_rows,
+                  table_t + static_cast<size_t>(col0 + n_cols) * n_rows,
+                  cols.begin());
+        const int end = begin + kStageChunk < n ? begin + kStageChunk : n;
+        for (int i = begin; i < end; ++i) {
+          gather_staged_elem(cols.data(), n_rows, width, idx[i], out, n, i,
+                             col0);
+        }
+      }
+    }
+    return 0;
+  }
   for (int col = 0; col < width; ++col) {
     for (int i = 0; i < n; ++i) {
       out[static_cast<size_t>(col) * n + i] = gather_col_elem(
@@ -85,3 +108,5 @@ extern "C" int shimmer_gather_sum_rows_per_warp() { return kSumRowsPerWarp; }
 extern "C" int shimmer_gather_sum_warps() { return kSumWarps; }
 
 extern "C" int shimmer_gather_sum_max_width() { return kSumMaxWidth; }
+
+extern "C" int shimmer_gather_cols_stage_max_rows() { return kStageMaxRows; }

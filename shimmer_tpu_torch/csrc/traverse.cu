@@ -20,73 +20,111 @@
 // its own stacks, 128 threads per block.
 //
 // What bounds them on the H100: chains of dependent row reads (each visit
-// needs the previous row's result to pick the next row) and warp divergence
-// (the 32 rays of a warp visit different rows and different numbers of
-// rows), not FLOPs.  Where the rows come from sets the length of each link
-// of the chain: the bench table (76,590 rows, 39 MB) fits in the 50 MB L2,
-// the 1.3M-triangle table (295,034 rows, 152 MB) does not, though one
-// batch's rays touch a far smaller part of it.  The design answer for now:
-// rows8 stays in global memory, read through the read-only path (__ldg on
-// const __restrict__ pointers), and the BFS row order keeps the top of the
-// tree, which every ray visits, in a small contiguous prefix that stays hot
-// in L2.  v2 adds two answers: ordered pops tighten t_best sooner, so fewer
-// far subtrees are entered (fewer links in the chain), and the leaf backlog
-// lets every loop step retire one internal and one leaf visit, so a warp's
-// threads wait on one internal and one leaf row per step instead of
-// splitting into internal-visit and leaf-visit groups; it pays with two
-// more per-thread stacks (local memory) and up to eight child meta reads
-// per internal visit.  Warp-cooperative node tests, node prefetch and
-// live-lane launches are later work.
+// needs the previous row's result to pick the next row) and how a warp's 32
+// rays spread over rows and over lifetimes, not FLOPs.  The bench table
+// (76,590 rows, 39 MB) fits in the 50 MB L2, the 1.3M-triangle table
+// (295,034 rows, 152 MB) does not, though one batch's rays touch a far
+// smaller part of it.  Tensor cores have no part here: a traversal step is
+// 8 slab or 8 triangle tests chosen by the data, with no matrix product.
+//
+// The v1 kernel, redesigned for Hopper (traverse_body.cuh, V1Ray; each
+// step timed on its own in PERF.md), answers each limit:
+//   * node reads as 16-byte loads: 14 for an internal row, 9 per quad of
+//     triangles for a leaf, instead of 56 and 72 scalar loads, so a visit
+//     waits on a few wide reads of its row instead of many narrow ones;
+//   * near-first order: the nearest hit child is visited next and the
+//     others are pushed in ascending entry distance, so t_best tightens
+//     early and entries beyond it are dropped without a visit (fewer
+//     visits, and the longest rays, which hold a warp, far shorter).
+// The stack stays a local array of kMaxStack entries.  Two steps measured
+// no faster and were dropped: the stack in shared memory (within the
+// run-to-run spread) and persistent warps fetching rays from a global
+// counter (Aila and Laine, "Understanding the Efficiency of Ray Traversal
+// on GPUs", HPG 2009; slower at every refill threshold tried).  v2 adds two
+// answers of its own: ordered pops, and a leaf backlog that lets every loop
+// step retire one internal and one leaf visit; it pays with two more
+// per-thread stacks (local memory) and up to eight child meta reads per
+// internal visit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
-// (see shimmer_tpu_torch/ops/traverse.py).  -fmad=false keeps the leaf
+// (see shimmer_tpu_torch/ops/cuda_build.py).  -fmad=false keeps the leaf
 // tests bit-identical to the plain torch version and the re-intersection.
 
 #include <cuda_runtime.h>
 
 #include "traverse_v2_body.cuh"
 
+using namespace shimmer;
+
 namespace {
 
 constexpr int kThreads = 128;
 
+// One launch's arguments (see shimmer_traverse_launch).
+struct Args {
+  const float* rows;
+  const int* meta;
+  int n_rows;
+  const float* o;
+  const float* d;
+  const float* t_max;
+  const uint8_t* any_hit;
+  float* t_out;
+  int* tri_out;
+  int* steps_out;
+  uint8_t* touched;
+  int n;
+};
+
+// One ray per thread: v1 (V1Ray over a local stack) or v2.
 template <int kKernel, int kLeaf, int kWinner>
-__global__ void __launch_bounds__(kThreads)
-    traverse_kernel(const float* __restrict__ rows,
-                    const int* __restrict__ meta, int n_rows,
-                    const float* __restrict__ o, const float* __restrict__ d,
-                    const float* __restrict__ t_max,
-                    const uint8_t* __restrict__ any_hit,
-                    float* __restrict__ t_out, int* __restrict__ tri_out,
-                    int* __restrict__ steps_out, uint8_t* touched, int n) {
+__global__ void __launch_bounds__(kThreads) traverse_kernel(const Args a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  shimmer::RayResult r;
+  if (i >= a.n) return;
+  RayResult r;
   if constexpr (kKernel == 2) {
-    r = shimmer::traverse_ray_v2(
-        rows, meta, n_rows, o[3 * i + 0], o[3 * i + 1], o[3 * i + 2],
-        d[3 * i + 0], d[3 * i + 1], d[3 * i + 2], t_max[i], any_hit[i] != 0,
-        touched);
+    r = traverse_ray_v2(a.rows, a.meta, a.n_rows, a.o[3 * i + 0],
+                        a.o[3 * i + 1], a.o[3 * i + 2], a.d[3 * i + 0],
+                        a.d[3 * i + 1], a.d[3 * i + 2], a.t_max[i],
+                        a.any_hit[i] != 0, a.touched);
   } else {
-    r = shimmer::traverse_ray<kLeaf, kWinner>(
-        rows, meta, n_rows, o[3 * i + 0], o[3 * i + 1], o[3 * i + 2],
-        d[3 * i + 0], d[3 * i + 1], d[3 * i + 2], t_max[i], any_hit[i] != 0,
-        touched);
+    NearEntry stack[kMaxStack];
+    V1Ray<kLeaf, kWinner> ray;
+    if (ray.start(a.o[3 * i + 0], a.o[3 * i + 1], a.o[3 * i + 2],
+                  a.d[3 * i + 0], a.d[3 * i + 1], a.d[3 * i + 2], a.t_max[i],
+                  a.any_hit[i] != 0)) {
+      while (ray.step(a.rows, a.meta, a.n_rows, stack, a.touched)) {
+      }
+    }
+    r = ray.result();
   }
-  t_out[i] = r.t;
-  tri_out[i] = r.tri;
-  if (steps_out != nullptr) steps_out[i] = r.steps;
+  a.t_out[i] = r.t;
+  a.tri_out[i] = r.tri;
+  if (a.steps_out != nullptr) a.steps_out[i] = r.steps;
 }
 
-template <int kKernel, int kLeaf, int kWinner>
-void launch(const float* rows, const int* meta, int n_rows, const float* o,
-            const float* d, const float* t_max, const uint8_t* any_hit,
-            float* t_out, int* tri_out, int* steps_out, uint8_t* touched,
-            int n, cudaStream_t stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  traverse_kernel<kKernel, kLeaf, kWinner><<<blocks, kThreads, 0, stream>>>(
-      rows, meta, n_rows, o, d, t_max, any_hit, t_out, tri_out, steps_out,
-      touched, n);
+using Kernel = void (*)(Args);
+
+// Picks the v1 instantiation of a template (called by dispatch_v1).
+struct PickV1 {
+  Kernel kernel = nullptr;
+
+  template <int kLeaf, int kWinner>
+  void run() {
+    kernel = traverse_kernel<1, kLeaf, kWinner>;
+  }
+};
+
+// The kernel of (kernel, leaf, winner), or null for a combination the
+// kernels do not offer.
+Kernel pick(int kernel, int leaf, int winner) {
+  if (kernel == 2) {
+    return leaf == kLeafWatertight && winner == kWinnerSlot
+               ? traverse_kernel<2, kLeafWatertight, kWinnerSlot>
+               : nullptr;
+  }
+  PickV1 f;
+  return kernel == 1 && dispatch_v1(leaf, winner, f) ? f.kernel : nullptr;
 }
 
 }  // namespace
@@ -105,32 +143,29 @@ extern "C" int shimmer_traverse_launch(int kernel, int leaf, int winner,
                                        const uint8_t* any_hit, float* t_out,
                                        int* tri_out, int* steps_out,
                                        uint8_t* touched, int n, void* stream) {
-  using namespace shimmer;
-  const bool v1 = kernel == 1 && (leaf == kLeafWatertight || leaf == kLeafMT) &&
-                  (winner == kWinnerSlot || winner == kWinnerMinId);
-  const bool v2 = kernel == 2 && leaf == kLeafWatertight && winner == kWinnerSlot;
-  if (!v1 && !v2) return static_cast<int>(cudaErrorInvalidValue);
+  const Kernel k = pick(kernel, leaf, winner);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SHIMMER_LAUNCH(K, L, W)                                              \
-  launch<K, L, W>(rows, meta, n_rows, o, d, t_max, any_hit, t_out, tri_out, \
-                  steps_out, touched, n, s)
-    if (v2) {
-      SHIMMER_LAUNCH(2, kLeafWatertight, kWinnerSlot);
-    } else if (leaf == kLeafMT) {
-      if (winner == kWinnerMinId) {
-        SHIMMER_LAUNCH(1, kLeafMT, kWinnerMinId);
-      } else {
-        SHIMMER_LAUNCH(1, kLeafMT, kWinnerSlot);
-      }
-    } else if (winner == kWinnerMinId) {
-      SHIMMER_LAUNCH(1, kLeafWatertight, kWinnerMinId);
-    } else {
-      SHIMMER_LAUNCH(1, kLeafWatertight, kWinnerSlot);
-    }
-#undef SHIMMER_LAUNCH
+    const Args a{rows,  meta,    n_rows,  o,         d,       t_max,
+                 any_hit, t_out, tri_out, steps_out, touched, n};
+    const int blocks = (n + kThreads - 1) / kThreads;
+    k<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int shimmer_traverse_max_stack() { return shimmer::kMaxStack; }
+// Resident blocks per SM of a kernel (arguments as above), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; -1 for a combination the
+// kernels do not offer.
+extern "C" int shimmer_traverse_blocks_per_sm(int kernel, int leaf, int winner) {
+  const Kernel k = pick(kernel, leaf, winner);
+  int blocks = -1;
+  if (k == nullptr ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads, 0) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}
+
+extern "C" int shimmer_traverse_max_stack() { return kMaxStack; }

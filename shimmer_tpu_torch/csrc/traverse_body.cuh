@@ -1,6 +1,7 @@
 // Per-ray BVH8 traversal: the node tests shared by both kernels and the v1
-// body.  Shared by the CUDA kernels (traverse.cu) and a host build (traverse_host.cpp) that the CPU tests compile with g++:
-// under nvcc the functions are __device__, under g++ plain inline.
+// body.  Shared by the CUDA kernels (traverse.cu) and a host build
+// (traverse_host.cpp) that the CPU tests compile with g++: under nvcc the
+// functions are __device__, under g++ plain inline.
 //
 // The v1 body computes what shimmer_tpu/ops/pallas/traverse.py::
 // _traverse_kernel computes for one ray: the closest hit (t, tri) over the
@@ -22,19 +23,23 @@
 // BVH-sorted ids as exact floats in cols 72:80.  meta[r] = leaf_count |
 // child_base << 4, and the children of a node occupy rows child_base + slot.
 //
-// The v1 stack holds `child_base << 8 | pending slot bits` entries; a visit
-// peels the lowest pending bit of the top entry (the reference kernel's
-// order).  All arithmetic is plain IEEE float32 in the same operand order
-// as shapes/triangle.py (intersect_triangle, intersect_triangle_mt): the
+// The v1 body is V1Ray (16-byte row reads, near-first order with pruned
+// pops), set out with its stack bound where it is defined; the scalar
+// slab_test8 and leaf_test8 serve v2 (traverse_v2_body.cuh).  All
+// arithmetic is plain IEEE float32 in the same operand order as
+// shapes/triangle.py (intersect_triangle, intersect_triangle_mt): the
 // caller re-intersects the winning triangle in torch and the plain torch
 // version must reproduce this hit decision, so the CUDA build uses
 // -fmad=false (no FMA contraction) and the host build -ffp-contract=off.
+// The order of the visits changes which rows are read and when t_best
+// tightens, not the closest t.
 //
-// On the H100 the v1 body is bound by its chain of dependent row reads
-// (each visit picks the next row; from L2 for the 39 MB bench table, often
-// from HBM for the 152 MB 1.3M-triangle one) and by divergence between the
-// rays of a warp, not by arithmetic: one 512-byte row per visit resolves 8
-// boxes or 8 triangles, so the chain is as short as an 8-wide tree allows.
+// On the H100 a v1 body is bound by its chain of dependent row reads (each
+// visit picks the next row; from L2 for the 39 MB bench table, often from
+// HBM for the 152 MB 1.3M-triangle one) and by how a warp's rays spread
+// over rows and lifetimes, not by arithmetic: one 512-byte row per visit
+// resolves 8 boxes or 8 triangles, so the chain is as short as an 8-wide
+// tree allows.
 #pragma once
 
 #include <math.h>
@@ -227,43 +232,47 @@ SHIMMER_HD bool watertight_hit(float p0x, float p0y, float p0z, float p1x,
   return true;
 }
 
+// Moller-Trumbore test of the triangle (p0, p0 + e1, p0 + e2) against
+// (0, t_best) (traverse.py:234-253: MT leaf lanes hold p0, e1, e2); on a
+// hit, t is its distance.
+SHIMMER_HD bool mt_hit(float p0x, float p0y, float p0z, float e1x, float e1y,
+                       float e1z, float e2x, float e2y, float e2z,
+                       const Ray& ray, float t_best, float& t) {
+  const float pvx = ray.dy * e2z - ray.dz * e2y;
+  const float pvy = ray.dz * e2x - ray.dx * e2z;
+  const float pvz = ray.dx * e2y - ray.dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float tvx = ray.ox - p0x;
+  const float tvy = ray.oy - p0y;
+  const float tvz = ray.oz - p0z;
+  const float u_s = tvx * pvx + tvy * pvy + tvz * pvz;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float v_s = ray.dx * qvx + ray.dy * qvy + ray.dz * qvz;
+  const float ts = e2x * qvx + e2y * qvy + e2z * qvz;
+  const float w_s = det - u_s - v_s;
+  const bool same_sign = (u_s >= 0.0f && v_s >= 0.0f && w_s >= 0.0f) ||
+                         (u_s <= 0.0f && v_s <= 0.0f && w_s <= 0.0f);
+  if (!(same_sign && det != 0.0f && t_in_range(ts, det, t_best))) {
+    return false;
+  }
+  const float inv_det = 1.0f / det;
+  t = ts * inv_det;
+  return true;
+}
+
 // Slot k of a leaf row against (0, t_best); on a hit, t is its distance.
 template <int kLeaf>
 SHIMMER_HD bool leaf_hit(const float* __restrict__ row, int k, const Ray& ray,
                          float t_best, float& t) {
   if (kLeaf == kLeafMT) {
-    // traverse.py:234-253: leaf lanes hold (p0, e1, e2).
-    const float p0x = SHIMMER_LDG(row + 0 + k);
-    const float p0y = SHIMMER_LDG(row + 8 + k);
-    const float p0z = SHIMMER_LDG(row + 16 + k);
-    const float e1x = SHIMMER_LDG(row + 24 + k);
-    const float e1y = SHIMMER_LDG(row + 32 + k);
-    const float e1z = SHIMMER_LDG(row + 40 + k);
-    const float e2x = SHIMMER_LDG(row + 48 + k);
-    const float e2y = SHIMMER_LDG(row + 56 + k);
-    const float e2z = SHIMMER_LDG(row + 64 + k);
-    const float pvx = ray.dy * e2z - ray.dz * e2y;
-    const float pvy = ray.dz * e2x - ray.dx * e2z;
-    const float pvz = ray.dx * e2y - ray.dy * e2x;
-    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-    const float tvx = ray.ox - p0x;
-    const float tvy = ray.oy - p0y;
-    const float tvz = ray.oz - p0z;
-    const float u_s = tvx * pvx + tvy * pvy + tvz * pvz;
-    const float qvx = tvy * e1z - tvz * e1y;
-    const float qvy = tvz * e1x - tvx * e1z;
-    const float qvz = tvx * e1y - tvy * e1x;
-    const float v_s = ray.dx * qvx + ray.dy * qvy + ray.dz * qvz;
-    const float ts = e2x * qvx + e2y * qvy + e2z * qvz;
-    const float w_s = det - u_s - v_s;
-    const bool same_sign = (u_s >= 0.0f && v_s >= 0.0f && w_s >= 0.0f) ||
-                           (u_s <= 0.0f && v_s <= 0.0f && w_s <= 0.0f);
-    if (!(same_sign && det != 0.0f && t_in_range(ts, det, t_best))) {
-      return false;
-    }
-    const float inv_det = 1.0f / det;
-    t = ts * inv_det;
-    return true;
+    return mt_hit(
+        SHIMMER_LDG(row + 0 + k), SHIMMER_LDG(row + 8 + k),
+        SHIMMER_LDG(row + 16 + k), SHIMMER_LDG(row + 24 + k),
+        SHIMMER_LDG(row + 32 + k), SHIMMER_LDG(row + 40 + k),
+        SHIMMER_LDG(row + 48 + k), SHIMMER_LDG(row + 56 + k),
+        SHIMMER_LDG(row + 64 + k), ray, t_best, t);
   } else {
     return watertight_hit(
         SHIMMER_LDG(row + 0 + k), SHIMMER_LDG(row + 8 + k),
@@ -303,59 +312,255 @@ SHIMMER_HD bool leaf_test8(const float* __restrict__ row, int cnt,
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// The v1 body, redesigned for Hopper (each step timed in PERF.md):
+//   * 16-byte row reads: a row's box groups, valid flags and triangle groups
+//     are read with load4 and tested with the same arithmetic as
+//     slab_test8 and leaf_test8, which v2 keeps;
+//   * near-first order: descend into the nearest hit child, push the other
+//     hit children as one entry of slots in ascending entry distance, and
+//     drop an entry on pop once its nearest child enters at or beyond
+//     t_best;
+//   * the stack is a local array of kMaxStack entries, pushed without a
+//     guard (the bound is proved above V1Ray).
+// V1Ray is a state machine (start, then step until it returns false), so
+// that the host build can read the stack depth between visits.
+
+// Four consecutive floats of a 16-byte aligned row: one 16-byte read-only
+// load on the device.
+SHIMMER_HD void load4(const float* __restrict__ p, float* out) {
+#if defined(__CUDACC__)
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+#else
+  for (int j = 0; j < 4; ++j) out[j] = p[j];
+#endif
+}
+
+// slab_test8 with 16-byte reads: 12 loads for the six box groups and 2 for
+// the valid flags, then the same slab_hit per slot.
+SHIMMER_HD int slab_test8_vec(const float* __restrict__ row, const Ray& ray,
+                              float t_best, float* tn) {
+  float b[6][8];
+  float valid[8];
+#pragma unroll
+  for (int g = 0; g < 6; ++g) {
+    load4(row + 8 * g, b[g]);
+    load4(row + 8 * g + 4, b[g] + 4);
+  }
+  load4(row + kColValid, valid);
+  load4(row + kColValid + 4, valid + 4);
+  int hit_bits = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const bool hit = slab_hit(b[0][k], b[1][k], b[2][k], b[3][k], b[4][k],
+                              b[5][k], ray, t_best, tn[k]);
+    if (valid[k] > 0.0f && hit) hit_bits |= 1 << k;
+  }
+  return hit_bits;
+}
+
+// leaf_test8 with 16-byte reads: per quad of slots that holds a triangle,
+// 9 loads (one per coordinate group; 18 for a full leaf), then the same
+// leaf test per slot in ascending slot order, so the winner is the one
+// leaf_test8 picks.
 template <int kLeaf, int kWinner>
-SHIMMER_HD RayResult traverse_ray(const float* __restrict__ rows,
-                                  const int* __restrict__ meta, int n_rows,
-                                  float ox, float oy, float oz, float dx,
-                                  float dy, float dz, float t_max,
-                                  bool any_hit, uint8_t* touched) {
-  RayResult res;
-  res.t = INFINITY;
-  res.tri = -1;
-  res.steps = 0;
-  // Dead lanes (t_max <= 0, including -inf and NaN) do not traverse.
-  if (!(t_max > 0.0f)) return res;
-  const Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
-
-  int stack[kMaxStack];
-  int sp = 0;
-  stack[sp++] = 1;  // root row 0, slot bit 0
-  float t_best = t_max;
-  int tri_best = -1;
-  int steps = 0;
-
-  while (sp > 0) {
-    const int e = stack[sp - 1];
-    const int bits = e & 255;
-    const int lsb = bits & (-bits);
-    const int rest = e - lsb;
-    if ((rest & 255) == 0) {
-      --sp;
-    } else {
-      stack[sp - 1] = rest;
+SHIMMER_HD bool leaf_test8_vec(const float* __restrict__ row, int cnt,
+                               const Ray& ray, float& t_best, int& tri_best) {
+  float t_leaf = INFINITY;
+  float id_leaf = 0.0f;
+  int k_leaf = -1;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (4 * q >= cnt) break;
+    float v[9][4];
+#pragma unroll
+    for (int g = 0; g < 9; ++g) load4(row + 8 * g + 4 * q, v[g]);
+    float ids[4];
+    if (kWinner == kWinnerMinId) load4(row + kColIds + 4 * q, ids);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = 4 * q + j;
+      if (k >= cnt) break;
+      float t;
+      const bool hit =
+          kLeaf == kLeafMT
+              ? mt_hit(v[0][j], v[1][j], v[2][j], v[3][j], v[4][j], v[5][j],
+                       v[6][j], v[7][j], v[8][j], ray, t_best, t)
+              : watertight_hit(v[0][j], v[1][j], v[2][j], v[3][j], v[4][j],
+                               v[5][j], v[6][j], v[7][j], v[8][j], ray,
+                               t_best, t);
+      if (!hit) continue;
+      if (kWinner == kWinnerMinId) {
+        if (t < t_leaf || (t == t_leaf && ids[j] < id_leaf)) {
+          t_leaf = t;
+          id_leaf = ids[j];
+          k_leaf = k;
+        }
+      } else if (t < t_leaf) {
+        t_leaf = t;
+        k_leaf = k;
+      }
     }
-    const int r = clamp_row((e >> 8) + lowest_bit_index(lsb), n_rows);
+  }
+  if (!(t_leaf < t_best)) return false;
+  t_best = t_leaf;
+  tri_best = (int)SHIMMER_LDG(row + kColIds + k_leaf);
+  return true;
+}
+
+// The hit children of an internal row in ascending entry distance (ties to
+// the lower slot): returns their slots, 3 bits each, nearest in the low
+// bits; n receives their count and tn1 the second-nearest entry distance.
+SHIMMER_HD int near_order(int hits, const float* tn, int& n, float& tn1) {
+  int order = 0;
+  n = 0;
+  tn1 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (!((hits >> k) & 1)) continue;
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (((hits >> j) & 1) && (tn[j] < tn[k] || (tn[j] == tn[k] && j < k))) {
+        ++rank;
+      }
+    }
+    order |= k << (3 * rank);
+    if (rank == 1) tn1 = tn[k];
+    ++n;
+  }
+  return order;
+}
+
+// One stack entry: the pending hit children of an internal row.
+struct NearEntry {
+  int head;      // child_base << 4 | number of pending slots
+  int slots;     // the pending slots, 3 bits each, nearest in the low bits
+  float t_near;  // entry distance of the nearest slot when it was pushed
+};
+
+// The stack bound.  An entry is pushed at the visit of an internal node at
+// level l and holds hit children at level l + 1; it stays until its last
+// child is taken or it is dropped.  Invariant: the entries come from
+// strictly increasing levels, all below the level of the row visited next.
+// It holds at the start (empty stack, the root next); a push at level l
+// finds only entries from levels below l and is followed by a visit at
+// level l + 1; a pop takes its row from the top entry, so the next row lies
+// one level below every remaining entry.  So the stack holds at most
+// (deepest internal level + 1) entries, and the BVH8 build sets stack_depth
+// = deepest internal level + 2, which the wrapper holds to kMaxStack - 8:
+// a stack of kMaxStack entries never overflows, and step pushes without a
+// guard.
+template <int kLeaf, int kWinner>
+struct V1Ray {
+  Ray ray;
+  float t_best;
+  int tri_best;
+  int steps;
+  int sp;    // entries on the stack
+  int next;  // the row the next step visits
+  bool any_hit;
+
+  // Sets up one ray; false for a dead lane (t_max <= 0, -inf or NaN),
+  // which takes no step.
+  SHIMMER_HD bool start(float ox, float oy, float oz, float dx, float dy,
+                        float dz, float t_max, bool any_hit_) {
+    t_best = t_max;
+    tri_best = -1;
+    steps = 0;
+    sp = 0;
+    next = 0;  // the root row
+    any_hit = any_hit_;
+    if (!(t_max > 0.0f)) return false;
+    ray = make_ray(ox, oy, oz, dx, dy, dz);
+    return true;
+  }
+
+  // The next row to visit from the stack, or -1 when it is empty.
+  SHIMMER_HD int pop(NearEntry* stack, int n_rows) {
+    while (sp > 0) {
+      NearEntry& e = stack[sp - 1];
+      // Every pending child of this entry enters at or beyond t_best: the
+      // slab test would reject each of them now.
+      if (!(e.t_near < t_best)) {
+        --sp;
+        continue;
+      }
+      const int row = (e.head >> 4) + (e.slots & 7);
+      if ((e.head & 15) == 1) {
+        --sp;
+      } else {
+        e.head -= 1;
+        e.slots >>= 3;
+      }
+      return clamp_row(row, n_rows);
+    }
+    return -1;
+  }
+
+  // Visits one row; false once the ray is done (the stack is empty, or an
+  // any-hit ray found a hit).  `stack` holds kMaxStack entries.
+  SHIMMER_HD bool step(const float* __restrict__ rows,
+                       const int* __restrict__ meta, int n_rows,
+                       NearEntry* stack, uint8_t* touched) {
+    const int r = next;
     ++steps;
     touch_row(touched, n_rows, r);
     const int m = SHIMMER_LDG(meta + r);
     const int cnt = m & 15;
     const float* row = rows + (size_t)r * kRowWidth;
-
     if (cnt == 0) {
       float tn[8];
-      const int hit_bits = slab_test8(row, ray, t_best, tn);
-      if (hit_bits != 0 && sp < kMaxStack) {
-        stack[sp++] = ((m >> 4) << 8) | hit_bits;
+      const int hits = slab_test8_vec(row, ray, t_best, tn);
+      if (hits != 0) {
+        const int base = m >> 4;
+        int n;
+        float tn1;
+        const int order = near_order(hits, tn, n, tn1);
+        if (n > 1) stack[sp++] = NearEntry{(base << 4) | (n - 1), order >> 3, tn1};
+        next = clamp_row(base + (order & 7), n_rows);
+        return true;
       }
-    } else if (leaf_test8<kLeaf, kWinner>(row, cnt, ray, t_best, tri_best) &&
+    } else if (leaf_test8_vec<kLeaf, kWinner>(row, cnt, ray, t_best, tri_best) &&
                any_hit) {
-      break;
+      return false;
     }
+    next = pop(stack, n_rows);
+    return next >= 0;
   }
-  res.t = tri_best >= 0 ? t_best : INFINITY;
-  res.tri = tri_best;
-  res.steps = steps;
-  return res;
+
+  SHIMMER_HD RayResult result() const {
+    RayResult res;
+    res.t = tri_best >= 0 ? t_best : INFINITY;
+    res.tri = tri_best;
+    res.steps = steps;
+    return res;
+  }
+};
+
+// Calls f.template run<kLeaf, kWinner>() for a v1 template (the kernel,
+// traverse.cu, and the host build share it); false for a combination the
+// kernel does not offer.
+template <typename F>
+bool dispatch_v1(int leaf, int winner, F& f) {
+  if (winner != kWinnerSlot && winner != kWinnerMinId) return false;
+  if (leaf == kLeafMT) {
+    if (winner == kWinnerMinId) {
+      f.template run<kLeafMT, kWinnerMinId>();
+    } else {
+      f.template run<kLeafMT, kWinnerSlot>();
+    }
+  } else if (leaf == kLeafWatertight) {
+    if (winner == kWinnerMinId) {
+      f.template run<kLeafWatertight, kWinnerMinId>();
+    } else {
+      f.template run<kLeafWatertight, kWinnerSlot>();
+    }
+  } else {
+    return false;
+  }
+  return true;
 }
 
 }  // namespace shimmer

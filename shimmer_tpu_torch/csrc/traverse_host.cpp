@@ -6,28 +6,65 @@
 // torch version on a machine without a GPU.  The render path never loads
 // it.  Arguments as traverse.cu's shimmer_traverse_launch, less the stream:
 // kernel 1 or 2; leaf 0 watertight, 1 Moller-Trumbore (v1 only); winner 0
-// lowest slot, 1 lowest id (v1 only); touched may be null.  Returns 0, or
-// -1 for a combination the kernels do not offer.
+// lowest slot, 1 lowest id (v1 only); touched may be null.  stack_peak,
+// when not null, receives each ray's largest stack depth (v1 only; 0 under
+// v2).  Returns 0, or -1 for a combination the kernels do not offer.
 
 #include "traverse_v2_body.cuh"
 
 namespace {
 
-template <typename Body>
-void run(Body body, const float* rows, const int* meta, int n_rows,
-         const float* o, const float* d, const float* t_max,
-         const uint8_t* any_hit, float* t_out, int* tri_out, int* steps_out,
-         uint8_t* touched, int n) {
-  for (int i = 0; i < n; ++i) {
-    const shimmer::RayResult r =
-        body(rows, meta, n_rows, o[3 * i + 0], o[3 * i + 1], o[3 * i + 2],
-             d[3 * i + 0], d[3 * i + 1], d[3 * i + 2], t_max[i],
-             any_hit[i] != 0, touched);
+using namespace shimmer;
+
+struct Rays {
+  const float* rows;
+  const int* meta;
+  int n_rows;
+  const float* o;
+  const float* d;
+  const float* t_max;
+  const uint8_t* any_hit;
+  float* t_out;
+  int* tri_out;
+  int* steps_out;
+  uint8_t* touched;
+  int n;
+  int* stack_peak;
+
+  void store(int i, const RayResult& r, int peak) const {
     t_out[i] = r.t;
     tri_out[i] = r.tri;
     steps_out[i] = r.steps;
+    if (stack_peak != nullptr) stack_peak[i] = peak;
   }
-}
+
+  void run_v2() const {
+    for (int i = 0; i < n; ++i) {
+      store(i,
+            traverse_ray_v2(rows, meta, n_rows, o[3 * i + 0], o[3 * i + 1],
+                            o[3 * i + 2], d[3 * i + 0], d[3 * i + 1],
+                            d[3 * i + 2], t_max[i], any_hit[i] != 0, touched),
+            0);
+    }
+  }
+
+  // The v1 body (called by dispatch_v1).
+  template <int kLeaf, int kWinner>
+  void run() const {
+    NearEntry stack[kMaxStack];
+    for (int i = 0; i < n; ++i) {
+      V1Ray<kLeaf, kWinner> ray;
+      int peak = 0;
+      if (ray.start(o[3 * i + 0], o[3 * i + 1], o[3 * i + 2], d[3 * i + 0],
+                    d[3 * i + 1], d[3 * i + 2], t_max[i], any_hit[i] != 0)) {
+        while (ray.step(rows, meta, n_rows, stack, touched)) {
+          peak = ray.sp > peak ? ray.sp : peak;
+        }
+      }
+      store(i, ray.result(), peak);
+    }
+  }
+};
 
 }  // namespace
 
@@ -37,32 +74,18 @@ extern "C" int shimmer_traverse_host(int kernel, int leaf, int winner,
                                      const float* d, const float* t_max,
                                      const uint8_t* any_hit, float* t_out,
                                      int* tri_out, int* steps_out,
-                                     uint8_t* touched, int n) {
-  using namespace shimmer;
-#define SHIMMER_RUN(fn)                                                     \
-  run(fn, rows, meta, n_rows, o, d, t_max, any_hit, t_out, tri_out,        \
-      steps_out, touched, n)
-  if (kernel == 2 && leaf == kLeafWatertight && winner == kWinnerSlot) {
-    SHIMMER_RUN(traverse_ray_v2);
-  } else if (kernel == 1 && leaf == kLeafMT) {
-    if (winner == kWinnerMinId) {
-      SHIMMER_RUN((traverse_ray<kLeafMT, kWinnerMinId>));
-    } else {
-      SHIMMER_RUN((traverse_ray<kLeafMT, kWinnerSlot>));
-    }
-  } else if (kernel == 1 && leaf == kLeafWatertight) {
-    if (winner == kWinnerMinId) {
-      SHIMMER_RUN((traverse_ray<kLeafWatertight, kWinnerMinId>));
-    } else {
-      SHIMMER_RUN((traverse_ray<kLeafWatertight, kWinnerSlot>));
-    }
-  } else {
-    return -1;
+                                     uint8_t* touched, int n,
+                                     int* stack_peak) {
+  const Rays rays{rows,    meta,      n_rows, o, d, t_max, any_hit, t_out,
+                  tri_out, steps_out, touched, n, stack_peak};
+  if (kernel == 2) {
+    if (leaf != kLeafWatertight || winner != kWinnerSlot) return -1;
+    rays.run_v2();
+    return 0;
   }
-#undef SHIMMER_RUN
-  return 0;
+  return kernel == 1 && dispatch_v1(leaf, winner, rays) ? 0 : -1;
 }
 
-extern "C" int shimmer_traverse_max_stack() { return shimmer::kMaxStack; }
+extern "C" int shimmer_traverse_max_stack() { return kMaxStack; }
 
-extern "C" int shimmer_traverse_leaf_stack() { return shimmer::kLeafStack; }
+extern "C" int shimmer_traverse_leaf_stack() { return kLeafStack; }

@@ -61,7 +61,7 @@ SORT_MIN_RAYS = 128
 TRAVERSE_CHUNK = 8
 
 _lock = threading.Lock()
-_launch_fn = None
+_lib = None
 
 
 def _env_kernel() -> str:
@@ -116,21 +116,36 @@ KERNEL_NAMES = ("v1", "v1_mt", "v1_min", "v1_mt_min", "v2")
 
 
 def _launcher():
-    """The library's C launch function, built and loaded at first use."""
-    global _launch_fn
+    """The ``traverse`` library with its C signatures, built and loaded at
+    first use."""
+    global _lib
     with _lock:
-        if _launch_fn is None:
+        if _lib is None:
             lib = cuda_build.load("traverse")
             p, ci = ctypes.c_void_p, ctypes.c_int
             lib.shimmer_traverse_launch.argtypes = [ci, ci, ci, p, p, ci, p, p, p, p, p, p, p,
                                                     p, ci, p]
             lib.shimmer_traverse_launch.restype = ci
+            lib.shimmer_traverse_blocks_per_sm.argtypes = [ci, ci, ci]
+            lib.shimmer_traverse_blocks_per_sm.restype = ci
             lib.shimmer_traverse_max_stack.argtypes = []
             lib.shimmer_traverse_max_stack.restype = ci
             if lib.shimmer_traverse_max_stack() != KERNEL_MAX_STACK:
                 raise cuda_build.KernelBuildError("kernel stack bound disagrees with the wrapper")
-            _launch_fn = lib.shimmer_traverse_launch
-        return _launch_fn
+            _lib = lib
+        return _lib
+
+
+def _kernel_args(config: TraverseConfig) -> tuple[int, int, int]:
+    """The C entry points' (kernel, leaf, winner) of a configuration."""
+    return (1 if config.kernel == "v1" else 2, int(config.leaf == "mt"),
+            int(config.winner == "min"))
+
+
+def blocks_per_sm(config: TraverseConfig) -> int:
+    """Resident blocks per SM of the kernel of ``config``, from the CUDA
+    occupancy calculator."""
+    return _launcher().shimmer_traverse_blocks_per_sm(*_kernel_args(config))
 
 
 def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps,
@@ -151,6 +166,8 @@ def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps,
     cuda_build.check_tensor("d", d, torch.float32, (n, 3), dev)
     cuda_build.check_tensor("t_max", t_max, torch.float32, (n,), dev)
     cuda_build.check_tensor("any_hit", any_hit, torch.bool, (n,), dev)
+    if rows8.data_ptr() % 16:
+        raise ValueError("rows8 must be 16-byte aligned: the kernels read it in 16-byte loads")
     if int(stack_depth) + 8 > KERNEL_MAX_STACK:
         raise ValueError(
             f"BVH needs a stack of {int(stack_depth) + 8} entries; the kernel "
@@ -160,15 +177,14 @@ def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps,
         cuda_build.check_tensor("touched", touched, torch.uint8, (2 * n_rows,), dev)
     if n_rows == 0:
         raise ValueError("empty BVH table")
-    launch = _launcher()
+    launch = _launcher().shimmer_traverse_launch
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev) if return_steps else None
     flags = any_hit.view(torch.uint8)
     err = launch(
-        1 if config.kernel == "v1" else 2, int(config.leaf == "mt"), int(config.winner == "min"),
-        rows8.data_ptr(), meta.data_ptr(), n_rows, o.data_ptr(), d.data_ptr(),
-        t_max.data_ptr(), flags.data_ptr(), t.data_ptr(), tri.data_ptr(),
+        *_kernel_args(config), rows8.data_ptr(), meta.data_ptr(), n_rows, o.data_ptr(),
+        d.data_ptr(), t_max.data_ptr(), flags.data_ptr(), t.data_ptr(), tri.data_ptr(),
         steps.data_ptr() if steps is not None else None,
         touched.data_ptr() if touched is not None else None, n,
         cuda_build.stream_of(o),

@@ -52,7 +52,7 @@ def host(tmp_path_factory):
     lib.shimmer_row_chase_host.argtypes = [ci, p, ci, ci, p, ci, ci, p]
     lib.shimmer_row_chase_host.restype = ci
     for name in ("shimmer_gather_sum_rows_per_warp", "shimmer_gather_sum_warps",
-                 "shimmer_gather_sum_max_width"):
+                 "shimmer_gather_sum_max_width", "shimmer_gather_cols_stage_max_rows"):
         getattr(lib, name).restype = ci
     assert lib.shimmer_gather_sum_max_width() == g.SUM_MAX_WIDTH
     return lib
@@ -92,14 +92,37 @@ def test_gather_body_matches_plain(host, width):
     assert bool(bad.any()) and bool((out[bad] == 0).all())
 
 
-@pytest.mark.parametrize("width", [9, 128])
-def test_gather_cols_body_matches_plain(host, width):
-    tab, idx = table_and_indices(1, width)
+# (W, N, R): the transposed gather's two forms (staged for R up to
+# shimmer_gather_cols_stage_max_rows, direct beyond) on odd and even W and
+# ragged N, N past one staged chunk of 2048 among them; the first two keep
+# their earlier ids.
+COLS_CASES = {"9": (9, N, R), "128": (128, N, R), "1_n77": (1, 77, R), "8_n1": (8, 1, R),
+              "13_n333": (13, 333, R), "17_n1000": (17, N, R), "127_n77": (127, 77, R),
+              "3_n4099": (3, 4099, R), "3_n77_r12289": (3, 77, 12289),
+              "17_n1000_r13000": (17, N, 13000)}
+
+
+@pytest.mark.parametrize("width, n, n_rows", list(COLS_CASES.values()), ids=list(COLS_CASES))
+def test_gather_cols_body_matches_plain(host, width, n, n_rows):
+    tab, idx = table_and_indices(1, width, n_rows=n_rows, n=max(n, 8))
+    idx = idx[:n].contiguous()
     tab_t = tab.T.contiguous()
-    out = torch.empty(width, N)
-    call(host.shimmer_row_gather_cols_host, tab_t.data_ptr(), R, width, idx.data_ptr(), N,
+    out = torch.empty(width, n)
+    out.view(torch.int32).fill_(0x7FBADBAD)  # a NaN no table value holds: unwritten
+    call(host.shimmer_row_gather_cols_host, tab_t.data_ptr(), n_rows, width, idx.data_ptr(), n,
          out.data_ptr())
     assert bits_equal(out, g.row_gather_cols_plain(tab_t, idx))
+
+
+def test_gather_cols_cases_reach_both_forms_and_ragged_groups(host):
+    """The cases above take both forms, and the staged one a last column
+    pair that holds one column and a last chunk that is only partly
+    filled."""
+    stage_max = host.shimmer_gather_cols_stage_max_rows()
+    cases = COLS_CASES.values()
+    assert any(r <= stage_max for _, _, r in cases) and any(r > stage_max for _, _, r in cases)
+    assert any(w % 2 for w, _, r in cases if r <= stage_max)
+    assert any(n > 2048 and n % 2048 for _, n, r in cases if r <= stage_max)
 
 
 def chase_table(dtype, width, seed):

@@ -69,9 +69,11 @@ print(len(names))
          "shimmer_tpu_torch.experiments.gather"],
         ["shimmer_tpu_torch.ops.cuda_build", "shimmer_tpu_torch.ops.packet_step",
          "shimmer_tpu_torch.experiments.packet_step"],
+        ["shimmer_tpu_torch.ops.traverse", "shimmer_tpu_torch.measure",
+         "shimmer_tpu_torch.experiments.kernel_ab"],
     ],
     ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules",
-         "packet_step_modules"],
+         "packet_step_modules", "kernel_ab_modules"],
 )
 def test_imports_without_jax(names):
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -1,0 +1,162 @@
+"""The before/after timing entry point (shimmer_tpu_torch/experiments/
+kernel_ab.py) and the measurement helpers it shares with chip_smoke.py
+(shimmer_tpu_torch/measure.py) on the CPU: the statistics, the bench
+batches at a small size, the ray layouts, the traversal bound, the ptxas
+log reader and the A/B summary.  The timings themselves need the card."""
+
+import json
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from shimmer_tpu_torch import measure
+from shimmer_tpu_torch.bench_scene import build_bench_scene
+from shimmer_tpu_torch.experiments import kernel_ab as ab
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize(
+    "steps, want",
+    [([3] * 32, 1.0), ([32] + [0] * 31, 1.0 / 32), ([4] * 32 + [2] * 32, 1.0),
+     ([8] * 32 + [1], (8 * 32 + 1) / (32 * 9))],
+    ids=["even", "one_lane", "two_warps", "ragged"],
+)
+def test_simd_efficiency(steps, want):
+    got = measure.simd_efficiency(torch.tensor(steps, dtype=torch.int32))
+    assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_step_stats_match_numpy():
+    rng = np.random.default_rng(0)
+    steps = rng.integers(0, 60, 1000).astype(np.int32)
+    live = rng.random(1000) < 0.7
+    got = measure.step_stats(torch.from_numpy(steps), torch.from_numpy(live))
+    s = steps[live].astype(np.float64)
+    assert got["steps_mean"] == pytest.approx(s.mean())
+    assert got["steps_p50"] == pytest.approx(np.quantile(s, 0.5))
+    assert got["steps_p99"] == pytest.approx(np.quantile(s, 0.99))
+    assert got["steps_max"] == s.max()
+    assert 0 < got["simd_efficiency"] <= 1
+
+
+@pytest.fixture(scope="module")
+def small_batches():
+    scene, cam, film = build_bench_scene(320, (8, 8), device="cpu")
+    block = measure.BLOCK
+    measure.BLOCK = 64  # the 8x8 film is one block of 64 pixels
+    try:
+        return scene, measure.bench_batches(scene, cam, film, torch.device("cpu"))
+    finally:
+        measure.BLOCK = block
+
+
+def test_bench_batches_small(small_batches):
+    _, batches = small_batches
+    assert list(batches) == ["primary", "bounce", "merged"]
+    for name, (o, d, t_max, want) in batches.items():
+        n = 128 if name == "merged" else 64
+        assert o.shape == d.shape == (n, 3) and t_max.shape == want.shape == (n,)
+        assert want.dtype == torch.bool and o.is_contiguous() and d.is_contiguous()
+        assert torch.isfinite(o).all() and torch.isfinite(d).all()
+    o, d, t_max, want = batches["merged"]
+    # Extension rays, then shadow rays (any hit, t_max just short of the
+    # light), some of each dead.
+    assert not want[:64].any() and want[64:].all()
+    assert set(t_max[64:].unique().tolist()) <= {-np.inf, np.float32(1.0 - 1e-3)}
+    assert (t_max[:64] <= 0).any() and (t_max[64:] <= 0).any()
+
+
+def test_layouts_sort_live_rays_first(small_batches):
+    scene, batches = small_batches
+    o, d, t_max, want = batches["merged"]
+    lay = measure.layouts(scene.triangles, o, d, t_max, want)
+    assert set(lay) == {"sorted", "unsorted"}
+    s, u = lay["sorted"], lay["unsorted"]
+    assert s[0] is scene.triangles.rows8 and u[3] is o
+    live = s[5] > 0
+    # A permutation of the same rays, live ones first.
+    n_live = int(live.sum())
+    assert live[:n_live].all() and not live[n_live:].any()
+    key = lambda x, t: sorted(map(tuple, torch.cat([x, t[:, None]], 1).tolist()))  # noqa: E731
+    assert key(s[3], s[5]) == key(u[3], u[5])
+
+
+def _run(label, ms, checksum=1.5):
+    line = {"ms": ms, "hits": 10, "t_checksum": checksum, "steps_mean": 4.0, "steps_p50": 4.0,
+            "steps_p99": 9.0, "steps_max": 12, "simd_efficiency": 0.5, "bound_ms": ms / 40,
+            "visits": 400, "internal_rows_read": 30, "leaf_rows_read": 20}
+    return {"label": label, "card": "NVIDIA H100 80GB HBM3, 700.00 W",
+            "traverse": {"v1 merged": {"sorted": line, "unsorted": dict(line, ms=2 * ms)}},
+            "row_gather_cols": {"ms": ms / 10, "index_select_ms": 0.01,
+                                "equal_to_index_select": True}}
+
+
+def test_summarize_pairs_a_and_b(tmp_path):
+    paths = []
+    for label, ms in (("A1", 0.4), ("B1", 0.2), ("B2", 0.3), ("A2", 0.6)):
+        paths.append(tmp_path / f"{label}.json")
+        paths[-1].write_text(json.dumps(_run(label, ms)))
+    out = ab.summarize(paths)
+    line = out["traverse"]["v1 merged sorted"]
+    assert line["A"]["ms"] == pytest.approx(0.5) and line["B"]["ms"] == pytest.approx(0.25)
+    assert line["B_over_A_ms"] == pytest.approx(0.5) and line["same_hits"]
+    assert line["A"]["ms_runs"] == [0.4, 0.6]
+    assert line["A"]["bound_ms"] == pytest.approx(0.5 / 40) and line["B"]["visits"] == 400
+    assert out["traverse"]["v1 merged unsorted"]["B_over_A_ms"] == pytest.approx(0.5)
+    assert out["row_gather_cols"]["B"]["ms"] == pytest.approx(0.025)
+    paths[1].write_text(json.dumps(_run("B1", 0.2, checksum=2.5)))
+    assert not ab.summarize(paths)["traverse"]["v1 merged sorted"]["same_hits"]
+
+
+def test_run_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ab.run("B")
+
+
+def test_ptxas_report_reads_each_kernel():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115traverse_kernelILi1ELi0ELi0EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115traverse_kernelILi1ELi0ELi0EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 0 barriers, 480 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    256 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 1024 bytes smem, 360 bytes cmem[0]
+"""
+    got = measure.ptxas_report(log)
+    assert [k["registers"] for k in got] == [72, 40]
+    assert [(k["stack_frame"], k["spill_stores"], k["spill_loads"], k["smem"]) for k in got] == [
+        (0, 0, 0, 0), (256, 8, 4, 1024)]
+    # Demangled where c++filt is installed, the mangled name otherwise.
+    assert got[0]["kernel"] in ("traverse_kernel<1, 0, 0>",
+                                "_ZN12_GLOBAL__N_115traverse_kernelILi1ELi0ELi0EEEvNS_4ArgsE")
+
+
+def test_kernel_ab_loads_measure_from_its_own_checkout():
+    """kernel_ab times an older checkout on PYTHONPATH with this checkout's
+    helpers: it loads measure.py by path, not through the package."""
+    assert Path(ab.measure.__file__).resolve() == Path(measure.__file__).resolve()
+    assert ab.measure is not measure
+
+
+def test_traversal_bound_counts_the_launch_work():
+    """Bytes of the rows and meta words the launch read plus the rays,
+    operations of its visits; the larger time is the bound."""
+    # Rows 0-1 internal, rows 2-3 leaves (count in the low bits of meta).
+    tris = types.SimpleNamespace(meta=torch.tensor([2 << 4, 4 << 4, 3, 8], dtype=torch.int32))
+    touched = torch.tensor([1, 0, 1, 1, 1, 1, 1, 0], dtype=torch.uint8)
+    got = measure.traversal_bound(tris, touched, n_rays=10, visits=5)
+    bytes_ = 1 * 7 * 32 + 2 * 9 * 32 + 3 * 4 + 10 * (29 + 8)
+    assert (got["internal_rows_read"], got["leaf_rows_read"], got["meta_words_read"]) == (1, 2, 3)
+    assert got["bytes"] == bytes_ and got["visits"] == 5
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(bytes_ / measure.HBM_BYTES_PER_S * 1e3)
+    many = measure.traversal_bound(tris, touched, n_rays=10, visits=10**9)
+    assert many["bound_by"] == "operations"
+    assert many["bound_ms"] == pytest.approx(10**9 * 208 / measure.FP32_OPS_PER_S * 1e3)

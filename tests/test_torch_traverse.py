@@ -171,3 +171,20 @@ def test_kernel_wrapper_rejects_bad_input(scenes):
         traverse_raw(tt, o.double(), o, np.inf)
     with pytest.raises(ValueError, match="no traversal for device"):
         traverse_raw(tt, o.to("meta"), o.to("meta"), np.inf)
+
+
+def test_kernel_wrapper_rejects_misaligned_rows(scenes):
+    """The kernels read rows8 in 16-byte loads: a view that starts 4 bytes
+    into its storage raises before anything is built or launched."""
+    from shimmer_tpu_torch.ops import traverse as tv
+
+    tt = scenes["soup"]["tt"]
+    n_rows = tt.rows8.shape[0]
+    buf = torch.zeros(n_rows * 128 + 1)
+    rows = buf[1:].view(n_rows, 128)
+    rows.copy_(tt.rows8)
+    assert rows.is_contiguous() and rows.data_ptr() % 16 == 4
+    o = torch.zeros(4, 3)
+    args = (tt.meta, tt.stack_depth, o, o, torch.ones(4), torch.zeros(4, dtype=torch.bool), False)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tv._launch_kernel(rows, *args)

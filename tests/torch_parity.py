@@ -371,7 +371,7 @@ def build_host_bodies(out_dir):
     )
     lib = ctypes.CDLL(str(out))
     p, ci = ctypes.c_void_p, ctypes.c_int
-    lib.shimmer_traverse_host.argtypes = [ci, ci, ci, p, p, ci, p, p, p, p, p, p, p, p, ci]
+    lib.shimmer_traverse_host.argtypes = [ci, ci, ci, p, p, ci, p, p, p, p, p, p, p, p, ci, p]
     lib.shimmer_traverse_host.restype = ci
     lib.shimmer_traverse_max_stack.restype = ci
     lib.shimmer_traverse_leaf_stack.restype = ci
@@ -380,11 +380,12 @@ def build_host_bodies(out_dir):
     return lib
 
 
-def host_traverse(lib, tt, o, d, t_max, want, config=None, touched=None):
+def host_traverse(lib, tt, o, d, t_max, want, config=None, touched=None, stack_peak=None):
     """Run the host build of the body selected by ``config`` (default: the
     table's own) over the rays; returns (t, tri, steps) as numpy arrays.
     ``touched``, a zeroed (2 * R,) uint8 array, records the rows and meta
-    words the body reads."""
+    words the body reads; ``stack_peak``, an (N,) int32 array, receives
+    each ray's largest stack depth (v1 only)."""
     config = tt.traverse if config is None else config
     rows = np.ascontiguousarray(tt.rows8.numpy())
     meta = np.ascontiguousarray(tt.meta.numpy())
@@ -401,6 +402,7 @@ def host_traverse(lib, tt, o, d, t_max, want, config=None, touched=None):
         o.ctypes.data, d.ctypes.data, t_max.ctypes.data, flags.ctypes.data, t.ctypes.data,
         tri.ctypes.data, steps.ctypes.data,
         None if touched is None else touched.ctypes.data, n,
+        None if stack_peak is None else stack_peak.ctypes.data,
     )
     assert rc == 0, config
     return t, tri, steps
