@@ -78,6 +78,7 @@ from shimmer_tpu_torch.measure import (
     bench_batches,
     cuda_ms,
     launch_bound,
+    launch_kwargs,
     layouts,
     ptxas_report,
 )
@@ -295,6 +296,7 @@ def compare_traversal(tris, o, d, t_max, any_hit, name: str, plain=None) -> dict
 
     lay = layouts(tris, o, d, t_max, want)
     srt = lay["sorted"]
+    kw = launch_kwargs(tris)
     kernel_bound, stats = launch_bound(tris, srt, cfg)
     blocks_per_sm = tv.blocks_per_sm(cfg)
     sms = torch.cuda.get_device_properties(o.device).multi_processor_count
@@ -308,9 +310,9 @@ def compare_traversal(tris, o, d, t_max, any_hit, name: str, plain=None) -> dict
         "anyhit_mismatch": int((hit_k != hit_p)[want].sum()),
         "rehit_miss": int(rehit_miss.sum()),
         "max_abs_err_t": max_err,
-        "kernel_ms": cuda_ms(lambda: tv._launch_kernel(*srt, False, cfg), reps=10),
-        "kernel_ms_unsorted": cuda_ms(lambda: tv._launch_kernel(*lay["unsorted"], False, cfg),
-                                      reps=10),
+        "kernel_ms": cuda_ms(lambda: tv._launch_kernel(*srt, False, cfg, **kw), reps=10),
+        "kernel_ms_unsorted": cuda_ms(
+            lambda: tv._launch_kernel(*lay["unsorted"], False, cfg, **kw), reps=10),
         "wrapper_ms": cuda_ms(lambda: tv.traverse_raw(tris, o, d, t_max, any_hit=want), reps=10),
         "plain_ms": cuda_ms(
             lambda: tv.traverse_raw_plain(tris.rows8, tris.stack_depth, o, d, t_max, want,
@@ -591,10 +593,10 @@ def phase9(dev, tables) -> dict:
     smi = nvidia_smi_line()
     log(f"phase 9 entry point: {len(rows)} cases in {seconds:.1f}s, launches {json.dumps(launches)}")
     for name, res in rows.items():
-        keys = ("ns_per_step", "ns_per_step_per_program", "marginal_ns", "ms", "plain_ms",
-                "bound_ms", "bound_by", "bytes", "ops", "launches", "max_abs_err")
+        keys = ("ns_per_step", "ns_per_step_per_program", "marginal_ns", "ms", "chain_ms",
+                "plain_ms", "bound_ms", "bound_by", "bytes", "ops", "launches", "max_abs_err")
         line = {k: res[k] for k in keys if k in res}
-        line["steps"] = {s: {k: p[k] for k in ("ms", "plain_ms", "checksum") if k in p}
+        line["steps"] = {s: {k: p[k] for k in ("ms", "chain_ms", "plain_ms", "checksum") if k in p}
                          for s, p in res["steps"].items()}
         log(f"phase 9 case {name} [{smi}]: {json.dumps(line)}")
     out = {}

@@ -22,6 +22,13 @@
 
 #include "traverse_body.cuh"
 
+// Functions the launching host code calls too (the split chase's grid).
+#if defined(__CUDACC__)
+#define SHIMMER_HOST_HD __host__ __device__ __forceinline__
+#else
+#define SHIMMER_HOST_HD inline
+#endif
+
 namespace shimmer {
 namespace packet {
 
@@ -57,39 +64,19 @@ SHIMMER_HD int chase_next(const int* nxt, int r, int n_rows) {
   return clamp_row(SHIMMER_LDG(nxt + r), n_rows);
 }
 
-// Node r's 48 box floats from the row table (R, 128) or the transposed
-// table (128, R), where element e of node r sits at e * R + r.  On the
-// device a row is 12 read-only 16-byte loads; a transposed node is 48
-// 4-byte loads, each R * 4 bytes from the last.
+// Element e (< kBoxFloats) of node r's boxes, from the row table (R, 128)
+// or the transposed table (128, R), where element e of node r sits at
+// e * R + r.
 template <bool kTransposed>
-SHIMMER_HD void load_boxes(const float* table, int n_rows, int r,
-                           float v[kBoxFloats]) {
-#if defined(__CUDA_ARCH__)
-  if (!kTransposed) {
-    const float4* p =
-        reinterpret_cast<const float4*>(table + (size_t)r * kNodeWidth);
-#pragma unroll
-    for (int q = 0; q < kBoxFloats / 4; ++q) {
-      const float4 a = __ldg(p + q);
-      v[4 * q] = a.x;
-      v[4 * q + 1] = a.y;
-      v[4 * q + 2] = a.z;
-      v[4 * q + 3] = a.w;
-    }
-    return;
-  }
-#endif
-#pragma unroll
-  for (int e = 0; e < kBoxFloats; ++e) {
-    v[e] = kTransposed ? SHIMMER_LDG(table + (size_t)e * n_rows + r)
-                       : SHIMMER_LDG(table + (size_t)r * kNodeWidth + e);
-  }
+SHIMMER_HD float box_element(const float* table, int n_rows, int r, int e) {
+  return kTransposed ? SHIMMER_LDG(table + (size_t)e * n_rows + r)
+                     : SHIMMER_LDG(table + (size_t)r * kNodeWidth + e);
 }
 
 // One lane's hits against the node's 8 boxes: (tn <= tf) & (tf > 0), with
 // the reference's `slab` (exp_scaling.py:17-29) on a ray (o, i), i given.
-SHIMMER_HD float slab_hits(const float v[kBoxFloats], float ox, float oy,
-                           float oz, float ix, float iy, float iz) {
+SHIMMER_HD int slab_hit_count(const float v[kBoxFloats], float ox, float oy,
+                              float oz, float ix, float iy, float iz) {
   int hits = 0;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
@@ -105,12 +92,20 @@ SHIMMER_HD float slab_hits(const float v[kBoxFloats], float ox, float oy,
         fmin_(fmin_(fmax_(t0x, t1x), fmax_(t0y, t1y)), fmax_(t0z, t1z));
     hits += (tn <= tf && tf > 0.0f) ? 1 : 0;
   }
-  return static_cast<float>(hits);
+  return hits;
 }
 
-// One lane of kernel A: rays is the packet's (8, kLanes) block (o in rows
-// 0-2, the inverse direction in rows 3-5).  `side_stack` (kSideStack ints)
-// receives row 11's stores and the empty body's last row.
+SHIMMER_HD float slab_hits(const float v[kBoxFloats], float ox, float oy,
+                           float oz, float ix, float iy, float iz) {
+  return static_cast<float>(slab_hit_count(v, ox, oy, oz, ix, iy, iz));
+}
+
+// One lane of kernel A, every body step by step: rays is the packet's (8,
+// kLanes) block (o in rows 0-2, the inverse direction in rows 3-5).
+// `side_stack` (kSideStack ints) receives row 11's stores and the empty
+// body's last row.  On the card only int_sum, acc and acc_scaled run this
+// loop; the slab and chain bodies run split (below), and the host build
+// keeps their per-lane form as what the split form must equal.
 template <int kBody, bool kTransposed>
 SHIMMER_HD float slab_chase_lane(const float* table, int n_rows,
                                  const int* nxt, const float* rays, int lane,
@@ -138,7 +133,9 @@ SHIMMER_HD float slab_chase_lane(const float* table, int n_rows,
         r = static_cast<int>(static_cast<long long>(i) * kFixedStride % n_rows);
       }
       float v[kBoxFloats];
-      load_boxes<kTransposed>(table, n_rows, r, v);
+      for (int e = 0; e < kBoxFloats; ++e) {
+        v[e] = box_element<kTransposed>(table, n_rows, r, e);
+      }
       acc = acc + slab_hits(v, ox, oy, oz, ix, iy, iz);
       if (kBody == kBodySlabStack) side_stack[i % kSideStack] = r;
       if (kBody != kBodySlabFixed) r = chase_next(nxt, r, n_rows);
@@ -150,6 +147,139 @@ SHIMMER_HD float slab_chase_lane(const float* table, int n_rows,
   if (kBody == kBodyIntSum) return static_cast<float>(static_cast<int>(sum));
   if (kBody == kBodyChase) return static_cast<float>(r);
   return acc;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel A split, for the slab bodies (slab, slab_stack, slab_fixed) and
+// the chain bodies (empty, chase).  The function of a slab body is
+//   out[lane] = sum over i < steps of hits(node r_i, ray lane),
+// r_0 = 0 and r_{i+1} = nxt[r_i] (slab_fixed: r_i = 37 i mod R), and the
+// chain of r never depends on a slab result.  So the work splits in two
+// passes: a chain walk (one thread) that counts its visits of each row,
+// then a slab pass spread over blocks that tests each visited row once
+// per lane and adds count * hits, as integers (slab_fixed, which walks no
+// chain, tests its rows step by step, each once).  A step's count is an
+// integer <= 8, so while 8 * steps <= 2^24 the float32 running sum of the
+// per-lane body (slab_chase_lane) is exact in any order, and the integer
+// total converts to the same float: kChaseMaxSteps keeps it there.
+constexpr int kChaseMaxSteps = 1 << 21;
+constexpr int kSlabBatch = 32;   // items whose boxes a block stages at once
+constexpr int kSlabGrid = 1056;  // target chunks of the slab pass (8 per SM)
+constexpr int kMaxChunk = 256;   // items of a chunk, at most
+
+SHIMMER_HOST_HD bool is_split_body(int body) {
+  return body == kBodySlab || body == kBodySlabStack ||
+         body == kBodySlabFixed || body == kBodyEmpty || body == kBodyChase;
+}
+
+// Whether the walk of a body counts its visits (the slab bodies that walk).
+SHIMMER_HOST_HD bool counts_visits(int body) {
+  return body == kBodySlab || body == kBodySlabStack;
+}
+
+// The slab pass's items, at most: the distinct rows a walk can count, or
+// slab_fixed's steps.
+SHIMMER_HOST_HD int slab_items(int body, int n_rows, int steps) {
+  return body == kBodySlabFixed || steps < n_rows ? steps : n_rows;
+}
+
+// Items of one slab-pass chunk: a multiple of kSlabBatch near items /
+// kSlabGrid, within [kSlabBatch, kMaxChunk].
+SHIMMER_HOST_HD int slab_chunk(int items) {
+  int c = (items + kSlabGrid - 1) / kSlabGrid;
+  c = (c + kSlabBatch - 1) / kSlabBatch * kSlabBatch;
+  return c < kSlabBatch ? kSlabBatch : (c > kMaxChunk ? kMaxChunk : c);
+}
+
+SHIMMER_HOST_HD int slab_blocks(int items) {
+  return (items + slab_chunk(items) - 1) / slab_chunk(items);
+}
+
+// Item k of the slab pass: the row and its visit count, from the walk's
+// list, or slab_fixed's step k (row 37 k mod R, visited once).
+template <int kBody>
+SHIMMER_HD int item_row(const int* rows, int k, int n_rows) {
+  return kBody == kBodySlabFixed
+             ? static_cast<int>(static_cast<long long>(k) * kFixedStride %
+                                n_rows)
+             : rows[k];
+}
+
+template <int kBody>
+SHIMMER_HD int item_count(const int* counts, int k) {
+  return kBody == kBodySlabFixed ? 1 : counts[k];
+}
+
+// nxt staged for the walk: entry r holds clamp_row(nxt[r]) times
+// sizeof(int), the byte offset of the next entry, so a step of the walk is
+// one load whose result is the next load's offset.
+SHIMMER_HD void stage_chain(const int* nxt, int n_rows, int* staged, int first,
+                            int stride) {
+  for (int r = first; r < n_rows; r += stride) {
+    staged[r] = clamp_row(SHIMMER_LDG(nxt + r), n_rows) *
+                static_cast<int>(sizeof(int));
+  }
+}
+
+// One more visit of row r.  On the device a shared-memory atomic whose
+// result is not read, so the walk does not wait for it.
+SHIMMER_HD void count_visit(int* visits, int r) {
+#if defined(__CUDA_ARCH__)
+  atomicAdd(visits + r, 1);
+#else
+  visits[r] += 1;
+#endif
+}
+
+// The chain walk of a split body from r = 0 over `steps` visits, reading
+// the staged offsets or nxt itself: counts each visit of a row in visits
+// for the bodies that count (counts_visits), makes row 11's stack store
+// for slab_stack and the empty body's store of its last row; returns the
+// row after the last visit.  Each step issues the load of the next row
+// before its own stores, so they wait on nothing the chain needs.
+template <int kBody, bool kStaged>
+SHIMMER_HD int chase_walk(const int* nxt, const int* staged, int n_rows,
+                          int steps, int* visits, volatile int* side_stack) {
+  constexpr bool kCount = kBody == kBodySlab || kBody == kBodySlabStack;
+  constexpr int kWord = static_cast<int>(sizeof(int));
+  int r = 0;
+  int off = 0;
+  for (int i = 0; i < steps; ++i) {
+    const int cur = kStaged ? off / kWord : r;
+    if (kStaged) {
+      off = *reinterpret_cast<const int*>(
+          reinterpret_cast<const char*>(staged) + off);
+    } else {
+      r = chase_next(nxt, r, n_rows);
+    }
+    if (kCount) count_visit(visits, cur);
+    if (kBody == kBodySlabStack) side_stack[i % kSideStack] = cur;
+  }
+  if (kStaged) r = off / kWord;
+  if (kBody == kBodyEmpty) side_stack[0] = r;
+  return r;
+}
+
+// A lane's sum of count * hits over items [first, last), the boxes read
+// from the table (the host build's form of a chunk; the kernel stages them
+// in shared memory).
+template <int kBody, bool kTransposed>
+SHIMMER_HD int items_hits(const float* table, int n_rows, const int* rows,
+                          const int* counts, const float* rays, int lane,
+                          int first, int last) {
+  int sum = 0;
+  for (int k = first; k < last; ++k) {
+    const int r = item_row<kBody>(rows, k, n_rows);
+    float v[kBoxFloats];
+    for (int e = 0; e < kBoxFloats; ++e) {
+      v[e] = box_element<kTransposed>(table, n_rows, r, e);
+    }
+    sum += item_count<kBody>(counts, k) *
+           slab_hit_count(v, rays[0 * kLanes + lane], rays[1 * kLanes + lane],
+                          rays[2 * kLanes + lane], rays[3 * kLanes + lane],
+                          rays[4 * kLanes + lane], rays[5 * kLanes + lane]);
+  }
+  return sum;
 }
 
 // ---------------------------------------------------------------------------

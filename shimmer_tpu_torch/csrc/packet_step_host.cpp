@@ -1,5 +1,5 @@
 // Test-only host build of the packet-step kernels' bodies
-// (packet_step_body.cuh).
+// (packet_step_body.cuh), and of the split form of the packet slab chase.
 //
 // The CPU tests compile this file with g++ (-ffp-contract=off) and call it
 // through ctypes, so the kernels' own per-lane and per-packet steps are
@@ -39,7 +39,83 @@ void chase_layout(bool transposed, const float* table, int n_rows,
   }
 }
 
+// The split form of a slab or chain body, as the kernels compute it: the
+// walk (from nxt staged as byte offsets, or from nxt) counting its visits
+// of each row, the visited rows listed, then each slab-pass chunk of items
+// summed per lane as count * hits in integers, and the total written as
+// float.
+template <int kBody, bool kTransposed>
+void chase_split(const float* table, int n_rows, const int* nxt,
+                 const float* rays, int steps, bool staged, float* out) {
+  int side_stack[kSideStack] = {0};
+  std::vector<int> visits(n_rows, 0), stage(n_rows);
+  if (staged) stage_chain(nxt, n_rows, stage.data(), 0, 1);
+  const int last =
+      staged ? chase_walk<kBody, true>(nxt, stage.data(), n_rows, steps, visits.data(),
+                                       side_stack)
+             : chase_walk<kBody, false>(nxt, stage.data(), n_rows, steps, visits.data(),
+                                        side_stack);
+  if (kBody == kBodyEmpty || kBody == kBodyChase) {
+    for (int lane = 0; lane < kLanes; ++lane) {
+      out[lane] = kBody == kBodyChase ? static_cast<float>(last) : 0.0f;
+    }
+    return;
+  }
+  std::vector<int> rows, counts;
+  for (int r = 0; r < n_rows; ++r) {
+    if (visits[r] > 0) {
+      rows.push_back(r);
+      counts.push_back(visits[r]);
+    }
+  }
+  const int items = kBody == kBodySlabFixed ? steps : static_cast<int>(rows.size());
+  const int chunk = slab_chunk(slab_items(kBody, n_rows, steps));
+  for (int lane = 0; lane < kLanes; ++lane) {
+    int acc = 0;
+    for (int first = 0; first < items; first += chunk) {
+      const int end = first + chunk < items ? first + chunk : items;
+      acc += items_hits<kBody, kTransposed>(table, n_rows, rows.data(), counts.data(), rays,
+                                            lane, first, end);
+    }
+    out[lane] = static_cast<float>(acc);
+  }
+}
+
+template <int kBody>
+void split_layout(bool transposed, const float* table, int n_rows,
+                  const int* nxt, const float* rays, int steps, bool staged,
+                  float* out) {
+  if (transposed) {
+    chase_split<kBody, true>(table, n_rows, nxt, rays, steps, staged, out);
+  } else {
+    chase_split<kBody, false>(table, n_rows, nxt, rays, steps, staged, out);
+  }
+}
+
 }  // namespace
+
+// The split form of kernel A (slab, slab_stack, slab_fixed, empty, chase);
+// staged: the walk reads nxt staged as byte offsets.  Any R: the kernel's
+// limit on R (the visit counts in shared memory) is the wrapper's.
+extern "C" int shimmer_packet_slab_chase_split_host(int body, int transposed,
+                                                    const float* table,
+                                                    int n_rows, const int* nxt,
+                                                    const float* rays,
+                                                    int steps, int staged,
+                                                    float* out) {
+  if (n_rows <= 0 || steps < 0 || steps > kChaseMaxSteps) return -1;
+  const bool t = transposed != 0;
+  const bool sg = staged != 0;
+  switch (body) {
+    case kBodySlab: split_layout<kBodySlab>(t, table, n_rows, nxt, rays, steps, sg, out); break;
+    case kBodySlabStack: split_layout<kBodySlabStack>(t, table, n_rows, nxt, rays, steps, sg, out); break;
+    case kBodyEmpty: split_layout<kBodyEmpty>(t, table, n_rows, nxt, rays, steps, sg, out); break;
+    case kBodySlabFixed: split_layout<kBodySlabFixed>(t, table, n_rows, nxt, rays, steps, sg, out); break;
+    case kBodyChase: split_layout<kBodyChase>(t, table, n_rows, nxt, rays, steps, sg, out); break;
+    default: return -1;
+  }
+  return 0;
+}
 
 extern "C" int shimmer_packet_slab_chase_host(int body, int transposed,
                                               const float* table, int n_rows,

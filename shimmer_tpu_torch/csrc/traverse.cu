@@ -14,10 +14,11 @@
 //   * _traverse_kernel_v2 (row 5, SHIMMER_KERNEL_V1=0): near-first ordered
 //     pops and a postponed-leaf backlog (traverse_v2_body.cuh).
 // The TPU kernels' structure (128-ray packets sharing one stack, 4
-// interleaved chains, packet groups, the (8, 128) tiles8 layout and its
-// child-leaf column, VMEM residency and tile streaming) answers TPU
-// constraints and is not carried over.  Here one thread traces one ray with
-// its own stacks, 128 threads per block.
+// interleaved chains, packet groups, the (8, 128) tiles8 layout, VMEM
+// residency and tile streaming) answers TPU constraints and is not carried
+// over; of tiles8 only v2's child-leaf column survives, as one int32 per
+// row.  Here one thread traces one ray with its own stacks, 128 threads per
+// block.
 //
 // What bounds them on the H100: chains of dependent row reads (each visit
 // needs the previous row's result to pick the next row) and how a warp's 32
@@ -27,24 +28,25 @@
 // smaller part of it.  Tensor cores have no part here: a traversal step is
 // 8 slab or 8 triangle tests chosen by the data, with no matrix product.
 //
-// The v1 kernel, redesigned for Hopper (traverse_body.cuh, V1Ray; each
-// step timed on its own in PERF.md), answers each limit:
+// Both kernels, redesigned for Hopper (each step timed on its own in
+// PERF.md), answer each limit:
 //   * node reads as 16-byte loads: 14 for an internal row, 9 per quad of
 //     triangles for a leaf, instead of 56 and 72 scalar loads, so a visit
 //     waits on a few wide reads of its row instead of many narrow ones;
-//   * near-first order: the nearest hit child is visited next and the
-//     others are pushed in ascending entry distance, so t_best tightens
-//     early and entries beyond it are dropped without a visit (fewer
-//     visits, and the longest rays, which hold a warp, far shorter).
-// The stack stays a local array of kMaxStack entries.  Two steps measured
-// no faster and were dropped: the stack in shared memory (within the
-// run-to-run spread) and persistent warps fetching rays from a global
-// counter (Aila and Laine, "Understanding the Efficiency of Ray Traversal
-// on GPUs", HPG 2009; slower at every refill threshold tried).  v2 adds two
-// answers of its own: ordered pops, and a leaf backlog that lets every loop
-// step retire one internal and one leaf visit; it pays with two more
-// per-thread stacks (local memory) and up to eight child meta reads per
-// internal visit.
+//   * near-first order: t_best tightens early; v1 drops stack entries
+//     whose nearest child enters beyond it without a visit (fewer visits,
+//     and the longest rays, which hold a warp, far shorter).
+// Each keeps its stacks local arrays, bounded by a proof, not a guard (v1
+// in traverse_body.cuh above V1Ray, v2 in traverse_v2_body.cuh above
+// V2Ray).  Steps measured no faster were dropped: for v1 the stack in
+// shared memory (within the run-to-run spread) and persistent warps
+// fetching rays from a global counter (Aila and Laine, "Understanding the
+// Efficiency of Ray Traversal on GPUs", HPG 2009; slower at every refill
+// threshold tried), for v2 the pruned pops (the leaf backlog postpones the
+// hits that would prune).  v2 adds a leaf backlog that lets every loop step
+// retire one internal and one leaf visit, at the price of a second
+// per-thread stack, and reads a hit child's leaf bit from its parent's
+// child-leaf word instead of the child's meta word.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (see shimmer_tpu_torch/ops/cuda_build.py).  -fmad=false keeps the leaf
@@ -64,6 +66,7 @@ constexpr int kThreads = 128;
 struct Args {
   const float* rows;
   const int* meta;
+  const int* child_leaf;
   int n_rows;
   const float* o;
   const float* d;
@@ -76,17 +79,26 @@ struct Args {
   int n;
 };
 
-// One ray per thread: v1 (V1Ray over a local stack) or v2.
+// One ray per thread: v1 (V1Ray over a local stack) or v2 (V2Ray over its
+// two local stacks).
 template <int kKernel, int kLeaf, int kWinner>
 __global__ void __launch_bounds__(kThreads) traverse_kernel(const Args a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   RayResult r;
   if constexpr (kKernel == 2) {
-    r = traverse_ray_v2(a.rows, a.meta, a.n_rows, a.o[3 * i + 0],
-                        a.o[3 * i + 1], a.o[3 * i + 2], a.d[3 * i + 0],
-                        a.d[3 * i + 1], a.d[3 * i + 2], a.t_max[i],
-                        a.any_hit[i] != 0, a.touched);
+    V2Entry istack[kMaxStack];
+    int lstack[kLeafStack];
+    V2Ray ray;
+    if (ray.start(a.o[3 * i + 0], a.o[3 * i + 1], a.o[3 * i + 2],
+                  a.d[3 * i + 0], a.d[3 * i + 1], a.d[3 * i + 2], a.t_max[i],
+                  a.any_hit[i] != 0, a.meta, a.n_rows, istack, lstack,
+                  a.touched)) {
+      while (ray.step(a.rows, a.meta, a.child_leaf, a.n_rows, istack, lstack,
+                      a.touched)) {
+      }
+    }
+    r = ray.result();
   } else {
     NearEntry stack[kMaxStack];
     V1Ray<kLeaf, kWinner> ray;
@@ -131,23 +143,27 @@ Kernel pick(int kernel, int leaf, int winner) {
 
 // Plain C entry point for ctypes.  kernel: 1 (v1) or 2 (v2); leaf: 0
 // watertight, 1 Moller-Trumbore (v1 only); winner: 0 lowest slot, 1 lowest
-// id (v1 only).  steps_out and touched may be null (touched: see
+// id (v1 only).  child_leaf: the (n_rows,) child-leaf words v2 reads (may
+// be null for v1).  steps_out and touched may be null (touched: see
 // traverse_body.cuh, touch_row).  Launches on `stream` (PyTorch's current
 // stream), does not synchronise, allocates nothing, and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a combination the
 // kernels do not offer.
 extern "C" int shimmer_traverse_launch(int kernel, int leaf, int winner,
                                        const float* rows, const int* meta,
-                                       int n_rows, const float* o,
+                                       const int* child_leaf, int n_rows,
+                                       const float* o,
                                        const float* d, const float* t_max,
                                        const uint8_t* any_hit, float* t_out,
                                        int* tri_out, int* steps_out,
                                        uint8_t* touched, int n, void* stream) {
   const Kernel k = pick(kernel, leaf, winner);
-  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (k == nullptr || (kernel == 2 && child_leaf == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0) {
-    const Args a{rows,  meta,    n_rows,  o,         d,       t_max,
-                 any_hit, t_out, tri_out, steps_out, touched, n};
+    const Args a{rows,  meta,    child_leaf, n_rows,  o,         d,       t_max,
+                 any_hit, t_out, tri_out,    steps_out, touched, n};
     const int blocks = (n + kThreads - 1) / kThreads;
     k<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   }

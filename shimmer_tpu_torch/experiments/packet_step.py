@@ -23,6 +23,12 @@ Cases, by kernel-table row (PERF.md) and the reference script they mirror
 * 16 (``exp_ablate_step.py``): v0-v4, G = 64, marginal between 256 and
   2,048 steps divided by G, as the reference divides it.
 
+On the card the slab chase runs split (ops/packet_step.py): its ns per
+step is the chain walk's latency plus the slab tests spread over the card,
+not one packet's step latency; the slab and slab_stack cases also time
+the chain alone (the ``empty`` body on the same inputs and steps,
+``chain_ms``).
+
 Inputs come from ``numpy.random.default_rng(SEED)`` drawn in each script's
 own order, so they are the reference's arrays.  The reference's
 memoization and host-transfer probes (exp_scaling.py:71-112) time its TPU
@@ -175,7 +181,9 @@ def work(case: Case, steps: int, stats: dict, x: dict) -> tuple[int, int]:
     steps on these inputs: each input byte it reads once (the rows, nxt
     and meta words this run's chain reads, by the columns the step uses),
     each output byte once; operations as SLAB_OPS and the others count
-    them, for the slots and steps this run's data takes."""
+    them, for the slots and steps this run's data takes.  A slab chase
+    needs each distinct row's slab test once per lane, times its visits
+    (one multiply more), as the plain version and the kernel compute it."""
     P = ps.LANES
     if case.kernel == "packet_slab_chase":
         body = case.variant
@@ -184,7 +192,7 @@ def work(case: Case, steps: int, stats: dict, x: dict) -> tuple[int, int]:
             return nbytes + 4 * P, steps * P * (1 if body == "acc" else 2)
         if body in ("empty", "chase", "int_sum"):
             return nbytes, steps if body == "int_sum" else 0
-        return nbytes + 6 * 4 * P, steps * P * SLAB_OPS
+        return nbytes + 6 * 4 * P, stats["rows_read"] * P * (SLAB_OPS + 1)
     n_prog = case.programs
     if case.kernel == "step_attrib":
         n_packets = n_prog * ATTRIB_PACKETS
@@ -210,14 +218,25 @@ def bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _chain(case: Case, x: dict):
+    """The chain alone of a case that walks one before its slab tests (the
+    ``empty`` body on the same inputs), or None."""
+    if case.kernel != "packet_slab_chase" or case.variant not in ("slab", "slab_stack"):
+        return None
+    return lambda s: ps.packet_slab_chase(x["table"], x["nxt"], x["rays"], s, "empty",
+                                          case.transposed)
+
+
 def run_case(case: Case, x: dict) -> dict:
     """Run one case: at each step count the kernel against its plain
     version on the same tensors (bit for bit), both timed, and the work
-    the bound counts; then ns per step as the reference reports it.
+    the bound counts; then ns per step as the reference reports it, and
+    the chain alone's time where the case walks one (``chain_ms``).
     ``launches`` counts the kernel's timed launches (the warm-up and
     REPS), not the one compared with the plain version."""
     dev = next(iter(v for v in x.values() if isinstance(v, torch.Tensor))).device
     kernel, plain = _functions(case, x)
+    chain = _chain(case, x)
     launches = 0
     per = {}
     for s in case.steps:
@@ -232,17 +251,21 @@ def run_case(case: Case, x: dict) -> dict:
         err = float((got[0] - want[0]).abs().max())
         before = ps.launch_counts()[case.kernel]
         ms = time_ms(lambda: kernel(s), dev, reps=REPS)
+        chain_ms = None if chain is None else time_ms(lambda: chain(s), dev, reps=REPS)
         launches += ps.launch_counts()[case.kernel] - before
         nbytes, ops = work(case, s, stats, x)
         per[s] = {"ms": ms, "plain_ms": plain_ms, "ok": ok, "max_abs_err": err,
                   "checksum": float(got[0].double().sum()), "bytes": nbytes, "ops": ops,
                   **bound(nbytes, ops)}
+        if chain_ms is not None:
+            per[s]["chain_ms"] = chain_ms
     last = case.steps[-1]
     res = {"name": case.name, "row": case.row, "kernel": case.kernel, "variant": case.variant,
            "steps": per, "ok": all(p["ok"] for p in per.values()),
            "max_abs_err": max(p["max_abs_err"] for p in per.values()),
            "launches": launches,
-           **{k: per[last][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "ops")}}
+           **{k: per[last][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "ops",
+                                        "chain_ms") if k in per[last]}}
     if case.kernel == "step_attrib":
         n_steps = case.programs * last * ATTRIB_PACKETS
         res["ns_per_step"] = per[last]["ms"] * 1e6 / n_steps  # per packet-step
@@ -262,7 +285,8 @@ def run_case(case: Case, x: dict) -> dict:
 
 
 def format_line(res: dict) -> str:
-    times = ", ".join(f"{s}: {p['ms']:.4f} ms ({p['ms'] * 1e6 / s:.2f} ns/step)"
+    times = ", ".join(f"{s}: {p['ms']:.4f} ms ({p['ms'] * 1e6 / s:.2f} ns/step"
+                      + (f", chain alone {p['chain_ms']:.4f} ms" if "chain_ms" in p else "") + ")"
                       for s, p in res["steps"].items())
     exact = "exact" if res["ok"] else f"MISMATCH max|d|={res['max_abs_err']:g}"
     extra = ""

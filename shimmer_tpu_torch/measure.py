@@ -27,7 +27,8 @@ SPP = 16
 # read (the launch's own `touched` record): per internal row visited its 6
 # box-coordinate and 1 valid-flag groups of 8 floats, per leaf row visited
 # its 9 vertex-coordinate groups (the id group, read only on a hit, is
-# left out), per meta word read 4 bytes; plus the rays.  Operations: 208
+# left out), per meta word read 4 bytes, per child-leaf word read 4 bytes
+# (v2 reads one per internal row it visits); plus the rays.  Operations: 208
 # per node visit (the slab test of 8 child boxes, 26 each; a leaf visit
 # of 8 triangles costs more, so this is a lower bound), times the visits
 # of the launch being bounded.  Rows and visits are those of the kernel
@@ -155,10 +156,11 @@ def step_stats(steps, live) -> dict:
             "simd_efficiency": simd_efficiency(steps)}
 
 
-def traversal_bound(tris, touched, n_rays: int, visits: int) -> dict:
+def traversal_bound(tris, touched, n_rays: int, visits: int, child_leaf: bool = False) -> dict:
     """The bound of one traversal launch (see HBM_BYTES_PER_S) from the
     launch's ``touched`` record and its visits: bound_ms, bound_by and the
-    work counted."""
+    work counted.  ``child_leaf``: the launch read the child-leaf word of
+    each internal row it visited."""
     n_rows = tris.meta.shape[0]
     rows = touched[:n_rows].bool()
     leaf = (tris.meta & 15) > 0
@@ -168,13 +170,23 @@ def traversal_bound(tris, touched, n_rays: int, visits: int) -> dict:
         "leaf_rows_read": int((rows & leaf).sum()),
         "meta_words_read": int(touched[n_rows:].sum()),
     }
+    work["child_leaf_words_read"] = work["internal_rows_read"] if child_leaf else 0
     work["bytes"] = (work["internal_rows_read"] * INTERNAL_ROW_BYTES
-                     + work["leaf_rows_read"] * LEAF_ROW_BYTES + work["meta_words_read"] * 4
+                     + work["leaf_rows_read"] * LEAF_ROW_BYTES
+                     + (work["meta_words_read"] + work["child_leaf_words_read"]) * 4
                      + n_rays * (RAY_BYTES_IN + RAY_BYTES_OUT))
     t_bytes = work["bytes"] / HBM_BYTES_PER_S
     t_ops = visits * OPS_PER_VISIT / FP32_OPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", **work}
+
+
+def launch_kwargs(tris) -> dict:
+    """The table arguments a launch takes beside a layout: the child-leaf
+    words v2 reads, where the checkout's tables carry them (before the v2
+    redesign they did not, and its launch takes none)."""
+    child_leaf = getattr(tris, "child_leaf", None)
+    return {} if child_leaf is None else {"child_leaf": child_leaf}
 
 
 def launch_bound(tris, args, cfg) -> tuple[dict, dict]:
@@ -183,8 +195,10 @@ def launch_bound(tris, args, cfg) -> tuple[dict, dict]:
     from shimmer_tpu_torch.ops import traverse as tv
 
     touched = torch.zeros(2 * tris.meta.shape[0], dtype=torch.uint8, device=args[3].device)
-    _, _, steps = tv._launch_kernel(*args, True, cfg, touched=touched)
-    return (traversal_bound(tris, touched, args[3].shape[0], int(steps.sum())),
+    kw = launch_kwargs(tris)
+    _, _, steps = tv._launch_kernel(*args, True, cfg, touched=touched, **kw)
+    return (traversal_bound(tris, touched, args[3].shape[0], int(steps.sum()),
+                            child_leaf=cfg.kernel == "v2" and bool(kw)),
             step_stats(steps, args[5] > 0))
 
 

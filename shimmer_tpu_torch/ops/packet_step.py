@@ -8,7 +8,10 @@ traversal and its parts:
 
 * :func:`packet_slab_chase` (rows 10-14) -- one packet, ``steps`` visits
   of a chain from row 0: slab-test node r's 8 boxes, add each lane's hit
-  count, ``r = nxt[r]``; or one of the loop-overhead bodies of row 14;
+  count, ``r = nxt[r]``; or one of the loop-overhead bodies of row 14.
+  On the card the slab and chain bodies run split: one thread walks the
+  chain counting its visits of each row, then the slab tests of the
+  visited rows, weighted by their counts, run over the whole card;
 * :func:`step_attrib` (row 15) -- the v1 packet step body over a BVH8
   table with pieces switched off (``ATTRIB_VARIANTS``);
 * :func:`step_ablate` (row 16) -- a chain ``r = meta[r]`` with one more
@@ -41,6 +44,19 @@ BOX_FLOATS = 48
 # Kernel A's bodies, by their index in csrc/packet_step_body.cuh.
 BODIES = ("slab", "slab_stack", "empty", "slab_fixed", "int_sum", "chase", "acc", "acc_scaled")
 FIXED_STRIDE = 37  # k5: r = (i * 37) % R
+# The bodies the kernel splits into a chain walk and a slab pass spread
+# over the card (csrc/packet_step_body.cuh, "Kernel A split"); the others
+# keep the per-lane loop, whose float sums depend on their order.
+SPLIT_BODIES = ("slab", "slab_stack", "empty", "slab_fixed", "chase")
+# The split bodies whose walk counts its visits of each row in one block's
+# shared memory, and the most rows it holds (kMaxSharedRows).
+COUNTED_BODIES = ("slab", "slab_stack")
+MAX_COUNTED_ROWS = (227 * 1024 - 8 * 1024) // 4
+# The most steps a chase takes (kChaseMaxSteps): a lane's hit count, at
+# most 8 a step, stays an exact float32 integer (8 * steps <= 2^24), so the
+# split's integer total equals the per-lane float sum.  The reference's
+# largest case is 2^20 steps.
+MAX_CHASE_STEPS = 2**21
 # Kernel B's variants (exp_step_attrib.py's names), by index.
 ATTRIB_VARIANTS = ("full", "noroll", "noleaf", "noint", "nobits", "noscalar")
 ATTRIB_RAY_ROWS = 16
@@ -70,18 +86,23 @@ def _library():
         if _lib is None:
             lib = cuda_build.load("packet_step")
             p, ci = ctypes.c_void_p, ctypes.c_int
-            lib.shimmer_packet_slab_chase.argtypes = [ci, ci, p, ci, p, p, ci, p, p]
+            lib.shimmer_packet_slab_chase.argtypes = [ci, ci, p, ci, p, p, ci, p, p, p]
+            lib.shimmer_packet_slab_chase_max_steps.argtypes = []
+            lib.shimmer_packet_slab_chase_max_rows.argtypes = []
             lib.shimmer_step_attrib.argtypes = [ci, p, p, ci, p, ci, ci, ci, ci, p, p, p]
             lib.shimmer_step_ablate.argtypes = [ci, p, p, p, ci, ci, ci, p, p]
             lib.shimmer_step_attrib_max_packets.argtypes = []
             lib.shimmer_step_attrib_max_stack.argtypes = []
             for fn in (lib.shimmer_packet_slab_chase, lib.shimmer_step_attrib,
                        lib.shimmer_step_ablate, lib.shimmer_step_attrib_max_packets,
-                       lib.shimmer_step_attrib_max_stack):
+                       lib.shimmer_step_attrib_max_stack, lib.shimmer_packet_slab_chase_max_steps,
+                       lib.shimmer_packet_slab_chase_max_rows):
                 fn.restype = ci
-            if (lib.shimmer_step_attrib_max_packets(), lib.shimmer_step_attrib_max_stack()) != (
-                    ATTRIB_MAX_PACKETS, ATTRIB_MAX_STACK):
-                raise cuda_build.KernelBuildError("step_attrib bounds disagree with the wrapper")
+            if (lib.shimmer_step_attrib_max_packets(), lib.shimmer_step_attrib_max_stack(),
+                    lib.shimmer_packet_slab_chase_max_steps(),
+                    lib.shimmer_packet_slab_chase_max_rows()) != (
+                    ATTRIB_MAX_PACKETS, ATTRIB_MAX_STACK, MAX_CHASE_STEPS, MAX_COUNTED_ROWS):
+                raise cuda_build.KernelBuildError("packet-step bounds disagree with the wrapper")
             _lib = lib
         return _lib
 
@@ -110,7 +131,11 @@ def packet_slab_chase(table, nxt, rays, steps: int, body: str = "slab", transpos
     float32 node rows, or (128, R) with ``transposed``, whose elements
     0:48 are the 8 boxes [lox*8 | loy*8 | loz*8 | hix*8 | hiy*8 | hiz*8];
     nxt: (R,) int32; rays: (8, 128) float32, origin in rows 0-2, inverse
-    direction in rows 3-5.  Returns the (1, 128) float32 output."""
+    direction in rows 3-5; steps at most ``MAX_CHASE_STEPS``.  Returns the
+    (1, 128) float32 output.  On the card a split body (``SPLIT_BODIES``)
+    is up to two launches, the chain walk and the slab pass, counted as one
+    call of the kernel; slab and slab_stack take at most
+    ``MAX_COUNTED_ROWS`` rows there."""
     if body not in BODIES:
         raise ValueError(f"body {body!r} is not one of {BODIES}")
     dev = table.device
@@ -119,13 +144,21 @@ def packet_slab_chase(table, nxt, rays, steps: int, body: str = "slab", transpos
     shape = (NODE_WIDTH, n_rows) if transposed else (n_rows, NODE_WIDTH)
     cuda_build.check_tensor("table", table, torch.float32, shape, dev)
     cuda_build.check_tensor("rays", rays, torch.float32, (8, LANES), dev)
-    steps = _count("steps", steps, 0)
+    steps = _count("steps", steps, 0, MAX_CHASE_STEPS)
     if _device_type(table) == "cpu":
         return packet_slab_chase_plain(table, nxt, rays, steps, body, transposed)
+    if body in COUNTED_BODIES and n_rows > MAX_COUNTED_ROWS:
+        raise ValueError(f"the card's {body} chase counts the visits of at most "
+                         f"{MAX_COUNTED_ROWS} rows, got {n_rows}")
     out = torch.empty(1, LANES, dtype=torch.float32, device=dev)
+    # The split bodies' scratch: the visited rows and their counts, their
+    # number, the per-lane sums and the slab pass's finished-block count.
+    listed = min(steps, n_rows) if body in COUNTED_BODIES else 0
+    work = torch.empty(2 * listed + LANES + 2, dtype=torch.int32, device=dev)
     cuda_build.raise_on_error(_library().shimmer_packet_slab_chase(
         BODIES.index(body), int(transposed), table.data_ptr(), n_rows, nxt.data_ptr(),
-        rays.data_ptr(), steps, out.data_ptr(), cuda_build.stream_of(table)), "packet_slab_chase")
+        rays.data_ptr(), steps, work.data_ptr(), out.data_ptr(), cuda_build.stream_of(table)),
+        "packet_slab_chase")
     packet_slab_chase.launches["packet_slab_chase"] += 1
     return out
 

@@ -13,7 +13,8 @@ behind one C entry point:
   test (watertight or Moller-Trumbore) and the winner among equal t in a
   leaf (lowest slot or lowest id);
 * v2 (``csrc/traverse_v2_body.cuh``): ordered near-first internal pops
-  plus a postponed-leaf backlog.
+  plus a postponed-leaf backlog; it reads whether a hit child is a leaf
+  from its parent's word of :func:`child_leaf_mask`.
 
 On the H100 both are bound by chains of dependent row reads and warp
 divergence, not by FLOPs; the row table is read through the read-only
@@ -123,8 +124,8 @@ def _launcher():
         if _lib is None:
             lib = cuda_build.load("traverse")
             p, ci = ctypes.c_void_p, ctypes.c_int
-            lib.shimmer_traverse_launch.argtypes = [ci, ci, ci, p, p, ci, p, p, p, p, p, p, p,
-                                                    p, ci, p]
+            lib.shimmer_traverse_launch.argtypes = [ci, ci, ci, p, p, p, ci, p, p, p, p, p, p,
+                                                    p, p, ci, p]
             lib.shimmer_traverse_launch.restype = ci
             lib.shimmer_traverse_blocks_per_sm.argtypes = [ci, ci, ci]
             lib.shimmer_traverse_blocks_per_sm.restype = ci
@@ -148,15 +149,33 @@ def blocks_per_sm(config: TraverseConfig) -> int:
     return _launcher().shimmer_traverse_blocks_per_sm(*_kernel_args(config))
 
 
+def child_leaf_mask(meta):
+    """The (R,) int32 child-leaf words of a table's ``meta``: for an
+    internal row, bit j set when its child row ``child_base + j`` (clamped
+    into the table) is a leaf; 0 for a leaf row.  The reference packs the
+    same mask into tiles8 column c11 (``shimmer_tpu/ops/bvh8.py::
+    pack_tiles8``) for its v2 kernel, which splits a visit's hit children
+    into internal entries and leaf-backlog bits without reading their meta
+    words; the port's v2 kernel reads one such word per internal visit."""
+    n_rows = meta.shape[0]
+    child = torch.clamp((meta.long() >> 4)[:, None] + torch.arange(8, device=meta.device),
+                        0, max(n_rows - 1, 0))
+    is_leaf = (meta[child] & 15) > 0
+    mask = (is_leaf.long() << torch.arange(8, device=meta.device)).sum(1)
+    return torch.where((meta & 15) == 0, mask, 0).to(torch.int32)
+
+
 def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps,
-                   config: TraverseConfig = V1, touched=None):
+                   config: TraverseConfig = V1, touched=None, child_leaf=None):
     """Launch the CUDA kernel of ``config`` on (N,) rays already laid out
     for it.  Returns (t, tri, steps or None); t = +inf where tri = -1.
 
     ``touched``, a zeroed (2 * R,) uint8 tensor or None, records what the
     launch reads: 1 at ``touched[r]`` for each row visited and at
     ``touched[R + r]`` for each meta word read (the work behind the
-    launch's bound; csrc/traverse_body.cuh, touch_row)."""
+    launch's bound; csrc/traverse_body.cuh, touch_row).  ``child_leaf``,
+    the table's :func:`child_leaf_mask`, is required by v2 and ignored by
+    v1."""
     dev = o.device
     n = o.shape[0]
     n_rows = rows8.shape[0]
@@ -166,6 +185,10 @@ def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps,
     cuda_build.check_tensor("d", d, torch.float32, (n, 3), dev)
     cuda_build.check_tensor("t_max", t_max, torch.float32, (n,), dev)
     cuda_build.check_tensor("any_hit", any_hit, torch.bool, (n,), dev)
+    if config.kernel == "v2":
+        if child_leaf is None:
+            raise ValueError("the v2 kernel needs the table's child_leaf_mask")
+        cuda_build.check_tensor("child_leaf", child_leaf, torch.int32, (n_rows,), dev)
     if rows8.data_ptr() % 16:
         raise ValueError("rows8 must be 16-byte aligned: the kernels read it in 16-byte loads")
     if int(stack_depth) + 8 > KERNEL_MAX_STACK:
@@ -183,7 +206,8 @@ def _launch_kernel(rows8, meta, stack_depth, o, d, t_max, any_hit, return_steps,
     steps = torch.empty(n, dtype=torch.int32, device=dev) if return_steps else None
     flags = any_hit.view(torch.uint8)
     err = launch(
-        *_kernel_args(config), rows8.data_ptr(), meta.data_ptr(), n_rows, o.data_ptr(),
+        *_kernel_args(config), rows8.data_ptr(), meta.data_ptr(),
+        child_leaf.data_ptr() if config.kernel == "v2" else None, n_rows, o.data_ptr(),
         d.data_ptr(), t_max.data_ptr(), flags.data_ptr(), t.data_ptr(), tri.data_ptr(),
         steps.data_ptr() if steps is not None else None,
         touched.data_ptr() if touched is not None else None, n,
@@ -246,8 +270,8 @@ def traverse_raw(tris, ray_o, ray_d, t_max, any_hit=False, sort_rays=True,
     """Closest-hit traversal with per-lane any-hit, in the original ray
     order: returns (t, tri[, steps]) with t = +inf and tri = -1 on a miss.
 
-    tris: a ``TriangleSceneData`` (rows8, meta, stack_depth, world bounds,
-    and the traversal configuration ``traverse``).
+    tris: a ``TriangleSceneData`` (rows8, meta, child_leaf, stack_depth,
+    world bounds, and the traversal configuration ``traverse``).
     t_max: scalar or (N,); lanes with t_max <= 0 are dead and miss.
     any_hit: bool or (N,) bool; those lanes stop at their first hit (only
     their occlusion bit is meaningful).
@@ -272,7 +296,7 @@ def traverse_raw(tris, ray_o, ray_d, t_max, any_hit=False, sort_rays=True,
     if dev.type == "cuda":
         out = _launch_kernel(
             tris.rows8, tris.meta, tris.stack_depth, ray_o, ray_d, t_max, want,
-            return_steps, tris.traverse,
+            return_steps, tris.traverse, child_leaf=tris.child_leaf,
         )
     elif dev.type == "cpu":
         out = traverse_raw_plain(

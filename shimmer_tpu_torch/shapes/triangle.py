@@ -21,7 +21,7 @@ import torch
 from shimmer_tpu_torch.config import f32, i32, resolve_device
 from shimmer_tpu_torch.ops.bvh8 import pack_bvh8, pack_leaves_mt
 from shimmer_tpu_torch.ops.math import difference_of_products
-from shimmer_tpu_torch.ops.traverse import TraverseConfig
+from shimmer_tpu_torch.ops.traverse import TraverseConfig, child_leaf_mask
 from shimmer_tpu_torch.ops.sampling import (
     sample_spherical_triangle,
     sample_uniform_triangle,
@@ -77,6 +77,13 @@ class TriangleSceneData:
     has_iface_media: bool = False
     # Which traversal kernel runs and how leaf rows are packed.
     traverse: TraverseConfig = dataclasses.field(default_factory=TraverseConfig)
+    # (R,) int32 child-leaf words the v2 kernel reads (child_leaf_mask of
+    # meta), made from meta when not given.
+    child_leaf: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.child_leaf is None:
+            object.__setattr__(self, "child_leaf", child_leaf_mask(self.meta))
 
     def with_traverse(self, traverse: TraverseConfig) -> "TriangleSceneData":
         """The same scene under another traversal configuration.  A

@@ -92,7 +92,8 @@ def _run(label, ms, checksum=1.5):
     return {"label": label, "card": "NVIDIA H100 80GB HBM3, 700.00 W",
             "traverse": {"v1 merged": {"sorted": line, "unsorted": dict(line, ms=2 * ms)}},
             "row_gather_cols": {"ms": ms / 10, "index_select_ms": 0.01,
-                                "equal_to_index_select": True}}
+                                "equal_to_index_select": True},
+            "chase": {"10 make 131072": {"ms": 100 * ms, "checksum": checksum}}}
 
 
 def test_summarize_pairs_a_and_b(tmp_path):
@@ -108,8 +109,13 @@ def test_summarize_pairs_a_and_b(tmp_path):
     assert line["A"]["bound_ms"] == pytest.approx(0.5 / 40) and line["B"]["visits"] == 400
     assert out["traverse"]["v1 merged unsorted"]["B_over_A_ms"] == pytest.approx(0.5)
     assert out["row_gather_cols"]["B"]["ms"] == pytest.approx(0.025)
+    chase = out["chase"]["10 make 131072"]
+    assert chase["A"]["ms"] == pytest.approx(50.0) and chase["B"]["ms_runs"] == [20.0, 30.0]
+    assert chase["B_over_A_ms"] == pytest.approx(0.5) and chase["same_output"]
     paths[1].write_text(json.dumps(_run("B1", 0.2, checksum=2.5)))
-    assert not ab.summarize(paths)["traverse"]["v1 merged sorted"]["same_hits"]
+    out = ab.summarize(paths)
+    assert not out["traverse"]["v1 merged sorted"]["same_hits"]
+    assert not out["chase"]["10 make 131072"]["same_output"]
 
 
 def test_run_needs_a_card(monkeypatch):
@@ -160,3 +166,45 @@ def test_traversal_bound_counts_the_launch_work():
     many = measure.traversal_bound(tris, touched, n_rays=10, visits=10**9)
     assert many["bound_by"] == "operations"
     assert many["bound_ms"] == pytest.approx(10**9 * 208 / measure.FP32_OPS_PER_S * 1e3)
+
+
+def test_traversal_bound_counts_child_leaf_words():
+    """v2 reads one child-leaf word per internal row it visits: 4 bytes
+    each beside the rows and meta words; other launches read none."""
+    tris = types.SimpleNamespace(meta=torch.tensor([2 << 4, 4 << 4, 3, 8], dtype=torch.int32))
+    touched = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], dtype=torch.uint8)
+    without = measure.traversal_bound(tris, touched, n_rays=10, visits=5)
+    with_words = measure.traversal_bound(tris, touched, n_rays=10, visits=5, child_leaf=True)
+    assert without["child_leaf_words_read"] == 0
+    assert with_words["child_leaf_words_read"] == 2
+    assert with_words["bytes"] == without["bytes"] + 2 * 4
+
+
+def test_launch_kwargs_pass_child_leaf_words_where_tables_carry_them(small_batches):
+    scene, _ = small_batches
+    kw = measure.launch_kwargs(scene.triangles)
+    assert list(kw) == ["child_leaf"] and kw["child_leaf"] is scene.triangles.child_leaf
+    # An older checkout's table has no child-leaf words: its launch takes none.
+    assert measure.launch_kwargs(types.SimpleNamespace(meta=scene.triangles.meta)) == {}
+
+
+def test_time_chase_runs_the_entry_point_cases():
+    """kernel_ab's chase cases are cases of the packet-step entry point at
+    one of their step counts; on the CPU time_chase runs them through the
+    wrapper (the plain versions) with their output checksums."""
+    from shimmer_tpu_torch.experiments import packet_step as eps
+    from shimmer_tpu_torch.ops import packet_step as ps
+
+    by_name = {c.name: c for c in eps.cases()}
+    for name, steps in ab.CHASE_CASES:
+        assert steps in by_name[name].steps and by_name[name].kernel == "packet_slab_chase"
+    ps.reset_launches()
+    got = ab.time_chase(torch.device("cpu"))
+    assert list(got) == [f"{name} {steps}" for name, steps in ab.CHASE_CASES]
+    for (name, steps), line in zip(ab.CHASE_CASES, got.values()):
+        case = by_name[name]
+        x = eps.make_inputs(case, "cpu")
+        want = ps.packet_slab_chase_plain(x["table"], x["nxt"], x["rays"], steps, case.variant,
+                                          case.transposed)
+        assert line["checksum"] == float(want.double().sum()) and line["ms"] > 0
+    assert ps.launch_counts()["packet_slab_chase"] == 0

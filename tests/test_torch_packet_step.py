@@ -242,6 +242,10 @@ def test_entry_point_runs_every_case_on_cpu(small_tables):
         assert eps.format_line(r).startswith(f"  {r['name']}")
     assert sum(ps.launch_counts().values()) == 0
     assert {r["launches"] for r in rows} == {0}
+    # The slab chases that walk a chain also time the chain alone.
+    for r in rows:
+        walks = r["kernel"] == "packet_slab_chase" and r["variant"] in ("slab", "slab_stack")
+        assert ("chain_ms" in r) == walks, r["name"]
     assert [len(r["marginal_ns"]) for r in rows if r["row"] == "10"] == [1]
 
 

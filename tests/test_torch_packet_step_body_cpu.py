@@ -7,7 +7,10 @@ Everything is bit-equal: the slab chases count whole hits, the chains
 move integers, and the float sums, the step attribution's slab and
 watertight tests and the ablation's hi|lo slab run in the same operation
 order on both sides, with g++ building without FMA contraction.  The
-step attribution's carried stacks are equal too.
+step attribution's carried stacks are equal too.  The split form of the
+slab chase (the chain walk, then per-lane integer counts over the slab
+pass's chunks of steps) equals both the plain version and the per-lane
+body it replaces on the card.
 """
 
 import ctypes
@@ -42,9 +45,11 @@ def host(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     p, ci = ctypes.c_void_p, ctypes.c_int
     lib.shimmer_packet_slab_chase_host.argtypes = [ci, ci, p, ci, p, p, ci, p]
+    lib.shimmer_packet_slab_chase_split_host.argtypes = [ci, ci, p, ci, p, p, ci, ci, p]
     lib.shimmer_step_attrib_host.argtypes = [ci, p, p, ci, p, ci, ci, ci, ci, p, p]
     lib.shimmer_step_ablate_host.argtypes = [ci, p, p, p, ci, ci, ci, p]
-    for fn in (lib.shimmer_packet_slab_chase_host, lib.shimmer_step_attrib_host,
+    for fn in (lib.shimmer_packet_slab_chase_host, lib.shimmer_packet_slab_chase_split_host,
+               lib.shimmer_step_attrib_host,
                lib.shimmer_step_ablate_host, lib.shimmer_step_attrib_max_packets,
                lib.shimmer_step_attrib_max_stack):
         fn.restype = ci
@@ -75,6 +80,32 @@ def test_slab_chase_body_matches_plain(host, chase_data, body, transposed):
             rays.data_ptr(), steps, out.data_ptr()) == 0
         want = ps.packet_slab_chase_plain(table, nxt, rays, steps, body, transposed)
         assert torch.equal(out, want), (body, steps)
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["nxt", "staged"])
+@pytest.mark.parametrize("transposed", [False, True], ids=["rows", "transposed"])
+@pytest.mark.parametrize("body", ps.SPLIT_BODIES)
+def test_split_chase_matches_plain_and_lane_body(host, chase_data, body, transposed, staged):
+    """The card's split form of a slab or chain body (the walk from nxt or
+    from its staged byte offsets, then per-lane integer counts summed over
+    the slab pass's chunks of steps) against the plain version and the
+    per-lane body, at step counts on both sides of a batch and across
+    chunk sizes of 32 and 64 steps."""
+    tab_t, nxt, rays = chase_data
+    table = tab_t if transposed else tab_t.T.contiguous()
+    idx = ps.BODIES.index(body)
+    for steps in (0, 1, 31, 33, 300, 40000):
+        split = torch.empty(1, P)
+        lane = torch.empty(1, P)
+        assert host.shimmer_packet_slab_chase_split_host(
+            idx, int(transposed), table.data_ptr(), R, nxt.data_ptr(), rays.data_ptr(), steps,
+            int(staged), split.data_ptr()) == 0
+        assert host.shimmer_packet_slab_chase_host(
+            idx, int(transposed), table.data_ptr(), R, nxt.data_ptr(), rays.data_ptr(), steps,
+            lane.data_ptr()) == 0
+        want = ps.packet_slab_chase_plain(table, nxt, rays, steps, body, transposed)
+        assert torch.equal(split, want), (body, steps)
+        assert torch.equal(lane, want), (body, steps)
 
 
 @pytest.fixture(scope="module")
@@ -138,6 +169,10 @@ def test_host_bodies_reject_what_the_kernels_do_not_take(host, chase_data, ablat
     out = torch.empty(8 * P * 8)
     assert host.shimmer_packet_slab_chase_host(8, 0, tab_t.data_ptr(), R, nxt.data_ptr(),
                                                rays.data_ptr(), 4, out.data_ptr()) == -1
+    for body, steps in ((ps.BODIES.index("acc"), 4), (0, ps.MAX_CHASE_STEPS + 1)):
+        assert host.shimmer_packet_slab_chase_split_host(
+            body, 0, tab_t.data_ptr(), R, nxt.data_ptr(), rays.data_ptr(), steps, 0,
+            out.data_ptr()) == -1
     meta, tab, tab_i = ablate_data
     assert host.shimmer_step_ablate_host(0, meta.data_ptr(), tab.data_ptr(), tab_i.data_ptr(),
                                          255, 1, 4, out.data_ptr()) == -1
@@ -177,7 +212,7 @@ def test_cpu_tensors_take_the_plain_version(chase_data, attrib_data, ablate_data
 @pytest.mark.parametrize(
     "case",
     ["chase_body", "chase_layout", "chase_f64", "chase_rays_shape", "chase_nxt_i64",
-     "chase_steps", "attrib_variant", "attrib_packets", "attrib_split", "attrib_stack_size",
+     "chase_steps", "chase_steps_limit", "attrib_variant", "attrib_packets", "attrib_split", "attrib_stack_size",
      "attrib_stack_init", "ablate_variant", "ablate_rows_not_pow2", "ablate_tab_i_dtype",
      "ablate_strided", "meta_device"],
 )
@@ -198,6 +233,9 @@ def test_wrappers_reject_bad_arguments(chase_data, attrib_data, ablate_data, cas
         fn, args, err = ps.packet_slab_chase, (tab_t, nxt.long(), rays, 4, "slab", True), TypeError
     elif case == "chase_steps":
         fn, args = ps.packet_slab_chase, (tab_t, nxt, rays, -1, "slab", True)
+    elif case == "chase_steps_limit":
+        # Beyond 2^21 steps a lane's float sum of hit counts may round.
+        fn, args = ps.packet_slab_chase, (tab_t, nxt, rays, ps.MAX_CHASE_STEPS + 1, "slab", True)
     elif case == "attrib_variant":
         fn, args = ps.step_attrib, (rows8, meta, arays, "nope", 4, k, size)
     elif case == "attrib_packets":

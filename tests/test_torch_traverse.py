@@ -173,6 +173,25 @@ def test_kernel_wrapper_rejects_bad_input(scenes):
         traverse_raw(tt, o.to("meta"), o.to("meta"), np.inf)
 
 
+def test_v2_launch_needs_the_child_leaf_words(scenes):
+    """The v2 kernel reads each internal row's child-leaf word: a launch
+    without the table's words, or with words of another dtype or length,
+    raises before anything is built or launched; v1 takes none."""
+    from shimmer_tpu_torch.ops import traverse as tv
+
+    tt = scenes["soup"]["tt"]
+    o = torch.zeros(4, 3)
+    args = (tt.rows8, tt.meta, tt.stack_depth, o, o, torch.ones(4),
+            torch.zeros(4, dtype=torch.bool), False, tv.TraverseConfig("v2", "watertight", "slot"))
+    with pytest.raises(ValueError, match="child_leaf_mask"):
+        tv._launch_kernel(*args)
+    with pytest.raises(TypeError, match="child_leaf"):
+        tv._launch_kernel(*args, child_leaf=tt.child_leaf.long())
+    with pytest.raises(ValueError, match="child_leaf"):
+        tv._launch_kernel(*args, child_leaf=tt.child_leaf[1:].contiguous())
+    assert torch.equal(tt.child_leaf, tv.child_leaf_mask(tt.meta))
+
+
 def test_kernel_wrapper_rejects_misaligned_rows(scenes):
     """The kernels read rows8 in 16-byte loads: a view that starts 4 bytes
     into its storage raises before anything is built or launched."""

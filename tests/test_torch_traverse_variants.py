@@ -218,8 +218,9 @@ def test_host_body_records_what_it_reads(host_body, scenes, config, scene):
     """The ``touched`` record behind the kernels' bound.  A ray visits a row
     at most once, so alone it touches as many rows as it takes steps, and a
     batch touches the union of its rays' rows.  Every body reads the meta
-    word of each row it visits (v1 no others; v2 also those of hit
-    children)."""
+    word of each row it visits and no other: v2 takes its hit children's
+    leaf bits from the visited row's child-leaf word, not from their meta
+    words."""
     sc = scenes[scene]
     cfg = BODY_CONFIGS.get(config, tv.V1)
     tt = sc["tt"].with_traverse(cfg)
@@ -235,9 +236,8 @@ def test_host_body_records_what_it_reads(host_body, scenes, config, scene):
         union |= one.astype(bool)
     np.testing.assert_array_equal(touched.astype(bool), union)
     rows, metas = union[:n_rows], union[n_rows:]
-    assert rows[0] and (metas | ~rows).all()
-    if cfg.kernel == "v1":
-        np.testing.assert_array_equal(metas, rows)
+    assert rows[0]
+    np.testing.assert_array_equal(metas, rows)
 
 
 def test_mt_with_v2_raises(monkeypatch):

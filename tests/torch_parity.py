@@ -28,7 +28,7 @@ import shimmer_tpu.native as reference_native
 from shimmer_tpu.shapes.triangle import build_triangle_scene as jax_build
 from shimmer_tpu_torch.bench_scene import bench_camera_film, bench_meshes
 from shimmer_tpu_torch.ops.cuda_build import CSRC
-from shimmer_tpu_torch.ops.traverse import KERNEL_MAX_STACK, LEAF_STACK, traverse_raw
+from shimmer_tpu_torch.ops.traverse import KERNEL_MAX_STACK, LEAF_STACK, child_leaf_mask, traverse_raw
 from shimmer_tpu_torch.shapes.triangle import (
     build_triangle_scene as torch_build,
     intersect_triangle as torch_intersect,
@@ -371,7 +371,8 @@ def build_host_bodies(out_dir):
     )
     lib = ctypes.CDLL(str(out))
     p, ci = ctypes.c_void_p, ctypes.c_int
-    lib.shimmer_traverse_host.argtypes = [ci, ci, ci, p, p, ci, p, p, p, p, p, p, p, p, ci, p]
+    lib.shimmer_traverse_host.argtypes = [ci, ci, ci, p, p, p, ci, p, p, p, p, p, p, p, p, ci,
+                                          p, p]
     lib.shimmer_traverse_host.restype = ci
     lib.shimmer_traverse_max_stack.restype = ci
     lib.shimmer_traverse_leaf_stack.restype = ci
@@ -380,15 +381,18 @@ def build_host_bodies(out_dir):
     return lib
 
 
-def host_traverse(lib, tt, o, d, t_max, want, config=None, touched=None, stack_peak=None):
+def host_traverse(lib, tt, o, d, t_max, want, config=None, touched=None, stack_peak=None,
+                  leaf_peak=None):
     """Run the host build of the body selected by ``config`` (default: the
     table's own) over the rays; returns (t, tri, steps) as numpy arrays.
     ``touched``, a zeroed (2 * R,) uint8 array, records the rows and meta
-    words the body reads; ``stack_peak``, an (N,) int32 array, receives
-    each ray's largest stack depth (v1 only)."""
+    words the body reads; ``stack_peak`` and ``leaf_peak``, (N,) int32
+    arrays, receive each ray's largest internal stack depth and (v2 only)
+    its largest leaf backlog."""
     config = tt.traverse if config is None else config
     rows = np.ascontiguousarray(tt.rows8.numpy())
     meta = np.ascontiguousarray(tt.meta.numpy())
+    child_leaf = np.ascontiguousarray(child_leaf_mask(tt.meta).numpy())
     o, d = np.ascontiguousarray(o, np.float32), np.ascontiguousarray(d, np.float32)
     t_max = np.ascontiguousarray(t_max, np.float32)
     flags = np.ascontiguousarray(want, np.uint8)
@@ -398,11 +402,12 @@ def host_traverse(lib, tt, o, d, t_max, want, config=None, touched=None, stack_p
     steps = np.empty(n, np.int32)
     rc = lib.shimmer_traverse_host(
         1 if config.kernel == "v1" else 2, int(config.leaf == "mt"),
-        int(config.winner == "min"), rows.ctypes.data, meta.ctypes.data, rows.shape[0],
-        o.ctypes.data, d.ctypes.data, t_max.ctypes.data, flags.ctypes.data, t.ctypes.data,
-        tri.ctypes.data, steps.ctypes.data,
+        int(config.winner == "min"), rows.ctypes.data, meta.ctypes.data, child_leaf.ctypes.data,
+        rows.shape[0], o.ctypes.data, d.ctypes.data, t_max.ctypes.data, flags.ctypes.data,
+        t.ctypes.data, tri.ctypes.data, steps.ctypes.data,
         None if touched is None else touched.ctypes.data, n,
         None if stack_peak is None else stack_peak.ctypes.data,
+        None if leaf_peak is None else leaf_peak.ctypes.data,
     )
     assert rc == 0, config
     return t, tri, steps
