@@ -41,7 +41,12 @@ Phases, each printing its own numbers:
      over the bench scene's BVH8 of phase 2, the bf16 hi|lo step
      ablation) through the entry point's every case, each at every step
      count against its plain version on the same tensors, bit for bit,
-     with ns per step as the reference scripts report it.
+     with ns per step as the reference scripts report it;
+ 10. the material bench scene (bench_scene.build_material_bench_scene: the
+     bench geometry with a mix of rough gold and dispersive BK7 glass on the
+     sphere and a coated diffuse floor): a small render (64x48, 4 spp) on
+     the card and on the CPU, compared, then the full render under v1
+     through shimmer_tpu_torch.render.render.
 Launch counters are set to 0 just before each render path and each
 micro-benchmark entry point, and read just after it.  No phase catches its
 own failure.  The last lines are the kernel table as JSON, the card's name
@@ -67,6 +72,7 @@ from shimmer_tpu_torch.bench_scene import (
     LARGE_TRIS,
     bench_camera_film,
     build_bench_scene,
+    build_material_bench_scene,
 )
 from shimmer_tpu_torch.experiments import gather as eg
 from shimmer_tpu_torch.experiments import packet_step as eps
@@ -617,6 +623,36 @@ def phase9(dev, tables) -> dict:
     return out
 
 
+def phase10(dev) -> dict:
+    """The material bench scene: card against CPU on a small render, then
+    the full render under v1."""
+    t0 = time.perf_counter()
+    scene_cpu, _, _ = build_material_bench_scene(BENCH_TRIS, BENCH_RESOLUTION, device="cpu")
+    scene_gpu = scene_cpu.to(dev)
+    log(f"phase 10 scene: {scene_cpu.triangles.orig_indices.shape[0]} triangles, material kinds "
+        f"{list(scene_cpu.material_kinds)}, built in {time.perf_counter() - t0:.1f}s")
+    cam, film = bench_camera_film(SMALL_RES)
+    images, seconds = {}, {}
+    for dev_name, scene in (("gpu", scene_gpu), ("cpu", scene_cpu)):
+        t0 = time.perf_counter()
+        img, _, _ = render(with_config(scene, "v1"), cam, film, ZSobolSampler(SMALL_SPP, SMALL_RES),
+                           spp=SMALL_SPP, max_depth=MAX_DEPTH, wave_spp=SMALL_SPP,
+                           pixel_block=BLOCK)
+        images[dev_name] = img.cpu().numpy()
+        seconds[dev_name] = time.perf_counter() - t0
+        check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
+              f"phase 10: bad {dev_name} small image")
+    agree = check_agreement("phase 10 small render", images["gpu"], images["cpu"])
+    log(f"phase 10 small render {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP}: "
+        f"seconds {json.dumps(seconds)} {json.dumps(agree)}")
+    res, _ = full_render(scene_gpu, "v1", "phase 10")
+    res["small_render"] = agree
+    res["card"] = nvidia_smi_line()
+    log(f"phase 10 full render {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {SPP}: "
+        f"{json.dumps(res)}")
+    return res
+
+
 def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
                 packets: dict) -> list[dict]:
     rows = []
@@ -708,6 +744,10 @@ def main():
     gathers = phase8(dev)
     # 9. the packet-step kernels through theirs
     packets = phase9(dev, bench_tables)
+    del bench_tables
+    torch.cuda.empty_cache()
+    # 10. the material bench scene through the port's entry point (v1)
+    phase10(dev)
 
     print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets)}),
           flush=True)

@@ -11,6 +11,12 @@ Two legs, as in ``bench.py``: ``bench`` (``BENCH_TRIS``, the main render)
 and ``large`` (``LARGE_TRIS`` = 1,310,720 sphere triangles, the leg of
 ``bench.py::streaming_benchmark``, whose BVH8 table of about 157 MB no
 longer fits the H100's 50 MB L2).
+
+The material bench scene (``build_material_bench_scene``) is the same
+geometry and lights with the material kinds of the wavefront's dispatch,
+built in code from the named IOR spectra: by default the sphere is a mix
+of rough gold and dispersive BK7 glass and the floor a coated diffuse;
+its other variants put the table's other rows on the sphere and floor.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from shimmer_tpu_torch.ops.transform import Transform
 from shimmer_tpu_torch.scene_builder import build_scene
 from shimmer_tpu_torch.shapes.mesh import TriangleMesh, quad_mesh
 from shimmer_tpu_torch.shapes.triangle import build_triangle_scene
-from shimmer_tpu_torch.spectra.spectrum import ConstantSpectrum
+from shimmer_tpu_torch.spectra.spectrum import ConstantSpectrum, named_spectrum
 
 BENCH_TRIS = 300_000
 LARGE_TRIS = 1_310_720
@@ -142,17 +148,72 @@ def bench_lights(n_tri_total: int, colorspace) -> list[dict]:
     ]
 
 
-def build_bench_scene(n_tris: int = BENCH_TRIS, resolution=BENCH_RESOLUTION, device=None):
-    """Returns (scene, camera, film) with the tables on ``device`` (default:
-    the CUDA card), packed for ``TraverseConfig()``; another configuration
-    is ``scene.triangles.with_traverse(cfg)``."""
+# Rows of the material bench scene's dense spectra table.
+MATERIAL_SPECTRA = ("metal-Au-eta", "metal-Au-k", "glass-BK7", "metal-Cu-eta", "metal-Cu-k")
+_GOLD = {"kind": mtl.CONDUCTOR, "eta_spec": 0, "k_spec": 1, "uroughness": 0.08,
+         "vroughness": 0.08}
+_BK7 = {"kind": mtl.DIELECTRIC, "eta_spec": 2}
+_COATED_COPPER = {"kind": mtl.COATED_CONDUCTOR, "eta_spec": 3, "k_spec": 4, "eta_float": 1.5,
+                  "uroughness": 0.05, "vroughness": 0.05, "bot_uroughness": 0.1,
+                  "bot_vroughness": 0.1, "thickness": 0.01}
+_THIN = {"kind": mtl.THIN_DIELECTRIC, "eta_float": 1.5}
+_ROUGH_GLASS = {"kind": mtl.DIELECTRIC, "eta_float": 1.5, "uroughness": 0.1, "vroughness": 0.1}
+_COATED_DIFFUSE = {"kind": mtl.COATED_DIFFUSE, "reflectance": [0.4, 0.4, 0.42],
+                   "eta_float": 1.5, "thickness": 0.01}
+_GOLD_GLASS_MIX = {"kind": mtl.MIX, "mix_amount": 0.5, "mix_m1": 3, "mix_m2": 4}
+# Rows 2-9 of its material table; rows 0 (the sphere) and 1 (the floor)
+# depend on the variant.  Every variant's table holds every kind, so the
+# variants share one census.
+_MATERIAL_ROWS = (BENCH_MATERIALS[2], _GOLD, _BK7, _COATED_COPPER, _THIN, _ROUGH_GLASS,
+                  _GOLD_GLASS_MIX, _COATED_DIFFUSE)
+# Variant -> (sphere, floor).
+MATERIAL_VARIANTS = {
+    "mix": (_GOLD_GLASS_MIX, _COATED_DIFFUSE),
+    "dispersive": (_BK7, _ROUGH_GLASS),
+    "coated": (_COATED_COPPER, _THIN),
+}
+
+
+def material_bench_spectra() -> np.ndarray:
+    """(5, 471) float32 dense table of ``MATERIAL_SPECTRA``."""
+    return np.stack([named_spectrum(name).to_dense() for name in MATERIAL_SPECTRA])
+
+
+def material_bench_materials(variant: str = "mix") -> list[dict]:
+    """Material dicts of the material bench scene: the variant's sphere
+    and floor, then the light and the rows every variant carries (a rough
+    gold conductor, smooth BK7 glass, a coated conductor over copper, a
+    thin dielectric, a rough constant-eta dielectric, the gold / glass mix
+    and a coated diffuse)."""
+    sphere, floor = MATERIAL_VARIANTS[variant]
+    return [dict(m) for m in (sphere, floor, *_MATERIAL_ROWS)]
+
+
+def _build(n_tris, resolution, materials, spectra_table, device):
     cam, film = bench_camera_film(resolution)
     r2w = cam.camera_transform.render_from_world()
     tris = build_triangle_scene(bench_meshes(n_tris, r2w), device=device)
     n_tri_total = int(tris.orig_indices.shape[0])
     scene = build_scene(
         tris,
-        materials=[dict(m) for m in BENCH_MATERIALS],
+        materials=materials,
         lights=bench_lights(n_tri_total, film.colorspace),
+        spectra_table=spectra_table,
     )
     return scene, cam, film
+
+
+def build_bench_scene(n_tris: int = BENCH_TRIS, resolution=BENCH_RESOLUTION, device=None):
+    """Returns (scene, camera, film) with the tables on ``device`` (default:
+    the CUDA card), packed for ``TraverseConfig()``; another configuration
+    is ``scene.triangles.with_traverse(cfg)``."""
+    return _build(n_tris, resolution, [dict(m) for m in BENCH_MATERIALS], None, device)
+
+
+def build_material_bench_scene(n_tris: int = BENCH_TRIS, resolution=BENCH_RESOLUTION,
+                               variant: str = "mix", device=None):
+    """The bench geometry and lights with ``material_bench_materials(variant)``
+    over ``material_bench_spectra()``.  Returns (scene, camera, film) as
+    ``build_bench_scene`` does."""
+    return _build(n_tris, resolution, material_bench_materials(variant),
+                  material_bench_spectra(), device)

@@ -2,10 +2,12 @@
 
 ``scene_from_numpy`` builds the port's :class:`Scene` from the reference
 ``Scene``'s leaves as numpy arrays keyed by field path (``triangles.rows8``,
-``materials.reflectance``, ``lights.spectrum``, ...) plus its static census
-keyed the same way (``triangles.stack_depth``, ``material_kinds``, ...), so
-both packages can render from identical tables.  Only the triangle-only
-slice converts; anything else in the census raises NotImplementedError.
+``materials.reflectance``, ``lights.spectrum``, ``spectra_table``, ...)
+plus its static census keyed the same way (``triangles.stack_depth``,
+``material_kinds``, ...), so both packages can render from identical
+tables.  Only the ported slice converts (triangles, untextured materials,
+area and uniform infinite lights); anything else raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,7 +37,11 @@ _UNPORTED_CENSUS = {
     "triangles.differentiable_hits": False,
 }
 # Array groups whose presence means an unported feature.
-_UNPORTED_GROUPS = ("spheres", "patches", "instanced", "media", "env", "textures", "spectra_table")
+_UNPORTED_GROUPS = ("spheres", "patches", "instanced", "media", "env", "textures")
+# MaterialTable columns by type (every column of the reference's table).
+_MATERIAL_F32 = ("reflectance", "eta_float", "uroughness", "vroughness", "mix_amount",
+                 "thickness", "hg_g", "albedo", "bot_uroughness", "bot_vroughness")
+_MATERIAL_I32 = ("kind", "eta_spec", "k_spec", "mix_m1", "mix_m2") + mtl.TEXTURE_COLUMNS
 
 
 def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
@@ -53,6 +59,7 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         if key.split(".")[0] in _UNPORTED_GROUPS:
             raise NotImplementedError(f"scene field {key} is not ported yet")
     mtl.check_kinds(tuple(census["material_kinds"]))
+    mtl.check_untextured({c: arrays[f"materials.{c}"] for c in mtl.TEXTURE_COLUMNS})
     lt.check_kinds(tuple(census["light_kinds"]))
 
     device = resolve_device(device)
@@ -80,8 +87,12 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         traverse=TraverseConfig(leaf="watertight"),
     )
     materials = MaterialTable(
-        kind=i32(a("materials.kind"), device),
-        reflectance=f32(a("materials.reflectance"), device),
+        **{c: f32(a(f"materials.{c}"), device) for c in _MATERIAL_F32},
+        **{c: i32(a(f"materials.{c}"), device) for c in _MATERIAL_I32},
+        dispersive=torch.from_numpy(a("materials.dispersive").astype(bool)).to(device),
+        has_textured_mix=bool(census["materials.has_textured_mix"]),
+        layer_medium=bool(census["materials.layer_medium"]),
+        has_dispersion=bool(census["materials.has_dispersion"]),
     )
     lights = lt.LightData(
         kind=i32(a("lights.kind"), device),
@@ -97,6 +108,7 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         materials=materials,
         lights=lights,
         light_sample_weights=f32(a("light_sample_weights"), device),
+        spectra_table=f32(a("spectra_table"), device) if "spectra_table" in arrays else None,
         material_kinds=tuple(int(k) for k in census["material_kinds"]),
         light_kinds=tuple(int(k) for k in census["light_kinds"]),
         n_lights=int(census["n_lights"]),

@@ -2,23 +2,27 @@
 helpers ``shimmer_tpu/integrators/wavefront.py`` imports from
 ``shimmer_tpu/integrators/path.py``).
 
-The hit-preparation, mix-material, dispersion and RNG-keyed-BSDF hooks are
-reduced to their no-op form: the slice's scenes have none of them, and a scene that
-does is refused when its tables are built (materials/material.py).
+The hit-preparation hook keeps its no-op form until textures are ported
+(its footprints and normal / bump mapping feed textures only); a scene
+with textures is refused when its tables are built (materials/material.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from shimmer_tpu_torch.lights import lights as lt
+from shimmer_tpu_torch.materials import material as mtl
 from shimmer_tpu_torch.materials.material import bsdf_f, bsdf_pdf
+from shimmer_tpu_torch.ops import rng as srng
 from shimmer_tpu_torch.ops.ray import offset_ray_origin
 from shimmer_tpu_torch.ops.sampling import UNIFORM_SPHERE_PDF, power_heuristic
 from shimmer_tpu_torch.ops.vecmath import abs_dot, normalize
 from shimmer_tpu_torch.scene import Scene, light_pmf, sample_light
 from shimmer_tpu_torch.shapes.triangle import triangle_light_pdf, triangle_light_sample
-from shimmer_tpu_torch.spectra.sampled import ss_is_black
+from shimmer_tpu_torch.spectra.sampled import N_SPECTRUM_SAMPLES, ss_is_black
 from shimmer_tpu_torch.spectra.spectrum import dense_sample
 
 INF = float("inf")
@@ -102,9 +106,9 @@ def sample_ld_prepare(scene: Scene, si, frame, swl, sampler, s_state, bsdf_ctx):
 
 
 def _has_proportional_pdfs(scene) -> bool:
-    """Only stochastic layered coats return proportional pdfs; none of
-    them is ported, so the MIS re-evaluation never runs."""
-    return False
+    """Census: only the stochastic layered coats return proportional pdfs
+    from their sample; without them the MIS re-evaluation is skipped."""
+    return any(k in (mtl.COATED_DIFFUSE, mtl.COATED_CONDUCTOR) for k in scene.material_kinds)
 
 
 def _prepare_hit(scene, si, ray_d):
@@ -114,20 +118,49 @@ def _prepare_hit(scene, si, ray_d):
 
 
 def _resolve_mix(scene, si, sampler, s_state):
-    """Mix materials are not ported: the no-op form draws no dimension."""
-    return si, s_state
+    """Resolve mix materials stochastically at the hit; draws one sampler
+    dimension only when the scene has a mix material."""
+    if mtl.MIX not in scene.material_kinds:
+        return si, s_state
+    u_mix, s_state = sampler.get_1d(s_state)
+    mat_id = mtl.resolve_mix(scene.materials, scene.material_kinds, si.material_id, u_mix)
+    return dataclasses.replace(si, material_id=mat_id), s_state
 
 
 def _apply_dispersion(scene, si, alive, beta, terminated):
-    """No dispersive dielectric is ported: beta and the flag pass through."""
-    return beta, terminated
+    """Dispersion: a lane whose (mix-resolved) material is a dielectric
+    with a spectral eta collapses to the hero wavelength before its BSDF
+    is built.  As in the reference, this reweights the throughput on the
+    first dispersive hit, beta <- beta * (N, 0, 0, 0), and leaves the
+    wavelength pdf alone: the film keeps dividing by the original pdf, so
+    contributions after the hit are the single-wavelength estimate (N on
+    the hero cancels the 1/N spectral average) and earlier ones stay.
+    Returns (beta, terminated)."""
+    mats = scene.materials
+    if not mats.has_dispersion:
+        return beta, terminated
+    mid = torch.clamp(si.material_id, min=0).long()
+    disp = alive & si.valid & (si.material_id >= 0) & mats.dispersive[mid]
+    newly = disp & ~terminated
+    hero_only = torch.tensor(
+        [float(N_SPECTRUM_SAMPLES)] + [0.0] * (N_SPECTRUM_SAMPLES - 1), device=beta.device
+    )
+    beta = torch.where(newly[..., None], beta * hero_only, beta)
+    return beta, terminated | newly
 
 
 def _with_rng_key(scene, bsdf_ctx, s_state):
-    """No RNG-keyed (layered) BSDF is ported: the context is unchanged."""
-    return bsdf_ctx
+    """Attach a per-lane counter-RNG key for the stochastic (layered)
+    BxDFs, keyed by the full sampler state so that every (pixel, sample,
+    bounce) gets a stream of its own."""
+    if not _has_proportional_pdfs(scene):
+        return bsdf_ctx
+    return dict(
+        bsdf_ctx,
+        rng_key=srng.hash_combine(s_state.pixel_hash, s_state.sample_index, s_state.dim),
+    )
 
 
 def _bsdf_ctx(scene, si, swl):
-    """Per-hit BSDF context: empty without textures."""
-    return {}
+    """Per-hit BSDF context: the scene's dense spectra table; no textures."""
+    return {"spectra_table": scene.spectra_table, "tex": None}

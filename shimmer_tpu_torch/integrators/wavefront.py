@@ -37,7 +37,7 @@ from shimmer_tpu_torch.integrators.path import (
     _with_rng_key,
     sample_ld_prepare,
 )
-from shimmer_tpu_torch.materials.material import bsdf_sample
+from shimmer_tpu_torch.materials.material import bsdf_pdf, bsdf_sample
 from shimmer_tpu_torch.ops.ray import offset_ray_origin
 from shimmer_tpu_torch.ops.vecmath import abs_dot
 from shimmer_tpu_torch.samplers import SamplerState
@@ -229,9 +229,19 @@ def render_wave_wavefront(
             0.0,
         )
         beta = torch.where(surf_shade[..., None], beta0 * step, beta0)
+        p_b_new = bs.pdf
         if _has_proportional_pdfs(scene):
-            raise NotImplementedError("proportional BSDF pdfs are not ported yet")
-        p_b = torch.where(surf_shade, bs.pdf, st.p_b)
+            # A layered coat's sample pdf is proportional only: MIS on the
+            # next hit needs the true (estimated) pdf.
+            p_b_new = torch.where(
+                bs.pdf_is_proportional,
+                bsdf_pdf(
+                    scene.materials, scene.material_kinds, si.material_id,
+                    frame, si.ns, si.wo, bs.wi, swl, **bsdf_ctx,
+                ),
+                bs.pdf,
+            )
+        p_b = torch.where(surf_shade, p_b_new, st.p_b)
         specular = torch.where(surf_shade, bs.is_specular(), st.specular)
         any_ns = st.any_ns | (surf_shade & ~bs.is_specular())
         eta_scale = torch.where(surf_shade, st.eta_scale * bs.eta * bs.eta, st.eta_scale)

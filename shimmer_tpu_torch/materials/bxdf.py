@@ -1,6 +1,8 @@
 """BxDF core: flags, sample records and the Lambertian diffuse BxDF (port
 of ``shimmer_tpu/materials/bxdf.py``).  BxDFs are functions over parameter
-tensors in the local shading frame (z = shading normal)."""
+tensors in the local shading frame (z = shading normal); conductor,
+dielectric, thin dielectric and the layered coats live in sibling
+modules."""
 
 from __future__ import annotations
 
@@ -17,9 +19,38 @@ from shimmer_tpu_torch.ops.vecmath import abs_cos_theta, same_hemisphere
 from shimmer_tpu_torch.spectra.sampled import N_SPECTRUM_SAMPLES
 
 REFLECTION = 1
+TRANSMISSION = 2
 DIFFUSE = 4
+GLOSSY = 8
 SPECULAR = 16
 DIFFUSE_REFLECTION = DIFFUSE | REFLECTION
+DIFFUSE_TRANSMISSION = DIFFUSE | TRANSMISSION
+GLOSSY_REFLECTION = GLOSSY | REFLECTION
+GLOSSY_TRANSMISSION = GLOSSY | TRANSMISSION
+SPECULAR_REFLECTION = SPECULAR | REFLECTION
+SPECULAR_TRANSMISSION = SPECULAR | TRANSMISSION
+ALL = REFLECTION | TRANSMISSION | DIFFUSE | GLOSSY | SPECULAR
+
+# Sample-request flags (which hemispheres a sample may take).
+SAMPLE_REFLECTION = 1
+SAMPLE_TRANSMISSION = 2
+SAMPLE_ALL = SAMPLE_REFLECTION | SAMPLE_TRANSMISSION
+
+
+def flags_is_specular(flags):
+    return (flags & SPECULAR) != 0
+
+
+def flags_is_transmissive(flags):
+    return (flags & TRANSMISSION) != 0
+
+
+def flags_is_diffuse(flags):
+    return (flags & DIFFUSE) != 0
+
+
+def flags_is_non_specular(flags):
+    return (flags & (DIFFUSE | GLOSSY)) != 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +79,7 @@ class BSDFSample:
         )
 
     def is_specular(self):
-        return (self.flags & SPECULAR) != 0
+        return flags_is_specular(self.flags)
 
 
 def select_sample(cond, a: BSDFSample, b: BSDFSample) -> BSDFSample:
@@ -70,9 +101,11 @@ def diffuse_f(reflectance, wo, wi):
     return torch.where(same_hemisphere(wo, wi)[..., None], reflectance * INV_PI, 0.0)
 
 
-def diffuse_sample_f(reflectance, wo, u) -> BSDFSample:
+def diffuse_sample_f(reflectance, wo, u, uc=None, sample_flags=SAMPLE_ALL) -> BSDFSample:
     """Cosine-weighted hemisphere sampling, flipped into wo's hemisphere."""
     batch = wo.shape[:-1]
+    if not sample_flags & SAMPLE_REFLECTION:
+        return BSDFSample.invalid(batch, wo.device)
     wi = sample_cosine_hemisphere(u)
     flip = torch.tensor([1.0, 1.0, -1.0], device=wo.device)
     wi = torch.where((wo[..., 2] < 0.0)[..., None], wi * flip, wi)
@@ -88,7 +121,6 @@ def diffuse_sample_f(reflectance, wo, u) -> BSDFSample:
     )
 
 
-def diffuse_pdf(wo, wi):
-    return torch.where(
-        same_hemisphere(wo, wi), cosine_hemisphere_pdf(abs_cos_theta(wi)), 0.0
-    )
+def diffuse_pdf(wo, wi, sample_flags=SAMPLE_ALL):
+    pdf = torch.where(same_hemisphere(wo, wi), cosine_hemisphere_pdf(abs_cos_theta(wi)), 0.0)
+    return pdf * (1.0 if sample_flags & SAMPLE_REFLECTION else 0.0)

@@ -1,8 +1,12 @@
 """Material table and BSDF dispatch (port of
-``shimmer_tpu/materials/material.py``, diffuse kind only).
+``shimmer_tpu/materials/material.py``).
 
-The set of material kinds in a scene is host metadata; a scene that asks
-for a kind the port has not brought over yet raises NotImplementedError.
+The set of material kinds in a scene is host metadata: only the BxDF
+families present are evaluated, each for all lanes, and selected by kind.
+Kinds 0-6 (diffuse, conductor, dielectric, thin dielectric, coated diffuse,
+coated conductor, mix) are ported with constant parameters.  Kind 7
+(diffuse transmission) has no BxDF in the reference's dispatch either; it,
+textured parameters and normal or bump maps raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -14,49 +18,59 @@ import torch
 
 from shimmer_tpu_torch.config import f32, i32, resolve_device
 from shimmer_tpu_torch.materials import bxdf as bx
+from shimmer_tpu_torch.materials import conductor_dielectric as cd
+from shimmer_tpu_torch.materials import layered
 from shimmer_tpu_torch.materials.bxdf import BSDFSample, select_sample
 from shimmer_tpu_torch.ops.math import take_clamped
+from shimmer_tpu_torch.ops.sampling import UNIFORM_HEMISPHERE_PDF, sample_uniform_hemisphere
 from shimmer_tpu_torch.spectra.rgb2spec import sigmoid_poly_sample
 
 DIFFUSE = 0
-CONDUCTOR = 1
-DIELECTRIC = 2
-THIN_DIELECTRIC = 3
-COATED_DIFFUSE = 4
-COATED_CONDUCTOR = 5
+CONDUCTOR = cd.CONDUCTOR
+DIELECTRIC = cd.DIELECTRIC
+THIN_DIELECTRIC = cd.THIN_DIELECTRIC
+COATED_DIFFUSE = layered.COATED_DIFFUSE
+COATED_CONDUCTOR = layered.COATED_CONDUCTOR
 MIX = 6
 DIFFUSE_TRANSMISSION = 7
 
-PORTED_KINDS = (DIFFUSE,)
+PORTED_KINDS = (DIFFUSE, CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC, COATED_DIFFUSE,
+                COATED_CONDUCTOR, MIX)
+# Texture columns: -1 (no texture) is the only value ported.
+TEXTURE_COLUMNS = ("tex_mix_amount", "tex_reflectance", "tex_uroughness", "tex_vroughness",
+                   "normal_tex", "displacement_tex")
 
 
 @dataclasses.dataclass(frozen=True)
 class MaterialTable:
-    kind: torch.Tensor         # (M,) int32
-    reflectance: torch.Tensor  # (M, 3) sigmoid coefficients
+    """Flat per-material parameter columns (the reference's columns)."""
 
-
-def make_material_table(mats: list[dict], device=None) -> MaterialTable:
-    """Host: build the table from material dicts (``kind``,
-    ``reflectance_coeffs``) on ``device`` (default: the CUDA card)."""
-    for m in mats:
-        if int(m.get("kind", DIFFUSE)) not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"material kind {m.get('kind')} is not ported yet (diffuse only)"
-            )
-        unported = set(m) - {"kind", "reflectance_coeffs"}
-        if unported:
-            raise NotImplementedError(f"material parameters {sorted(unported)} are not ported yet")
-    device = resolve_device(device)
-    refl = (
-        np.stack([np.asarray(m.get("reflectance_coeffs", [0.0, 0.0, 0.0]), np.float32) for m in mats])
-        if mats
-        else np.zeros((0, 3), np.float32)
-    )
-    return MaterialTable(
-        kind=i32([int(m.get("kind", DIFFUSE)) for m in mats], device),
-        reflectance=f32(refl, device),
-    )
+    kind: torch.Tensor             # (M,) int32
+    reflectance: torch.Tensor      # (M, 3) sigmoid coefficients (diffuse, coated, conductor)
+    eta_spec: torch.Tensor         # (M,) int32 row of the spectra table, -1 = eta_float
+    k_spec: torch.Tensor           # (M,) int32
+    eta_float: torch.Tensor        # (M,)
+    uroughness: torch.Tensor       # (M,)
+    vroughness: torch.Tensor       # (M,)
+    mix_amount: torch.Tensor       # (M,)
+    mix_m1: torch.Tensor           # (M,) int32
+    mix_m2: torch.Tensor           # (M,) int32
+    tex_mix_amount: torch.Tensor   # (M,) int32, -1 only
+    tex_reflectance: torch.Tensor  # (M,) int32, -1 only
+    tex_uroughness: torch.Tensor   # (M,) int32, -1 only
+    tex_vroughness: torch.Tensor   # (M,) int32, -1 only
+    normal_tex: torch.Tensor       # (M,) int32, -1 only
+    displacement_tex: torch.Tensor  # (M,) int32, -1 only
+    thickness: torch.Tensor        # (M,) coat layer optical thickness
+    hg_g: torch.Tensor             # (M,) HG asymmetry of the layer medium
+    albedo: torch.Tensor           # (M, 3) sigmoid coefficients of the medium albedo
+    bot_uroughness: torch.Tensor   # (M,) coated conductor's bottom roughness
+    bot_vroughness: torch.Tensor   # (M,)
+    dispersive: torch.Tensor       # (M,) bool: dielectric with a spectral eta
+    # --- census ---
+    has_textured_mix: bool = False
+    layer_medium: bool = False     # a coat's layer has a scattering medium
+    has_dispersion: bool = False   # a dispersive dielectric exists
 
 
 def check_kinds(kinds_present: tuple):
@@ -65,46 +79,192 @@ def check_kinds(kinds_present: tuple):
         raise NotImplementedError(f"material kinds {bad} are not ported yet")
 
 
+def check_untextured(columns: dict):
+    """Raise on any texture column other than -1."""
+    for name in TEXTURE_COLUMNS:
+        if np.any(np.asarray(columns[name]) != -1):
+            raise NotImplementedError(f"material column {name} (textures) is not ported yet")
+
+
+def make_material_table(mats: list[dict], device=None) -> MaterialTable:
+    """Host: build the table from material dicts (``kind`` plus per-kind
+    parameters, the reference's keys and defaults) on ``device`` (default:
+    the CUDA card)."""
+    check_kinds(tuple(int(m.get("kind", DIFFUSE)) for m in mats))
+    device = resolve_device(device)
+
+    def col(key, default, dtype):
+        return np.array([m.get(key, default) for m in mats], dtype).reshape(len(mats))
+
+    def coeffs(key):
+        if not mats:
+            return np.zeros((0, 3), np.float32)
+        return np.stack([np.asarray(m.get(key, [0.0, 0.0, 0.0]), np.float32) for m in mats])
+
+    kind = col("kind", DIFFUSE, np.int32)
+    textures = {name: col(name, -1, np.int32) for name in TEXTURE_COLUMNS}
+    check_untextured(textures)
+    refl = coeffs("reflectance_coeffs")
+    albedo = coeffs("albedo_coeffs")
+    eta_spec = col("eta_spec", -1, np.int32)
+    is_coated = (kind == COATED_DIFFUSE) | (kind == COATED_CONDUCTOR)
+    # A spectral eta on a dielectric is dispersive (constant etas are
+    # stored as eta_float).
+    dispersive = ((kind == DIELECTRIC) | (kind == THIN_DIELECTRIC)) & (eta_spec >= 0)
+    return MaterialTable(
+        kind=i32(kind, device),
+        reflectance=f32(refl, device),
+        eta_spec=i32(eta_spec, device),
+        k_spec=i32(col("k_spec", -1, np.int32), device),
+        eta_float=f32(col("eta_float", 1.5, np.float32), device),
+        uroughness=f32(col("uroughness", 0.0, np.float32), device),
+        vroughness=f32(col("vroughness", 0.0, np.float32), device),
+        mix_amount=f32(col("mix_amount", 0.5, np.float32), device),
+        mix_m1=i32(col("mix_m1", 0, np.int32), device),
+        mix_m2=i32(col("mix_m2", 0, np.int32), device),
+        **{name: i32(v, device) for name, v in textures.items()},
+        thickness=f32(col("thickness", 0.01, np.float32), device),
+        hg_g=f32(col("g", 0.0, np.float32), device),
+        albedo=f32(albedo, device),
+        bot_uroughness=f32(col("bot_uroughness", 0.0, np.float32), device),
+        bot_vroughness=f32(col("bot_vroughness", 0.0, np.float32), device),
+        dispersive=torch.from_numpy(dispersive).to(device),
+        has_textured_mix=False,
+        layer_medium=bool(np.any(np.abs(albedo[is_coated]) > 0.0)),
+        has_dispersion=bool(np.any(dispersive)),
+    )
+
+
+def resolve_mix(materials: MaterialTable, kinds_present: tuple, mat_id, u):
+    """Resolve mix materials to a concrete material id: m1 with
+    probability ``amount``.  Two rounds resolve a mix of mixes."""
+    if MIX not in kinds_present:
+        return mat_id
+    for _ in range(2):
+        is_mix = take_clamped(materials.kind, mat_id) == MIX
+        amt = take_clamped(materials.mix_amount, mat_id)
+        chosen = torch.where(u < amt, take_clamped(materials.mix_m1, mat_id),
+                             take_clamped(materials.mix_m2, mat_id))
+        mat_id = torch.where(is_mix, chosen, mat_id)
+    return mat_id
+
+
+def resolved_kinds(kinds_present: tuple) -> tuple:
+    """Kinds that can reach BSDF dispatch after mix resolution."""
+    return tuple(k for k in kinds_present if k != MIX)
+
+
+def _check_ctx(kinds_present, tex):
+    check_kinds(kinds_present)
+    if tex is not None:
+        raise NotImplementedError("textured material parameters are not ported yet")
+
+
 def _diffuse_reflectance(materials, mat_id, swl):
     return sigmoid_poly_sample(take_clamped(materials.reflectance, mat_id), swl.lam)
 
 
-def bsdf_f(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, swl):
+def _rng_key(rng_key, like):
+    return rng_key if rng_key is not None else torch.zeros(like.shape[:-1], dtype=torch.int64,
+                                                           device=like.device)
+
+
+def _any(kinds_present, *kinds):
+    return any(k in kinds_present for k in kinds)
+
+
+def bsdf_f(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, swl,
+           tex=None, spectra_table=None, rng_key=None):
     """Render-space BSDF value over lanes."""
-    check_kinds(kinds_present)
+    _check_ctx(kinds_present, tex)
     wo = frame.to_local(wo_render)
     wi = frame.to_local(wi_render)
     kind = take_clamped(materials.kind, mat_id)
-    refl = _diffuse_reflectance(materials, mat_id, swl)
-    f = torch.where((kind == DIFFUSE)[..., None], bx.diffuse_f(refl, wo, wi), 0.0)
+    f = torch.zeros(wo.shape[:-1] + (4,), device=wo.device)
+    if DIFFUSE in kinds_present:
+        refl = _diffuse_reflectance(materials, mat_id, swl)
+        f = torch.where((kind == DIFFUSE)[..., None], bx.diffuse_f(refl, wo, wi), f)
+    if _any(kinds_present, CONDUCTOR, DIELECTRIC):
+        f = cd.rough_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f,
+                       spectra_table=spectra_table)
+    if _any(kinds_present, COATED_DIFFUSE, COATED_CONDUCTOR):
+        f = layered.coated_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f,
+                             _rng_key(rng_key, wo), spectra_table=spectra_table)
     return torch.where((torch.abs(wo[..., 2]) < 1e-9)[..., None], 0.0, f)
 
 
-def bsdf_sample(materials, kinds_present, mat_id, frame, ns, wo_render, u2, uc, swl) -> BSDFSample:
+def bsdf_sample(materials, kinds_present, mat_id, frame, ns, wo_render, u2, uc, swl,
+                tex=None, spectra_table=None, rng_key=None) -> BSDFSample:
     """Render-space BSDF sampling; ``wi`` comes back in render space."""
-    check_kinds(kinds_present)
+    _check_ctx(kinds_present, tex)
     wo = frame.to_local(wo_render)
     kind = take_clamped(materials.kind, mat_id)
     out = BSDFSample.invalid(wo.shape[:-1], wo.device)
-    refl = _diffuse_reflectance(materials, mat_id, swl)
-    out = select_sample(kind == DIFFUSE, bx.diffuse_sample_f(refl, wo, u2), out)
+    if DIFFUSE in kinds_present:
+        refl = _diffuse_reflectance(materials, mat_id, swl)
+        out = select_sample(kind == DIFFUSE, bx.diffuse_sample_f(refl, wo, u2, uc), out)
+    if _any(kinds_present, CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC):
+        out = cd.rough_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out,
+                              spectra_table=spectra_table)
+    if _any(kinds_present, COATED_DIFFUSE, COATED_CONDUCTOR):
+        out = layered.coated_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl,
+                                    out, _rng_key(rng_key, wo), spectra_table=spectra_table)
     degenerate = torch.abs(wo[..., 2]) < 1e-9
-    return BSDFSample(
-        f=out.f,
-        wi=frame.from_local(out.wi),
-        pdf=out.pdf,
-        flags=out.flags,
-        eta=out.eta,
-        pdf_is_proportional=out.pdf_is_proportional,
-        valid=out.valid & ~degenerate & (out.pdf > 0.0),
+    return dataclasses.replace(
+        out, wi=frame.from_local(out.wi), valid=out.valid & ~degenerate & (out.pdf > 0.0)
     )
 
 
-def bsdf_pdf(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, swl):
+def bsdf_pdf(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, swl,
+             tex=None, spectra_table=None, rng_key=None):
     """Render-space BSDF pdf."""
-    check_kinds(kinds_present)
+    _check_ctx(kinds_present, tex)
     wo = frame.to_local(wo_render)
     wi = frame.to_local(wi_render)
     kind = take_clamped(materials.kind, mat_id)
-    pdf = torch.where(kind == DIFFUSE, bx.diffuse_pdf(wo, wi), 0.0)
+    pdf = torch.zeros(wo.shape[:-1], device=wo.device)
+    if DIFFUSE in kinds_present:
+        pdf = torch.where(kind == DIFFUSE, bx.diffuse_pdf(wo, wi), pdf)
+    if _any(kinds_present, CONDUCTOR, DIELECTRIC):
+        pdf = cd.rough_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf,
+                           spectra_table=spectra_table)
+    if _any(kinds_present, COATED_DIFFUSE, COATED_CONDUCTOR):
+        pdf = layered.coated_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf,
+                                 _rng_key(rng_key, wo), spectra_table=spectra_table)
     return torch.where(torch.abs(wo[..., 2]) < 1e-9, 0.0, pdf)
+
+
+def bsdf_rho_hd(materials, kinds_present, mat_id, frame, ns, wo_render, swl, uc, u2, **ctx):
+    """Hemispherical-directional reflectance rho_hd (pbrt-v4 eq. 4.12):
+    a Monte Carlo estimate over the given samples, uc (S, ...) and
+    u2 (S, ..., 2).  Returns (..., 4)."""
+    s_count = uc.shape[0]
+    r = torch.zeros(wo_render.shape[:-1] + (4,), device=wo_render.device)
+    for i in range(s_count):
+        bs = bsdf_sample(materials, kinds_present, mat_id, frame, ns, wo_render, u2[i], uc[i],
+                         swl, **ctx)
+        cos_i = torch.abs(frame.to_local(bs.wi)[..., 2])
+        ok = bs.valid & (bs.pdf > 0.0)
+        r = r + torch.where(
+            ok[..., None], bs.f * (cos_i / torch.clamp(bs.pdf, min=1e-20))[..., None], 0.0
+        )
+    return r / float(s_count)
+
+
+def bsdf_rho_hh(materials, kinds_present, mat_id, frame, ns, swl, u1, uc, u2, **ctx):
+    """Hemispherical-hemispherical reflectance rho_hh (pbrt-v4 eq. 4.13):
+    wo uniform over the hemisphere of the shading normal (u1 (S, ..., 2)),
+    then the rho_hd estimate."""
+    s_count = uc.shape[0]
+    r = torch.zeros(u1.shape[1:-1] + (4,), device=u1.device)
+    for i in range(s_count):
+        wo_local = sample_uniform_hemisphere(u1[i])
+        wo_render = frame.from_local(wo_local)
+        bs = bsdf_sample(materials, kinds_present, mat_id, frame, ns, wo_render, u2[i], uc[i],
+                         swl, **ctx)
+        cos_i = torch.abs(frame.to_local(bs.wi)[..., 2])
+        cos_o = torch.abs(wo_local[..., 2])
+        ok = bs.valid & (bs.pdf > 0.0) & (cos_o > 0.0)
+        w = cos_i * cos_o / (UNIFORM_HEMISPHERE_PDF * torch.clamp(bs.pdf, min=1e-20))
+        r = r + torch.where(ok[..., None], bs.f * w[..., None], 0.0)
+    return r / (float(s_count) * np.pi)

@@ -19,9 +19,20 @@ def lerp(t, a, b):
     return (1.0 - t) * a + t * b
 
 
+def sqrt(x):
+    """Correctly rounded float32 square root, as CUDA's and the
+    reference's are.  torch's vectorized CPU kernel is off by an ulp on
+    about 0.7% of inputs, and the Fresnel and microfacet formulas amplify
+    that through cancellation, so on the CPU the root is taken in float64
+    and rounded once (exact for a square root)."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def safe_sqrt(x):
     """sqrt clamped to non-negative input."""
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return sqrt(torch.clamp(x, min=0.0))
 
 
 def safe_div(a, b):

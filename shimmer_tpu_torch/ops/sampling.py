@@ -1,6 +1,6 @@
 """Monte Carlo warps (port of ``shimmer_tpu/ops/sampling.py``: the warps
-the forward render path uses).  Expressions keep the reference's operand
-order so that float32 rounding matches it."""
+the forward render path and its materials use).  Expressions keep the
+reference's operand order so that float32 rounding matches it."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from shimmer_tpu_torch.ops.math import (
     lerp,
     safe_sqrt,
     sqr,
+    sqrt,
     sum_of_products,
 )
 from shimmer_tpu_torch.ops.vecmath import (
@@ -27,10 +28,16 @@ from shimmer_tpu_torch.ops.vecmath import (
 )
 
 INV_PI = 1.0 / math.pi
+INV_2PI = 1.0 / (2.0 * math.pi)
 INV_4PI = 1.0 / (4.0 * math.pi)
 PI_OVER_2 = math.pi / 2.0
 PI_OVER_4 = math.pi / 4.0
 UNIFORM_SPHERE_PDF = INV_4PI
+UNIFORM_HEMISPHERE_PDF = INV_2PI
+
+
+def balance_heuristic(nf, f_pdf, ng, g_pdf):
+    return (nf * f_pdf) / (nf * f_pdf + ng * g_pdf)
 
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):
@@ -65,8 +72,23 @@ def sample_discrete(weights, u):
     return idx, pmf, u_remap
 
 
+def sample_exponential(u, a):
+    return -torch.log1p(-u) / a
+
+
+def exponential_pdf(x, a):
+    return a * torch.exp(-a * x)
+
+
 def sample_uniform_sphere(u):
     z = 1.0 - 2.0 * u[..., 0]
+    r = safe_sqrt(1.0 - sqr(z))
+    phi = 2.0 * math.pi * u[..., 1]
+    return vec(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+def sample_uniform_hemisphere(u):
+    z = u[..., 0]
     r = safe_sqrt(1.0 - sqr(z))
     phi = 2.0 * math.pi * u[..., 1]
     return vec(r * torch.cos(phi), r * torch.sin(phi), z)
@@ -88,6 +110,12 @@ def sample_uniform_disk_concentric(u):
     )
     p = r[..., None] * vec2(torch.cos(theta), torch.sin(theta))
     return torch.where(zero[..., None], 0.0, p)
+
+
+def sample_uniform_disk_polar(u):
+    r = sqrt(u[..., 0])
+    theta = 2.0 * math.pi * u[..., 1]
+    return r[..., None] * vec2(torch.cos(theta), torch.sin(theta))
 
 
 def sample_cosine_hemisphere(u):

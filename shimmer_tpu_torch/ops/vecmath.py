@@ -8,7 +8,7 @@ import math
 
 import torch
 
-from shimmer_tpu_torch.ops.math import difference_of_products, safe_sqrt, sqr
+from shimmer_tpu_torch.ops.math import difference_of_products, safe_sqrt, sqr, sqrt
 
 
 def vec(x, y, z):
@@ -91,8 +91,47 @@ def angle_between(a, b):
     return torch.where(cond, math.pi - half, half)
 
 
+def cos_theta(w):
+    return w[..., 2]
+
+
+def cos2_theta(w):
+    return sqr(w[..., 2])
+
+
 def abs_cos_theta(w):
     return torch.abs(w[..., 2])
+
+
+def sin2_theta(w):
+    return torch.clamp(1.0 - cos2_theta(w), min=0.0)
+
+
+def sin_theta(w):
+    return sqrt(sin2_theta(w))
+
+
+def tan2_theta(w):
+    """sin^2 / cos^2; inf where cos == 0 (callers mask on isfinite)."""
+    c2 = cos2_theta(w)
+    ok = c2 > 0.0
+    return torch.where(ok, sin2_theta(w) / torch.where(ok, c2, torch.ones_like(c2)), float("inf"))
+
+
+def cos_phi(w):
+    s = sin_theta(w)
+    zero = s == 0.0
+    return torch.where(
+        zero, 1.0, torch.clamp(w[..., 0] / torch.where(zero, torch.ones_like(s), s), -1.0, 1.0)
+    )
+
+
+def sin_phi(w):
+    s = sin_theta(w)
+    zero = s == 0.0
+    return torch.where(
+        zero, 0.0, torch.clamp(w[..., 1] / torch.where(zero, torch.ones_like(s), s), -1.0, 1.0)
+    )
 
 
 def same_hemisphere(w, wp):

@@ -28,6 +28,7 @@ class Scene:
     materials: MaterialTable
     lights: LightData
     light_sample_weights: torch.Tensor  # (L,) pmf weights
+    spectra_table: torch.Tensor | None = None  # (K, 471) dense spectra (IORs)
     # --- static census ---
     material_kinds: tuple = ()
     light_kinds: tuple = ()

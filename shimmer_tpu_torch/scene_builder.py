@@ -1,5 +1,6 @@
 """Host-side scene assembly (port of ``shimmer_tpu/scene_builder.py``:
-triangles, diffuse materials, triangle area lights and uniform infinite
+triangles, untextured materials of every ported kind with the dense
+spectra table their IORs index, triangle area lights and uniform infinite
 lights)."""
 
 from __future__ import annotations
@@ -23,11 +24,17 @@ def build_scene(
     lights: list[dict] | None = None,
     colorspace: RgbColorSpace | None = None,
     light_sampler: str = "uniform",
+    spectra_table=None,
     device=None,
 ) -> Scene:
     """Assemble a device Scene from a TriangleSceneData and material /
     light dicts, as the reference's ``build_scene`` does for a
-    triangle-only scene.  ``device`` defaults to the triangles' device."""
+    triangle-only scene.  Material dicts carry ``kind`` plus the per-kind
+    parameters of ``materials.material.make_material_table``;
+    ``reflectance`` may be an RGB triple (fit to sigmoid coefficients
+    here).  ``spectra_table`` is the (K, 471) dense table that
+    ``eta_spec`` / ``k_spec`` index.  ``device`` defaults to the
+    triangles' device."""
     device = triangles.rows8.device if device is None else device
     cs = colorspace or get_named_color_space("srgb")
     materials = materials or []
@@ -102,6 +109,7 @@ def build_scene(
         materials=mat_table,
         lights=light_data,
         light_sample_weights=f32(weights, device),
+        spectra_table=None if spectra_table is None else f32(spectra_table, device),
         material_kinds=material_kinds,
         light_kinds=tuple(sorted({int(k) for k in kind})),
         n_lights=n_l,

@@ -13,6 +13,7 @@ import functools
 import numpy as np
 import torch
 
+from shimmer_tpu_torch.ops.math import sqrt
 from shimmer_tpu_torch.spectra.sampled import LAMBDA_MAX, LAMBDA_MIN
 from shimmer_tpu_torch.spectra.spectrum import cie_xyz_dense
 
@@ -24,7 +25,7 @@ def _sigmoid_np(t):
 
 def sigmoid(t):
     """s(t) = 1/2 + t / (2 sqrt(1 + t^2))."""
-    return 0.5 + t / (2.0 * torch.sqrt(1.0 + t * t))
+    return 0.5 + t / (2.0 * sqrt(1.0 + t * t))
 
 
 def _norm_lambda(lam):

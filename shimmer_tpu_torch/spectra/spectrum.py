@@ -136,16 +136,32 @@ def cie_z_spectrum() -> DenselySampledSpectrum:
 
 
 _NAMED_SPECS = {
+    # name -> (npz key, normalize), as the reference's table.
     "stdillum-D65": ("cie_illum_d6500", True),
+    "stdillum-D50": ("cie_illum_d5000", True),
+    "illum-acesD60": ("aces_illum_d60", True),
+    "glass-BK7": ("glass_bk7_eta_samples", False),
+    "glass-baf10": ("glass_baf10_eta_samples", False),
+    "glass-F11": ("glass_f11_eta_samples", False),
+    "metal-Cu-eta": ("cu_eta_samples", False),
+    "metal-Cu-k": ("cu_k_samples", False),
+    "metal-Au-eta": ("au_eta_samples", False),
+    "metal-Au-k": ("au_k_samples", False),
+    "metal-Ag-eta": ("ag_eta_samples", False),
+    "metal-Ag-k": ("ag_k_samples", False),
+    "metal-Al-eta": ("al_eta_samples", False),
+    "metal-Al-k": ("al_k_samples", False),
 }
 
 
 @functools.cache
-def named_spectrum(name: str) -> PiecewiseLinearSpectrum:
-    """Named spectra the slice uses (the sRGB illuminant)."""
-    if name not in _NAMED_SPECS:
-        raise NotImplementedError(f"named spectrum {name!r} is not ported yet")
-    key, normalize = _NAMED_SPECS[name]
+def named_spectrum(name: str) -> PiecewiseLinearSpectrum | None:
+    """A named spectrum (illuminants, glass and metal IORs), or None for
+    an unknown name."""
+    entry = _NAMED_SPECS.get(name)
+    if entry is None:
+        return None
+    key, normalize = entry
     return PiecewiseLinearSpectrum.from_interleaved(_data()[key], normalize)
 
 

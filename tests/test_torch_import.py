@@ -52,6 +52,18 @@ if "shimmer_tpu_torch.ops.bvh8" in names:
     tri = np.random.default_rng(0).random((64, 3, 3)).astype(np.float32)
     arrs = pack_bvh8(tri.min(1), tri.max(1), tri)
     assert bvh8_validate(arrs, tri.min(1), tri.max(1))
+if "shimmer_tpu_torch.materials.layered" in names:
+    # The material slice runs, not only imports: every material kind
+    # rendered at a small size on the CPU.
+    import torch
+    from shimmer_tpu_torch import bench_scene
+    from shimmer_tpu_torch.render import render
+    from shimmer_tpu_torch.samplers import ZSobolSampler
+    for variant in bench_scene.MATERIAL_VARIANTS:
+        scene, cam, film = bench_scene.build_material_bench_scene(320, (8, 8), variant, device="cpu")
+        img = render(scene, cam, film, ZSobolSampler(1, (8, 8)), spp=1, max_depth=3,
+                     wave_spp=1, pixel_block=64)[0]
+        assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
 blocked = ("jax", "jaxlib", "shimmer_tpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -71,9 +83,13 @@ print(len(names))
          "shimmer_tpu_torch.experiments.packet_step"],
         ["shimmer_tpu_torch.ops.traverse", "shimmer_tpu_torch.measure",
          "shimmer_tpu_torch.experiments.kernel_ab"],
+        ["shimmer_tpu_torch.materials.scattering", "shimmer_tpu_torch.materials.conductor_dielectric",
+         "shimmer_tpu_torch.materials.layered", "shimmer_tpu_torch.materials.material",
+         "shimmer_tpu_torch.integrators.path", "shimmer_tpu_torch.convert",
+         "shimmer_tpu_torch.bench_scene"],
     ],
     ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules",
-         "packet_step_modules", "kernel_ab_modules"],
+         "packet_step_modules", "kernel_ab_modules", "material_modules"],
 )
 def test_imports_without_jax(names):
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -4,6 +4,8 @@ bit-equal (both packages run the same numpy / native builder), material
 and light tables agree to rtol 1e-6, and scene_from_numpy carries a
 reference Scene across unchanged."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -165,23 +167,67 @@ def test_scene_from_numpy_mt_leaves(jax_scene, torch_scene):
 
 @pytest.mark.parametrize(
     "change",
-    [{"has_spheres": True}, {"material_kinds": (0, 1)}, {"light_kinds": (0, 3)},
-     {"image_infinite_indices": (1,)}, {"camera_medium": 0}],
+    [{"has_spheres": True}, {"material_kinds": (0, 1), "materials.tex_reflectance": 0},
+     {"light_kinds": (0, 3)}, {"image_infinite_indices": (1,)}, {"camera_medium": 0}],
     ids=["spheres", "conductor", "point_light", "image_light", "medium"],
 )
 def test_scene_from_numpy_refuses_unported(jax_scene, change):
+    """Each case asks for something still unported; a conductor converts
+    since materials were ported, a textured one does not."""
     arrays, census = jax_scene_to_numpy(jax_scene)
-    census.update(change)
+    for key, value in change.items():
+        if key in arrays:
+            arrays[key] = np.full_like(arrays[key], value)
+        else:
+            census[key] = value
     with pytest.raises(NotImplementedError):
         scene_from_numpy(arrays, census, device="cpu")
 
 
 def test_builders_refuse_unported():
     with pytest.raises(NotImplementedError):
-        tmtl.make_material_table([{"kind": tmtl.CONDUCTOR}], device="cpu")
+        tmtl.make_material_table([{"kind": tmtl.CONDUCTOR, "tex_reflectance": 0}], device="cpu")
     cam, _ = bench_scene.bench_camera_film((8, 8))
     tris = build_triangle_scene(bench_scene.bench_meshes(20, cam.camera_transform.render_from_world()),
                                 device="cpu")
     with pytest.raises(NotImplementedError):
         torch_build_scene(tris, materials=[{"kind": 0}],
                           lights=[{"kind": tlt.POINT, "spectrum": ConstantSpectrum(1.0)}])
+
+
+@pytest.mark.parametrize("variant", list(bench_scene.MATERIAL_VARIANTS))
+def test_material_tables_match_reference(jax_scene, variant):
+    """The material bench scene's tables: the reference's build_scene over
+    the same material dicts and dense spectra table, carried across by
+    scene_from_numpy (every MaterialTable column, the census flags and
+    spectra_table) and built by the port's own builder, agree."""
+    jm = jax_build_scene(
+        triangles=jax_scene.triangles,
+        materials=bench_scene.material_bench_materials(variant),
+        spectra_table=bench_scene.material_bench_spectra(),
+    )
+    arrays, census = jax_scene_to_numpy(jm)
+    conv = scene_from_numpy(arrays, census, device="cpu")
+    own = torch_build_scene(
+        build_triangle_scene(bench_scene.bench_meshes(20, bench_scene.bench_camera_film((8, 8))[0]
+                                                      .camera_transform.render_from_world()),
+                             device="cpu"),
+        materials=bench_scene.material_bench_materials(variant),
+        spectra_table=bench_scene.material_bench_spectra(),
+    )
+    kinds = tuple(sorted({m["kind"] for m in bench_scene.material_bench_materials(variant)}))
+    assert conv.material_kinds == own.material_kinds == kinds
+    for field in dataclasses.fields(tmtl.MaterialTable):
+        ref = getattr(jm.materials, field.name)
+        for port in (conv.materials, own.materials):
+            got = getattr(port, field.name)
+            if isinstance(ref, bool):
+                assert got == ref, field.name
+                continue
+            ref = np.asarray(ref)
+            assert got.dtype == {"f": torch.float32, "i": torch.int32, "b": torch.bool}[ref.dtype.kind]
+            np.testing.assert_allclose(got.numpy(), ref, rtol=TABLE_RTOL, err_msg=field.name)
+    assert conv.materials.has_dispersion and not conv.materials.layer_medium
+    for port in (conv, own):
+        assert port.spectra_table.dtype == torch.float32
+        np.testing.assert_array_equal(port.spectra_table.numpy(), np.asarray(jm.spectra_table))

@@ -12,6 +12,13 @@ image means within 1e-3 relative; the margin covers a path that branches
 differently on a last-ulp difference.  The traced-ray count must match
 exactly.
 
+The material slice renders the material bench scene
+(bench_scene.build_material_bench_scene) the same way, one case per table
+variant: the mix of rough gold and dispersive BK7 over a coated-diffuse
+floor; BK7 over a rough constant-eta glass floor; a coated conductor over
+a thin-dielectric floor.  The reference scene is built by the reference's
+build_scene from the same material dicts and dense spectra table.
+
 The slice runs under every traversal configuration (ops/traverse.py
 TraverseConfig) against the same reference render: v2 and the min-id
 winner change only which of two triangles at an exact tie wins, and
@@ -20,6 +27,7 @@ the re-intersection gate turns a disagreement into a miss.
 """
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,10 +35,13 @@ import pytest
 import torch
 
 import bench
+from shimmer_tpu.lights import lights as jlt
 from shimmer_tpu.render import make_wavefront_renderer as jax_wavefront
 from shimmer_tpu.render import pixel_blocks as jax_blocks
 from shimmer_tpu.render import render as jax_render
 from shimmer_tpu.samplers import ZSobolSampler as JaxZSobol
+from shimmer_tpu.scene_builder import build_scene as jax_build_scene
+from shimmer_tpu.spectra.spectrum import ConstantSpectrum as JaxConstant
 from shimmer_tpu_torch import bench_scene
 from shimmer_tpu_torch.convert import scene_from_numpy
 from shimmer_tpu_torch.ops.traverse import TraverseConfig
@@ -127,3 +138,69 @@ def test_wavefront_under_each_traverse_config(scenes, jax_wave, config):
     assert float(stats["rays"]) == rays
     assert float(stats["iters"]) == iters
     assert_images_agree(tfilm.get_image(state).numpy(), ref)
+
+
+def _jax_material_scene(scenes, variant):
+    """The reference's build_scene over the bench triangles, with the
+    material bench scene's material dicts, dense spectra table and the
+    bench lights."""
+    jscene, jcam, jfilm = scenes["jax"]
+    n_tri = int(np.asarray(jscene.triangles.orig_indices).shape[0])
+    lights = [
+        {"kind": jlt.AREA, "spectrum": JaxConstant(1.0), "scale": 15.0, "shape_kind": 1,
+         "shape_idx": n_tri - 2 + k}
+        for k in range(2)
+    ] + [{"kind": jlt.UNIFORM_INFINITE, "spectrum": jfilm.colorspace.illuminant,
+          "photometric": True, "scale": 0.3}]
+    return jax_build_scene(
+        triangles=jscene.triangles,
+        materials=bench_scene.material_bench_materials(variant),
+        lights=lights,
+        spectra_table=bench_scene.material_bench_spectra(),
+        render_from_world=jcam.camera_transform.render_from_world(),
+    )
+
+
+@pytest.fixture(scope="module")
+def material_renders(scenes):
+    """Per variant: the reference's image, rays and iterations, and the
+    port's scenes from both table builders."""
+    jscene, jcam, jfilm = scenes["jax"]
+    blocks, valids = jax_blocks(jfilm, RES[0] * RES[1])
+    jitted = None
+    out = {}
+    for variant in bench_scene.MATERIAL_VARIANTS:
+        jm = _jax_material_scene(scenes, variant)
+        if jitted is None:
+            wave = jax_wavefront(jm, jcam, jfilm, JaxZSobol(SPP, RES), max_depth=DEPTH,
+                                 with_stats=True)
+            # The wave function's jitted body takes the scene as a traced
+            # argument; the variants share one census, so they share one
+            # compile through it.
+            jitted = inspect.getclosurevars(wave).nonlocals["_wave"]
+        state, stats = jitted(jm, jfilm.init_state(), jnp.arange(SPP, dtype=jnp.uint32),
+                              blocks[0], valids[0])
+        arrays, census = jax_scene_to_numpy(jm)
+        out[variant] = {
+            "ref": (np.asarray(jfilm.get_image(state)), float(stats["rays"])),
+            "converted": scene_from_numpy(arrays, census, device="cpu"),
+            "torch": bench_scene.build_material_bench_scene(N_TRIS, RES, variant, device="cpu")[0],
+        }
+    return out
+
+
+@pytest.mark.parametrize("tables", ["converted", "torch"])
+@pytest.mark.parametrize("variant", list(bench_scene.MATERIAL_VARIANTS))
+def test_material_slice_matches_reference(scenes, material_renders, variant, tables):
+    """Every material kind of the dispatch, rendered: conductor, dielectric
+    (spectral and constant eta), thin dielectric, both coats and the mix."""
+    ref, rays = material_renders[variant]["ref"]
+    tscene = material_renders[variant][tables]
+    _, tcam, tfilm = scenes["torch"]
+    assert tscene.materials.has_dispersion and tscene.spectra_table is not None
+    wave = torch_wavefront(tscene, tcam, tfilm, TorchZSobol(SPP, RES), max_depth=DEPTH)
+    blocks, valids = torch_blocks(tfilm, RES[0] * RES[1], device="cpu")
+    state, stats = wave(tfilm.init_state("cpu"), torch.arange(SPP), blocks[0], valids[0])
+    assert float(stats["rays"]) == rays
+    assert_images_agree(tfilm.get_image(state).numpy(), ref)
+
