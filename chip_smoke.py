@@ -32,16 +32,18 @@ Phases, each printing its own numbers:
   7. the 1.3M-triangle leg: v1 and v2 against the plain version on one
      merged batch, then pixel-block waves 0-2 rendered under v1 and v2;
   8. the row-gather kernels (gather, transposed gather, gather-sum, float32
-     and bf16 row chase) through the entry point's every case, each
-     against its plain version on the same tensors (gathers and chases
-     bit-equal, the gather-sum within SUM_RTOL), with the library call
-     that computes the same function timed beside the kernel where there
-     is one (index_select, embedding_bag);
+     and bf16 row chase, 6E's one-lane chase staged and its walk alone,
+     chain_ms) through the entry point's every case, each against its
+     plain version on the same tensors (gathers and chases bit-equal, the
+     gather-sum within SUM_RTOL), with the library call that computes the
+     same function timed beside the kernel where there is one
+     (index_select, embedding_bag);
   9. the packet-step kernels (the packet slab chase, the step attribution
-     over the bench scene's BVH8 of phase 2, the bf16 hi|lo step
-     ablation) through the entry point's every case, each at every step
-     count against its plain version on the same tensors, bit for bit,
-     with ns per step as the reference scripts report it;
+     over the bench scene's BVH8 of phase 2 and its chain alone, the bf16
+     hi|lo step ablation) through the entry point's every case, each at
+     every step count against its plain version on the same tensors, bit
+     for bit, with ns per step as the reference scripts report it and the
+     chain alone's time (chain_ms) where a case has one;
  10. the material bench scene (bench_scene.build_material_bench_scene: the
      bench geometry with a mix of rough gold and dispersive BK7 glass on the
      sphere and a coated diffuse floor): a small render (64x48, 4 spp) on
@@ -86,6 +88,7 @@ from shimmer_tpu_torch.measure import (
     launch_bound,
     launch_kwargs,
     layouts,
+    patterned_stack,
     ptxas_report,
 )
 from shimmer_tpu_torch.ops import cuda_build
@@ -175,7 +178,14 @@ GATHER_ROWS = {
     "row_chase_bf16": (
         "6C row_chase_bf16 R=16384 N=131072 W=128 K=8",
         "experiments/pallas_gather.py:140 (bench_pallas_onehot)"),
+    "chase_walk": (
+        "6E row_chase_f32 R=16384 N=1 W=128 K=4096",
+        "experiments/pallas_gather.py:232 (bench_pallas_scalar_rows: the staged walk alone, "
+        "over each row's next index and row sum)"),
 }
+# The case whose staged walk the chase_walk line carries (6E: one lane,
+# 4,096 steps; the row_chase_f32 line carries the wide chase).
+WALK_CASE = GATHER_ROWS["chase_walk"][0]
 
 
 # The packet-step kernels of kernel-table rows 10-16 -> (kernel, the entry
@@ -526,6 +536,11 @@ def phase8(dev) -> dict:
                          f"(max |d| {res['max_abs_err']})")
     for kernel in eg.KERNELS:
         check(launches[kernel] > 0, f"phase 8: the {kernel} kernel was not launched")
+    # The card runs 6E's one-lane chase staged and the wide chases per lane
+    # (ops.gather.chase_staged, held to the library's bounds).
+    staged = sorted(name for name, res in rows.items() if res.get("staged"))
+    check(staged == sorted(name for name, res in rows.items() if res["row"] == "6E"),
+          f"phase 8: the staged chase ran for {staged}, not for 6E's cases")
     oob = {name: res["oob_lanes"] for name, res in rows.items() if res["kernel"] == "row_chase_bf16"}
     check(sum(oob.values()) > 0, "phase 8: no bf16 chase lane met an index rounded out of range")
     log(f"phase 8 entry point: {len(rows)} cases in {seconds:.1f}s, launches {json.dumps(launches)}, "
@@ -544,14 +559,16 @@ def phase8(dev) -> dict:
                   f"phase 8 {case.name}: index_select disagrees with the kernel")
         library[case.name] = eg.time_ms(lib, dev)
     for name, res in rows.items():
-        keys = ("ms", "plain_ms", "max_abs_err", "max_rel_err", "distinct_rows", "ns_per_step",
-                "oob_lanes", "checksum")
+        keys = ("ms", "chain_ms", "chain_plain_ms", "plain_ms", "max_abs_err", "max_rel_err",
+                "distinct_rows", "ns_per_step", "oob_lanes", "checksum")
         line = {**{k: res[k] for k in keys if k in res}, **gather_bound(res),
                 "library_ms": library.get(name)}
         log(f"phase 8 case {name}: {json.dumps(line)}")
 
     out = {}
     for kernel, (case_name, _) in GATHER_ROWS.items():
+        if kernel == "chase_walk":
+            continue  # below
         res = rows[case_name]
         out[kernel] = {
             "case": case_name,
@@ -572,6 +589,23 @@ def phase8(dev) -> dict:
                                              if r["kernel"] == kernel)
             out[kernel]["rel_tolerance"] = eg.SUM_RTOL
         log(f"phase 8 {kernel}: {json.dumps(out[kernel])}")
+    # 6E's staged walk alone, a kernel of its own.
+    res = rows[WALK_CASE]
+    t_bytes = res["chain_bytes"] / HBM_BYTES_PER_S
+    t_ops = res["chain_ops"] / FP32_OPS_PER_S
+    out["chase_walk"] = {
+        "case": WALK_CASE,
+        "launches": launches["chase_walk"],
+        "max_abs_err": res["max_abs_err"],  # held bit-equal to the chase (ok)
+        "ms": res["chain_ms"],
+        "plain_ms": res["chain_plain_ms"],
+        "library_ms": None,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": res["chain_bytes"],
+        "ops": res["chain_ops"],
+    }
+    log(f"phase 8 chase_walk: {json.dumps(out['chase_walk'])}")
     return out
 
 
@@ -591,16 +625,21 @@ def phase9(dev, tables) -> dict:
                          f"(max |d| {res['max_abs_err']})")
     for kernel in pk.KERNELS:
         # The cases count their timed launches, not the ones compared
-        # with the plain version.
-        timed = sum(r["launches"] for r in rows.values() if r["kernel"] == kernel)
+        # with the plain version (row 15's chain alone, a kernel of its
+        # own, in chain_launches).
+        timed = sum(r["launches"] for r in rows.values() if r["kernel"] == kernel) + sum(
+            r["chain_launches"] for r in rows.values()
+            if r.get("chain_kernel") == kernel != r["kernel"])
         check(timed > 0, f"phase 9: the {kernel} kernel was not launched")
         check(launches[kernel] > timed, f"phase 9: {kernel} launched {launches[kernel]} times, "
                                         f"its cases timed {timed}")
     smi = nvidia_smi_line()
     log(f"phase 9 entry point: {len(rows)} cases in {seconds:.1f}s, launches {json.dumps(launches)}")
+    attrib_patterned(dev, tables)
     for name, res in rows.items():
         keys = ("ns_per_step", "ns_per_step_per_program", "marginal_ns", "ms", "chain_ms",
-                "plain_ms", "bound_ms", "bound_by", "bytes", "ops", "launches", "max_abs_err")
+                "chain_plain_ms", "chain_bound_ms", "chain_launches", "plain_ms", "bound_ms",
+                "bound_by", "bytes", "ops", "launches", "max_abs_err")
         line = {k: res[k] for k in keys if k in res}
         line["steps"] = {s: {k: p[k] for k in ("ms", "chain_ms", "plain_ms", "checksum") if k in p}
                          for s, p in res["steps"].items()}
@@ -620,7 +659,56 @@ def phase9(dev, tables) -> dict:
             "library_ms": None,  # no single PyTorch call computes a packet step
         }
         log(f"phase 9 row {row} ({case_name}): {json.dumps(out[row])}")
+    # Row 15's chain alone, a kernel of its own (timed beside each variant;
+    # its line carries the full variant's case).
+    res = rows[PACKET_ROWS["15"][1]]
+    of_row = [r for r in rows.values() if r.get("chain_kernel") == "step_attrib_chain"]
+    out["15 chain"] = {
+        "name": "step_attrib_chain:row15",
+        "route": "cuda",
+        "source": PACKET_SOURCE,
+        "replaces": "experiments/exp_step_attrib.py:43 (kern, its scalar chain: the pops "
+                    ":151-162; pallas_call :208)",
+        "launches": sum(r["chain_launches"] for r in of_row),
+        "max_abs_err": 0.0,  # the visits are integers, held equal to the plain version's
+        "ms": res["chain_ms"],
+        "plain_ms": res["chain_plain_ms"],
+        "bound_ms": res["chain_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+    log(f"phase 9 row 15 chain alone: {json.dumps(out['15 chain'])}")
     return out
+
+
+def attrib_patterned(dev, tables):
+    """Row 15 and its chain alone, every variant at the entry point's case,
+    from a patterned stack (measure.patterned_stack) instead of interpret
+    mode's INT32_MIN, against the plain versions: out, tri and the final
+    stacks bit-equal, the pops and pushes landed."""
+    for case in eps.cases():
+        if case.kernel != "step_attrib":
+            continue
+        x = eps.make_inputs(case, dev, tables)
+        size, n_rows = x["stack_size"], x["meta"].shape[0]
+        k = eps.ATTRIB_PACKETS
+        init = patterned_stack(n_rows, k, size, eps.SEED + 1).to(dev)
+        args = (x["rows8"], x["meta"], x["rays"], case.variant, case.steps[-1], k, size, init)
+        got, got_st = pk.step_attrib(*args)
+        want, want_st = pk.step_attrib_plain(*args)
+        chain = pk.step_attrib_chain(*args)
+        chain_want = pk.step_attrib_chain_plain(x["meta"], case.variant, case.programs, k,
+                                                case.steps[-1], size, init)
+        check(torch.equal(got, want) and torch.equal(got_st, want_st),
+              f"phase 9 {case.name}, patterned stack: the kernel disagrees with its plain version")
+        check(torch.equal(chain, chain_want),
+              f"phase 9 {case.name}, patterned stack: the chain disagrees with its plain version")
+        if case.variant != "noscalar":
+            check(not torch.equal(got_st[:, 1:3], init[:, 1:3]),
+                  f"phase 9 {case.name}, patterned stack: no pop or push landed")
+        log(f"phase 9 {case.name} patterned stack: equal; rows visited "
+            f"{int(torch.unique(chain[:, :, 0]).numel())}, lanes that hit "
+            f"{int((got[:, 1] >= 0).sum())}, stack slots 0-2 {got_st[:, :3].tolist()}")
 
 
 def phase10(dev) -> dict:

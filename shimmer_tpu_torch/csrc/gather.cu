@@ -54,9 +54,16 @@
 //     vary from run to run with the blocks' order).
 //   * chase: neither bytes nor operations but the latency of K dependent
 //     reads per lane (each step needs the last step's row to find the next
-//     one).  One thread per lane reads only the 9 columns a step needs,
-//     through the read-only path (36 bytes, two sectors, for float32 rows;
-//     18 bytes, one sector, for bf16 rows), and the N lanes' chains overlap.
+//     one).  Wide chases: one thread per lane reads only the 9 columns a
+//     step needs, through the read-only path (36 bytes, two sectors, for
+//     float32 rows; 18 bytes, one sector, for bf16 rows), and the N lanes'
+//     chains overlap.  A few lanes with a long chain (6E: one lane, 4,096
+//     steps, 74 ns a step that way on an NVIDIA H100 80GB HBM3 at
+//     700.00 W) have nothing to overlap, so the dependent step itself is
+//     made short (gather_body.cuh, chase_staged): a pass over the card
+//     writes each row's (next index, row sum), one block stages those
+//     pairs in shared memory with cp.async, and a step of a lane is one
+//     8-byte shared load and an add.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (ops/cuda_build.py).  Each entry point launches on `stream`, does not
@@ -77,6 +84,8 @@ constexpr int kColsThreads = 256;     // output elements per block, direct cols 
 constexpr int kStageThreads = 512;    // staged cols form
 constexpr int kChaseThreads = 128;
 constexpr int kRing = 8;              // rows in flight per warp, gather-sum
+constexpr int kPairThreads = 256;     // rows per block of the chase's pair pass
+constexpr int kWalkThreads = 256;     // the staged walk's block (staging copies)
 
 __global__ void __launch_bounds__(kGatherWarps * kWarp)
     row_gather_kernel(const float* __restrict__ table, int n_rows, int width,
@@ -120,7 +129,7 @@ __global__ void __launch_bounds__(kColsThreads)
       table_t + static_cast<size_t>(col) * n_rows, n_rows, __ldg(idx + i));
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool ok) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   // src-size 0 copies nothing and fills the 16 bytes with zeros.
@@ -205,6 +214,35 @@ __global__ void __launch_bounds__(kChaseThreads)
   out[i] = chase_lane(table, n_rows, width, __ldg(idx + i), steps);
 }
 
+// The staged chase's pass: pair r of the table for r < R, and at R the
+// pair of the row of zeros.
+template <typename T>
+__global__ void __launch_bounds__(kPairThreads)
+    chase_pairs_kernel(const T* __restrict__ table, int n_rows, int width,
+                       ChasePair* __restrict__ pairs) {
+  const int r = blockIdx.x * kPairThreads + threadIdx.x;
+  if (r <= n_rows) pairs[r] = chase_pair(table, n_rows, width, r);
+}
+
+// The staged chase's walk: one block copies the R + 1 pairs into shared
+// memory (16 bytes a cp.async), then thread i < n walks lane i.
+__global__ void __launch_bounds__(kWalkThreads)
+    chase_walk_kernel(const ChasePair* __restrict__ pairs, int n_rows,
+                      const int* __restrict__ idx, int n, int steps,
+                      float* __restrict__ out) {
+  extern __shared__ ChasePair staged[];
+  const int entries = n_rows + 1;
+  for (int c = threadIdx.x; 2 * c + 1 < entries; c += kWalkThreads) {
+    cp_async16(staged + 2 * c, pairs + 2 * c, true);
+  }
+  if (threadIdx.x == 0 && entries % 2 == 1) staged[entries - 1] = pairs[entries - 1];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x < n) {
+    out[threadIdx.x] = chase_walk_lane(staged, n_rows, __ldg(idx + threadIdx.x), steps);
+  }
+}
+
 int blocks_for(int n, int per_block) { return (n + per_block - 1) / per_block; }
 
 int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
@@ -269,28 +307,78 @@ extern "C" int shimmer_row_gather_sum(const float* table, int n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The staged walk over pairs (n_rows + 1 of them), n <= kWalkThreads.
+int launch_walk(const ChasePair* pairs, int n_rows, const int* idx, int n,
+                int steps, float* out, cudaStream_t s) {
+  const int smem = static_cast<int>(sizeof(ChasePair)) * (n_rows + 1);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        chase_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  chase_walk_kernel<<<1, kWalkThreads, smem, s>>>(pairs, n_rows, idx, n, steps, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // dtype 0: float32 rows; 1: bf16 rows (their 16-bit patterns).  W a
-// multiple of 8, at least kChaseCols; out (n,).
+// multiple of 8, at least kChaseCols; out (n,).  work: 2 * (n_rows + 1)
+// int32 of scratch where chase_staged(n_rows, n, steps) (the pairs; two
+// launches, the pass and the walk), else unused and may be null.
 extern "C" int shimmer_row_chase(int dtype, const void* table, int n_rows,
                                  int width, const int* idx, int n, int steps,
-                                 float* out, void* stream) {
+                                 int* work, float* out, void* stream) {
   if (n_rows <= 0 || width < kChaseCols || width % 8 != 0 || n < 0 ||
       steps < 0 || (dtype != 0 && dtype != 1)) {
     return invalid();
   }
-  if (n > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int blocks = blocks_for(n, kChaseThreads);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chase_staged(n_rows, n, steps)) {
+    if (work == nullptr) return invalid();
+    ChasePair* pairs = reinterpret_cast<ChasePair*>(work);
+    const int blocks = blocks_for(n_rows + 1, kPairThreads);
     if (dtype == 0) {
-      row_chase_kernel<float><<<blocks, kChaseThreads, 0, s>>>(
-          static_cast<const float*>(table), n_rows, width, idx, n, steps, out);
+      chase_pairs_kernel<float><<<blocks, kPairThreads, 0, s>>>(
+          static_cast<const float*>(table), n_rows, width, pairs);
     } else {
-      row_chase_kernel<uint16_t><<<blocks, kChaseThreads, 0, s>>>(
-          static_cast<const uint16_t*>(table), n_rows, width, idx, n, steps,
-          out);
+      chase_pairs_kernel<uint16_t><<<blocks, kPairThreads, 0, s>>>(
+          static_cast<const uint16_t*>(table), n_rows, width, pairs);
     }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_walk(pairs, n_rows, idx, n, steps, out, s);
+  }
+  const int blocks = blocks_for(n, kChaseThreads);
+  if (dtype == 0) {
+    row_chase_kernel<float><<<blocks, kChaseThreads, 0, s>>>(
+        static_cast<const float*>(table), n_rows, width, idx, n, steps, out);
+  } else {
+    row_chase_kernel<uint16_t><<<blocks, kChaseThreads, 0, s>>>(
+        static_cast<const uint16_t*>(table), n_rows, width, idx, n, steps,
+        out);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The staged chase's walk alone, over pairs (n_rows + 1, 2) int32 (next
+// index, row-sum bits) that the caller made; 1 <= n <= kChaseStageMaxLanes,
+// n_rows <= kChaseStageMaxRows.
+extern "C" int shimmer_chase_walk(const int* pairs, int n_rows, const int* idx,
+                                  int n, int steps, float* out, void* stream) {
+  if (n_rows <= 0 || n_rows > kChaseStageMaxRows || n < 1 ||
+      n > kChaseStageMaxLanes || steps < 0) {
+    return invalid();
+  }
+  return launch_walk(reinterpret_cast<const ChasePair*>(pairs), n_rows, idx, n,
+                     steps, out, static_cast<cudaStream_t>(stream));
+}
+
+// The dispatch rule's bounds, which the wrapper's copy of the rule
+// (ops/gather.py chase_staged) is checked against.
+extern "C" int shimmer_chase_stage_max_lanes() { return kChaseStageMaxLanes; }
+
+extern "C" int shimmer_chase_stage_max_rows() { return kChaseStageMaxRows; }
+
+extern "C" int shimmer_chase_stage_min_steps() { return kChaseStageMinSteps; }
 
 extern "C" int shimmer_gather_sum_max_width() { return kSumMaxWidth; }

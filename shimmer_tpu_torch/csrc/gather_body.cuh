@@ -13,6 +13,9 @@
 //   gather-sum  out[:] = sum_i T[idx[i], :]
 //   chase       per lane, K dependent steps from idx[i]:
 //                 row = T[idx]; acc += row[1] + ... + row[8]; idx = int(row[0])
+//               (read from the table a step, or for few lanes with long
+//               chains from each row's (next index, row sum) staged in
+//               shared memory: chase_staged)
 // One rule for every index: an index outside [0, R) reads a row of zeros,
 // so a chase that meets one goes on from index 0.  This is what the
 // reference's one-hot product (pallas_gather.py:149-156) does with an
@@ -109,6 +112,36 @@ SHIMMER_GATHER_HD void load_chase_cols(const uint16_t* row,
 #endif
 }
 
+// What a chase step takes from a row: the next index (n_rows, an index
+// that reads zeros, where next_index gives one out of range) and the row
+// sum row[1] + ... + row[8], added left to right.
+struct alignas(8) ChasePair {
+  int next;
+  float sum;
+};
+
+SHIMMER_GATHER_HD ChasePair chase_pair_of(const float v[kChaseCols],
+                                          int n_rows) {
+  float s = v[1];
+  for (int j = 2; j < kChaseCols; ++j) s = s + v[j];
+  const int next = next_index(v[0], n_rows);
+  return ChasePair{in_range(next, n_rows) ? next : n_rows, s};
+}
+
+// The pair of index r, or of the row of zeros that an index outside
+// [0, R) reads (sum +0, next index 0).
+template <typename T>
+SHIMMER_GATHER_HD ChasePair chase_pair(const T* table, int n_rows, int width,
+                                       int r) {
+  float v[kChaseCols];
+  if (in_range(r, n_rows)) {
+    load_chase_cols(table + static_cast<size_t>(r) * width, v);
+  } else {
+    for (int j = 0; j < kChaseCols; ++j) v[j] = 0.0f;
+  }
+  return chase_pair_of(v, n_rows);
+}
+
 // One lane of the chase: `steps` dependent row reads from `idx`, each
 // adding row[1..8] (left to right) to the accumulator.  T is float
 // (float32 rows) or uint16_t (bf16 rows, the bits of __nv_bfloat16).
@@ -129,6 +162,41 @@ SHIMMER_GATHER_HD float chase_lane(const T* table, int n_rows, int width,
     idx = next_index(v[0], n_rows);
   }
   return acc;
+}
+
+// The staged chase, for few lanes with long chains: a pass writes the
+// pair of every row and, at index R, the pair of the row of zeros
+// (chase_pair(table, R, W, R)); the walk stages the R + 1 pairs in one
+// block's shared memory, and each step of a lane is one dependent 8-byte
+// shared load and one add.  The sums are the ones chase_lane adds, in the
+// same order, so the two are bit-equal.
+SHIMMER_GATHER_HD float chase_walk_lane(const ChasePair* pairs, int n_rows,
+                                        int idx, int steps) {
+  int r = in_range(idx, n_rows) ? idx : n_rows;
+  float acc = 0.0f;
+  for (int k = 0; k < steps; ++k) {
+    const ChasePair p = pairs[r];
+    acc = acc + p.sum;
+    r = p.next;
+  }
+  return acc;
+}
+
+// The dispatch between the two forms.  The staged form builds and stages
+// R + 1 pairs (8 bytes each, within the 227 KB of shared memory a block
+// may take) and walks its lanes in one block, so it pays where a few lanes
+// take long chains: at most kChaseStageMaxLanes lanes (one warp), at
+// least kChaseStageMinSteps steps and R / 64 (the build reads every row
+// once).  Wide chases (thousands of lanes) keep chase_lane, one thread a
+// lane over the whole card, where their chains overlap.
+constexpr int kChaseStageMaxLanes = 32;
+constexpr int kChaseStageMinSteps = 256;
+constexpr int kChaseStageMaxRows =
+    static_cast<int>(227 * 1024 / sizeof(ChasePair)) - 1;
+
+SHIMMER_GATHER_HD bool chase_staged(int n_rows, int n, int steps) {
+  return n >= 1 && n <= kChaseStageMaxLanes && n_rows <= kChaseStageMaxRows &&
+         steps >= kChaseStageMinSteps && steps >= n_rows / 64;
 }
 
 SHIMMER_GATHER_HD Float4 load4(const float* p) {

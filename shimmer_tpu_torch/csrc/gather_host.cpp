@@ -103,6 +103,46 @@ extern "C" int shimmer_row_chase_host(int dtype, const void* table,
   return 0;
 }
 
+// The staged chase's pass: the R + 1 pairs (next index, row sum) as
+// chase_pairs_kernel writes them; pairs (n_rows + 1, 2) int32.
+extern "C" int shimmer_chase_pairs_host(int dtype, const void* table, int n_rows,
+                                        int width, int* pairs) {
+  if (n_rows <= 0 || width < kChaseCols || width % 8 != 0 ||
+      (dtype != 0 && dtype != 1)) {
+    return -1;
+  }
+  ChasePair* out = reinterpret_cast<ChasePair*>(pairs);
+  for (int r = 0; r <= n_rows; ++r) {
+    out[r] = dtype == 0
+                 ? chase_pair(static_cast<const float*>(table), n_rows, width, r)
+                 : chase_pair(static_cast<const uint16_t*>(table), n_rows, width, r);
+  }
+  return 0;
+}
+
+// The staged chase as the card runs it where chase_staged holds (the pass,
+// then each lane's walk over the pairs), for any n, steps and R.
+extern "C" int shimmer_row_chase_staged_host(int dtype, const void* table,
+                                             int n_rows, int width, const int* idx,
+                                             int n, int steps, float* out) {
+  if (n < 0 || steps < 0) return -1;
+  std::vector<int> pairs(2 * (static_cast<size_t>(n_rows) + 1));
+  if (shimmer_chase_pairs_host(dtype, table, n_rows, width, pairs.data()) != 0) return -1;
+  const ChasePair* p = reinterpret_cast<const ChasePair*>(pairs.data());
+  for (int i = 0; i < n; ++i) out[i] = chase_walk_lane(p, n_rows, idx[i], steps);
+  return 0;
+}
+
+extern "C" int shimmer_row_chase_staged(int n_rows, int n, int steps) {
+  return chase_staged(n_rows, n, steps) ? 1 : 0;
+}
+
+extern "C" int shimmer_chase_stage_max_lanes() { return kChaseStageMaxLanes; }
+
+extern "C" int shimmer_chase_stage_max_rows() { return kChaseStageMaxRows; }
+
+extern "C" int shimmer_chase_stage_min_steps() { return kChaseStageMinSteps; }
+
 extern "C" int shimmer_gather_sum_rows_per_warp() { return kSumRowsPerWarp; }
 
 extern "C" int shimmer_gather_sum_warps() { return kSumWarps; }

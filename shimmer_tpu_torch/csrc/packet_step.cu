@@ -41,17 +41,35 @@
 //     slower than two launches (PERF.md).  The bodies whose float sum
 //     depends on its order (acc, acc_scaled) and int_sum keep the per-lane
 //     loop of one block of 128 threads.
-//   * step_attrib: one block of K packets (K * 128 threads) runs the G
-//     programs in grid order, as interpret mode does, so each packet's
-//     stack carries from one program to the next.  The stack lives in
-//     shared memory, one copy per warp updated by the warp's lane 0 (the
-//     scalar chain is uniform, so each warp runs it for itself behind
-//     __syncwarp); the OR of the 128 lanes' hit bits is a __reduce_or_sync
-//     per warp, combined across the packet's 4 warps in shared memory
-//     behind one __syncthreads a step (double-buffered by step parity).
-//     That reduction is what `nobits` leaves out.
+//   * step_attrib: the reference runs the G programs one after another and
+//     carries each packet's stack from one to the next, which made the
+//     first port one block of K packets stepping G * steps times in series
+//     (19.00 ms at the reference's case on an NVIDIA H100 80GB HBM3 at
+//     700.00 W, PERF.md).  But the carried chain never depends on a lane
+//     (packet_step_body.cuh, "The chain in closed form"): every pop reads
+//     slot 1, whose word after n pops has a closed form, and every push
+//     lands in slot 2, which no pop reads.  So the kernel is G * K
+//     independent blocks, one packet each: a block computes its steps'
+//     visits from slot 1's starting word, then each lane runs its steps
+//     with no block-wide barrier, each warp writing its OR of the lanes'
+//     hit bits per step to shared memory, combined once after the steps.
+//     The last push in grid order (slot 2's final word) is chosen by a
+//     second, one-warp-a-packet launch that scans the blocks' records
+//     from the last program down.  It was chosen over a 64-bit atomicMax
+//     read by the last block to finish because it needs no zeroed scratch
+//     (a memset is a launch too), no fence and no counter, and is
+//     deterministic by construction; it costs one launch of K warps.  What
+//     bounds a block is one packet's 256 steps of 8 slab tests on
+//     L1-resident rows (read 16 bytes at a time), 4 warps on each of 128
+//     of the 132 SMs at the reference's G = 64, K = 2: ~460 ns a step on
+//     the same card.  Sharing a lane among 2, 4 or 8 threads (box and leaf
+//     slots split among them, the leaf winners met by shuffles; 8-32 warps
+//     an SM) was measured and dropped: 1.08-1.62x slower on the
+//     reference's case, faster only where the chain walks the table and
+//     tests leaves (PERF.md, the step attribution's design steps).
 //   * step_ablate: G blocks of 128 threads, each the same program; v3 and
-//     v4 reduce their hit bits across the block as step_attrib does.
+//     v4 reduce their hit bits across the block a step (packet_or), since
+//     their chain depends on them.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (IEEE
 // division; ops/cuda_build.py).  Each entry point launches on `stream`,
@@ -199,77 +217,127 @@ __device__ __forceinline__ int packet_or(int mask, int (*partial)[kPacketWarps],
   return bits;
 }
 
+// Row 15, one block a packet of one program: block p is packet k = p %
+// packets of program g = p / packets.  Per chunk of kAttribChunk steps the
+// block computes the chunk's visits from slot 1's starting word in closed
+// form (attrib_visit_at), one a thread, then every lane runs the chunk's
+// steps with no block-wide barrier: a warp's OR of its lanes' hit bits for
+// step s goes to bits[s][warp], and warp 0 combines them after the chunk,
+// finding the chunk's last step that pushes.  The block's last push (its
+// step + 1, 0 if none, and the word) goes to last[p] for the finish.
+constexpr int kAttribChunk = 256;
+
 template <int kVariant>
-__global__ void __launch_bounds__(kAttribMaxPackets * kLanes)
+__global__ void __launch_bounds__(kLanes)
     step_attrib_kernel(const float* __restrict__ rows,
                        const int* __restrict__ meta, int n_rows,
-                       const float* __restrict__ rays, int programs,
-                       int steps, int stack_size, int* __restrict__ stack_io,
-                       float* __restrict__ out) {
-  __shared__ int stack[kAttribMaxPackets][kPacketWarps][kAttribMaxStack];
-  __shared__ int partial[kAttribMaxPackets][2][kPacketWarps];
-  const int packets = blockDim.x / kLanes;
-  const int k = threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
+                       const float* __restrict__ rays, int packets, int steps,
+                       int stack_size, const int* __restrict__ stack,
+                       int2* __restrict__ last, float* __restrict__ out) {
+  __shared__ AttribVisit visits[kAttribChunk];
+  __shared__ int bits[kAttribChunk][kPacketWarps];
+  const int p = blockIdx.x;
+  const int g = p / packets;
+  const int k = p - g * packets;
+  const int lane = threadIdx.x;
   const int warp = lane / kWarp;
   const int wl = lane % kWarp;
-  int* st = stack[k][warp];
-  for (int s = wl; s < stack_size; s += kWarp) st[s] = stack_io[k * stack_size + s];
-  int parity = 0;
-
-  for (int g = 0; g < programs; ++g) {
-    const int p = g * packets + k;
-    __syncwarp();
-    if (wl == 0) st[0] = 1;
-    bool want_any;
-    const Ray ray = attrib_ray(rays + (size_t)p * kAttribRayRows * kLanes,
-                               lane, want_any);
-    float t_best = kAttribTInit, tri = -1.0f, active = 1.0f;
-    for (int i = 0; i < steps; ++i) {
-      int r, cnt, m = 0, sp = 0;
-      bool internal;
-      __syncwarp();  // lane 0's stores of the last step before these reads
-      if (kVariant == kAttribNoScalar) {
-        r = static_cast<int>(static_cast<long long>(i) * (k + 3) % n_rows);
-        cnt = r & 3;
-        internal = (__ldg(meta + r) & 15) == 0;
-      } else {
-        const AttribPop pop = attrib_pop(st, stack_size, i, n_rows);
-        __syncwarp();
-        if (wl == 0) st[pop.sp] = pop.written;
-        r = pop.r;
-        sp = pop.sp;
-        m = __ldg(meta + r);
-        cnt = m & 15;
-        internal = cnt == 0;
-      }
-      int node = r;
-      if (kVariant == kAttribNoRoll) {
-        node = r & ~7;
-        internal = (__ldg(meta + node) & 15) == 0;
-      }
-      const float* row = rows + (size_t)node * kNodeWidth;
-      int bits = kAttribConstBits;
-      if (kVariant == kAttribFull || kVariant == kAttribNoRoll ||
-          kVariant == kAttribNoLeaf) {
-        bits = packet_or(attrib_internal_mask(row, internal, ray, t_best, active),
-                         partial[k], warp, parity);
-      }
-      if (kVariant != kAttribNoScalar && wl == 0 && bits != 0) {
-        st[attrib_push_slot(sp, stack_size)] = attrib_push_word(m, bits);
-      }
-      if (kVariant != kAttribNoLeaf) {
-        attrib_leaf(row, internal, cnt, ray, want_any, t_best, tri, active);
+  const int e0 = __ldg(stack + k * stack_size + 1);
+  bool want_any;
+  const Ray ray = attrib_ray(rays + (size_t)p * kAttribRayRows * kLanes, lane,
+                             want_any);
+  float t_best = kAttribTInit, tri = -1.0f, active = 1.0f;
+  int last_step = 0, last_word = 0;  // warp 0's record of the last push
+  for (int c0 = 0; c0 < steps; c0 += kAttribChunk) {
+    const int n = min(kAttribChunk, steps - c0);
+    __syncthreads();  // warp 0 has read the last chunk's visits and bits
+    for (int s = lane; s < n; s += kLanes) {
+      visits[s] = attrib_visit_at(kVariant, meta, n_rows, e0, k, g, steps, c0 + s);
+    }
+    __syncthreads();
+    for (int s = 0; s < n; ++s) {
+      const int mask = attrib_lane_step<kVariant>(rows, visits[s], ray, want_any,
+                                                  t_best, tri, active);
+      if (attrib_tests_boxes(kVariant)) {
+        const unsigned w = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(mask));
+        if (wl == 0) bits[s][warp] = static_cast<int>(w);
       }
     }
-    float* o = out + (size_t)p * kAttribOutRows * kLanes;
-    o[lane] = t_best;
-    o[kLanes + lane] = tri;
-    for (int c = 2; c < kAttribOutRows; ++c) o[c * kLanes + lane] = 0.0f;
+    if (!attrib_pushes(kVariant)) continue;
+    __syncthreads();
+    if (warp == 0) {
+      // The chunk's steps from the last down, a warp's width at a time:
+      // the highest step whose combined bits are non-zero.
+      for (int top = n - 1; top >= 0; top -= kWarp) {
+        const int s = top - wl;
+        int b = 0;
+        if (s >= 0) {
+          int lanes_or = 0;
+          if (attrib_tests_boxes(kVariant)) {
+#pragma unroll
+            for (int w = 0; w < kPacketWarps; ++w) lanes_or |= bits[s][w];
+          }
+          b = attrib_step_bits(kVariant, lanes_or);
+        }
+        const unsigned found = __ballot_sync(0xffffffffu, b != 0);
+        if (found != 0u) {
+          const int src = __ffs(found) - 1;  // the lowest lane: the highest step
+          const int bs = __shfl_sync(0xffffffffu, b, src);
+          last_step = c0 + top - src + 1;
+          last_word = attrib_push_word(visits[top - src].m, bs);
+          break;
+        }
+      }
+    }
   }
-  __syncwarp();
-  if (warp == 0) {
-    for (int s = wl; s < stack_size; s += kWarp) stack_io[k * stack_size + s] = st[s];
+  float* o = out + (size_t)p * kAttribOutRows * kLanes;
+  o[lane] = t_best;
+  o[kLanes + lane] = tri;
+  for (int c = 2; c < kAttribOutRows; ++c) o[c * kLanes + lane] = 0.0f;
+  if (lane == 0) last[p] = make_int2(last_step, last_word);
+}
+
+// Row 15's finish, one warp a packet: the highest program whose block
+// pushed (a warp's width of programs at a time, from the last), then the
+// packet's stack (attrib_finish).
+__global__ void step_attrib_finish_kernel(int variant, int programs,
+                                          int packets, int steps,
+                                          int stack_size,
+                                          const int2* __restrict__ last,
+                                          int* __restrict__ stack) {
+  const int k = threadIdx.x / kWarp;
+  const int wl = threadIdx.x % kWarp;
+  if (k >= packets) return;
+  int chosen = -1;
+  for (int top = programs - 1; top >= 0; top -= kWarp) {
+    const int g = top - wl;
+    const bool pushed = g >= 0 && last[g * packets + k].x > 0;
+    const unsigned found = __ballot_sync(0xffffffffu, pushed);
+    if (found != 0u) {
+      chosen = top - (__ffs(found) - 1);
+      break;
+    }
+  }
+  if (wl == 0) {
+    attrib_finish(variant, stack + k * stack_size, programs, steps, chosen >= 0,
+                  chosen >= 0 ? last[chosen * packets + k].y : 0);
+  }
+}
+
+// Row 15's chain alone: the visits (r, meta[r]) of every program, packet
+// and step, as the packet kernel computes them at each chunk's start.
+__global__ void __launch_bounds__(kLanes)
+    step_attrib_chain_kernel(int variant, const int* __restrict__ meta,
+                             int n_rows, int packets, int steps,
+                             int stack_size, const int* __restrict__ stack,
+                             int2* __restrict__ visits) {
+  const int p = blockIdx.x;
+  const int g = p / packets;
+  const int k = p - g * packets;
+  const int e0 = __ldg(stack + k * stack_size + 1);
+  for (int i = threadIdx.x; i < steps; i += kLanes) {
+    const AttribVisit v = attrib_visit_at(variant, meta, n_rows, e0, k, g, steps, i);
+    visits[(size_t)p * steps + i] = make_int2(v.r, v.m);
   }
 }
 
@@ -404,7 +472,7 @@ int launch_split(int body, bool transposed, const float* table, int n_rows,
 }
 
 using AttribKernel = void (*)(const float*, const int*, int, const float*, int,
-                              int, int, int*, float*);
+                              int, int, const int*, int2*, float*);
 
 AttribKernel attrib_kernel_for(int variant) {
   switch (variant) {
@@ -464,20 +532,46 @@ extern "C" int shimmer_packet_slab_chase_max_rows() { return kMaxSharedRows; }
 // rows (R, 128) float32 and meta (R,) int32 of a BVH8 table; rays
 // (programs * packets, 16, 128) float32; stack (packets, stack_size)
 // int32, the packets' stacks on entry, left as the last program left
-// them; out (programs * packets, 8, 128) float32.
+// them; work (programs * packets, 2) int32 scratch; out (programs *
+// packets, 8, 128) float32.  Two launches: the packets, then the finish.
 extern "C" int shimmer_step_attrib(int variant, const float* rows,
                                    const int* meta, int n_rows,
                                    const float* rays, int programs,
                                    int packets, int steps, int stack_size,
-                                   int* stack, float* out, void* stream) {
-  const AttribKernel kernel = attrib_kernel_for(variant);
-  if (kernel == nullptr || n_rows <= 0 || programs < 0 || packets < 1 ||
-      packets > kAttribMaxPackets || steps < 0 || stack_size < 1 ||
-      stack_size > kAttribMaxStack) {
+                                   int* stack, int* work, float* out,
+                                   void* stream) {
+  if (!attrib_args_ok(variant, n_rows, programs, packets, steps, stack_size)) {
     return invalid();
   }
-  kernel<<<1, packets * kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, meta, n_rows, rays, programs, steps, stack_size, stack, out);
+  if (programs == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int2* last = reinterpret_cast<int2*>(work);
+  attrib_kernel_for(variant)<<<programs * packets, kLanes, 0, st>>>(
+      rows, meta, n_rows, rays, packets, steps, stack_size, stack, last, out);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  step_attrib_finish_kernel<<<1, packets * kWarp, 0, st>>>(
+      variant, programs, packets, steps, stack_size, last, stack);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Row 15's chain alone: visits (programs * packets, steps, 2) int32, the
+// (r, meta[r]) of each step from the stacks' slot 1 (stack as
+// shimmer_step_attrib takes it, read only).
+extern "C" int shimmer_step_attrib_chain(int variant, const int* meta,
+                                         int n_rows, int programs, int packets,
+                                         int steps, int stack_size,
+                                         const int* stack, int* visits,
+                                         void* stream) {
+  if (!attrib_args_ok(variant, n_rows, programs, packets, steps, stack_size)) {
+    return invalid();
+  }
+  if (programs > 0 && steps > 0) {
+    step_attrib_chain_kernel<<<programs * packets, kLanes, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        variant, meta, n_rows, packets, steps, stack_size, stack,
+        reinterpret_cast<int2*>(visits));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

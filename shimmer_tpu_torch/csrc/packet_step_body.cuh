@@ -341,9 +341,30 @@ SHIMMER_HD int floor_mod(int a, int b) {
   return (q != 0 && ((q < 0) != (b < 0))) ? q + b : q;
 }
 
-// The packet's pop (exp_step_attrib.py:151-162): reads stack[0] (the
-// stack pointer's word) and stack[sp]; `written` is what the pop leaves at
-// stack[sp].  The caller stores it.
+// The pop's map on the popped word e (exp_step_attrib.py:151-162): clear
+// the lowest set bit of e's low byte, or, if that leaves 0, set bit 0.
+SHIMMER_HOST_HD int attrib_pop_word(int e) {
+  const int bits_e = e & 255;
+  const int lsb = bits_e & (-bits_e);
+  const int rest = static_cast<int>(static_cast<unsigned>(e) -
+                                    static_cast<unsigned>(lsb));
+  return rest == 0 ? (e | 1) : rest;
+}
+
+// The row of a pop of word e at step i: (e >> 8) + the index of the lowest
+// set bit of e's low byte (0 if none) + i, clamped into the table.
+SHIMMER_HOST_HD int attrib_pop_row(int e, int i, int n_rows) {
+  const int bits_e = e & 255;
+  const int lsb = bits_e & (-bits_e);
+  const int j = ((lsb & 0xAA) != 0 ? 1 : 0) + ((lsb & 0xCC) != 0 ? 2 : 0) +
+                ((lsb & 0xF0) != 0 ? 4 : 0);
+  const long long r = static_cast<long long>(e >> 8) + j + i;
+  return r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : static_cast<int>(r));
+}
+
+// The packet's pop on its stack (exp_step_attrib.py:151-162): reads
+// stack[0] (the stack pointer's word) and stack[sp]; `written` is what the
+// pop leaves at stack[sp].  The caller stores it.
 struct AttribPop {
   int r;
   int sp;
@@ -356,23 +377,90 @@ SHIMMER_HD AttribPop attrib_pop(const int* stack, int stack_size, int i,
   const int sp0 = floor_mod(stack[0], stack_size);
   p.sp = sp0 > 0 ? sp0 : 0;
   const int e = stack[p.sp];
-  const int bits_e = e & 255;
-  const int lsb = bits_e & (-bits_e);
-  const int rest = static_cast<int>(static_cast<unsigned>(e) -
-                                    static_cast<unsigned>(lsb));
-  p.written = rest == 0 ? (e | 1) : rest;
-  const long long r = static_cast<long long>(e >> 8) + lowest_bit_index(lsb) + i;
-  p.r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : static_cast<int>(r));
+  p.written = attrib_pop_word(e);
+  p.r = attrib_pop_row(e, i, n_rows);
   return p;
 }
 
-// The push after a visit of a row with meta word m (:172-174): the slot
-// above the popped one gets (child_base << 8) | bits when bits != 0.
-SHIMMER_HD int attrib_push_slot(int sp, int stack_size) {
-  const int s = sp + 1;
-  return s < 0 ? 0 : (s > stack_size - 1 ? stack_size - 1 : s);
+// The chain in closed form.  Slot 0 is 1 at every program's start and
+// nothing else writes it, so with stack_size >= kAttribMinStack every pop
+// reads and rewrites slot 1 and every push lands in slot kAttribPushSlot,
+// which no pop reads: the pops never see a hit bit, and the word a pop
+// reads depends only on slot 1's starting word and the number of pops
+// before it.  attrib_pop_word clears one set bit of the low byte a pop,
+// then, with the low byte 0, leaves a word with a non-zero high part as
+// it is and turns 0 into 1; a word 2^j (j < 8) goes to 2^j | 1 and back.
+// So from any word the map is on a cycle of period 1 or 2 after at most
+// kAttribSettle pops (8 bits to clear), and n pops equal kAttribSettle
+// pops plus n's parity past them.
+constexpr int kAttribMinStack = 3;
+constexpr int kAttribPushSlot = 2;
+constexpr int kAttribSettle = 8;
+
+// The arguments row 15's kernels take: stack_size >= kAttribMinStack for
+// the closed form, and a grid of programs * packets blocks.
+SHIMMER_HOST_HD bool attrib_args_ok(int variant, int n_rows, int programs,
+                                    int packets, int steps, int stack_size) {
+  return variant >= 0 && variant < kNumAttrib && n_rows > 0 && programs >= 0 &&
+         packets >= 1 && packets <= kAttribMaxPackets && steps >= 0 &&
+         stack_size >= kAttribMinStack && stack_size <= kAttribMaxStack &&
+         static_cast<long long>(programs) * packets <= 0x7fffffff;
 }
 
+// Slot 1's word after n pops from the word e0.
+SHIMMER_HOST_HD int attrib_slot1_after(int e0, long long n) {
+  const long long pops =
+      n <= kAttribSettle ? n : kAttribSettle + ((n - kAttribSettle) & 1);
+  int e = e0;
+  for (long long q = 0; q < pops; ++q) e = attrib_pop_word(e);
+  return e;
+}
+
+// What step i of packet k's program visits, from the word e its pop reads
+// (unread by noscalar): the row r, its meta word m (the push's), the leaf
+// slots to test and whether the fetched node counts as internal.
+struct AttribVisit {
+  int r;
+  int m;
+  int cnt;
+  int internal;
+};
+
+SHIMMER_HD AttribVisit attrib_visit(int variant, const int* meta, int n_rows,
+                                    int e, int k, int i) {
+  AttribVisit v;
+  if (variant == kAttribNoScalar) {
+    v.r = static_cast<int>(static_cast<long long>(i) * (k + 3) % n_rows);
+    v.m = SHIMMER_LDG(meta + v.r);
+    v.cnt = v.r & 3;
+    v.internal = (v.m & 15) == 0;
+  } else {
+    v.r = attrib_pop_row(e, i, n_rows);
+    v.m = SHIMMER_LDG(meta + v.r);
+    v.cnt = v.m & 15;
+    v.internal = v.cnt == 0;
+  }
+  if (variant == kAttribNoRoll) {
+    v.internal = (SHIMMER_LDG(meta + (v.r & ~7)) & 15) == 0;
+  }
+  return v;
+}
+
+// The visit of global pop n = g * steps + i of a packet whose slot 1
+// started the launch as e0.
+SHIMMER_HD AttribVisit attrib_visit_at(int variant, const int* meta,
+                                       int n_rows, int e0, int k, int g,
+                                       int steps, int i) {
+  const int e = variant == kAttribNoScalar
+                    ? 0
+                    : attrib_slot1_after(
+                          e0, static_cast<long long>(g) * steps + i);
+  return attrib_visit(variant, meta, n_rows, e, k, i);
+}
+
+// The push after a visit of a row with meta word m (:172-174): the slot
+// above the popped one (kAttribPushSlot) gets (child_base << 8) | bits
+// when bits != 0.
 SHIMMER_HD int attrib_push_word(int m, int bits) {
   return static_cast<int>((static_cast<unsigned>(m >> 4) << 8) |
                           static_cast<unsigned>(bits));
@@ -386,22 +474,27 @@ SHIMMER_HD float attrib_field6(const float* row, bool internal, int j) {
 
 // The lane's internal step (:78-96): slab test of the node's 8 boxes with
 // the 1.0001 slack against (0, t_best), masked by field 6 and the lane's
-// active flag; returns the lane's hit bits (slot j at bit j).
+// active flag; returns the lane's hit bits (slot j at bit j).  The row's
+// fields are read 16 bytes at a time.
 SHIMMER_HD int attrib_internal_mask(const float* row, bool internal,
                                     const Ray& ray, float t_best,
                                     float active) {
+  float b[6][8], f6[8];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    load4(row + 8 * c, b[c]);
+    load4(row + 8 * c + 4, b[c] + 4);
+  }
+  const int col6 = internal ? kColValid : kColField6Leaf;
+  load4(row + col6, f6);
+  load4(row + col6 + 4, f6 + 4);
   int mask = 0;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     float tn;
-    const bool hit = slab_hit(SHIMMER_LDG(row + j), SHIMMER_LDG(row + 8 + j),
-                              SHIMMER_LDG(row + 16 + j),
-                              SHIMMER_LDG(row + 24 + j),
-                              SHIMMER_LDG(row + 32 + j),
-                              SHIMMER_LDG(row + 40 + j), ray, t_best, tn);
-    if (hit && attrib_field6(row, internal, j) > 0.0f && active > 0.0f) {
-      mask |= 1 << j;
-    }
+    const bool hit = slab_hit(b[0][j], b[1][j], b[2][j], b[3][j], b[4][j],
+                              b[5][j], ray, t_best, tn);
+    if (hit && f6[j] > 0.0f && active > 0.0f) mask |= 1 << j;
   }
   return mask;
 }
@@ -434,6 +527,59 @@ SHIMMER_HD void attrib_leaf(const float* row, bool internal, int cnt,
     tri = SHIMMER_LDG(row + kColIds + k_leaf);
     if (want_any) active = 0.0f;
   }
+}
+
+// Whether a variant slab-tests the boxes and ORs the lanes' hits (its
+// pushes carry them), and whether it pops and pushes at all.
+SHIMMER_HOST_HD bool attrib_tests_boxes(int variant) {
+  return variant == kAttribFull || variant == kAttribNoRoll ||
+         variant == kAttribNoLeaf;
+}
+
+SHIMMER_HOST_HD bool attrib_pushes(int variant) {
+  return variant != kAttribNoScalar;
+}
+
+// The bits a step pushes, from the OR of its lanes' hit bits: the OR, or
+// the constant bits of noint and nobits; 0 (no push) for noscalar.
+SHIMMER_HOST_HD int attrib_step_bits(int variant, int lanes_or) {
+  if (!attrib_pushes(variant)) return 0;
+  return attrib_tests_boxes(variant) ? lanes_or : kAttribConstBits;
+}
+
+// One lane's step of a visit: the slab test (the variants that test
+// boxes) and the leaf test (all but noleaf) of the fetched node, r's tile
+// under noroll; returns the lane's hit bits.
+template <int kVariant>
+SHIMMER_HD int attrib_lane_step(const float* rows, const AttribVisit& v,
+                                const Ray& ray, bool want_any, float& t_best,
+                                float& tri, float& active) {
+  const int node = kVariant == kAttribNoRoll ? (v.r & ~7) : v.r;
+  const float* row = rows + (size_t)node * kNodeWidth;
+  const bool internal = v.internal != 0;
+  int mask = 0;
+  if (attrib_tests_boxes(kVariant)) {
+    mask = attrib_internal_mask(row, internal, ray, t_best, active);
+  }
+  if (kVariant != kAttribNoLeaf) {
+    attrib_leaf(row, internal, v.cnt, ray, want_any, t_best, tri, active);
+  }
+  return mask;
+}
+
+// A packet's stack after `programs` programs of `steps` steps: slot 0 is
+// 1, slot 1 the word after programs * steps pops (unchanged under
+// noscalar), slot kAttribPushSlot the last push in grid order if there was
+// one (`pushed`, its word `word`), every other slot as it was.
+SHIMMER_HD void attrib_finish(int variant, int* stack, int programs,
+                              int steps, bool pushed, int word) {
+  if (programs <= 0) return;
+  stack[0] = 1;
+  if (attrib_pushes(variant)) {
+    stack[1] = attrib_slot1_after(stack[1],
+                                  static_cast<long long>(programs) * steps);
+  }
+  if (pushed) stack[kAttribPushSlot] = word;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 // Test-only host build of the packet-step kernels' bodies
-// (packet_step_body.cuh), and of the split form of the packet slab chase.
+// (packet_step_body.cuh): the packet slab chase (per lane, and the split
+// form the card runs for the slab and chain bodies), the step attribution
+// and its chain in closed form, and the step ablation.
 //
 // The CPU tests compile this file with g++ (-ffp-contract=off) and call it
 // through ctypes, so the kernels' own per-lane and per-packet steps are
 // checked against the plain torch versions (ops/packet_step.py) on a
 // machine without a GPU.  No entry point of the port loads it.  Arguments
-// as packet_step.cu's entry points, less the stream; the lanes of a packet
+// as packet_step.cu's entry points, less the stream and the scratch; the lanes of a packet
 // run one after another where the kernels run them side by side, and the
 // packet's OR of hit bits is taken over all of them.  Each returns 0, or
 // -1 for arguments the kernels do not take.
@@ -138,87 +140,124 @@ extern "C" int shimmer_packet_slab_chase_host(int body, int transposed,
   return 0;
 }
 
-extern "C" int shimmer_step_attrib_host(int variant, const float* rows,
-                                        const int* meta, int n_rows,
-                                        const float* rays, int programs,
-                                        int packets, int steps, int stack_size,
-                                        int* stack, float* out) {
-  if (variant < 0 || variant >= kNumAttrib || n_rows <= 0 || programs < 0 ||
-      packets < 1 || packets > kAttribMaxPackets || steps < 0 || stack_size < 1 ||
-      stack_size > kAttribMaxStack) {
-    return -1;
-  }
-  std::vector<Ray> ray(kLanes);
-  std::vector<bool> want_any(kLanes);
-  std::vector<float> t_best(kLanes), tri(kLanes), active(kLanes);
-  for (int g = 0; g < programs; ++g) {
-    for (int k = 0; k < packets; ++k) stack[k * stack_size] = 1;
-    // Packets share nothing but their own stack rows, so each runs its
-    // program's steps in turn.
-    for (int k = 0; k < packets; ++k) {
-      const int p = g * packets + k;
-      int* st = stack + k * stack_size;
-      for (int l = 0; l < kLanes; ++l) {
-        bool w;
-        ray[l] = attrib_ray(rays + (size_t)p * kAttribRayRows * kLanes, l, w);
-        want_any[l] = w;
-        t_best[l] = kAttribTInit;
-        tri[l] = -1.0f;
-        active[l] = 1.0f;
-      }
+namespace {
+
+template <int kVariant>
+void attrib_packets(const float* rows, const int* meta, int n_rows,
+                    const float* rays, int programs, int packets, int steps,
+                    int stack_size, int* stack, float* out) {
+  std::vector<AttribVisit> visits(steps > 0 ? steps : 1);
+  std::vector<int> lanes_or(steps > 0 ? steps : 1);
+  // Each block's record: its last pushing step + 1 (0: none) and the word.
+  std::vector<int> last_step(static_cast<size_t>(programs) * packets, 0);
+  std::vector<int> last_word(static_cast<size_t>(programs) * packets, 0);
+  // The blocks share nothing, so they run here from the last to the first.
+  for (int p = programs * packets - 1; p >= 0; --p) {
+    const int g = p / packets;
+    const int k = p - g * packets;
+    const int e0 = stack[k * stack_size + 1];
+    for (int i = 0; i < steps; ++i) {
+      visits[i] = attrib_visit_at(kVariant, meta, n_rows, e0, k, g, steps, i);
+      lanes_or[i] = 0;
+    }
+    float* o = out + (size_t)p * kAttribOutRows * kLanes;
+    for (int l = 0; l < kLanes; ++l) {
+      bool want_any;
+      const Ray ray = attrib_ray(rays + (size_t)p * kAttribRayRows * kLanes, l, want_any);
+      float t_best = kAttribTInit, tri = -1.0f, active = 1.0f;
       for (int i = 0; i < steps; ++i) {
-        int r, cnt, m = 0, sp = 0;
-        bool internal;
-        if (variant == kAttribNoScalar) {
-          r = static_cast<int>(static_cast<long long>(i) * (k + 3) % n_rows);
-          cnt = r & 3;
-          internal = (meta[r] & 15) == 0;
-        } else {
-          const AttribPop pop = attrib_pop(st, stack_size, i, n_rows);
-          st[pop.sp] = pop.written;
-          r = pop.r;
-          sp = pop.sp;
-          m = meta[r];
-          cnt = m & 15;
-          internal = cnt == 0;
-        }
-        int node = r;
-        if (variant == kAttribNoRoll) {
-          node = r & ~7;
-          internal = (meta[node] & 15) == 0;
-        }
-        const float* row = rows + (size_t)node * kNodeWidth;
-        int bits = kAttribConstBits;
-        if (variant == kAttribFull || variant == kAttribNoRoll ||
-            variant == kAttribNoLeaf) {
-          bits = 0;
-          for (int l = 0; l < kLanes; ++l) {
-            bits |= attrib_internal_mask(row, internal, ray[l], t_best[l],
-                                         active[l]);
-          }
-        }
-        if (variant != kAttribNoScalar && bits != 0) {
-          st[attrib_push_slot(sp, stack_size)] = attrib_push_word(m, bits);
-        }
-        if (variant != kAttribNoLeaf) {
-          for (int l = 0; l < kLanes; ++l) {
-            float tb = t_best[l], tr = tri[l], ac = active[l];
-            attrib_leaf(row, internal, cnt, ray[l], want_any[l], tb, tr, ac);
-            t_best[l] = tb;
-            tri[l] = tr;
-            active[l] = ac;
-          }
-        }
+        lanes_or[i] |= attrib_lane_step<kVariant>(rows, visits[i], ray, want_any, t_best,
+                                                  tri, active);
       }
-      float* o = out + (size_t)p * kAttribOutRows * kLanes;
-      for (int l = 0; l < kLanes; ++l) {
-        o[l] = t_best[l];
-        o[kLanes + l] = tri[l];
+      o[l] = t_best;
+      o[kLanes + l] = tri;
+    }
+    for (int c = 2 * kLanes; c < kAttribOutRows * kLanes; ++c) o[c] = 0.0f;
+    for (int i = steps - 1; i >= 0; --i) {
+      const int b = attrib_step_bits(kVariant, lanes_or[i]);
+      if (b != 0) {
+        last_step[p] = i + 1;
+        last_word[p] = attrib_push_word(visits[i].m, b);
+        break;
       }
-      for (int c = 2 * kLanes; c < kAttribOutRows * kLanes; ++c) o[c] = 0.0f;
+    }
+  }
+  for (int k = 0; k < packets; ++k) {
+    int chosen = -1;
+    for (int g = programs - 1; g >= 0 && chosen < 0; --g) {
+      if (last_step[g * packets + k] > 0) chosen = g;
+    }
+    attrib_finish(kVariant, stack + k * stack_size, programs, steps, chosen >= 0,
+                  chosen >= 0 ? last_word[chosen * packets + k] : 0);
+  }
+}
+
+}  // namespace
+
+// Row 15 as the card computes it (packet_step.cu, step_attrib_kernel and
+// the finish): each (program, packet) block on its own, its visits from
+// slot 1's starting word in closed form, the OR of the lanes' hit bits per
+// step taken after the steps, and the last push in grid order chosen from
+// the blocks' records.
+extern "C" int shimmer_step_attrib_packet_host(int variant, const float* rows,
+                                               const int* meta, int n_rows,
+                                               const float* rays, int programs,
+                                               int packets, int steps, int stack_size,
+                                               int* stack, float* out) {
+  if (!attrib_args_ok(variant, n_rows, programs, packets, steps, stack_size)) return -1;
+  switch (variant) {
+#define SHIMMER_ATTRIB_CASE(V)                                                          \
+  case V:                                                                               \
+    attrib_packets<V>(rows, meta, n_rows, rays, programs, packets, steps, stack_size,   \
+                      stack, out);                                                      \
+    break;
+    SHIMMER_ATTRIB_CASE(kAttribFull)
+    SHIMMER_ATTRIB_CASE(kAttribNoRoll)
+    SHIMMER_ATTRIB_CASE(kAttribNoLeaf)
+    SHIMMER_ATTRIB_CASE(kAttribNoInt)
+    SHIMMER_ATTRIB_CASE(kAttribNoBits)
+    SHIMMER_ATTRIB_CASE(kAttribNoScalar)
+#undef SHIMMER_ATTRIB_CASE
+  }
+  return 0;
+}
+
+// Row 15's chain alone, as step_attrib_chain_kernel computes it: visits
+// (programs * packets, steps, 2), the (r, meta[r]) of each step.
+extern "C" int shimmer_step_attrib_chain_host(int variant, const int* meta, int n_rows,
+                                              int programs, int packets, int steps,
+                                              int stack_size, const int* stack,
+                                              int* visits) {
+  if (!attrib_args_ok(variant, n_rows, programs, packets, steps, stack_size)) return -1;
+  for (int p = 0; p < programs * packets; ++p) {
+    const int g = p / packets;
+    const int k = p - g * packets;
+    for (int i = 0; i < steps; ++i) {
+      const AttribVisit v =
+          attrib_visit_at(variant, meta, n_rows, stack[k * stack_size + 1], k, g, steps, i);
+      visits[2 * ((size_t)p * steps + i)] = v.r;
+      visits[2 * ((size_t)p * steps + i) + 1] = v.m;
     }
   }
   return 0;
+}
+
+// The closed form of slot 1 against the pops themselves: for each word,
+// a three-slot stack [1, word, 0] popped n_max times by attrib_pop, slot
+// 1 held against attrib_slot1_after at every n in [0, n_max].  Returns
+// the number of (word, n) that differ.
+extern "C" long long shimmer_attrib_slot1_mismatches(const int* words, int count,
+                                                     int n_max) {
+  long long bad = 0;
+  for (int w = 0; w < count; ++w) {
+    int st[kAttribMinStack] = {1, words[w], 0};
+    for (int n = 0; n <= n_max; ++n) {
+      if (attrib_slot1_after(words[w], n) != st[1]) ++bad;
+      const AttribPop pop = attrib_pop(st, kAttribMinStack, n, 1);
+      st[pop.sp] = pop.written;
+    }
+  }
+  return bad;
 }
 
 // Every program computes the same block: the host build computes it once

@@ -15,6 +15,9 @@ Cases, by kernel-table row (PERF.md) and the reference script they mirror:
   bound counts what 6D needs, one sector of column 1 a row, though the
   kernel sums all W columns);
 * 6E: one lane from index 0, K=4096 (the latency of a dependent read);
+  on the card the chase runs staged (``ops.gather.chase_staged``), and
+  the case also times the staged walk alone (``chain_ms``: the walk over
+  the rows' (next index, row sum) pairs, ``ops.gather.chase_walk``);
 * 7F (``pallas_gather2.py``): the gather and the K=32 chase with N = R,
   R in {1024, 8192, 16384}; 7G: the gather from the transposed (W, R)
   table, R in {1024, 8192}; 7H: the chase with narrow rows, R=16384,
@@ -59,7 +62,7 @@ SEED = 0
 # version: 2).
 REPS = 20
 KERNELS = ("row_gather", "row_gather_cols", "row_gather_sum", "row_chase_f32",
-           "row_chase_bf16")
+           "row_chase_bf16", "chase_walk")
 # Float operations per chase step: 8 additions and the index conversion.
 CHASE_OPS_PER_STEP = 9
 # Bytes of one memory sector, the least a row read can move.
@@ -180,6 +183,17 @@ def run_case(case: Case, table, idx) -> dict:
         ok = torch.equal(got, want)
     ms = time_ms(kernel, dev)
     plain_ms = time_ms(plain, dev, reps=2)
+    chain = {}
+    if case.row == "6E":
+        # The staged walk alone, over the pairs the staged form's pass
+        # writes (made here by their plain version), against the chase.
+        pairs = g.chase_pairs_plain(table)
+        walk = g.chase_walk(pairs, idx, case.steps)
+        ok = ok and torch.equal(walk, want)
+        chain = {"chain_ms": time_ms(lambda: g.chase_walk(pairs, idx, case.steps), dev),
+                 "chain_plain_ms": time_ms(lambda: g.chase_walk_plain(pairs, idx, case.steps),
+                                           dev, reps=2),
+                 "chain_kernel": "chase_walk"}
 
     n_rows, width = table.shape
     if case.kernel == "row_gather_cols":
@@ -192,11 +206,16 @@ def run_case(case: Case, table, idx) -> dict:
     if chase:
         distinct = int(stats["rows_read"].sum())
         res["oob_lanes"] = int(stats["oob_lanes"].sum())
+        res["staged"] = g.chase_staged(table.shape[0], idx.shape[0], case.steps)
         res["checksum"] = float(got.sum())
         res["bytes"] = distinct * g.CHASE_COLS * elem + 8 * n
         res["ops"] = CHASE_OPS_PER_STEP * n * case.steps
         res["ns_per_step"] = ms * 1e6 / case.steps
         res["ns_per_lane_step"] = ms * 1e6 / (case.steps * n)
+        if chain:
+            # The walk's own work: the distinct pairs it reads, idx and
+            # out; one add a step.
+            res.update(chain, chain_bytes=distinct * 8 + 8 * n, chain_ops=n * case.steps)
     else:
         ok_idx = idx[(idx >= 0) & (idx < n_rows)]
         distinct = int(torch.unique(ok_idx).numel())
@@ -228,8 +247,11 @@ def format_line(res: dict) -> str:
             f"{'' if res['ok'] else ' MISMATCH'}")
     if res["kernel"].startswith("row_chase"):
         k = res["K"]
+        walk = (f"staged walk alone {res['chain_ms'] * 1e3 / k:.4f} us/step; "
+                if "chain_ms" in res else "")
         return (f"{head} {res['ms'] * 1e3 / k:9.3f} us/step ({res['ns_per_lane_step']:8.4f} ns/lane), "
-                f"plain {res['plain_ms'] * 1e3 / k:9.3f} us/step; oob lanes {res['oob_lanes']}; {tail}")
+                f"plain {res['plain_ms'] * 1e3 / k:9.3f} us/step; oob lanes {res['oob_lanes']}; "
+                f"{walk}{tail}")
     if res["kernel"] == "row_gather_sum":
         return f"{head} {res['ns_per_row']:8.4f} ns/row; {tail}"
     return f"{head} {res['out_gb_per_s']:8.1f} GB/s out; {tail}"

@@ -13,6 +13,12 @@ batches chip_smoke.py's phases 3 and 7 hold the kernels to
 * the packet slab chase (kernel-table rows 10, 12 and 13) on the
   packet-step entry point's cases: row 10 at 131,072 steps, row 13 A, B
   and empty at 262,144, row 12 A at 512;
+* the step attribution (row 15) in all six variants at the packet-step
+  entry point's case (G = 64 programs of K = 2 packets, 256 steps, the
+  bench BVH8), from interpret mode's INT32_MIN stack as the case runs it
+  and from a seeded patterned stack whose chain walks the table;
+* the one-lane row chase 6E (R = 16,384, N = 1, K = 4,096) on the gather
+  entry point's case;
 
 with each traversal's visits per live ray, SIMD efficiency in launch order,
 its bound from the rows and visits of its own launch, and a checksum of its
@@ -20,8 +26,9 @@ hits (equal checksums: the same t on the same lanes), each chase's output
 checksum, and the registers, stack frame and spills of each kernel it
 builds.  It uses only entry points that the port has offered since before
 the v1 redesign (``ops.traverse._launch_kernel`` with ``touched``,
-``ops.gather.row_gather_cols``, ``ops.packet_step.packet_slab_chase``, the
-scene builders and the entry points' case tables), passing the child-leaf
+``ops.gather.row_gather_cols``, ``ops.gather.row_chase``,
+``ops.packet_step.packet_slab_chase``, ``ops.packet_step.step_attrib``,
+the scene builders and the entry points' case tables and inputs), passing the child-leaf
 words v2 reads where the checkout's tables carry them
 (``measure.launch_kwargs``), and loads measure.py from its own checkout by
 path, so the same file times an older checkout: run it with that
@@ -31,6 +38,9 @@ then summarise:
 
     PYTHONPATH=$PWD python3 /path/to/kernel_ab.py --label A1 --out ab_A1.json
     python3 kernel_ab.py --summarize ab_A1.json ab_B1.json ab_B2.json ab_A2.json
+
+``--parts`` times only some of it (``PARTS``; the bench scene is built
+only for the traversal and row 15), e.g. ``--parts attrib scalar_rows``.
 
 Needs a CUDA card; the summary does not.
 """
@@ -74,6 +84,14 @@ CHASE_CASES = (("10 make packet_slab_chase/slab transposed", 131072),
                ("13 empty packet_slab_chase/empty", 262144),
                ("12 A roll packet_slab_chase/slab transposed", 512))
 CHASE_REPS = 3
+# Row 15's timed launches per variant and stack (the kernel before its
+# redesign took 19 ms a launch).
+ATTRIB_REPS = 5
+# 6E's case of the gather entry point: one lane, R = 16,384 (K = 4,096).
+SCALAR_ROWS_R = 16384
+PARTS = ("traverse", "cols", "chase", "attrib", "scalar_rows")
+# The sections of a run that are {measurement: {"ms", "checksum"}}.
+TIMED_SECTIONS = ("chase", "attrib", "scalar_rows")
 # Per traversal layout: what the summary averages over the runs of a side.
 SUMMARY_KEYS = ("ms", "steps_mean", "steps_p50", "steps_p99", "steps_max", "simd_efficiency",
                 "bound_ms", "visits", "internal_rows_read", "leaf_rows_read")
@@ -121,17 +139,53 @@ def time_chase(dev) -> dict:
     return out
 
 
-def run(label: str) -> dict:
-    from shimmer_tpu_torch.bench_scene import (
-        BENCH_RESOLUTION,
-        BENCH_TRIS,
-        LARGE_TRIS,
-        build_bench_scene,
-    )
+def time_attrib(dev, tables) -> dict:
+    """Row 15, each variant at the packet-step entry point's case, from the
+    case's INT32_MIN stack and from a patterned one: ms and the checksum of
+    the output and the final stacks."""
     from shimmer_tpu_torch.experiments import gather as eg
-    from shimmer_tpu_torch.ops import cuda_build
+    from shimmer_tpu_torch.experiments import packet_step as eps
+    from shimmer_tpu_torch.ops import packet_step as ps
+
+    out = {}
+    for case in eps.cases():
+        if case.kernel != "step_attrib":
+            continue
+        x = eps.make_inputs(case, dev, tables)
+        size, n_rows, k = x["stack_size"], x["meta"].shape[0], eps.ATTRIB_PACKETS
+        stacks = {
+            "int32_min": torch.full((k, size), ps.INT32_MIN, dtype=torch.int32, device=dev),
+            "patterned": measure.patterned_stack(n_rows, k, size, eps.SEED + 1).to(dev),
+        }
+        for stack_name, init in stacks.items():
+            def attrib(init=init):
+                return ps.step_attrib(x["rows8"], x["meta"], x["rays"], case.variant,
+                                      case.steps[-1], k, size, init)
+
+            got, st = attrib()
+            out[f"{case.name} {stack_name}"] = {
+                "ms": eg.time_ms(attrib, dev, reps=ATTRIB_REPS),
+                "checksum": float(got.double().sum()) + float(st.double().sum())}
+    return out
+
+
+def time_scalar_rows(dev) -> dict:
+    """6E, the one-lane chase, on the gather entry point's case."""
+    from shimmer_tpu_torch.experiments import gather as eg
     from shimmer_tpu_torch.ops import gather as gk
-    from shimmer_tpu_torch.ops import traverse as tv
+
+    case = next(c for c in eg.cases() if c.row == "6E" and c.n_rows == SCALAR_ROWS_R)
+    table, idx = eg.make_inputs(case, dev)
+    got = gk.row_chase(table, idx, case.steps)
+    return {case.name: {
+        "ms": eg.time_ms(lambda: gk.row_chase(table, idx, case.steps), dev),
+        "checksum": float(got.double().sum())}}
+
+
+def run(label: str, parts=PARTS) -> dict:
+    """One checkout's timings of ``parts`` (PARTS) on the card."""
+    from shimmer_tpu_torch.bench_scene import BENCH_RESOLUTION, BENCH_TRIS, build_bench_scene
+    from shimmer_tpu_torch.ops import cuda_build
 
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_ab needs a CUDA card; none is available")
@@ -142,21 +196,45 @@ def run(label: str) -> dict:
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     build = cuda_build.build(("traverse", "gather", "packet_step"), force=True)
-    res = {"label": label, "card": smi,
-           "ptxas": {name: measure.ptxas_report(b["log"]) for name, b in build.items()},
-           "traverse": {}}
+    res = {"label": label, "card": smi, "parts": list(parts),
+           "ptxas": {name: measure.ptxas_report(b["log"]) for name, b in build.items()}}
+    if "traverse" in parts or "attrib" in parts:
+        scene_cpu, cam, film = build_bench_scene(BENCH_TRIS, BENCH_RESOLUTION, device="cpu")
+        scene = scene_cpu.to(dev)
+        del scene_cpu
+        tris = scene.triangles
+        if "attrib" in parts:
+            res["attrib"] = time_attrib(dev, (tris.rows8, tris.meta, tris.stack_depth))
+        if "traverse" in parts:
+            res["traverse"] = traverse_part(scene, cam, film, dev)
+        del scene, tris
+        torch.cuda.empty_cache()
+    if "cols" in parts:
+        res["row_gather_cols"] = cols_part(dev)
+    if "chase" in parts:
+        res["chase"] = time_chase(dev)
+    if "scalar_rows" in parts:
+        res["scalar_rows"] = time_scalar_rows(dev)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def traverse_part(scene, cam, film, dev) -> dict:
+    """The traversal timings: each configuration on the bench batches, then
+    v1 and v2 on the large table's merged batch."""
+    from shimmer_tpu_torch.bench_scene import BENCH_RESOLUTION, LARGE_TRIS, build_bench_scene
+    from shimmer_tpu_torch.ops import traverse as tv
+
+    out = {}
     configs = {name: tv.TraverseConfig(name[:2], "mt" if "mt" in name else "watertight",
                                        "min" if "min" in name else "slot")
                for name in AB_CONFIGS}
-    scene_cpu, cam, film = build_bench_scene(BENCH_TRIS, BENCH_RESOLUTION, device="cpu")
-    scene = scene_cpu.to(dev)
-    del scene_cpu
     batches = measure.bench_batches(scene, cam, film, dev)
     for name, cfg in configs.items():
         tris = scene.triangles.with_traverse(cfg)
         for bname in ("bounce", "merged"):
-            res["traverse"][f"{name} {bname}"] = time_traversal(tris, batches[bname])
-    del scene, batches
+            out[f"{name} {bname}"] = time_traversal(tris, batches[bname])
+    del batches
     torch.cuda.empty_cache()
 
     large_cpu, cam, film = build_bench_scene(LARGE_TRIS, BENCH_RESOLUTION, device="cpu")
@@ -164,10 +242,17 @@ def run(label: str) -> dict:
     del large_cpu
     merged = measure.bench_batches(large, cam, film, dev)["merged"]
     for name in LARGE_CONFIGS:
-        res["traverse"][f"{name} large merged"] = time_traversal(
+        out[f"{name} large merged"] = time_traversal(
             large.triangles.with_traverse(configs[name]), merged)
     del large, merged
     torch.cuda.empty_cache()
+    return out
+
+
+def cols_part(dev) -> dict:
+    """The transposed row gather (7G) beside index_select."""
+    from shimmer_tpu_torch.experiments import gather as eg
+    from shimmer_tpu_torch.ops import gather as gk
 
     case = next(c for c in eg.cases() if c.name == COLS_CASE)
     table_t, idx = eg.make_inputs(case, dev)
@@ -175,52 +260,55 @@ def run(label: str) -> dict:
     lib = torch.index_select(table_t, 1, idx)
     # The gather entry point's timer: launches queued behind a device-side
     # sleep, so that the host's launch cost stays out of a 10 us kernel.
-    res["row_gather_cols"] = {
+    return {
         "case": COLS_CASE,
         "equal_to_index_select": bool(torch.equal(got, lib)),
         "ms": eg.time_ms(lambda: gk.row_gather_cols(table_t, idx), dev),
         "index_select_ms": eg.time_ms(lambda: torch.index_select(table_t, 1, idx), dev),
     }
-    res["chase"] = time_chase(dev)
-    res["seconds"] = time.perf_counter() - t0
-    return res
 
 
 def summarize(paths) -> dict:
-    """Per measurement: the mean of the runs labelled A* and of those
-    labelled B*, and B / A; the hit and chase checksums must agree between
-    A and B."""
+    """Per measurement of the parts the runs timed: the mean of the runs
+    labelled A* and of those labelled B*, and B / A; the hit and output
+    checksums must agree between A and B."""
     runs = [json.load(open(p)) for p in paths]
     groups = {"A": [r for r in runs if r["label"].startswith("A")],
               "B": [r for r in runs if r["label"].startswith("B")]}
-    out = {"cards": sorted({r["card"] for r in runs}), "traverse": {}}
-    for key in runs[0]["traverse"]:
-        for layout in ("sorted", "unsorted"):
-            rows = {g: [r["traverse"][key][layout] for r in rs] for g, rs in groups.items()}
-            line = {}
-            for g, rs in rows.items():
-                line[g] = {k: float(np.mean([r[k] for r in rs])) for k in SUMMARY_KEYS}
-                line[g]["ms_runs"] = [r["ms"] for r in rs]
+    out = {"cards": sorted({r["card"] for r in runs})}
+    if "traverse" in runs[0]:
+        out["traverse"] = {}
+        for key in runs[0]["traverse"]:
+            for layout in ("sorted", "unsorted"):
+                rows = {g: [r["traverse"][key][layout] for r in rs] for g, rs in groups.items()}
+                line = {}
+                for g, rs in rows.items():
+                    line[g] = {k: float(np.mean([r[k] for r in rs])) for k in SUMMARY_KEYS}
+                    line[g]["ms_runs"] = [r["ms"] for r in rs]
+                line["B_over_A_ms"] = line["B"]["ms"] / line["A"]["ms"]
+                line["same_hits"] = len({(r["hits"], r["t_checksum"])
+                                         for rs in rows.values() for r in rs}) == 1
+                out["traverse"][f"{key} {layout}"] = line
+    if "row_gather_cols" in runs[0]:
+        cols = {g: [r["row_gather_cols"] for r in rs] for g, rs in groups.items()}
+        out["row_gather_cols"] = {
+            g: {"ms": float(np.mean([c["ms"] for c in cs])),
+                "ms_runs": [c["ms"] for c in cs],
+                "index_select_ms": float(np.mean([c["index_select_ms"] for c in cs])),
+                "equal_to_index_select": all(c["equal_to_index_select"] for c in cs)}
+            for g, cs in cols.items()
+        }
+    for section in TIMED_SECTIONS:
+        if section not in runs[0]:
+            continue
+        out[section] = {}
+        for key in runs[0][section]:
+            line = {g: {"ms": float(np.mean([r[section][key]["ms"] for r in rs])),
+                        "ms_runs": [r[section][key]["ms"] for r in rs]}
+                    for g, rs in groups.items()}
             line["B_over_A_ms"] = line["B"]["ms"] / line["A"]["ms"]
-            line["same_hits"] = len({(r["hits"], r["t_checksum"])
-                                     for rs in rows.values() for r in rs}) == 1
-            out["traverse"][f"{key} {layout}"] = line
-    cols = {g: [r["row_gather_cols"] for r in rs] for g, rs in groups.items()}
-    out["row_gather_cols"] = {
-        g: {"ms": float(np.mean([c["ms"] for c in cs])),
-            "ms_runs": [c["ms"] for c in cs],
-            "index_select_ms": float(np.mean([c["index_select_ms"] for c in cs])),
-            "equal_to_index_select": all(c["equal_to_index_select"] for c in cs)}
-        for g, cs in cols.items()
-    }
-    out["chase"] = {}
-    for key in runs[0]["chase"]:
-        line = {g: {"ms": float(np.mean([r["chase"][key]["ms"] for r in rs])),
-                    "ms_runs": [r["chase"][key]["ms"] for r in rs]}
-                for g, rs in groups.items()}
-        line["B_over_A_ms"] = line["B"]["ms"] / line["A"]["ms"]
-        line["same_output"] = len({r["chase"][key]["checksum"] for r in runs}) == 1
-        out["chase"][key] = line
+            line["same_output"] = len({r[section][key]["checksum"] for r in runs}) == 1
+            out[section][key] = line
     return out
 
 
@@ -228,12 +316,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", help="run label: A... (before) or B... (after)")
     ap.add_argument("--out", help="write the run's JSON here")
+    ap.add_argument("--parts", nargs="+", choices=PARTS, default=list(PARTS),
+                    help="what to time (default: all)")
     ap.add_argument("--summarize", nargs="+", metavar="JSON", help="summarise runs instead")
     args = ap.parse_args(argv)
     if args.summarize:
         print(json.dumps(summarize(args.summarize), indent=1))
         return
-    res = run(args.label or "B")
+    res = run(args.label or "B", tuple(args.parts))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f)

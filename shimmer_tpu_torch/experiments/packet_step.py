@@ -27,7 +27,10 @@ On the card the slab chase runs split (ops/packet_step.py): its ns per
 step is the chain walk's latency plus the slab tests spread over the card,
 not one packet's step latency; the slab and slab_stack cases also time
 the chain alone (the ``empty`` body on the same inputs and steps,
-``chain_ms``).
+``chain_ms``).  Row 15 runs one block per program's packet, side by
+side: its ns per packet-step is the launch's time over G * K * steps, not
+one packet's step latency; its cases also time the chain alone (the
+visits computed in closed form, ``ops.packet_step.step_attrib_chain``).
 
 Inputs come from ``numpy.random.default_rng(SEED)`` drawn in each script's
 own order, so they are the reference's arrays.  The reference's
@@ -219,25 +222,47 @@ def bound(nbytes: int, ops: int) -> dict:
 
 
 def _chain(case: Case, x: dict):
-    """The chain alone of a case that walks one before its slab tests (the
-    ``empty`` body on the same inputs), or None."""
-    if case.kernel != "packet_slab_chase" or case.variant not in ("slab", "slab_stack"):
-        return None
-    return lambda s: ps.packet_slab_chase(x["table"], x["nxt"], x["rays"], s, "empty",
-                                          case.transposed)
+    """The chain alone of a case, (its kernel's launch-count name,
+    kernel(steps), plain(steps)), or None: for the slab chases that walk
+    one before their slab tests the ``empty`` body on the same inputs, for
+    row 15 its visits (step_attrib_chain)."""
+    if case.kernel == "packet_slab_chase" and case.variant in ("slab", "slab_stack"):
+        args = (x["table"], x["nxt"], x["rays"])
+        return ("packet_slab_chase",
+                lambda s: ps.packet_slab_chase(*args, s, "empty", case.transposed),
+                lambda s: ps.packet_slab_chase_plain(*args, s, "empty", case.transposed))
+    if case.kernel == "step_attrib":
+        size = x["stack_size"]
+        init = torch.full((ATTRIB_PACKETS, size), ps.INT32_MIN, dtype=torch.int32,
+                          device=x["rays"].device)
+        return ("step_attrib_chain",
+                lambda s: ps.step_attrib_chain(x["rows8"], x["meta"], x["rays"], case.variant, s,
+                                               ATTRIB_PACKETS, size, init),
+                lambda s: ps.step_attrib_chain_plain(x["meta"], case.variant, case.programs,
+                                                     ATTRIB_PACKETS, s, size, init))
+    return None
+
+
+def chain_work(case: Case, steps: int, stats: dict, x: dict) -> int:
+    """Bytes row 15's chain alone needs (its meta words read, the stacks'
+    slot 1 and the visits written); it does no float operations."""
+    n_packets = case.programs * ATTRIB_PACKETS
+    return stats["meta_read"] * 4 + ATTRIB_PACKETS * 4 + n_packets * steps * 8
 
 
 def run_case(case: Case, x: dict) -> dict:
     """Run one case: at each step count the kernel against its plain
     version on the same tensors (bit for bit), both timed, and the work
     the bound counts; then ns per step as the reference reports it, and
-    the chain alone's time where the case walks one (``chain_ms``).
-    ``launches`` counts the kernel's timed launches (the warm-up and
-    REPS), not the one compared with the plain version."""
+    the chain alone's time where the case has one (``chain_ms``, its kernel
+    held against its plain version too).  ``launches`` counts the kernel's
+    timed launches (the warm-up and REPS, the chain alone's included where
+    it is the same kernel), ``chain_launches`` the chain alone's, neither
+    the ones compared with the plain version."""
     dev = next(iter(v for v in x.values() if isinstance(v, torch.Tensor))).device
     kernel, plain = _functions(case, x)
     chain = _chain(case, x)
-    launches = 0
+    launches = chain_launches = 0
     per = {}
     for s in case.steps:
         got = kernel(s)
@@ -249,23 +274,41 @@ def run_case(case: Case, x: dict) -> dict:
         plain_ms = (time.perf_counter() - t0) * 1e3
         ok = all(torch.equal(a, b) for a, b in zip(got, want))
         err = float((got[0] - want[0]).abs().max())
-        before = ps.launch_counts()[case.kernel]
+        if chain is not None:
+            chain_got = chain[1](s)
+            _sync(dev)
+            t0 = time.perf_counter()
+            chain_want = chain[2](s)
+            _sync(dev)
+            chain_plain_ms = (time.perf_counter() - t0) * 1e3
+            ok = ok and torch.equal(chain_got, chain_want)
+        before = ps.launch_counts()
         ms = time_ms(lambda: kernel(s), dev, reps=REPS)
-        chain_ms = None if chain is None else time_ms(lambda: chain(s), dev, reps=REPS)
-        launches += ps.launch_counts()[case.kernel] - before
+        chain_ms = None if chain is None else time_ms(lambda: chain[1](s), dev, reps=REPS)
+        after = ps.launch_counts()
+        launches += after[case.kernel] - before[case.kernel]
+        if chain is not None and chain[0] != case.kernel:
+            chain_launches += after[chain[0]] - before[chain[0]]
         nbytes, ops = work(case, s, stats, x)
         per[s] = {"ms": ms, "plain_ms": plain_ms, "ok": ok, "max_abs_err": err,
                   "checksum": float(got[0].double().sum()), "bytes": nbytes, "ops": ops,
                   **bound(nbytes, ops)}
         if chain_ms is not None:
             per[s]["chain_ms"] = chain_ms
+            per[s]["chain_plain_ms"] = chain_plain_ms
+            if case.kernel == "step_attrib":
+                per[s]["chain_bound_ms"] = bound(chain_work(case, s, stats, x), 0)["bound_ms"]
     last = case.steps[-1]
     res = {"name": case.name, "row": case.row, "kernel": case.kernel, "variant": case.variant,
            "steps": per, "ok": all(p["ok"] for p in per.values()),
            "max_abs_err": max(p["max_abs_err"] for p in per.values()),
            "launches": launches,
            **{k: per[last][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "ops",
-                                        "chain_ms") if k in per[last]}}
+                                        "chain_ms", "chain_plain_ms", "chain_bound_ms")
+              if k in per[last]}}
+    if chain is not None:
+        res["chain_kernel"] = chain[0]
+        res["chain_launches"] = chain_launches
     if case.kernel == "step_attrib":
         n_steps = case.programs * last * ATTRIB_PACKETS
         res["ns_per_step"] = per[last]["ms"] * 1e6 / n_steps  # per packet-step

@@ -1,7 +1,8 @@
 """Measurement helpers shared by chip_smoke.py and
 experiments/kernel_ab.py: the bench traversal batches, the ray layouts the
 kernel is timed on, a CUDA-event timer, visit statistics, the bound of a
-traversal launch, and a reader of nvcc's ``-Xptxas -v`` log.
+traversal launch, a patterned stack for the step attribution (row 15),
+and a reader of nvcc's ``-Xptxas -v`` log.
 
 It imports nothing of shimmer_tpu_torch when it is imported, only inside
 its functions: kernel_ab.py loads this file from its own checkout while
@@ -200,6 +201,16 @@ def launch_bound(tris, args, cfg) -> tuple[dict, dict]:
     return (traversal_bound(tris, touched, args[3].shape[0], int(steps.sum()),
                             child_leaf=cfg.kernel == "v2" and bool(kw)),
             step_stats(steps, args[5] > 0))
+
+
+def patterned_stack(n_rows: int, packets: int, size: int, seed: int):
+    """(packets, size) int32 stacks for row 15 whose chain walks the table,
+    in place of interpret mode's INT32_MIN: each slot's high part (the
+    popped row, less the step's offset of at most 7 + steps) a row below R
+    - 300 (or 0 on a smaller table), its low byte random bits."""
+    rng = np.random.default_rng(seed)
+    high = rng.integers(0, max(n_rows - 300, 1), (packets, size))
+    return torch.from_numpy((high * 256 + rng.integers(0, 256, (packets, size))).astype(np.int32))
 
 
 def demangle(names: list[str]) -> list[str]:

@@ -11,7 +11,11 @@ function it replaces):
 * :func:`row_gather_sum` -- ``sum_i T[idx[i]]``;
 * :func:`row_chase` -- per lane, ``steps`` dependent reads:
   ``row = T[idx]; acc += row[1] + ... + row[8]; idx = int(row[0])``, over
-  float32 or bf16 rows.
+  float32 or bf16 rows.  On the card a chase of few lanes and many steps
+  (:func:`chase_staged`) runs staged: a pass writes each row's (next
+  index, row sum) (:func:`chase_pairs_plain` computes the same), and one
+  block walks them from shared memory (:func:`chase_walk`, which also
+  takes the pairs alone).
 
 An index outside [0, R) reads a row of zeros in every function (the
 reference's one-hot product does so with an index that bf16 rounding
@@ -38,6 +42,12 @@ from shimmer_tpu_torch.ops import cuda_build
 CHASE_COLS = 9
 # Widest row the gather-sum kernel takes (kSumMaxWidth).
 SUM_MAX_WIDTH = 128
+# The staged chase (csrc/gather_body.cuh chase_staged): at most this many
+# lanes, rows (R + 1 pairs of 8 bytes in 227 KB of shared memory), and at
+# least this many steps (and R / 64).
+STAGE_MAX_LANES = 32
+STAGE_MAX_ROWS = 227 * 1024 // 8 - 1
+STAGE_MIN_STEPS = 256
 _INT_MAX = 2**31 - 1
 
 _lock = threading.Lock()
@@ -55,14 +65,19 @@ def _library():
             lib.shimmer_row_gather.argtypes = [p, ci, ci, p, ci, p, p]
             lib.shimmer_row_gather_cols.argtypes = [p, ci, ci, p, ci, p, p]
             lib.shimmer_row_gather_sum.argtypes = [p, ci, ci, p, ci, p, p]
-            lib.shimmer_row_chase.argtypes = [ci, p, ci, ci, p, ci, ci, p, p]
+            lib.shimmer_row_chase.argtypes = [ci, p, ci, ci, p, ci, ci, p, p, p]
+            lib.shimmer_chase_walk.argtypes = [p, ci, p, ci, ci, p, p]
+            bounds = (lib.shimmer_gather_sum_max_width, lib.shimmer_chase_stage_max_lanes,
+                      lib.shimmer_chase_stage_max_rows, lib.shimmer_chase_stage_min_steps)
             for fn in (lib.shimmer_row_gather, lib.shimmer_row_gather_cols,
                        lib.shimmer_row_gather_sum, lib.shimmer_row_chase,
-                       lib.shimmer_gather_sum_max_width):
+                       lib.shimmer_chase_walk, *bounds):
                 fn.restype = ci
-            lib.shimmer_gather_sum_max_width.argtypes = []
-            if lib.shimmer_gather_sum_max_width() != SUM_MAX_WIDTH:
-                raise cuda_build.KernelBuildError("gather-sum width bound disagrees with the wrapper")
+            for fn in bounds:
+                fn.argtypes = []
+            if tuple(fn() for fn in bounds) != (SUM_MAX_WIDTH, STAGE_MAX_LANES, STAGE_MAX_ROWS,
+                                                 STAGE_MIN_STEPS):
+                raise cuda_build.KernelBuildError("gather bounds disagree with the wrapper")
             _lib = lib
         return _lib
 
@@ -169,17 +184,62 @@ def row_chase(table, idx, steps: int):
         return row_chase_plain(table, idx, steps)
     bf16 = table.dtype == torch.bfloat16
     name = "row_chase_bf16" if bf16 else "row_chase_f32"
-    out = torch.empty(idx.shape[0], dtype=torch.float32, device=table.device)
+    n = idx.shape[0]
+    # The staged form's scratch: the R + 1 (next index, row sum) pairs.
+    work = (torch.empty(n_rows + 1, 2, dtype=torch.int32, device=table.device)
+            if chase_staged(n_rows, n, steps) else None)
+    out = torch.empty(n, dtype=torch.float32, device=table.device)
     cuda_build.raise_on_error(_library().shimmer_row_chase(
-        int(bf16), table.data_ptr(), n_rows, width, idx.data_ptr(), idx.shape[0], steps,
-        out.data_ptr(), cuda_build.stream_of(table)), name)
+        int(bf16), table.data_ptr(), n_rows, width, idx.data_ptr(), n, steps,
+        None if work is None else work.data_ptr(), out.data_ptr(),
+        cuda_build.stream_of(table)), name)
     row_chase.launches[name] += 1
     return out
 
 
 row_chase.launches = {"row_chase_f32": 0, "row_chase_bf16": 0}
 
-WRAPPERS = (row_gather, row_gather_cols, row_gather_sum, row_chase)
+
+def chase_staged(n_rows: int, n: int, steps: int) -> bool:
+    """Whether the card runs a chase of ``n`` lanes and ``steps`` steps over
+    ``n_rows`` rows staged: csrc/gather_body.cuh chase_staged, whose bounds
+    the library is checked against when it loads (and the kernel refuses a
+    staged chase without its scratch)."""
+    return (1 <= n <= STAGE_MAX_LANES and n_rows <= STAGE_MAX_ROWS
+            and steps >= STAGE_MIN_STEPS and steps >= n_rows // 64)
+
+
+def chase_walk(pairs, idx, steps: int):
+    """The staged chase's walk alone: ``steps`` steps per lane over
+    ``pairs`` ((R + 1, 2) int32, :func:`chase_pairs_plain` of the table:
+    each row's next index and the bits of its float32 row sum), at most
+    ``STAGE_MAX_LANES`` lanes and ``STAGE_MAX_ROWS`` rows.  Equal to
+    ``row_chase(table, idx, steps)``."""
+    if pairs.dim() != 2 or pairs.shape[1] != 2 or pairs.dtype != torch.int32:
+        raise ValueError(f"pairs must be (R + 1, 2) int32, got {tuple(pairs.shape)} "
+                         f"{pairs.dtype}")
+    dev = _check_args(pairs, idx, (torch.int32,))
+    n_rows = pairs.shape[0] - 1
+    steps = int(steps)
+    if not 0 <= steps <= _INT_MAX:
+        raise ValueError(f"steps={steps} out of range")
+    if dev == "cpu":
+        return chase_walk_plain(pairs, idx, steps)
+    n = idx.shape[0]
+    if not 1 <= n <= STAGE_MAX_LANES or not 1 <= n_rows <= STAGE_MAX_ROWS:
+        raise ValueError(f"the staged walk takes 1-{STAGE_MAX_LANES} lanes and 1-"
+                         f"{STAGE_MAX_ROWS} rows, got {n} and {n_rows}")
+    out = torch.empty(n, dtype=torch.float32, device=pairs.device)
+    cuda_build.raise_on_error(_library().shimmer_chase_walk(
+        pairs.data_ptr(), n_rows, idx.data_ptr(), n, steps, out.data_ptr(),
+        cuda_build.stream_of(pairs)), "chase_walk")
+    chase_walk.launches["chase_walk"] += 1
+    return out
+
+
+chase_walk.launches = {"chase_walk": 0}
+
+WRAPPERS = (row_gather, row_gather_cols, row_gather_sum, row_chase, chase_walk)
 
 
 def launch_counts() -> dict:
@@ -240,4 +300,33 @@ def row_chase_plain(table, idx, steps: int, stats: dict | None = None):
     if stats is not None:
         stats["rows_read"] = rows_read
         stats["oob_lanes"] = oob
+    return acc
+
+
+def chase_pairs_plain(table):
+    """Each row's (next index, row sum) of a chase over ``table``, and at
+    index R those of the row of zeros an out-of-range index reads: (R + 1,
+    2) int32, column 1 the bits of the float32 sum row[1] + ... + row[8]
+    added left to right; a next index out of [0, R) is R."""
+    n_rows = table.shape[0]
+    v = torch.cat([table[:, :CHASE_COLS].float(),
+                   torch.zeros(1, CHASE_COLS, dtype=torch.float32, device=table.device)])
+    s = v[:, 1]
+    for j in range(2, CHASE_COLS):
+        s = s + v[:, j]
+    x0 = v[:, 0]
+    nxt = torch.where((x0 > -1.0) & (x0 < n_rows), x0.to(torch.int32), n_rows)
+    return torch.stack([nxt.to(torch.int32), s.view(torch.int32)], 1)
+
+
+def chase_walk_plain(pairs, idx, steps: int):
+    """Plain torch version of :func:`chase_walk`."""
+    n_rows = pairs.shape[0] - 1
+    nxt = pairs[:, 0].long()
+    sums = pairs[:, 1].contiguous().view(torch.float32)
+    r = torch.where((idx >= 0) & (idx < n_rows), idx, n_rows).long()
+    acc = torch.zeros(idx.shape[0], dtype=torch.float32, device=pairs.device)
+    for _ in range(int(steps)):
+        acc = acc + sums[r]
+        r = nxt[r]
     return acc

@@ -13,7 +13,11 @@ traversal and its parts:
   chain counting its visits of each row, then the slab tests of the
   visited rows, weighted by their counts, run over the whole card;
 * :func:`step_attrib` (row 15) -- the v1 packet step body over a BVH8
-  table with pieces switched off (``ATTRIB_VARIANTS``);
+  table with pieces switched off (``ATTRIB_VARIANTS``).  On the card each
+  (program, packet) runs as a block of its own, its visits computed from
+  the stack's slot 1 in closed form (:func:`attrib_chain` says why the
+  chain never depends on a lane); :func:`step_attrib_chain` is that chain
+  alone;
 * :func:`step_ablate` (row 16) -- a chain ``r = meta[r]`` with one more
   ingredient of the step per variant, over a table packed by
   :func:`pack_bf16_hilo`.
@@ -89,13 +93,14 @@ def _library():
             lib.shimmer_packet_slab_chase.argtypes = [ci, ci, p, ci, p, p, ci, p, p, p]
             lib.shimmer_packet_slab_chase_max_steps.argtypes = []
             lib.shimmer_packet_slab_chase_max_rows.argtypes = []
-            lib.shimmer_step_attrib.argtypes = [ci, p, p, ci, p, ci, ci, ci, ci, p, p, p]
+            lib.shimmer_step_attrib.argtypes = [ci, p, p, ci, p, ci, ci, ci, ci, p, p, p, p]
+            lib.shimmer_step_attrib_chain.argtypes = [ci, p, ci, ci, ci, ci, ci, p, p, p]
             lib.shimmer_step_ablate.argtypes = [ci, p, p, p, ci, ci, ci, p, p]
             lib.shimmer_step_attrib_max_packets.argtypes = []
             lib.shimmer_step_attrib_max_stack.argtypes = []
             for fn in (lib.shimmer_packet_slab_chase, lib.shimmer_step_attrib,
-                       lib.shimmer_step_ablate, lib.shimmer_step_attrib_max_packets,
-                       lib.shimmer_step_attrib_max_stack, lib.shimmer_packet_slab_chase_max_steps,
+                       lib.shimmer_step_attrib_chain, lib.shimmer_step_ablate,
+                       lib.shimmer_step_attrib_max_packets, lib.shimmer_step_attrib_max_stack, lib.shimmer_packet_slab_chase_max_steps,
                        lib.shimmer_packet_slab_chase_max_rows):
                 fn.restype = ci
             if (lib.shimmer_step_attrib_max_packets(), lib.shimmer_step_attrib_max_stack(),
@@ -294,7 +299,8 @@ def step_attrib(rows8, meta, rays, variant: str, steps: int, packets: int, stack
     stack_size) int32; default INT32_MIN everywhere, what interpret mode's
     scratch holds) and carries from one program to the next in grid order,
     as the reference's scratch does in interpret mode; slot 0 is set to 1
-    at each program's start.
+    at each program's start.  On the card the programs run side by side
+    (two launches: the packet blocks, then a finish that writes the stacks).
     Returns (out (G * packets, 8, 128) float32: row 0 t_best, row 1 tri,
     rows 2-7 zero; the (packets, stack_size) stack as the last program
     left it)."""
@@ -306,15 +312,52 @@ def step_attrib(rows8, meta, rays, variant: str, steps: int, packets: int, stack
     stack = stack_init.clone()
     out = torch.empty(programs * packets, ATTRIB_OUT_ROWS, LANES, dtype=torch.float32,
                       device=dev)
+    # Each block's last push (step + 1, word), read by the finish launch.
+    work = torch.empty(programs * packets, 2, dtype=torch.int32, device=dev)
     cuda_build.raise_on_error(_library().shimmer_step_attrib(
         ATTRIB_VARIANTS.index(variant), rows8.data_ptr(), meta.data_ptr(), n_rows,
         rays.data_ptr(), programs, packets, steps, stack_size, stack.data_ptr(),
-        out.data_ptr(), cuda_build.stream_of(rows8)), "step_attrib")
+        work.data_ptr(), out.data_ptr(), cuda_build.stream_of(rows8)), "step_attrib")
     step_attrib.launches["step_attrib"] += 1
     return out, stack
 
 
 step_attrib.launches = {"step_attrib": 0}
+
+
+def step_attrib_chain(rows8, meta, rays, variant: str, steps: int, packets: int,
+                      stack_size: int, stack_init=None):
+    """Row 15's chain alone, with :func:`step_attrib`'s arguments: the
+    (G * packets, steps, 2) int32 visits, (r, meta[r]) of each program's
+    packet's step, as the card's packet blocks compute them from the
+    stacks' slot 1 (rows8 and the rays are checked, not read)."""
+    dev, n_rows, programs, packets, steps, stack_size, stack_init = _attrib_args(
+        rows8, meta, rays, variant, steps, packets, stack_size, stack_init)
+    if _device_type(rows8) == "cpu":
+        return step_attrib_chain_plain(meta, variant, programs, packets, steps, stack_size,
+                                       stack_init)
+    visits = torch.empty(programs * packets, steps, 2, dtype=torch.int32, device=dev)
+    cuda_build.raise_on_error(_library().shimmer_step_attrib_chain(
+        ATTRIB_VARIANTS.index(variant), meta.data_ptr(), n_rows, programs, packets, steps,
+        stack_size, stack_init.data_ptr(), visits.data_ptr(), cuda_build.stream_of(meta)),
+        "step_attrib_chain")
+    step_attrib_chain.launches["step_attrib_chain"] += 1
+    return visits
+
+
+step_attrib_chain.launches = {"step_attrib_chain": 0}
+
+
+def step_attrib_chain_plain(meta, variant: str, programs: int, packets: int, steps: int,
+                            stack_size: int, stack_init):
+    """Plain torch version of :func:`step_attrib_chain`, from
+    :func:`attrib_chain`."""
+    meta_l = meta.tolist()
+    rs, _, _ = attrib_chain(meta_l, meta.shape[0], programs, packets, steps, stack_size,
+                            stack_init.tolist(), variant)
+    r = torch.tensor(rs, dtype=torch.int64).reshape(programs * packets, steps)
+    m = torch.tensor(meta_l, dtype=torch.int32)[r]
+    return torch.stack([r.to(torch.int32), m], 2).to(meta.device)
 
 
 def _pop(st: list, stack_size: int, i: int, n_rows: int):
@@ -345,7 +388,10 @@ def attrib_chain(meta: list, n_rows: int, programs: int, packets: int, steps: in
     every pop and every push lands in slot min(2, stack_size - 1) = 2 with
     stack_size >= 3, a slot that no pop reads.  So r depends only on the
     pops, and with interpret mode's INT32_MIN in slot 1 it is 0 throughout
-    ((INT32_MIN >> 8) + i < 0 and the pop leaves INT32_MIN in place)."""
+    ((INT32_MIN >> 8) + i < 0 and the pop leaves INT32_MIN in place).  The
+    pops' map on slot 1 reaches a cycle of period 1 or 2 within 8 pops, so
+    the card computes slot 1's word at any pop in closed form
+    (csrc/packet_step_body.cuh, attrib_slot1_after)."""
     st = [list(row) for row in stack_init]
     rs, visits = [], []
     for g in range(programs):
@@ -617,7 +663,7 @@ def step_ablate_plain(meta, tab, tab_i, variant: int, steps: int, programs: int,
     return out[None].expand(programs, 8, LANES).contiguous()
 
 
-WRAPPERS = (packet_slab_chase, step_attrib, step_ablate)
+WRAPPERS = (packet_slab_chase, step_attrib, step_attrib_chain, step_ablate)
 KERNELS = tuple(k for w in WRAPPERS for k in w.launches)
 
 

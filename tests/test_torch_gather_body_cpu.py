@@ -10,7 +10,11 @@ numpy sum in the kernel's own order (chunks of rows per warp, warps in
 order within a block, blocks in order), and within the entry point's
 SUM_RTOL of the plain version, which sums in torch's order.  Every body
 reads a row of zeros for an index outside [0, R), as the plain versions
-do, including indices that bf16 rounding pushes to R.
+do, including indices that bf16 rounding pushes to R.  The staged chase
+(each row's next index and row sum written by a pass, then walked from
+shared memory) is bit-equal to the per-lane chase it replaces for few
+lanes with long chains, and the dispatch rule sends each entry-point case
+to the form the card runs it in.
 """
 
 import ctypes
@@ -49,12 +53,21 @@ def host(tmp_path_factory):
                  "shimmer_row_gather_sum_host"):
         getattr(lib, name).argtypes = [p, ci, ci, p, ci, p]
         getattr(lib, name).restype = ci
-    lib.shimmer_row_chase_host.argtypes = [ci, p, ci, ci, p, ci, ci, p]
-    lib.shimmer_row_chase_host.restype = ci
+    for name in ("shimmer_row_chase_host", "shimmer_row_chase_staged_host"):
+        getattr(lib, name).argtypes = [ci, p, ci, ci, p, ci, ci, p]
+        getattr(lib, name).restype = ci
+    lib.shimmer_chase_pairs_host.argtypes = [ci, p, ci, ci, p]
+    lib.shimmer_row_chase_staged.argtypes = [ci, ci, ci]
     for name in ("shimmer_gather_sum_rows_per_warp", "shimmer_gather_sum_warps",
-                 "shimmer_gather_sum_max_width", "shimmer_gather_cols_stage_max_rows"):
+                 "shimmer_gather_sum_max_width", "shimmer_gather_cols_stage_max_rows",
+                 "shimmer_chase_pairs_host", "shimmer_row_chase_staged",
+                 "shimmer_chase_stage_max_lanes", "shimmer_chase_stage_max_rows",
+                 "shimmer_chase_stage_min_steps"):
         getattr(lib, name).restype = ci
     assert lib.shimmer_gather_sum_max_width() == g.SUM_MAX_WIDTH
+    assert (lib.shimmer_chase_stage_max_lanes(), lib.shimmer_chase_stage_max_rows(),
+            lib.shimmer_chase_stage_min_steps()) == (g.STAGE_MAX_LANES, g.STAGE_MAX_ROWS,
+                                                     g.STAGE_MIN_STEPS)
     return lib
 
 
@@ -149,6 +162,73 @@ def test_chase_body_matches_plain(host, dtype, width):
     assert 0 < int(stats["oob_lanes"].sum()) < N
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_chase_pairs_body_matches_plain(host, dtype):
+    """The staged chase's pass: each row's (next index, row sum) and the
+    pair of the row of zeros at R, bit for bit (the table's bad column-0
+    values give next index R)."""
+    tab, _ = chase_table(dtype, 128, 7)
+    got = torch.empty(R + 1, 2, dtype=torch.int32)
+    call(host.shimmer_chase_pairs_host, int(dtype == "bf16"), tab.data_ptr(), R, 128,
+         got.data_ptr())
+    want = g.chase_pairs_plain(tab)
+    assert torch.equal(got, want)
+    assert got[R].tolist() == [0, 0] and int((got[:R, 0] == R).sum()) >= 6
+
+
+# (start indices, steps): one lane from 0, a start out of range each way,
+# a lane whose first row points out of the table, and many lanes.
+STAGED_CASES = {"n1_from_0": ([0], (0, 1, 4096)), "n1_start_high": ([R + 3], (0, 1, 4096)),
+                "n1_start_low": ([-(2**31)], (1, 4096)), "n1_first_row_out": ([1], (1, 2, 4096)),
+                "many_lanes": (None, (0, 1, 300))}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("start, steps_list", list(STAGED_CASES.values()), ids=list(STAGED_CASES))
+def test_staged_chase_matches_lane_and_plain(host, dtype, start, steps_list):
+    """The staged walk over the pass's pairs against the per-lane chase body
+    and the plain version, bit for bit, at the cases' step counts (4,096:
+    6E's)."""
+    tab, idx = chase_table(dtype, 128, 8)
+    tab = tab.clone()
+    tab[1, 0] = float(R)  # row 1's next index is out of range: the next step reads zeros
+    if start is not None:
+        idx = torch.tensor(start, dtype=torch.int32)
+    n = idx.shape[0]
+    for steps in steps_list:
+        staged, lane = torch.empty(n), torch.empty(n)
+        for fn, out in ((host.shimmer_row_chase_staged_host, staged),
+                        (host.shimmer_row_chase_host, lane)):
+            call(fn, int(dtype == "bf16"), tab.data_ptr(), R, 128, idx.data_ptr(), n, steps,
+                 out.data_ptr())
+        stats = {}
+        want = g.row_chase_plain(tab, idx, steps, stats=stats)
+        assert bits_equal(staged, want), steps
+        assert bits_equal(lane, want), steps
+        assert bits_equal(g.chase_walk(g.chase_pairs_plain(tab), idx, steps), want), steps
+        if steps > 1 and start in ([1], [R + 3]):
+            assert bool(stats["oob_lanes"].all())
+
+
+def test_chase_dispatch_rule(host):
+    """The card stages 6E (one lane, 4,096 steps) and keeps the per-lane
+    form for 6B/6B2, 6C, the 7F chase and 7H; the host build's rule and the
+    wrapper's agree at and around every bound."""
+    staged = {c.name: bool(host.shimmer_row_chase_staged(c.n_rows, c.n, c.steps))
+              for c in eg.cases() if c.kernel.startswith("row_chase")}
+    assert {n for n, s in staged.items() if s} == {
+        c.name for c in eg.cases() if c.row == "6E"}
+    assert any(n.startswith("6C") for n in staged) and any(n.startswith("7F") for n in staged)
+    lanes, rows, steps = g.STAGE_MAX_LANES, g.STAGE_MAX_ROWS, g.STAGE_MIN_STEPS
+    for n_rows in (1, 64, 16384, 16385, 64 * steps, 64 * steps + 64, rows, rows + 1):
+        for n in (0, 1, lanes, lanes + 1):
+            for k in (0, steps - 1, steps, n_rows // 64 - 1, n_rows // 64, 4096):
+                want = g.chase_staged(n_rows, n, k)
+                assert bool(host.shimmer_row_chase_staged(n_rows, n, k)) == want, (n_rows, n, k)
+    assert g.chase_staged(16384, 1, 4096) and not g.chase_staged(16384, 131072, 32)
+    assert not g.chase_staged(rows + 1, 1, 2**20) and g.chase_staged(rows, 1, 2**20)
+
+
 def sum_in_kernel_order(tab, idx, rows_per_warp, warps):
     """numpy float32 sum in the kernel's order: rows left to right within
     a warp's chunk, the chunk sums in warp order, the blocks in order."""
@@ -192,6 +272,8 @@ def test_host_body_rejects_what_the_kernels_do_not_take(host):
     assert host.shimmer_row_gather_sum_host(*p, 132, idx.data_ptr(), N, out.data_ptr()) == -1
     assert host.shimmer_row_chase_host(0, *p, 12, idx.data_ptr(), N, 4, out.data_ptr()) == -1
     assert host.shimmer_row_chase_host(2, *p, 128, idx.data_ptr(), N, 4, out.data_ptr()) == -1
+    assert host.shimmer_row_chase_staged_host(0, *p, 12, idx.data_ptr(), 1, 4, out.data_ptr()) == -1
+    assert host.shimmer_chase_pairs_host(2, *p, 128, out.data_ptr()) == -1
 
 
 # --- the wrappers on a machine without a card ---

@@ -17,15 +17,22 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["shimmer_tpu"] = None
-names = {names}
-if names == "package":
+import torch
+torch.set_num_threads(1)
+given = {names}
+# The run checks below branch on the given list, so the "package" case only
+# imports: each run check belongs to the one dedicated case that names it.
+runs = set() if given == "package" else set(given)
+if given == "package":
     import shimmer_tpu_torch
     names = ["shimmer_tpu_torch"] + [
         m.name for m in pkgutil.walk_packages(shimmer_tpu_torch.__path__, "shimmer_tpu_torch.")
     ]
+else:
+    names = given
 for name in names:
     importlib.import_module(name)
-if "shimmer_tpu_torch.experiments.gather" in names:
+if "shimmer_tpu_torch.experiments.gather" in runs:
     # The entry point runs, not only imports: every case at a small size.
     import dataclasses
     from shimmer_tpu_torch.experiments import gather
@@ -33,7 +40,7 @@ if "shimmer_tpu_torch.experiments.gather" in names:
         case = dataclasses.replace(case, n_rows=case.n_rows // 256, n=max(1, case.n // 256),
                                    steps=min(case.steps, 32))
         assert gather.run_case(case, *gather.make_inputs(case, "cpu"))["ok"]
-if "shimmer_tpu_torch.experiments.packet_step" in names:
+if "shimmer_tpu_torch.experiments.packet_step" in runs:
     # The entry point runs, not only imports: every case at a small size
     # (row 15 on a small scene of the port's own builder).
     import dataclasses
@@ -45,14 +52,14 @@ if "shimmer_tpu_torch.experiments.packet_step" in names:
                                    programs=min(case.programs, 2))
         x = packet_step.make_inputs(case, "cpu", (t.rows8, t.meta, t.stack_depth))
         assert packet_step.run_case(case, x)["ok"]
-if "shimmer_tpu_torch.ops.bvh8" in names:
+if "shimmer_tpu_torch.ops.bvh8" in runs:
     # The builders run, not only import: native SAH build and 8-wide pack.
     import numpy as np
     from shimmer_tpu_torch.ops.bvh8 import bvh8_validate, pack_bvh8
     tri = np.random.default_rng(0).random((64, 3, 3)).astype(np.float32)
     arrs = pack_bvh8(tri.min(1), tri.max(1), tri)
     assert bvh8_validate(arrs, tri.min(1), tri.max(1))
-if "shimmer_tpu_torch.materials.layered" in names:
+if "shimmer_tpu_torch.materials.layered" in runs:
     # The material slice runs, not only imports: every material kind
     # rendered at a small size on the CPU.
     import torch
@@ -92,7 +99,8 @@ print(len(names))
          "packet_step_modules", "kernel_ab_modules", "material_modules"],
 )
 def test_imports_without_jax(names):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # One torch thread: the subprocess runs beside the other xdist workers.
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT.format(names=repr(names))],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,

@@ -208,3 +208,59 @@ def test_time_chase_runs_the_entry_point_cases():
                                           case.transposed)
         assert line["checksum"] == float(want.double().sum()) and line["ms"] > 0
     assert ps.launch_counts()["packet_slab_chase"] == 0
+
+
+SCALAR_ROWS_CASE = "6E row_chase_f32 R=16384 N=1 W=128 K=4096"
+
+
+def test_summarize_takes_the_parts_a_run_timed(tmp_path):
+    """Runs of some parts only (``--parts attrib scalar_rows``): the summary
+    has those sections and no others."""
+    paths = []
+    for label, ms, checksum in (("A1", 19.0, 1.0), ("B1", 0.05, 1.0), ("B2", 0.07, 1.0),
+                                ("A2", 21.0, 1.0)):
+        run = {"label": label, "card": "NVIDIA H100 80GB HBM3, 700.00 W",
+               "parts": ["attrib", "scalar_rows"],
+               "attrib": {"15 full step_attrib/full int32_min": {"ms": ms, "checksum": checksum}},
+               "scalar_rows": {SCALAR_ROWS_CASE: {"ms": ms / 100, "checksum": checksum}}}
+        paths.append(tmp_path / f"{label}.json")
+        paths[-1].write_text(json.dumps(run))
+    out = ab.summarize(paths)
+    assert set(out) == {"cards", "attrib", "scalar_rows"}
+    line = out["attrib"]["15 full step_attrib/full int32_min"]
+    assert line["A"]["ms"] == pytest.approx(20.0) and line["B"]["ms"] == pytest.approx(0.06)
+    assert line["B_over_A_ms"] == pytest.approx(0.003) and line["same_output"]
+    assert out["scalar_rows"][SCALAR_ROWS_CASE]["B"]["ms_runs"] == pytest.approx([0.0005,
+                                                                                    0.0007])
+
+
+def test_time_attrib_and_scalar_rows_run_the_entry_point_cases(monkeypatch):
+    """kernel_ab's row 15 and 6E timings on the CPU (the wrappers' plain
+    versions), the entry points' cases shrunk: every variant from both
+    stacks, with checksums of the outputs and stacks; the 6E case is the
+    gather entry point's."""
+    import dataclasses
+
+    from shimmer_tpu_torch.experiments import gather as eg
+    from shimmer_tpu_torch.experiments import packet_step as eps
+    from shimmer_tpu_torch.ops import packet_step as ps
+
+    cases, gather_cases = eps.cases(), eg.cases()
+    monkeypatch.setattr(eps, "cases", lambda: [
+        dataclasses.replace(c, steps=(8,), programs=2) for c in cases])
+    monkeypatch.setattr(eg, "cases", lambda: [
+        dataclasses.replace(c, steps=64) if c.row == "6E" else c for c in gather_cases])
+    monkeypatch.setattr(ab, "ATTRIB_REPS", 1)
+    scene, _, _ = build_bench_scene(320, (8, 8), device="cpu")
+    t = scene.triangles
+    ps.reset_launches()
+    got = ab.time_attrib(torch.device("cpu"), (t.rows8, t.meta, t.stack_depth))
+    assert list(got) == [f"15 {v} step_attrib/{v} {s}" for v in ps.ATTRIB_VARIANTS
+                         for s in ("int32_min", "patterned")]
+    assert all(line["ms"] > 0 and np.isfinite(line["checksum"]) for line in got.values())
+    assert got["15 full step_attrib/full int32_min"]["checksum"] != got[
+        "15 full step_attrib/full patterned"]["checksum"]
+    assert sum(ps.launch_counts().values()) == 0
+    rows = ab.time_scalar_rows(torch.device("cpu"))
+    assert list(rows) == ["6E row_chase_f32 R=16384 N=1 W=128 K=64"]
+    assert all(line["ms"] > 0 and np.isfinite(line["checksum"]) for line in rows.values())

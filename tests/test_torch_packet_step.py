@@ -235,17 +235,21 @@ def test_entry_point_runs_every_case_on_cpu(small_tables):
     rows = [eps.run_case(c, eps.make_inputs(c, "cpu", small_tables)) for c in map(small, eps.cases())]
     assert len({r["name"] for r in rows}) == len(eps.cases())
     assert {r["row"] for r in rows} == {"10", "11", "12", "13", "14", "15", "16"}
-    assert {r["kernel"] for r in rows} == set(ps.KERNELS)
+    assert ({r["kernel"] for r in rows} | {r["chain_kernel"] for r in rows if "chain_kernel" in r}
+            == set(ps.KERNELS))
     for r in rows:
         assert r["ok"], r["name"]
         assert np.isfinite(r["ns_per_step"]) and r["bytes"] > 0 and r["bound_ms"] > 0
         assert eps.format_line(r).startswith(f"  {r['name']}")
     assert sum(ps.launch_counts().values()) == 0
     assert {r["launches"] for r in rows} == {0}
-    # The slab chases that walk a chain also time the chain alone.
+    # The slab chases that walk a chain, and row 15, also time the chain
+    # alone (row 15's with a kernel of its own).
     for r in rows:
-        walks = r["kernel"] == "packet_slab_chase" and r["variant"] in ("slab", "slab_stack")
+        walks = (r["kernel"] == "packet_slab_chase" and r["variant"] in ("slab", "slab_stack")
+                 or r["kernel"] == "step_attrib")
         assert ("chain_ms" in r) == walks, r["name"]
+        assert r.get("chain_launches", 0) == 0
     assert [len(r["marginal_ns"]) for r in rows if r["row"] == "10"] == [1]
 
 

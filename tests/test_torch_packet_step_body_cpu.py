@@ -10,7 +10,10 @@ order on both sides, with g++ building without FMA contraction.  The
 step attribution's carried stacks are equal too.  The split form of the
 slab chase (the chain walk, then per-lane integer counts over the slab
 pass's chunks of steps) equals both the plain version and the per-lane
-body it replaces on the card.
+body it replaces on the card.  The step attribution runs as the card
+runs it (each program's packet on its own, its visits from the stack's
+slot 1 in closed form, the lanes' OR of hit bits taken after the steps),
+and the closed form of slot 1 equals the pops it stands for.
 """
 
 import ctypes
@@ -46,10 +49,14 @@ def host(tmp_path_factory):
     p, ci = ctypes.c_void_p, ctypes.c_int
     lib.shimmer_packet_slab_chase_host.argtypes = [ci, ci, p, ci, p, p, ci, p]
     lib.shimmer_packet_slab_chase_split_host.argtypes = [ci, ci, p, ci, p, p, ci, ci, p]
-    lib.shimmer_step_attrib_host.argtypes = [ci, p, p, ci, p, ci, ci, ci, ci, p, p]
+    lib.shimmer_step_attrib_packet_host.argtypes = [ci, p, p, ci, p, ci, ci, ci, ci, p, p]
+    lib.shimmer_step_attrib_chain_host.argtypes = [ci, p, ci, ci, ci, ci, ci, p, p]
+    lib.shimmer_attrib_slot1_mismatches.argtypes = [p, ci, ci]
+    lib.shimmer_attrib_slot1_mismatches.restype = ctypes.c_longlong
     lib.shimmer_step_ablate_host.argtypes = [ci, p, p, p, ci, ci, ci, p]
     for fn in (lib.shimmer_packet_slab_chase_host, lib.shimmer_packet_slab_chase_split_host,
-               lib.shimmer_step_attrib_host,
+               lib.shimmer_step_attrib_packet_host,
+               lib.shimmer_step_attrib_chain_host,
                lib.shimmer_step_ablate_host, lib.shimmer_step_attrib_max_packets,
                lib.shimmer_step_attrib_max_stack):
         fn.restype = ci
@@ -120,24 +127,93 @@ def attrib_data():
     return t.rows8, t.meta, rays, size, k, torch.from_numpy(pattern.astype(np.int32))
 
 
+def _attrib_init(stack, k, size, pattern):
+    return (pattern if stack == "patterned"
+            else torch.full((k, size), ps.INT32_MIN, dtype=torch.int32))
+
+
 @pytest.mark.parametrize("stack", ["int32_min", "patterned"])
 @pytest.mark.parametrize("variant", ps.ATTRIB_VARIANTS)
 def test_step_attrib_body_matches_plain(host, attrib_data, variant, stack):
+    """Row 15 as the card runs it against the plain version, the final
+    stacks included: every program's packet alone (the blocks run here
+    from the last to the first), its visits from slot 1 in closed form,
+    the lanes' OR of hit bits per step taken after the steps, the last
+    push in grid order chosen from the blocks' records."""
     rows8, meta, rays, size, k, pattern = attrib_data
-    init = (pattern if stack == "patterned"
-            else torch.full((k, size), ps.INT32_MIN, dtype=torch.int32))
-    steps = 48
+    init = _attrib_init(stack, k, size, pattern)
     programs = rays.shape[0] // k
-    out = torch.empty(rays.shape[0], ps.ATTRIB_OUT_ROWS, P)
-    st = init.clone()
-    assert host.shimmer_step_attrib_host(
-        ps.ATTRIB_VARIANTS.index(variant), rows8.data_ptr(), meta.data_ptr(), rows8.shape[0],
-        rays.data_ptr(), programs, k, steps, size, st.data_ptr(), out.data_ptr()) == 0
-    want, want_st = ps.step_attrib_plain(rows8, meta, rays, variant, steps, k, size, init)
-    assert torch.equal(out, want)
-    assert torch.equal(st, want_st)
+    for steps in (0, 48):
+        out = torch.empty(rays.shape[0], ps.ATTRIB_OUT_ROWS, P)
+        st = init.clone()
+        assert host.shimmer_step_attrib_packet_host(
+            ps.ATTRIB_VARIANTS.index(variant), rows8.data_ptr(), meta.data_ptr(),
+            rows8.shape[0], rays.data_ptr(), programs, k, steps, size, st.data_ptr(),
+            out.data_ptr()) == 0
+        want, want_st = ps.step_attrib_plain(rows8, meta, rays, variant, steps, k, size, init)
+        assert torch.equal(out, want), steps
+        assert torch.equal(st, want_st), steps
     if stack == "patterned" and variant in ("full", "noscalar"):
         assert int((want[:, 1] >= 0).sum()) > 0
+    if stack == "patterned" and variant != "noscalar":
+        assert not torch.equal(want_st[:, 1:3], init[:, 1:3])  # pops and pushes landed
+
+
+def test_attrib_slot1_closed_form_equals_the_pops(host):
+    """attrib_slot1_after against attrib_pop popping a three-slot stack, at
+    every pop count from 0 to 2 * G * 256 + 3 (G = 64, the reference's
+    grid), from every low byte under the high parts 0, 1, -1, INT32_MIN >>
+    8 and a random pair."""
+    rng = np.random.default_rng(8)
+    highs = [0, 1, -1, ps.INT32_MIN >> 8, *rng.integers(-(2**23), 2**23, 2).tolist()]
+    words = np.array([(h << 8) | low for h in highs for low in range(256)], dtype=np.int64)
+    words = torch.from_numpy(words.astype(np.int32))
+    n_max = 2 * 64 * 256 + 3
+    assert host.shimmer_attrib_slot1_mismatches(words.data_ptr(), words.numel(), n_max) == 0
+
+
+@pytest.mark.parametrize("stack", ["int32_min", "patterned", "low_bytes"])
+@pytest.mark.parametrize("variant", ps.ATTRIB_VARIANTS)
+def test_attrib_chain_closed_form_matches_plain(host, attrib_data, variant, stack):
+    """The chain the card's packet blocks compute in closed form (visits (r,
+    meta[r]) per program, packet and step) against the plain attrib_chain's
+    pops, over more programs than settle the pop's map; "low_bytes" starts
+    slot 1 at words whose low bytes have many bits set."""
+    rows8, meta, rays, size, k, pattern = attrib_data
+    init = _attrib_init("patterned" if stack == "low_bytes" else stack, k, size, pattern)
+    if stack == "low_bytes":
+        init = init.clone()
+        init[:, 1] = torch.tensor([(37 << 8) | 0xFF, (2 << 8) | 0xB6], dtype=torch.int32)[:k]
+    programs, steps = 9, 12
+    got = torch.empty(programs * k, steps, 2, dtype=torch.int32)
+    assert host.shimmer_step_attrib_chain_host(
+        ps.ATTRIB_VARIANTS.index(variant), meta.data_ptr(), meta.shape[0], programs, k, steps,
+        size, init.data_ptr(), got.data_ptr()) == 0
+    want = ps.step_attrib_chain_plain(meta, variant, programs, k, steps, size, init)
+    assert torch.equal(got, want)
+    rs, st, _ = ps.attrib_chain(meta.tolist(), meta.shape[0], programs, k, steps, size,
+                                init.tolist(), variant)
+    assert got[:, :, 0].tolist() == [r for g in rs for r in g]
+    if variant != "noscalar" and stack != "int32_min":
+        assert len(set(got[:, :, 0].flatten().tolist())) > 1  # the chain walks the table
+    fake_rays = torch.zeros(programs * k, 16, P)
+    assert torch.equal(ps.step_attrib_chain(rows8, meta, fake_rays, variant, steps, k, size, init),
+                       want)
+    # The final slot 1 of the plain pops is the closed form's after G * steps.
+    words = torch.tensor([row[1] for row in init.tolist()], dtype=torch.int32)
+    if variant != "noscalar":
+        assert [row[1] for row in st] == [_slot1_after(w, programs * steps) for w in words.tolist()]
+
+
+def _slot1_after(e: int, n: int) -> int:
+    """The closed form of slot 1 (csrc/packet_step_body.cuh attrib_slot1_after)
+    in Python: 8 pops, then n's parity."""
+    pops = n if n <= 8 else 8 + ((n - 8) & 1)
+    for _ in range(pops):
+        st = [1, e, 0]
+        ps._pop(st, 3, 0, 1)
+        e = st[1]
+    return e
 
 
 @pytest.fixture(scope="module")
@@ -179,10 +255,13 @@ def test_host_bodies_reject_what_the_kernels_do_not_take(host, chase_data, ablat
     assert host.shimmer_step_ablate_host(5, meta.data_ptr(), tab.data_ptr(), tab_i.data_ptr(),
                                          256, 1, 4, out.data_ptr()) == -1
     st = torch.zeros(8, 200, dtype=torch.int32)
-    for packets, size in ((5, 16), (2, 200), (0, 16)):
-        assert host.shimmer_step_attrib_host(0, tab.data_ptr(), meta.data_ptr(), 256,
-                                             rays.data_ptr(), 1, packets, 4, size, st.data_ptr(),
-                                             out.data_ptr()) == -1
+    # Row 15 and its chain need slot 2 apart from slot 1 (stack_size >= 3).
+    for packets, size in ((5, 16), (2, 200), (0, 16), (2, 2)):
+        assert host.shimmer_step_attrib_packet_host(0, tab.data_ptr(), meta.data_ptr(), 256,
+                                                    rays.data_ptr(), 1, packets, 4, size,
+                                                    st.data_ptr(), out.data_ptr()) == -1
+        assert host.shimmer_step_attrib_chain_host(0, meta.data_ptr(), 256, 1, packets, 4, size,
+                                                   st.data_ptr(), st.data_ptr()) == -1
 
 
 # --- the wrappers on a machine without a card ---
@@ -203,6 +282,9 @@ def test_cpu_tensors_take_the_plain_version(chase_data, attrib_data, ablate_data
     got = ps.step_attrib(rows8, meta, arays, "full", 8, k, size, pattern)
     want = ps.step_attrib_plain(rows8, meta, arays, "full", 8, k, size, pattern)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    programs = arays.shape[0] // k
+    assert torch.equal(ps.step_attrib_chain(rows8, meta, arays, "full", 8, k, size, pattern),
+                       ps.step_attrib_chain_plain(meta, "full", programs, k, 8, size, pattern))
     m, tab, tab_i = ablate_data
     assert torch.equal(ps.step_ablate(m, tab, tab_i, 3, 20, 2),
                        ps.step_ablate_plain(m, tab, tab_i, 3, 20, 2))
