@@ -42,8 +42,9 @@ Phases, each printing its own numbers:
      over the bench scene's BVH8 of phase 2 and its chain alone, the bf16
      hi|lo step ablation) through the entry point's every case, each at
      every step count against its plain version on the same tensors, bit
-     for bit, with ns per step as the reference scripts report it and the
-     chain alone's time (chain_ms) where a case has one;
+     for bit, with ns per step as the reference scripts report it, the
+     chain alone's time (chain_ms) where a case has one, and the shape of
+     row 16's chains (mu, lambda, distinct rows);
  10. the material bench scene (bench_scene.build_material_bench_scene: the
      bench geometry with a mix of rough gold and dispersive BK7 glass on the
      sphere and a coated diffuse floor): a small render (64x48, 4 spp) on
@@ -178,6 +179,13 @@ GATHER_ROWS = {
     "row_chase_bf16": (
         "6C row_chase_bf16 R=16384 N=131072 W=128 K=8",
         "experiments/pallas_gather.py:140 (bench_pallas_onehot)"),
+    "row_chase_staged": (
+        "6A/6B/6B2 row_chase_f32 R=16384 N=131072 W=128 K=32",
+        "experiments/pallas_gather.py:72 (bench_pallas_vmem_take); experiments/pallas_gather.py:106 "
+        "(bench_pallas_vmem_take_cols); experiments/pallas_gather.py:140 (bench_pallas_onehot); "
+        "experiments/pallas_gather.py:232 (bench_pallas_scalar_rows); "
+        "experiments/pallas_gather2.py:73 (check_and_bench_taa0, its chase): the staged form, "
+        "each row's next index and row sum written by a pass and walked from shared memory"),
     "chase_walk": (
         "6E row_chase_f32 R=16384 N=1 W=128 K=4096",
         "experiments/pallas_gather.py:232 (bench_pallas_scalar_rows: the staged walk alone, "
@@ -186,6 +194,16 @@ GATHER_ROWS = {
 # The case whose staged walk the chase_walk line carries (6E: one lane,
 # 4,096 steps; the row_chase_f32 line carries the wide chase).
 WALK_CASE = GATHER_ROWS["chase_walk"][0]
+# The chases the card runs staged (ops.gather.chase_staged, set by timing
+# every chase case in each form, PERF.md): all but 6C's at N = 8,192.
+def staged_by_measurement(res: dict) -> bool:
+    return res["kernel"].startswith("row_chase") and not (res["row"] == "6C"
+                                                          and res["N"] == 8192)
+
+
+# The per-lane chase beyond the staged form's table limit, held against
+# its plain version after the entry point: R, N, K.
+PER_LANE_CASE = (gk.STAGE_MAX_ROWS + 1, 4096, 32)
 
 
 # The packet-step kernels of kernel-table rows 10-16 -> (kernel, the entry
@@ -536,11 +554,16 @@ def phase8(dev) -> dict:
                          f"(max |d| {res['max_abs_err']})")
     for kernel in eg.KERNELS:
         check(launches[kernel] > 0, f"phase 8: the {kernel} kernel was not launched")
-    # The card runs 6E's one-lane chase staged and the wide chases per lane
-    # (ops.gather.chase_staged, held to the library's bounds).
+    # Each chase ran in the form the rule names (ops.gather.chase_staged,
+    # held to the library's bounds), and the rule names the measured set.
+    for name, res in rows.items():
+        if "staged" in res:
+            check(res["ran_staged"] == res["staged"],
+                  f"phase 8 {name}: ran {'staged' if res['ran_staged'] else 'per lane'}, "
+                  f"the rule says {'staged' if res['staged'] else 'per lane'}")
     staged = sorted(name for name, res in rows.items() if res.get("staged"))
-    check(staged == sorted(name for name, res in rows.items() if res["row"] == "6E"),
-          f"phase 8: the staged chase ran for {staged}, not for 6E's cases")
+    check(staged == sorted(name for name, res in rows.items() if staged_by_measurement(res)),
+          f"phase 8: the staged chase ran for {staged}")
     oob = {name: res["oob_lanes"] for name, res in rows.items() if res["kernel"] == "row_chase_bf16"}
     check(sum(oob.values()) > 0, "phase 8: no bf16 chase lane met an index rounded out of range")
     log(f"phase 8 entry point: {len(rows)} cases in {seconds:.1f}s, launches {json.dumps(launches)}, "
@@ -573,7 +596,7 @@ def phase8(dev) -> dict:
         out[kernel] = {
             "case": case_name,
             "launches": launches[kernel],
-            "max_abs_err": max(r["max_abs_err"] for r in rows.values() if r["kernel"] == kernel),
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values() if kernel in r["kernels"]),
             "ms": res["ms"],
             "plain_ms": res["plain_ms"],
             "library_ms": library.get(case_name),
@@ -606,7 +629,29 @@ def phase8(dev) -> dict:
         "ops": res["chain_ops"],
     }
     log(f"phase 8 chase_walk: {json.dumps(out['chase_walk'])}")
+    per_lane_beyond_stage(dev)
     return out
+
+
+def per_lane_beyond_stage(dev):
+    """The per-lane chase, float32 and bf16, at a table one row past the
+    staged form's limit (PER_LANE_CASE), against its plain version."""
+    n_rows, n, steps = PER_LANE_CASE
+    rng = np.random.default_rng([eg.SEED, n_rows, n])
+    table = rng.standard_normal((n_rows, 128)).astype(np.float32)
+    table[:, 0] = rng.integers(0, n_rows, n_rows)
+    idx = torch.from_numpy(rng.integers(0, n_rows, n).astype(np.int32)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.from_numpy(table).to(dev).to(dtype)
+        check(not gk.chase_staged(n_rows, n, steps), "phase 8: the per-lane case would run staged")
+        before = gk.launch_counts()
+        got = gk.row_chase(t, idx, steps)
+        check(gk.launch_counts()["row_chase_staged"] == before["row_chase_staged"],
+              "phase 8: the per-lane case ran staged")
+        check(torch.equal(got, gk.row_chase_plain(t, idx, steps)),
+              f"phase 8 per-lane chase R={n_rows} {dtype}: the kernel disagrees with its plain version")
+        log(f"phase 8 per-lane chase R={n_rows} N={n} K={steps} {dtype}: equal, "
+            f"{eg.time_ms(lambda: gk.row_chase(t, idx, steps), dev):.5f} ms")
 
 
 def phase9(dev, tables) -> dict:
@@ -641,9 +686,15 @@ def phase9(dev, tables) -> dict:
                 "chain_plain_ms", "chain_bound_ms", "chain_launches", "plain_ms", "bound_ms",
                 "bound_by", "bytes", "ops", "launches", "max_abs_err")
         line = {k: res[k] for k in keys if k in res}
-        line["steps"] = {s: {k: p[k] for k in ("ms", "chain_ms", "plain_ms", "checksum") if k in p}
+        line["steps"] = {s: {k: p[k] for k in ("ms", "chain_ms", "plain_ms", "checksum", "mu",
+                                                "lam", "distinct") if k in p}
                          for s, p in res["steps"].items()}
         log(f"phase 9 case {name} [{smi}]: {json.dumps(line)}")
+    for name, res in rows.items():
+        if res["kernel"] == "step_ablate":
+            log(f"phase 9 {name} chain: " + "; ".join(
+                f"{s} steps mu {p['mu']} lambda {p['lam']} distinct rows {p['distinct']}"
+                for s, p in res["steps"].items()))
     out = {}
     for row, (kernel, case_name, replaces) in PACKET_ROWS.items():
         res = rows[case_name]

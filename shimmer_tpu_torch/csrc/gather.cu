@@ -54,17 +54,24 @@
 //     vary from run to run with the blocks' order).
 //   * chase: neither bytes nor operations but the latency of K dependent
 //     reads per lane (each step needs the last step's row to find the next
-//     one).  Wide chases: one thread per lane reads only the 9 columns a
-//     step needs, through the read-only path (36 bytes, two sectors, for
-//     float32 rows; 18 bytes, one sector, for bf16 rows), and the N lanes'
-//     chains overlap.  A few lanes with a long chain (6E: one lane, 4,096
-//     steps, 74 ns a step that way on an NVIDIA H100 80GB HBM3 at
-//     700.00 W) have nothing to overlap, so the dependent step itself is
-//     made short (gather_body.cuh, chase_staged): a pass over the card
-//     writes each row's (next index, row sum), one block stages those
-//     pairs in shared memory with cp.async, and a step of a lane is one
-//     8-byte shared load and an add.
-//
+//     one), and the traffic of reaching them.  Read from the table, one
+//     thread a lane reads only the 9 columns a step needs, through the
+//     read-only path (36 bytes, two 32-byte sectors, for float32 rows; 18
+//     bytes, one sector, for bf16 rows): at 131,072 lanes and K = 32 that
+//     is 268 MB of L2 sectors for a 16,384-row table, which the first port
+//     read at about the L2's sector rate (0.054 ms on an NVIDIA H100 80GB
+//     HBM3 at 700.00 W), and a lane that reads few rows has nothing to
+//     overlap (6E: 74 ns a step).  So where gather_body.cuh's chase_staged
+//     says so (every chase case of the reference scripts, by the
+//     measurement in PERF.md), a step is made short and the table is read
+//     once: a pass over the card writes each row's (next index, row sum)
+//     pair, and a grid of blocks, as many as the lanes' chunks need and
+//     the card holds at once, stages the R + 1 pairs (128 KB at R =
+//     16,384) in each block's shared memory with cp.async and walks its
+//     chunks of lanes, one 8-byte shared load and an add a step: ~17 MB of
+//     staging at 132 blocks instead of 268 MB of row sectors.  The per-lane
+//     form stays for larger tables (R > kChaseStageMaxRows).
+
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (ops/cuda_build.py).  Each entry point launches on `stream`, does not
 // synchronise, allocates nothing, and returns cudaGetLastError(), or
@@ -85,7 +92,6 @@ constexpr int kStageThreads = 512;    // staged cols form
 constexpr int kChaseThreads = 128;
 constexpr int kRing = 8;              // rows in flight per warp, gather-sum
 constexpr int kPairThreads = 256;     // rows per block of the chase's pair pass
-constexpr int kWalkThreads = 256;     // the staged walk's block (staging copies)
 
 __global__ void __launch_bounds__(kGatherWarps * kWarp)
     row_gather_kernel(const float* __restrict__ table, int n_rows, int width,
@@ -224,22 +230,23 @@ __global__ void __launch_bounds__(kPairThreads)
   if (r <= n_rows) pairs[r] = chase_pair(table, n_rows, width, r);
 }
 
-// The staged chase's walk: one block copies the R + 1 pairs into shared
-// memory (16 bytes a cp.async), then thread i < n walks lane i.
+// The staged chase's walk: each block copies the R + 1 pairs into its
+// shared memory (16 bytes a cp.async), then walks its chunks of lanes
+// (chase_walk_chunk), one 8-byte shared load and an add a step.
 __global__ void __launch_bounds__(kWalkThreads)
     chase_walk_kernel(const ChasePair* __restrict__ pairs, int n_rows,
                       const int* __restrict__ idx, int n, int steps,
                       float* __restrict__ out) {
   extern __shared__ ChasePair staged[];
   const int entries = n_rows + 1;
-  for (int c = threadIdx.x; 2 * c + 1 < entries; c += kWalkThreads) {
+  for (int c = threadIdx.x; 2 * c + 1 < entries; c += blockDim.x) {
     cp_async16(staged + 2 * c, pairs + 2 * c, true);
   }
   if (threadIdx.x == 0 && entries % 2 == 1) staged[entries - 1] = pairs[entries - 1];
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  if (threadIdx.x < n) {
-    out[threadIdx.x] = chase_walk_lane(staged, n_rows, __ldg(idx + threadIdx.x), steps);
+  for (int c = blockIdx.x; c < walk_chunks(n); c += gridDim.x) {
+    chase_walk_chunk(staged, n_rows, idx, n, steps, c, threadIdx.x, out);
   }
 }
 
@@ -307,16 +314,30 @@ extern "C" int shimmer_row_gather_sum(const float* table, int n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The staged walk over pairs (n_rows + 1 of them), n <= kWalkThreads.
+// The staged walk over pairs (n_rows + 1 of them): blocks of
+// walk_threads(n) threads, as many as the lanes' chunks need, at most as
+// many as the card holds at once (each block stages the pairs once and
+// takes chunks in turn).
 int launch_walk(const ChasePair* pairs, int n_rows, const int* idx, int n,
                 int steps, float* out, cudaStream_t s) {
   const int smem = static_cast<int>(sizeof(ChasePair)) * (n_rows + 1);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        chase_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaFuncSetAttribute(
+      chase_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
-  chase_walk_kernel<<<1, kWalkThreads, smem, s>>>(pairs, n_rows, idx, n, steps, out);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chase_walk_kernel,
+                                                        walk_threads(n), smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int resident = sms * per_sm;
+  if (resident < 1) return invalid();
+  const int blocks = walk_chunks(n) < resident ? walk_chunks(n) : resident;
+  chase_walk_kernel<<<blocks, walk_threads(n), smem, s>>>(pairs, n_rows, idx, n, steps, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,12 +382,11 @@ extern "C" int shimmer_row_chase(int dtype, const void* table, int n_rows,
 }
 
 // The staged chase's walk alone, over pairs (n_rows + 1, 2) int32 (next
-// index, row-sum bits) that the caller made; 1 <= n <= kChaseStageMaxLanes,
-// n_rows <= kChaseStageMaxRows.
+// index, row-sum bits) that the caller made; n >= 1, n_rows <=
+// kChaseStageMaxRows.
 extern "C" int shimmer_chase_walk(const int* pairs, int n_rows, const int* idx,
                                   int n, int steps, float* out, void* stream) {
-  if (n_rows <= 0 || n_rows > kChaseStageMaxRows || n < 1 ||
-      n > kChaseStageMaxLanes || steps < 0) {
+  if (n_rows <= 0 || n_rows > kChaseStageMaxRows || n < 1 || steps < 0) {
     return invalid();
   }
   return launch_walk(reinterpret_cast<const ChasePair*>(pairs), n_rows, idx, n,
@@ -380,5 +400,11 @@ extern "C" int shimmer_chase_stage_max_lanes() { return kChaseStageMaxLanes; }
 extern "C" int shimmer_chase_stage_max_rows() { return kChaseStageMaxRows; }
 
 extern "C" int shimmer_chase_stage_min_steps() { return kChaseStageMinSteps; }
+
+extern "C" int shimmer_chase_wide_min_steps() { return kChaseWideMinSteps; }
+
+extern "C" int shimmer_chase_many_lanes() { return kChaseManyLanes; }
+
+extern "C" int shimmer_chase_many_lanes_min_steps() { return kChaseManyLanesMinSteps; }
 
 extern "C" int shimmer_gather_sum_max_width() { return kSumMaxWidth; }

@@ -13,9 +13,9 @@
 //   gather-sum  out[:] = sum_i T[idx[i], :]
 //   chase       per lane, K dependent steps from idx[i]:
 //                 row = T[idx]; acc += row[1] + ... + row[8]; idx = int(row[0])
-//               (read from the table a step, or for few lanes with long
-//               chains from each row's (next index, row sum) staged in
-//               shared memory: chase_staged)
+//               (read from the table a step, or, where chase_staged
+//               says so, from each row's (next index, row sum) staged in
+//               shared memory)
 // One rule for every index: an index outside [0, R) reads a row of zeros,
 // so a chase that meets one goes on from index 0.  This is what the
 // reference's one-hot product (pallas_gather.py:149-156) does with an
@@ -164,12 +164,11 @@ SHIMMER_GATHER_HD float chase_lane(const T* table, int n_rows, int width,
   return acc;
 }
 
-// The staged chase, for few lanes with long chains: a pass writes the
-// pair of every row and, at index R, the pair of the row of zeros
-// (chase_pair(table, R, W, R)); the walk stages the R + 1 pairs in one
-// block's shared memory, and each step of a lane is one dependent 8-byte
-// shared load and one add.  The sums are the ones chase_lane adds, in the
-// same order, so the two are bit-equal.
+// The staged chase: a pass writes the pair of every row and, at index R,
+// the pair of the row of zeros (chase_pair(table, R, W, R)); the walk
+// stages the R + 1 pairs in each block's shared memory, and each step of a
+// lane is one dependent 8-byte shared load and one add.  The sums are the
+// ones chase_lane adds, in the same order, so the two are bit-equal.
 SHIMMER_GATHER_HD float chase_walk_lane(const ChasePair* pairs, int n_rows,
                                         int idx, int steps) {
   int r = in_range(idx, n_rows) ? idx : n_rows;
@@ -182,21 +181,66 @@ SHIMMER_GATHER_HD float chase_walk_lane(const ChasePair* pairs, int n_rows,
   return acc;
 }
 
-// The dispatch between the two forms.  The staged form builds and stages
-// R + 1 pairs (8 bytes each, within the 227 KB of shared memory a block
-// may take) and walks its lanes in one block, so it pays where a few lanes
-// take long chains: at most kChaseStageMaxLanes lanes (one warp), at
-// least kChaseStageMinSteps steps and R / 64 (the build reads every row
-// once).  Wide chases (thousands of lanes) keep chase_lane, one thread a
-// lane over the whole card, where their chains overlap.
+// The walk's partition of the lanes: chunks of `threads` consecutive
+// lanes (walk_threads), chunk c to block c % blocks (a block stages the
+// pairs once and takes chunks c, c + blocks, ...), lane t of a chunk to
+// thread t.  Blocks of kWalkThreads threads for many lanes, where the card
+// is full either way; blocks of kWalkFewThreads for at most
+// kWalkFewLanes lanes, which spread them over twice as many SMs (measured
+// faster there and slower for many lanes: PERF.md).
+constexpr int kWalkThreads = 1024;
+constexpr int kWalkFewThreads = 512;
+constexpr int kWalkFewLanes = 16384;
+
+SHIMMER_GATHER_HD int walk_threads(int n) {
+  return n <= kWalkFewLanes ? kWalkFewThreads : kWalkThreads;
+}
+
+SHIMMER_GATHER_HD int walk_chunks(int n) {
+  return static_cast<int>((static_cast<long long>(n) + walk_threads(n) - 1) / walk_threads(n));
+}
+
+SHIMMER_GATHER_HD void chase_walk_chunk(const ChasePair* pairs, int n_rows,
+                                        const int* idx, int n, int steps,
+                                        int chunk, int thread, float* out) {
+  const long long lane = static_cast<long long>(chunk) * walk_threads(n) + thread;
+  if (lane >= n) return;
+#if defined(__CUDA_ARCH__)
+  const int x = __ldg(idx + lane);
+#else
+  const int x = idx[lane];
+#endif
+  out[lane] = chase_walk_lane(pairs, n_rows, x, steps);
+}
+
+// The dispatch between the two forms, a function of (R, N, K) alone, set
+// by timing every chase case of the reference scripts in both forms
+// (PERF.md).  The staged form builds R + 1 pairs (8 bytes each, within the
+// 227 KB of shared memory a block may take: R <= kChaseStageMaxRows) and
+// stages them in every block of the walk, a fixed cost of two launches and
+// the staging; it pays where the chains are long or many:
+//   * at most kChaseStageMaxLanes lanes (6E): at least kChaseStageMinSteps
+//     steps and R / 64 (the pass reads every row once);
+//   * more lanes: at least kChaseWideMinSteps steps (every K = 32 case,
+//     N from 1,024 to 524,288), or at least kChaseManyLanes lanes with at
+//     least kChaseManyLanesMinSteps steps (the K = 8 bf16 chase at N =
+//     131,072; at N = 8,192 its per-lane form is faster).
+// The rest keep chase_lane, one thread a lane.
 constexpr int kChaseStageMaxLanes = 32;
 constexpr int kChaseStageMinSteps = 256;
 constexpr int kChaseStageMaxRows =
     static_cast<int>(227 * 1024 / sizeof(ChasePair)) - 1;
+constexpr int kChaseWideMinSteps = 32;
+constexpr int kChaseManyLanes = 131072;
+constexpr int kChaseManyLanesMinSteps = 8;
 
 SHIMMER_GATHER_HD bool chase_staged(int n_rows, int n, int steps) {
-  return n >= 1 && n <= kChaseStageMaxLanes && n_rows <= kChaseStageMaxRows &&
-         steps >= kChaseStageMinSteps && steps >= n_rows / 64;
+  if (n < 1 || n_rows > kChaseStageMaxRows) return false;
+  if (n <= kChaseStageMaxLanes) {
+    return steps >= kChaseStageMinSteps && steps >= n_rows / 64;
+  }
+  return steps >= kChaseWideMinSteps ||
+         (n >= kChaseManyLanes && steps >= kChaseManyLanesMinSteps);
 }
 
 SHIMMER_GATHER_HD Float4 load4(const float* p) {

@@ -121,15 +121,22 @@ extern "C" int shimmer_chase_pairs_host(int dtype, const void* table, int n_rows
 }
 
 // The staged chase as the card runs it where chase_staged holds (the pass,
-// then each lane's walk over the pairs), for any n, steps and R.
+// then the walk over `blocks` blocks of walk_threads(n) threads: each
+// block's chunks of lanes in turn), for any n, steps and R.
 extern "C" int shimmer_row_chase_staged_host(int dtype, const void* table,
                                              int n_rows, int width, const int* idx,
-                                             int n, int steps, float* out) {
-  if (n < 0 || steps < 0) return -1;
+                                             int n, int steps, int blocks, float* out) {
+  if (n < 0 || steps < 0 || blocks < 1) return -1;
   std::vector<int> pairs(2 * (static_cast<size_t>(n_rows) + 1));
   if (shimmer_chase_pairs_host(dtype, table, n_rows, width, pairs.data()) != 0) return -1;
   const ChasePair* p = reinterpret_cast<const ChasePair*>(pairs.data());
-  for (int i = 0; i < n; ++i) out[i] = chase_walk_lane(p, n_rows, idx[i], steps);
+  for (int b = 0; b < blocks; ++b) {
+    for (int c = b; c < walk_chunks(n); c += blocks) {
+      for (int t = 0; t < walk_threads(n); ++t) {
+        chase_walk_chunk(p, n_rows, idx, n, steps, c, t, out);
+      }
+    }
+  }
   return 0;
 }
 
@@ -142,6 +149,14 @@ extern "C" int shimmer_chase_stage_max_lanes() { return kChaseStageMaxLanes; }
 extern "C" int shimmer_chase_stage_max_rows() { return kChaseStageMaxRows; }
 
 extern "C" int shimmer_chase_stage_min_steps() { return kChaseStageMinSteps; }
+
+extern "C" int shimmer_chase_wide_min_steps() { return kChaseWideMinSteps; }
+
+extern "C" int shimmer_chase_many_lanes() { return kChaseManyLanes; }
+
+extern "C" int shimmer_chase_many_lanes_min_steps() { return kChaseManyLanesMinSteps; }
+
+extern "C" int shimmer_chase_walk_threads(int n) { return walk_threads(n); }
 
 extern "C" int shimmer_gather_sum_rows_per_warp() { return kSumRowsPerWarp; }
 

@@ -67,9 +67,33 @@
 //     an SM) was measured and dropped: 1.08-1.62x slower on the
 //     reference's case, faster only where the chain walks the table and
 //     tests leaves (PERF.md, the step attribution's design steps).
-//   * step_ablate: G blocks of 128 threads, each the same program; v3 and
-//     v4 reduce their hit bits across the block a step (packet_or), since
-//     their chain depends on them.
+//   * step_ablate: the reference's G programs are equal, and each walks
+//     its chain a step at a time; v3 and v4 wait a step for the lanes' OR
+//     of hit bits before they read the next row, which made the first
+//     port G blocks stepping 2,048 times in series (0.869 ms at the
+//     reference's v4 case on an NVIDIA H100 80GB HBM3 at 700.00 W,
+//     PERF.md).  But the next row is a function of the row alone
+//     (packet_step_body.cuh, "The design"), so the chain is a walk on a
+//     functional graph that closes a cycle within ~235 rows there, and
+//     what a step adds to an accumulator is a function of its row.  So:
+//     v3 and v4 first compute every row's next row over the card, a warp
+//     a row (the row's packed columns read once and shuffled, 32 lanes a
+//     slot tested at a time, a slot left at its first hit); then 32
+//     blocks, each holding 32 of the 1,024 accumulators, stage the next
+//     table (and a first-visit mark, 32 bits a row) in shared memory, walk
+//     it in one thread to the first repeated row (one dependent shared
+//     load a step), compute their accumulators' terms of the visited rows
+//     side by side into shared memory, and one warp adds them in step
+//     order: the first mu + lambda steps, whole laps of the cycle, then
+//     the rest of the last lap, so that no add waits on the wrap of the
+//     visit position (0.74-0.87x of a loop that wraps it a step).  The G
+//     programs share this and get copies.  Measured and dropped (PERF.md):
+//     each program computing its own (5-16x slower), terms read a batch
+//     ahead of their adds (no faster; spills in v2) and a walk that reads
+//     8 entries before it tests them (1.02-1.11x).  What bounds it now is
+//     the walk (~200 dependent shared loads) and the 2,048 dependent adds
+//     of one accumulator, not bytes or operations.  v0's sum of ones has
+//     a closed form and needs no adds.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (IEEE
 // division; ops/cuda_build.py).  Each entry point launches on `stream`,
@@ -202,21 +226,6 @@ __global__ void __launch_bounds__(kLanes)
   if (is_last) out[lane] = static_cast<float>(*(volatile int*)(acc + lane));
 }
 
-// OR of `mask` over the block's warps of one packet (kPacketWarps warps):
-// one __syncthreads, the partials double-buffered by `parity`.
-__device__ __forceinline__ int packet_or(int mask, int (*partial)[kPacketWarps],
-                                         int warp, int& parity) {
-  mask = static_cast<int>(__reduce_or_sync(0xffffffffu,
-                                           static_cast<unsigned>(mask)));
-  if (threadIdx.x % kWarp == 0) partial[parity][warp] = mask;
-  __syncthreads();
-  int bits = 0;
-#pragma unroll
-  for (int w = 0; w < kPacketWarps; ++w) bits |= partial[parity][w];
-  parity ^= 1;
-  return bits;
-}
-
 // Row 15, one block a packet of one program: block p is packet k = p %
 // packets of program g = p / packets.  Per chunk of kAttribChunk steps the
 // block computes the chunk's visits from slot 1's starting word in closed
@@ -341,50 +350,116 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
+// Row 16's next pass (v3, v4): one warp a row, next[r] = next_v(r).  The
+// warp reads the row's packed columns 0-63 at once (two coalesced loads,
+// a column a thread) and hands each slot's box values round by shuffles
+// (the values ablate_slot_box reads); it tests 32 lanes of a slot at a
+// time and stops the slot at the first group with a hit (the OR is then
+// known); a slot whose field 48 + j is not > 0 tests no lane.
+constexpr int kAblateNextWarps = 8;
+
 template <int kVariant>
-__global__ void __launch_bounds__(kLanes)
-    step_ablate_kernel(const int* __restrict__ meta,
-                       const float* __restrict__ tab,
-                       const int* __restrict__ tab_i, int n_rows, int steps,
-                       float* __restrict__ out) {
-  __shared__ int partial[2][kPacketWarps];
-  const int lane = threadIdx.x;
-  const int warp = lane / kWarp;
-  const float ox = ablate_ox(lane);
-  float acc[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
-  int parity = 0;
-  int r = 1;
-  for (int i = 0; i < steps; ++i) {
-    if (kVariant == kAblateScalar) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = acc[j] + 1.0f;
-      r = chase_next(meta, r, n_rows);
-    } else if (kVariant == kAblateFetch32) {
-      const float* row = tab + (size_t)r * kNodeWidth;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = acc[j] + __ldg(row + j);
-      r = chase_next(meta, r, n_rows);
-    } else if (kVariant == kAblateFetchBf) {
-      const int mask = ablate_slab(tab_i + (size_t)r * kNodeWidth, ox, acc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = acc[j] + ((mask >> j) & 1 ? 1.0f : 0.0f);
-      r = chase_next(meta, r, n_rows);
-    } else {
-      int bits;
-      if (kVariant == kAblateBits || (r & 1) == 0) {
-        bits = packet_or(ablate_slab(tab_i + (size_t)r * kNodeWidth, ox, acc),
-                         partial, warp, parity);
-      } else {
-        bits = ablate_leaf(tab + (size_t)r * kNodeWidth, acc);
+__global__ void __launch_bounds__(kAblateNextWarps * kWarp)
+    ablate_next_kernel(const int* __restrict__ meta, const float* __restrict__ tab,
+                       const int* __restrict__ tab_i, int n_rows, int* __restrict__ next) {
+  const int r = blockIdx.x * kAblateNextWarps + threadIdx.x / kWarp;
+  const int wl = threadIdx.x % kWarp;
+  if (r >= n_rows) return;  // the whole warp
+  int bits = 0;
+  if (ablate_leaf_row(kVariant, r)) {
+    bits = ablate_leaf_bits(tab + (size_t)r * kNodeWidth);
+  } else {
+    const int* wrow = tab_i + (size_t)r * kNodeWidth;
+    const float lo = hilo_value(__ldg(wrow + wl));          // column wl
+    const float hi = hilo_value(__ldg(wrow + kWarp + wl));  // column 32 + wl
+    constexpr unsigned kAll = 0xffffffffu;
+    for (int j = 0; j < 8; ++j) {
+      if (!(__shfl_sync(kAll, hi, 16 + j) > 0.0f)) continue;  // field 48 + j
+      const float c[4] = {__shfl_sync(kAll, lo, j), __shfl_sync(kAll, lo, 24 + j),
+                          __shfl_sync(kAll, lo, 8 + j), __shfl_sync(kAll, hi, j)};
+      for (int q = 0; q < kLanes; q += kWarp) {
+        float tn;
+        if (__any_sync(kAll, ablate_slot(c, ablate_ox(q + wl), tn))) {
+          bits |= 1 << j;
+          break;
+        }
       }
-      r = chase_next(meta, (r + bits) & (n_rows - 1), n_rows);
     }
   }
-  float* o = out + (size_t)blockIdx.x * 8 * kLanes;
+  if (wl == 0) next[r] = ablate_next(meta, kVariant, r, bits, n_rows);
+}
+
+// Row 16's walk and sums: block b holds the accumulators (j, lane0 + l),
+// l < kAblateChainLanes, j = b / 4, lane0 = 32 (b % 4).  It stages the
+// walk's entries (the next row: v0-v2 clamped meta, v3 and v4 the next
+// pass's), one thread walks them to the first repeated row, the block
+// computes the visited rows' terms of its accumulators into shared memory
+// (term_rows of them fit), one warp adds them in step order, and the
+// block writes its accumulators into every program's block of out.
+constexpr int kAblateThreads = 1024;
+constexpr int kAblateBlocks = 8 * (kLanes / kAblateChainLanes);
+
+template <int kVariant>
+__global__ void __launch_bounds__(kAblateThreads)
+    step_ablate_kernel(const int* __restrict__ meta, const float* __restrict__ tab,
+                       const int* __restrict__ tab_i, const int* __restrict__ next_rows,
+                       int n_rows, int programs, int steps, int term_rows,
+                       float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char ablate_smem[];
+  unsigned* entries = reinterpret_cast<unsigned*>(ablate_smem);
+  unsigned short* seq = reinterpret_cast<unsigned short*>(entries + n_rows);
+  float* terms = reinterpret_cast<float*>(ablate_smem + ablate_table_bytes(n_rows, steps));
+  __shared__ AblateWalk walk;
+  __shared__ float result[kAblateChainLanes];
+  const int t = threadIdx.x;
+  // Four rows a thread at a time (R is a power of two: a multiple of 4
+  // from R = 4), their words read as one 16-byte load.
+  const int quads = n_rows / 4;
+  const int4* src = reinterpret_cast<const int4*>(ablate_needs_bits(kVariant) ? next_rows : meta);
+  for (int q = t; q < quads; q += kAblateThreads) {
+    const int4 m = __ldg(src + q);
+    const int raw[4] = {m.x, m.y, m.z, m.w};
 #pragma unroll
-  for (int j = 0; j < 8; ++j) o[j * kLanes + lane] = acc[j] + static_cast<float>(r);
+    for (int i = 0; i < 4; ++i) {
+      entries[4 * q + i] = ablate_entry(ablate_needs_bits(kVariant) ? raw[i]
+                                                                    : clamp_row(raw[i], n_rows));
+    }
+  }
+  for (int r = 4 * quads + t; r < n_rows; r += kAblateThreads) {
+    entries[r] = ablate_entry(ablate_needs_bits(kVariant) ? __ldg(next_rows + r)
+                                                          : chase_next(meta, r, n_rows));
+  }
+  __syncthreads();
+  if (t == 0) walk = ablate_walk(entries, seq, steps);
+  __syncthreads();
+  const AblateWalk w = walk;
+  const int j = blockIdx.x / (kLanes / kAblateChainLanes);
+  const int lane0 = (blockIdx.x % (kLanes / kAblateChainLanes)) * kAblateChainLanes;
+  const int per_step = ablate_terms_per_step(kVariant);
+  const bool held = w.length <= term_rows;
+  if (per_step > 0 && held) {
+    for (int k = t; k < w.length * kAblateChainLanes; k += kAblateThreads) {
+      const int d = k / kAblateChainLanes;
+      const int l = k - d * kAblateChainLanes;
+      float v[2];
+      ablate_terms(kVariant, tab, tab_i, seq[d], j, ablate_ox(lane0 + l), v);
+      for (int i = 0; i < per_step; ++i) terms[(d * per_step + i) * kAblateChainLanes + l] = v[i];
+    }
+    __syncthreads();
+  }
+  if (t < kAblateChainLanes) {
+    const float acc =
+        held ? ablate_sum(kVariant, w, steps, AblateHeldTerms{terms, per_step, t})
+             : ablate_sum(kVariant, w, steps,
+                          AblateRowTerms{kVariant, tab, tab_i, seq, j, ablate_ox(lane0 + t)});
+    result[t] = acc + static_cast<float>(w.last);
+  }
+  __syncthreads();
+  for (int k = t; k < programs * kAblateChainLanes; k += kAblateThreads) {
+    const int g = k / kAblateChainLanes;
+    const int l = k - g * kAblateChainLanes;
+    out[((size_t)g * 8 + j) * kLanes + lane0 + l] = result[l];
+  }
 }
 
 int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
@@ -486,8 +561,17 @@ AttribKernel attrib_kernel_for(int variant) {
   }
 }
 
-using AblateKernel = void (*)(const int*, const float*, const int*, int, int,
-                              float*);
+using NextKernel = void (*)(const int*, const float*, const int*, int, int*);
+using AblateKernel = void (*)(const int*, const float*, const int*, const int*, int, int, int,
+                              int, float*);
+
+NextKernel next_kernel_for(int variant) {
+  switch (variant) {
+    case kAblateBits: return ablate_next_kernel<kAblateBits>;
+    case kAblateCond: return ablate_next_kernel<kAblateCond>;
+    default: return nullptr;
+  }
+}
 
 AblateKernel ablate_kernel_for(int variant) {
   switch (variant) {
@@ -575,23 +659,42 @@ extern "C" int shimmer_step_attrib_chain(int variant, const int* meta,
   return static_cast<int>(cudaGetLastError());
 }
 
-// meta (R,) int32, R a power of two; tab (R, 128) float32; tab_i (R, 128)
-// int32, the bf16 hi|lo words of tab; out (programs, 8, 128) float32.
+// meta (R,) int32, R a power of two, 2 <= R <= kAblateMaxRows; tab (R,
+// 128) float32; tab_i (R, 128) int32, the bf16 hi|lo words of tab; work
+// (R,) int32 scratch (v3, v4: the next table); out (programs, 8, 128)
+// float32.  v3 and v4: two launches, the next pass and the walk and sums;
+// v0-v2: the second alone.
 extern "C" int shimmer_step_ablate(int variant, const int* meta,
                                    const float* tab, const int* tab_i,
                                    int n_rows, int programs, int steps,
-                                   float* out, void* stream) {
+                                   int* work, float* out, void* stream) {
   const AblateKernel kernel = ablate_kernel_for(variant);
   if (kernel == nullptr || n_rows < 2 || (n_rows & (n_rows - 1)) != 0 ||
-      programs < 0 || steps < 0) {
+      n_rows > kAblateMaxRows || programs < 0 || steps < 0) {
     return invalid();
   }
-  if (programs > 0) {
-    kernel<<<programs, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-        meta, tab, tab_i, n_rows, steps, out);
+  if (programs == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ablate_needs_bits(variant)) {
+    if (work == nullptr) return invalid();
+    const int blocks = (n_rows + kAblateNextWarps - 1) / kAblateNextWarps;
+    next_kernel_for(variant)<<<blocks, kAblateNextWarps * kWarp, 0, st>>>(meta, tab, tab_i,
+                                                                       n_rows, work);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  const int term_rows = ablate_term_rows(variant, n_rows, steps);
+  const int smem = ablate_table_bytes(n_rows, steps) +
+                   term_rows * ablate_terms_per_step(variant) * kAblateChainLanes * 4;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<kAblateBlocks, kAblateThreads, smem, st>>>(meta, tab, tab_i, work, n_rows, programs,
+                                                     steps, term_rows, out);
   return static_cast<int>(cudaGetLastError());
 }
+
+extern "C" int shimmer_step_ablate_max_rows() { return kAblateMaxRows; }
 
 extern "C" int shimmer_step_attrib_max_packets() { return kAttribMaxPackets; }
 

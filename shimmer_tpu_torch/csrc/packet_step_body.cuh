@@ -584,8 +584,8 @@ SHIMMER_HD void attrib_finish(int variant, int* stack, int programs,
 
 // ---------------------------------------------------------------------------
 // Kernel C, step_ablate (row 16, exp_ablate_step.py::kern): one packet
-// over a chain r = meta[r] from r = 1, each variant adding one ingredient
-// of the traversal step.  Each program computes the same (8, kLanes) block.
+// over a chain from r = 1, each variant adding one ingredient of the
+// traversal step.  Each program computes the same (8, kLanes) block.
 enum : int {
   kAblateScalar = 0,   // v0: the chain alone, acc += 1
   kAblateFetch32 = 1,  // v1: + the exact float32 row, acc += row[0:8]
@@ -618,41 +618,234 @@ SHIMMER_HD float hilo_value(int word) {
   return bits_to_float(u & 0xFFFF0000u) + bits_to_float(u << 16);
 }
 
-// The slab of v2-v4 (:59-67) on a packed row: acc[j] += tn_j; returns the
-// lane's hit bits (tn <= tf * 1.0001 and field 48 + j > 0).
-SHIMMER_HD int ablate_slab(const int* wrow, float ox, float acc[8]) {
-  int mask = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float t0 = (hilo_value(SHIMMER_LDG(wrow + j)) - ox) * kAblateScaleX;
-    const float t1 =
-        (hilo_value(SHIMMER_LDG(wrow + 24 + j)) - ox) * kAblateScaleX;
-    const float t0y =
-        (hilo_value(SHIMMER_LDG(wrow + 8 + j)) - ox) * kAblateScaleY;
-    const float t1y =
-        (hilo_value(SHIMMER_LDG(wrow + 32 + j)) - ox) * kAblateScaleY;
-    const float tn = fmax_(fmin_(t0, t1), fmin_(t0y, t1y));
-    const float tf = fmin_(fmax_(t0, t1), fmax_(t0y, t1y));
-    if (tn <= tf * 1.0001f && hilo_value(SHIMMER_LDG(wrow + 48 + j)) > 0.0f) {
-      mask |= 1 << j;
-    }
-    acc[j] = acc[j] + tn;
-  }
-  return mask;
+// The design.  The reference walks the chain step by step, and a v3 or v4
+// step waits for the lanes' OR of hit bits before it can read its next
+// row.  But three facts make the walk short and the rest parallel:
+//   * the G programs are equal (kern never reads its program id);
+//   * the next row is a function of the row alone, next_v(r):
+//     meta[r] for v0-v2, meta[(r + bits(r)) & (R - 1)] for v3 and v4,
+//     bits(r) the OR over the lanes of row r's slab hits (v4's odd rows:
+//     the leaf branch's bits, which are 1 for every row).  So the chain is
+//     a walk on a functional graph of R nodes: from r = 1 it enters a
+//     cycle, after a tail of mu rows, of lambda rows, and step k visits
+//     seq[k] for k < mu + lambda, else seq[mu + (k - mu) % lambda];
+//   * what a step adds to accumulator (j, lane) is a function of the row
+//     (ablate_terms), so the terms of the distinct rows can be computed
+//     side by side, and only the adds, whose order fixes the float sum,
+//     stay in step order: one thread an accumulator.
+// v0's sum has a closed form: float32 adds of 1.0 from 0 are exact up to
+// 2^24, and 2^24 + 1 rounds (to even) back to 2^24, so after k steps acc
+// is min(k, 2^24) for every k.
+constexpr int kAblateOnesExact = 1 << 24;
+// A row's first visit is not yet known (the walk's marks are 16-bit, and
+// a table has at most kAblateMaxRows < 0xFFFF rows).
+constexpr unsigned short kAblateUnseen = 0xFFFF;
+
+// Whether a variant's next row depends on the lanes' hits (so the next
+// table needs a pass of its own over the rows), and how many floats a
+// step adds to an accumulator (v0 adds none: its closed form).
+SHIMMER_HOST_HD bool ablate_needs_bits(int variant) {
+  return variant == kAblateBits || variant == kAblateCond;
 }
 
-// v4's leaf-ish branch (:102-106): acc[j] += row[j] * row[8 + j]; its bits
-// are sum over the (8, kLanes) block of where(row[j] * 0 > 1, 2^j, 0),
-// plus 1 (1 for every finite or infinite row).
-SHIMMER_HD int ablate_leaf(const float* row, float acc[8]) {
+SHIMMER_HOST_HD int ablate_terms_per_step(int variant) {
+  return variant == kAblateScalar ? 0 : (variant == kAblateFetchBf ? 2 : 1);
+}
+
+// Slot j's box values (x lo, x hi, y lo, y hi) of a packed row, and
+// whether its field 48 + j is > 0: where it is not, no lane's slot j hits.
+SHIMMER_HD bool ablate_slot_box(const int* wrow, int j, float c[4]) {
+  c[0] = hilo_value(SHIMMER_LDG(wrow + j));
+  c[1] = hilo_value(SHIMMER_LDG(wrow + 24 + j));
+  c[2] = hilo_value(SHIMMER_LDG(wrow + 8 + j));
+  c[3] = hilo_value(SHIMMER_LDG(wrow + 32 + j));
+  return hilo_value(SHIMMER_LDG(wrow + 48 + j)) > 0.0f;
+}
+
+// The slab of one slot for a lane at ox (:59-67): tn, and tn <= tf *
+// 1.0001 (the hit, before the field-48 test).
+SHIMMER_HD bool ablate_slot(const float c[4], float ox, float& tn) {
+  const float t0 = (c[0] - ox) * kAblateScaleX;
+  const float t1 = (c[1] - ox) * kAblateScaleX;
+  const float t0y = (c[2] - ox) * kAblateScaleY;
+  const float t1y = (c[3] - ox) * kAblateScaleY;
+  tn = fmax_(fmin_(t0, t1), fmin_(t0y, t1y));
+  const float tf = fmin_(fmax_(t0, t1), fmax_(t0y, t1y));
+  return tn <= tf * 1.0001f;
+}
+
+// v4's leaf-ish bits (:105): sum over the (8, kLanes) block of where(row[j]
+// * 0 > 1, 2^j, 0), plus 1 (1 for every finite or infinite row).
+SHIMMER_HD int ablate_leaf_bits(const float* row) {
   int bits = 0;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const float a = SHIMMER_LDG(row + j);
-    acc[j] = acc[j] + a * SHIMMER_LDG(row + 8 + j);
-    if (a * 0.0f > 1.0f) bits += 1 << j;
+    if (SHIMMER_LDG(row + j) * 0.0f > 1.0f) bits += 1 << j;
   }
   return static_cast<int>(static_cast<unsigned>(bits) * kLanes + 1u);
+}
+
+// Whether row r takes v4's leaf branch.
+SHIMMER_HD bool ablate_leaf_row(int variant, int r) {
+  return variant == kAblateCond && (r & 1) != 0;
+}
+
+// The next row from row r whose step reads `bits` (v3, v4).
+SHIMMER_HD int ablate_next(const int* meta, int variant, int r, int bits, int n_rows) {
+  return ablate_needs_bits(variant) ? chase_next(meta, (r + bits) & (n_rows - 1), n_rows)
+                                    : chase_next(meta, r, n_rows);
+}
+
+// Row r's bits over all kLanes lanes, one after another (the host's form
+// of the next pass; the card's warp tests 32 lanes at once and stops a
+// slot at its first hit, as this loop does).
+SHIMMER_HD int ablate_row_bits(int variant, const float* tab, const int* tab_i, int r) {
+  if (ablate_leaf_row(variant, r)) return ablate_leaf_bits(tab + (size_t)r * kNodeWidth);
+  const int* wrow = tab_i + (size_t)r * kNodeWidth;
+  int bits = 0;
+  for (int j = 0; j < 8; ++j) {
+    float c[4];
+    if (!ablate_slot_box(wrow, j, c)) continue;
+    for (int lane = 0; lane < kLanes; ++lane) {
+      float tn;
+      if (ablate_slot(c, ablate_ox(lane), tn)) {
+        bits |= 1 << j;
+        break;
+      }
+    }
+  }
+  return bits;
+}
+
+// What a visit of row r adds to accumulator (j, lane at ox), in the order
+// the step adds it: t[0], then (v2) t[1].
+SHIMMER_HD void ablate_terms(int variant, const float* tab, const int* tab_i, int r, int j,
+                             float ox, float t[2]) {
+  t[1] = 0.0f;
+  const float* row = tab + (size_t)r * kNodeWidth;
+  if (variant == kAblateFetch32) {
+    t[0] = SHIMMER_LDG(row + j);
+  } else if (ablate_leaf_row(variant, r)) {
+    t[0] = SHIMMER_LDG(row + j) * SHIMMER_LDG(row + 8 + j);
+  } else {
+    float c[4];
+    const bool field = ablate_slot_box(tab_i + (size_t)r * kNodeWidth, j, c);
+    const bool hit = ablate_slot(c, ox, t[0]) && field;
+    t[1] = hit ? 1.0f : 0.0f;
+  }
+}
+
+// The walk from r = 1 over the staged table, one 32-bit entry a row: the
+// next row in the upper 16 bits, the step of the row's first visit in the
+// lower (kAblateUnseen until visited), so a step is one dependent load.
+// It writes the visited rows in step order to seq, until a row repeats or
+// `steps` steps are taken.  length = mu + lambda (lambda = 0: no row
+// repeated within `steps`); last: the row after the last step.
+struct AblateWalk {
+  int length;
+  int mu;
+  int lambda;
+  int last;
+};
+
+SHIMMER_HD unsigned ablate_entry(int next_row) {
+  return (static_cast<unsigned>(next_row) << 16) | kAblateUnseen;
+}
+
+SHIMMER_HD AblateWalk ablate_walk(unsigned* entries, unsigned short* seq, int steps) {
+  int r = 1;
+  for (int k = 0; k < steps; ++k) {
+    const unsigned e = entries[r];
+    const int first = static_cast<int>(e & 0xFFFFu);
+    if (first != kAblateUnseen) {
+      const int lambda = k - first;
+      return AblateWalk{k, first, lambda, seq[first + (steps - first) % lambda]};
+    }
+    entries[r] = (e & 0xFFFF0000u) | static_cast<unsigned>(k);
+    seq[k] = static_cast<unsigned short>(r);
+    r = static_cast<int>(e >> 16);
+  }
+  return AblateWalk{steps, steps, 0, r};
+}
+
+// Where ablate_sum reads the terms: a table of the visited rows' terms,
+// element (p * per_step + i) * kAblateChainLanes + col, or the terms
+// computed in place from the visited row seq[p].
+constexpr int kAblateChainLanes = 32;  // accumulators of a block: one warp
+
+struct AblateHeldTerms {
+  const float* terms;
+  int per_step;
+  int col;
+  SHIMMER_HD float operator()(int p, int i) const {
+    return terms[(p * per_step + i) * kAblateChainLanes + col];
+  }
+};
+
+struct AblateRowTerms {
+  int variant;
+  const float* tab;
+  const int* tab_i;
+  const unsigned short* seq;
+  int j;
+  float ox;
+  SHIMMER_HD float operator()(int p, int i) const {
+    float t[2];
+    ablate_terms(variant, tab, tab_i, seq[p], j, ox, t);
+    return t[i];
+  }
+};
+
+// acc plus the terms of visit positions [a, b), in order.
+template <typename Term>
+SHIMMER_HD float ablate_add(float acc, const Term& term, bool two, int a, int b) {
+  for (int p = a; p < b; ++p) {
+    acc = acc + term(p, 0);
+    if (two) acc = acc + term(p, 1);
+  }
+  return acc;
+}
+
+// Accumulator (j, lane)'s sum over `steps` steps: the terms of step k are
+// those of visit position p (p = k while k < length, then mu + (k - mu) %
+// lambda), read by term(p, i).  In step order, one add (v2: two) a step:
+// the first length steps, whole laps of the cycle, then what is left of
+// the last lap (so that no step waits on the wrap of p).
+template <typename Term>
+SHIMMER_HD float ablate_sum(int variant, const AblateWalk& w, int steps, const Term& term) {
+  if (variant == kAblateScalar) {
+    return static_cast<float>(steps < kAblateOnesExact ? steps : kAblateOnesExact);
+  }
+  const bool two = ablate_terms_per_step(variant) == 2;
+  float acc = ablate_add(0.0f, term, two, 0, w.length);
+  if (w.lambda > 0) {
+    const int rest = steps - w.length;
+    for (int lap = rest / w.lambda; lap > 0; --lap) acc = ablate_add(acc, term, two, w.mu, w.length);
+    acc = ablate_add(acc, term, two, w.mu, w.mu + rest % w.lambda);
+  }
+  return acc;
+}
+
+// The shared memory the card's ablation block takes: the walk's entries
+// (32 bits a row), the visited rows (16 bits, at most min(steps, R)),
+// rounded up to 16 bytes, then the terms.  A table
+// of at most kAblateMaxRows rows leaves room for some terms (ablate_sum
+// computes the rest in place when the visited rows do not all fit).
+constexpr int kAblateSharedBytes = 226 * 1024;  // 1 KB left for the static
+constexpr int kAblateMaxRows = 32768;
+
+SHIMMER_HOST_HD int ablate_table_bytes(int n_rows, int steps) {
+  const int visited = steps < n_rows ? steps : n_rows;
+  return (4 * n_rows + 2 * visited + 15) / 16 * 16;
+}
+
+// Visited rows whose terms a block holds in shared memory.
+SHIMMER_HOST_HD int ablate_term_rows(int variant, int n_rows, int steps) {
+  const int per_row = ablate_terms_per_step(variant) * kAblateChainLanes * 4;
+  if (per_row == 0) return 0;
+  const int visited = steps < n_rows ? steps : n_rows;
+  const int room = (kAblateSharedBytes - ablate_table_bytes(n_rows, steps)) / per_row;
+  return room < visited ? room : visited;
 }
 
 }  // namespace packet

@@ -1,7 +1,8 @@
 // Test-only host build of the packet-step kernels' bodies
 // (packet_step_body.cuh): the packet slab chase (per lane, and the split
 // form the card runs for the slab and chain bodies), the step attribution
-// and its chain in closed form, and the step ablation.
+// and its chain in closed form, and the step ablation as the card runs it
+// (its next table, its walk, and its sums).
 //
 // The CPU tests compile this file with g++ (-ffp-contract=off) and call it
 // through ctypes, so the kernels' own per-lane and per-packet steps are
@@ -260,61 +261,108 @@ extern "C" long long shimmer_attrib_slot1_mismatches(const int* words, int count
   return bad;
 }
 
-// Every program computes the same block: the host build computes it once
-// and copies it.
+// Row 16's arguments as the card takes them (any R on the host).
+static bool ablate_args_ok(int variant, int n_rows, int programs, int steps) {
+  return variant >= 0 && variant < kNumAblate && n_rows >= 2 && (n_rows & (n_rows - 1)) == 0 &&
+         programs >= 0 && steps >= 0;
+}
+
+// Row 16's next table as the card's next pass (v3, v4) or its staging
+// (v0-v2) computes it: next (R,) int32.
+extern "C" int shimmer_ablate_next_host(int variant, const int* meta, const float* tab,
+                                        const int* tab_i, int n_rows, int* next) {
+  if (!ablate_args_ok(variant, n_rows, 0, 0)) return -1;
+  for (int r = 0; r < n_rows; ++r) {
+    const int bits = ablate_needs_bits(variant) ? ablate_row_bits(variant, tab, tab_i, r) : 0;
+    next[r] = ablate_next(meta, variant, r, bits, n_rows);
+  }
+  return 0;
+}
+
+// Row 16's walk over a next table (R,) int32 of rows in [0, R), R <=
+// 65535: seq (min(steps, R),) int32 the visited rows, walk (4,) int32
+// (length, mu, lambda, last).
+extern "C" int shimmer_ablate_walk_host(const int* next_rows, int n_rows, int steps, int* seq,
+                                        int* walk) {
+  if (n_rows < 2 || n_rows >= kAblateUnseen || steps < 0) return -1;
+  std::vector<unsigned> entries(n_rows);
+  std::vector<unsigned short> order(steps < n_rows ? steps : n_rows);
+  for (int r = 0; r < n_rows; ++r) entries[r] = ablate_entry(next_rows[r]);
+  const AblateWalk w = ablate_walk(entries.data(), order.data(), steps);
+  for (int k = 0; k < w.length; ++k) seq[k] = order[k];
+  walk[0] = w.length;
+  walk[1] = w.mu;
+  walk[2] = w.lambda;
+  walk[3] = w.last;
+  return 0;
+}
+
+// Row 16 as the card computes it (packet_step.cu, the next pass and the
+// walk and sums): the next table, the walk, then per block of
+// kAblateChainLanes accumulators the visited rows' terms held in a table
+// when at most term_rows rows were visited (term_rows < 0: as many as the
+// card's shared memory holds, ablate_term_rows), else computed in place,
+// added in step order, copied to every program.
 extern "C" int shimmer_step_ablate_host(int variant, const int* meta,
                                         const float* tab, const int* tab_i,
-                                        int n_rows, int programs, int steps,
+                                        int n_rows, int programs, int steps, int term_rows,
                                         float* out) {
-  if (variant < 0 || variant >= kNumAblate || n_rows < 2 ||
-      (n_rows & (n_rows - 1)) != 0 || programs < 0 || steps < 0) {
-    return -1;
-  }
-  std::vector<float> acc(8 * kLanes, 0.0f);
-  int r = 1;
-  for (int i = 0; i < steps; ++i) {
-    const float* row = tab + (size_t)r * kNodeWidth;
-    const int* wrow = tab_i + (size_t)r * kNodeWidth;
-    if (variant == kAblateScalar) {
-      for (float& a : acc) a = a + 1.0f;
-      r = chase_next(meta, r, n_rows);
-    } else if (variant == kAblateFetch32) {
-      for (int l = 0; l < kLanes; ++l) {
-        for (int j = 0; j < 8; ++j) acc[j * kLanes + l] = acc[j * kLanes + l] + row[j];
-      }
-      r = chase_next(meta, r, n_rows);
-    } else {
-      const bool slab = variant != kAblateCond || (r & 1) == 0;
-      int bits = 0;
-      for (int l = 0; l < kLanes; ++l) {
-        float a[8];
-        for (int j = 0; j < 8; ++j) a[j] = acc[j * kLanes + l];
-        if (slab) {
-          const int mask = ablate_slab(wrow, ablate_ox(l), a);
-          if (variant == kAblateFetchBf) {
-            for (int j = 0; j < 8; ++j) a[j] = a[j] + ((mask >> j) & 1 ? 1.0f : 0.0f);
+  if (!ablate_args_ok(variant, n_rows, programs, steps) || n_rows > kAblateMaxRows) return -1;
+  std::vector<int> next_rows(n_rows), order(steps < n_rows ? steps : n_rows), walk(4);
+  shimmer_ablate_next_host(variant, meta, tab, tab_i, n_rows, next_rows.data());
+  shimmer_ablate_walk_host(next_rows.data(), n_rows, steps, order.data(), walk.data());
+  const AblateWalk w{walk[0], walk[1], walk[2], walk[3]};
+  std::vector<unsigned short> seq(order.begin(), order.end());
+  if (term_rows < 0) term_rows = ablate_term_rows(variant, n_rows, steps);
+  const int per_step = ablate_terms_per_step(variant);
+  const bool held = w.length <= term_rows;
+  std::vector<float> terms(static_cast<size_t>(held ? w.length : 0) * 2 * kAblateChainLanes);
+  for (int b = 0; b < 8 * kLanes / kAblateChainLanes; ++b) {
+    const int j = b / (kLanes / kAblateChainLanes);
+    const int lane0 = (b % (kLanes / kAblateChainLanes)) * kAblateChainLanes;
+    if (per_step > 0 && held) {
+      for (int d = 0; d < w.length; ++d) {
+        for (int l = 0; l < kAblateChainLanes; ++l) {
+          float v[2];
+          ablate_terms(variant, tab, tab_i, seq[d], j, ablate_ox(lane0 + l), v);
+          for (int i = 0; i < per_step; ++i) {
+            terms[(d * per_step + i) * kAblateChainLanes + l] = v[i];
           }
-          bits |= mask;
-        } else {
-          bits = ablate_leaf(row, a);
         }
-        for (int j = 0; j < 8; ++j) acc[j * kLanes + l] = a[j];
       }
-      r = variant == kAblateFetchBf
-              ? chase_next(meta, r, n_rows)
-              : chase_next(meta, (r + bits) & (n_rows - 1), n_rows);
     }
-  }
-  for (int g = 0; g < programs; ++g) {
-    for (int j = 0; j < 8; ++j) {
-      for (int l = 0; l < kLanes; ++l) {
-        out[((size_t)g * 8 + j) * kLanes + l] =
-            acc[j * kLanes + l] + static_cast<float>(r);
+    for (int l = 0; l < kAblateChainLanes; ++l) {
+      const float acc =
+          held ? ablate_sum(variant, w, steps,
+                            AblateHeldTerms{terms.data(), per_step, l})
+               : ablate_sum(variant, w, steps,
+                            AblateRowTerms{variant, tab, tab_i, seq.data(), j,
+                                           ablate_ox(lane0 + l)});
+      for (int g = 0; g < programs; ++g) {
+        out[((size_t)g * 8 + j) * kLanes + lane0 + l] = acc + static_cast<float>(w.last);
       }
     }
   }
   return 0;
 }
+
+// v0's sum in closed form against float32 adds of 1.0 from 0, at every
+// step count up to n_max: the number of counts where they differ.
+extern "C" long long shimmer_ablate_ones_mismatches(int n_max) {
+  const AblateWalk w{0, 0, 0, 0};
+  struct None {
+    float operator()(int, int) const { return 0.0f; }
+  };
+  long long bad = 0;
+  float acc = 0.0f;
+  for (int k = 0; k <= n_max; ++k) {
+    if (ablate_sum(kAblateScalar, w, k, None{}) != acc) ++bad;
+    acc = acc + 1.0f;
+  }
+  return bad;
+}
+
+extern "C" int shimmer_step_ablate_max_rows() { return kAblateMaxRows; }
 
 extern "C" int shimmer_step_attrib_max_packets() { return kAttribMaxPackets; }
 

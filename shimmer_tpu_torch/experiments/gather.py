@@ -15,7 +15,6 @@ Cases, by kernel-table row (PERF.md) and the reference script they mirror:
   bound counts what 6D needs, one sector of column 1 a row, though the
   kernel sums all W columns);
 * 6E: one lane from index 0, K=4096 (the latency of a dependent read);
-  on the card the chase runs staged (``ops.gather.chase_staged``), and
   the case also times the staged walk alone (``chain_ms``: the walk over
   the rows' (next index, row sum) pairs, ``ops.gather.chase_walk``);
 * 7F (``pallas_gather2.py``): the gather and the K=32 chase with N = R,
@@ -24,6 +23,12 @@ Cases, by kernel-table row (PERF.md) and the reference script they mirror:
   W in {16, 32, 64, 128}, N in {131072, 524288};
 * 8/9 (``exp_pallas_gather.py``, ``exp_pallas_gather2.py``): the gather,
   and (9) the gather-sum, R=16384, N=131072, W=128.
+
+On the card a chase runs staged where ``ops.gather.chase_staged`` says so
+(a pass writes each row's next index and row sum, and the walk reads them
+from shared memory; each chase case reports ``staged``, the rule's
+choice, and ``ran_staged``, whether its compared call launched the staged
+form) and per lane otherwise.
 
 Tables and indices come from ``numpy.random.default_rng`` seeded by
 ``SEED`` and the case's sizes: a standard-normal (R, W) table whose
@@ -62,7 +67,7 @@ SEED = 0
 # version: 2).
 REPS = 20
 KERNELS = ("row_gather", "row_gather_cols", "row_gather_sum", "row_chase_f32",
-           "row_chase_bf16", "chase_walk")
+           "row_chase_bf16", "row_chase_staged", "chase_walk")
 # Float operations per chase step: 8 additions and the index conversion.
 CHASE_OPS_PER_STEP = 9
 # Bytes of one memory sector, the least a row read can move.
@@ -168,7 +173,9 @@ def run_case(case: Case, table, idx) -> dict:
     read, bytes moved once, float operations)."""
     dev = table.device
     kernel, plain = _functions(case, table, idx)
+    before = g.row_chase.launches["row_chase_staged"]
     got = kernel()
+    ran_staged = g.row_chase.launches["row_chase_staged"] > before
     stats = {}
     chase = case.kernel.startswith("row_chase")
     # The chase's plain version also records the rows it read.
@@ -202,11 +209,14 @@ def run_case(case: Case, table, idx) -> dict:
     n = idx.shape[0]
     res = {"name": case.name, "row": case.row, "kernel": case.kernel, "R": n_rows, "N": n,
            "W": width, "K": case.steps, "ok": ok, "max_abs_err": float(err.max()),
-           "ms": ms, "plain_ms": plain_ms}
+           "ms": ms, "plain_ms": plain_ms, "kernels": (case.kernel,)}
     if chase:
         distinct = int(stats["rows_read"].sum())
         res["oob_lanes"] = int(stats["oob_lanes"].sum())
         res["staged"] = g.chase_staged(table.shape[0], idx.shape[0], case.steps)
+        res["ran_staged"] = ran_staged
+        if res["staged"]:
+            res["kernels"] = (case.kernel, "row_chase_staged")
         res["checksum"] = float(got.sum())
         res["bytes"] = distinct * g.CHASE_COLS * elem + 8 * n
         res["ops"] = CHASE_OPS_PER_STEP * n * case.steps

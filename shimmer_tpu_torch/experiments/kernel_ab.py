@@ -19,6 +19,11 @@ batches chip_smoke.py's phases 3 and 7 hold the kernels to
   and from a seeded patterned stack whose chain walks the table;
 * the one-lane row chase 6E (R = 16,384, N = 1, K = 4,096) on the gather
   entry point's case;
+* the step ablation (row 16), v0-v4 at 256 and 2,048 steps, G = 64, on
+  the packet-step entry point's case (``ablate``);
+* every wide row chase of the gather entry point (6A/6B/6B2, 6C, the 7F
+  chase and 7H at their sizes: every chase case but 6E's one lane;
+  ``wide_chase``);
 
 with each traversal's visits per live ray, SIMD efficiency in launch order,
 its bound from the rows and visits of its own launch, and a checksum of its
@@ -28,7 +33,8 @@ builds.  It uses only entry points that the port has offered since before
 the v1 redesign (``ops.traverse._launch_kernel`` with ``touched``,
 ``ops.gather.row_gather_cols``, ``ops.gather.row_chase``,
 ``ops.packet_step.packet_slab_chase``, ``ops.packet_step.step_attrib``,
-the scene builders and the entry points' case tables and inputs), passing the child-leaf
+``ops.packet_step.step_ablate``, the scene builders and the entry points'
+case tables and inputs), passing the child-leaf
 words v2 reads where the checkout's tables carry them
 (``measure.launch_kwargs``), and loads measure.py from its own checkout by
 path, so the same file times an older checkout: run it with that
@@ -40,7 +46,7 @@ then summarise:
     python3 kernel_ab.py --summarize ab_A1.json ab_B1.json ab_B2.json ab_A2.json
 
 ``--parts`` times only some of it (``PARTS``; the bench scene is built
-only for the traversal and row 15), e.g. ``--parts attrib scalar_rows``.
+only for the traversal and row 15), e.g. ``--parts ablate wide_chase``.
 
 Needs a CUDA card; the summary does not.
 """
@@ -89,9 +95,14 @@ CHASE_REPS = 3
 ATTRIB_REPS = 5
 # 6E's case of the gather entry point: one lane, R = 16,384 (K = 4,096).
 SCALAR_ROWS_R = 16384
-PARTS = ("traverse", "cols", "chase", "attrib", "scalar_rows")
+# Row 16's timed launches per variant and step count (the kernel before
+# its redesign took 0.9-1.5 ms a launch at 2,048 steps), and the wide
+# chases'.
+ABLATE_REPS = 10
+WIDE_CHASE_REPS = 20
+PARTS = ("traverse", "cols", "chase", "attrib", "scalar_rows", "ablate", "wide_chase")
 # The sections of a run that are {measurement: {"ms", "checksum"}}.
-TIMED_SECTIONS = ("chase", "attrib", "scalar_rows")
+TIMED_SECTIONS = ("chase", "attrib", "scalar_rows", "ablate", "wide_chase")
 # Per traversal layout: what the summary averages over the runs of a side.
 SUMMARY_KEYS = ("ms", "steps_mean", "steps_p50", "steps_p99", "steps_max", "simd_efficiency",
                 "bound_ms", "visits", "internal_rows_read", "leaf_rows_read")
@@ -182,6 +193,54 @@ def time_scalar_rows(dev) -> dict:
         "checksum": float(got.double().sum())}}
 
 
+def time_ablate(dev) -> dict:
+    """Row 16, each variant at each step count of the packet-step entry
+    point's case (G = 64 programs on its seeded table): ms and the
+    output's checksum."""
+    from shimmer_tpu_torch.experiments import gather as eg
+    from shimmer_tpu_torch.experiments import packet_step as eps
+    from shimmer_tpu_torch.ops import packet_step as ps
+
+    calls = {}
+    for case in eps.cases():
+        if case.kernel != "step_ablate":
+            continue
+        x = eps.make_inputs(case, dev)
+        for steps in case.steps:
+            def ablate(x=x, v=int(case.variant[1:]), steps=steps, g=case.programs):
+                return ps.step_ablate(x["meta"], x["tab"], x["tab_i"], v, steps, g)
+
+            calls[f"{case.name} {steps}"] = ablate
+    for ablate in calls.values():  # every kernel loaded and the card busy first
+        ablate()
+    return {name: {"ms": eg.time_ms(ablate, dev, reps=ABLATE_REPS),
+                   "checksum": float(ablate().double().sum())} for name, ablate in calls.items()}
+
+
+def wide_chase_cases() -> list:
+    """The gather entry point's chase cases of more than one lane."""
+    from shimmer_tpu_torch.experiments import gather as eg
+
+    return [c for c in eg.cases() if c.kernel.startswith("row_chase") and c.row != "6E"]
+
+
+def time_wide_chase(dev) -> dict:
+    """Each wide chase of the gather entry point on its own inputs: ms and
+    the output's checksum."""
+    from shimmer_tpu_torch.experiments import gather as eg
+    from shimmer_tpu_torch.ops import gather as gk
+
+    out = {}
+    for case in wide_chase_cases():
+        table, idx = eg.make_inputs(case, dev)
+        got = gk.row_chase(table, idx, case.steps)
+        out[case.name] = {
+            "ms": eg.time_ms(lambda: gk.row_chase(table, idx, case.steps), dev,
+                             reps=WIDE_CHASE_REPS),
+            "checksum": float(got.double().sum())}
+    return out
+
+
 def run(label: str, parts=PARTS) -> dict:
     """One checkout's timings of ``parts`` (PARTS) on the card."""
     from shimmer_tpu_torch.bench_scene import BENCH_RESOLUTION, BENCH_TRIS, build_bench_scene
@@ -215,6 +274,10 @@ def run(label: str, parts=PARTS) -> dict:
         res["chase"] = time_chase(dev)
     if "scalar_rows" in parts:
         res["scalar_rows"] = time_scalar_rows(dev)
+    if "ablate" in parts:
+        res["ablate"] = time_ablate(dev)
+    if "wide_chase" in parts:
+        res["wide_chase"] = time_wide_chase(dev)
     res["seconds"] = time.perf_counter() - t0
     return res
 

@@ -21,7 +21,8 @@ Cases, by kernel-table row (PERF.md) and the reference script they mirror
   programs of K = 2 packets, 256 steps, over the bench scene's BVH8
   (300,000 sphere triangles, as its ``main``); ns per packet-step;
 * 16 (``exp_ablate_step.py``): v0-v4, G = 64, marginal between 256 and
-  2,048 steps divided by G, as the reference divides it.
+  2,048 steps divided by G, as the reference divides it; each case also
+  reports its chain's shape (``mu``, ``lam``, ``distinct`` rows).
 
 On the card the slab chase runs split (ops/packet_step.py): its ns per
 step is the chain walk's latency plus the slab tests spread over the card,
@@ -31,6 +32,9 @@ the chain alone (the ``empty`` body on the same inputs and steps,
 side: its ns per packet-step is the launch's time over G * K * steps, not
 one packet's step latency; its cases also time the chain alone (the
 visits computed in closed form, ``ops.packet_step.step_attrib_chain``).
+Row 16's programs share one computation on the card (a walk to the
+chain's cycle, then the sums in step order): its ns per step measures
+that, not one program's step latency.
 
 Inputs come from ``numpy.random.default_rng(SEED)`` drawn in each script's
 own order, so they are the reference's arrays.  The reference's
@@ -71,10 +75,11 @@ REPS = 3
 # a watertight triangle costs 65 (9 subtractions, 12 for the shear, 21 for
 # the three error-compensated edge products, 16 comparisons and sums for
 # the sign and scaled-distance tests, a division and a multiply); row 16's
-# slab of one slot is 19, its leaf branch 2.
+# slab term of one slot and lane is 17 (4 subtractions, 4 multiplies, 6
+# min / max, the 1.0001 slack, a comparison and the field-48 and).
 SLAB_OPS = 8 * 25 + 9
 ATTRIB_BOX_OPS, ATTRIB_TRIANGLE_OPS = 26, 65
-ABLATE_SLAB_OPS, ABLATE_LEAF_OPS = 8 * 19, 8 * 2
+ABLATE_SLOT_OPS = 17
 # The bound's rates: the H100 SXM's HBM and non-tensor-core float32 peak
 # (NVIDIA's data sheet), as chip_smoke.py uses them.
 HBM_BYTES_PER_S = 3.35e12
@@ -205,13 +210,17 @@ def work(case: Case, steps: int, stats: dict, x: dict) -> tuple[int, int]:
         box = 0 if case.variant in ("noint", "nobits", "noscalar") else 8 * ATTRIB_BOX_OPS
         leaf = 0 if case.variant == "noleaf" else stats["leaf_slots"] * ATTRIB_TRIANGLE_OPS
         return nbytes, P * (n_packets * steps * box + leaf)
+    # Row 16: the G programs are equal, so the function needs one
+    # program's work and G output blocks.  Its operations: the terms of
+    # the distinct rows (a slab row's 8 slots for each lane; a leaf row's 8
+    # products, the same for every lane; v1's terms are table values) and
+    # the adds in step order, one a step and accumulator (v2: two; v0's
+    # sum of ones has a closed form and needs none).
     v = int(case.variant[1:])
-    slab = stats["slab_steps"]
-    per_lane = {0: 8 * steps, 1: 8 * steps, 2: ABLATE_SLAB_OPS * slab,
-                3: (ABLATE_SLAB_OPS - 8) * slab,
-                4: (ABLATE_SLAB_OPS - 8) * slab + ABLATE_LEAF_OPS * (steps - slab)}[v]
+    adds = (0 if v == 0 else 2 if v == 2 else 1) * 8 * P * steps
+    terms = stats["slab_rows"] * P * 8 * ABLATE_SLOT_OPS + stats["leaf_rows"] * 8
     nbytes = stats["bytes_read"] + stats["meta_read"] * 4 + n_prog * 8 * P * 4
-    return nbytes, n_prog * P * per_lane
+    return nbytes, adds + terms
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -293,6 +302,8 @@ def run_case(case: Case, x: dict) -> dict:
         per[s] = {"ms": ms, "plain_ms": plain_ms, "ok": ok, "max_abs_err": err,
                   "checksum": float(got[0].double().sum()), "bytes": nbytes, "ops": ops,
                   **bound(nbytes, ops)}
+        if case.kernel == "step_ablate":
+            per[s].update({k: stats[k] for k in ("mu", "lam", "distinct")})
         if chain_ms is not None:
             per[s]["chain_ms"] = chain_ms
             per[s]["chain_plain_ms"] = chain_plain_ms
@@ -304,7 +315,8 @@ def run_case(case: Case, x: dict) -> dict:
            "max_abs_err": max(p["max_abs_err"] for p in per.values()),
            "launches": launches,
            **{k: per[last][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "ops",
-                                        "chain_ms", "chain_plain_ms", "chain_bound_ms")
+                                        "chain_ms", "chain_plain_ms", "chain_bound_ms", "mu",
+                                        "lam", "distinct")
               if k in per[last]}}
     if chain is not None:
         res["chain_kernel"] = chain[0]
@@ -336,6 +348,8 @@ def format_line(res: dict) -> str:
     if "marginal_ns" in res:
         extra = " marginals " + ", ".join(f"{m:.2f}" for m in res["marginal_ns"]) + " ns/step;"
     unit = "ns/packet-step" if res["kernel"] == "step_attrib" else "ns/step"
+    if "mu" in res:
+        extra += f" chain mu {res['mu']} lambda {res['lam']} distinct {res['distinct']};"
     return (f"  {res['name']:58s}: {res['ns_per_step']:10.3f} {unit};{extra} {times}; "
             f"plain {res['plain_ms']:.1f} ms; {exact}")
 

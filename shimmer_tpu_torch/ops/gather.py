@@ -11,10 +11,12 @@ function it replaces):
 * :func:`row_gather_sum` -- ``sum_i T[idx[i]]``;
 * :func:`row_chase` -- per lane, ``steps`` dependent reads:
   ``row = T[idx]; acc += row[1] + ... + row[8]; idx = int(row[0])``, over
-  float32 or bf16 rows.  On the card a chase of few lanes and many steps
-  (:func:`chase_staged`) runs staged: a pass writes each row's (next
-  index, row sum) (:func:`chase_pairs_plain` computes the same), and one
-  block walks them from shared memory (:func:`chase_walk`, which also
+  float32 or bf16 rows.  On the card a chase that :func:`chase_staged`
+  names (a few lanes with long chains, or many lanes with enough steps)
+  runs staged: a
+  pass writes each row's (next index, row sum) (:func:`chase_pairs_plain`
+  computes the same), and a grid of blocks, each with the pairs staged in
+  its shared memory, walks the lanes (:func:`chase_walk`, which also
   takes the pairs alone).
 
 An index outside [0, R) reads a row of zeros in every function (the
@@ -42,12 +44,17 @@ from shimmer_tpu_torch.ops import cuda_build
 CHASE_COLS = 9
 # Widest row the gather-sum kernel takes (kSumMaxWidth).
 SUM_MAX_WIDTH = 128
-# The staged chase (csrc/gather_body.cuh chase_staged): at most this many
-# lanes, rows (R + 1 pairs of 8 bytes in 227 KB of shared memory), and at
-# least this many steps (and R / 64).
+# The staged chase (csrc/gather_body.cuh chase_staged): at most
+# STAGE_MAX_ROWS rows (R + 1 pairs of 8 bytes in 227 KB of shared memory);
+# a few lanes (at most STAGE_MAX_LANES) with at least STAGE_MIN_STEPS steps
+# and R / 64; more lanes with at least WIDE_MIN_STEPS steps, or at least
+# MANY_LANES lanes with at least MANY_LANES_MIN_STEPS steps.
 STAGE_MAX_LANES = 32
 STAGE_MAX_ROWS = 227 * 1024 // 8 - 1
 STAGE_MIN_STEPS = 256
+WIDE_MIN_STEPS = 32
+MANY_LANES = 131072
+MANY_LANES_MIN_STEPS = 8
 _INT_MAX = 2**31 - 1
 
 _lock = threading.Lock()
@@ -68,7 +75,9 @@ def _library():
             lib.shimmer_row_chase.argtypes = [ci, p, ci, ci, p, ci, ci, p, p, p]
             lib.shimmer_chase_walk.argtypes = [p, ci, p, ci, ci, p, p]
             bounds = (lib.shimmer_gather_sum_max_width, lib.shimmer_chase_stage_max_lanes,
-                      lib.shimmer_chase_stage_max_rows, lib.shimmer_chase_stage_min_steps)
+                      lib.shimmer_chase_stage_max_rows, lib.shimmer_chase_stage_min_steps,
+                      lib.shimmer_chase_wide_min_steps, lib.shimmer_chase_many_lanes,
+                      lib.shimmer_chase_many_lanes_min_steps)
             for fn in (lib.shimmer_row_gather, lib.shimmer_row_gather_cols,
                        lib.shimmer_row_gather_sum, lib.shimmer_row_chase,
                        lib.shimmer_chase_walk, *bounds):
@@ -76,7 +85,8 @@ def _library():
             for fn in bounds:
                 fn.argtypes = []
             if tuple(fn() for fn in bounds) != (SUM_MAX_WIDTH, STAGE_MAX_LANES, STAGE_MAX_ROWS,
-                                                 STAGE_MIN_STEPS):
+                                                 STAGE_MIN_STEPS, WIDE_MIN_STEPS, MANY_LANES,
+                                                 MANY_LANES_MIN_STEPS):
                 raise cuda_build.KernelBuildError("gather bounds disagree with the wrapper")
             _lib = lib
         return _lib
@@ -172,7 +182,9 @@ def row_chase(table, idx, steps: int):
     """Per lane, ``steps`` dependent row reads from ``idx``: ``acc +=
     row[1] + ... + row[8]`` (left to right), ``idx = int(row[0])``.
     table: (R, W) float32 or bfloat16, W a multiple of 8 (>= 16).
-    Returns the (N,) float32 accumulators."""
+    Returns the (N,) float32 accumulators.  ``launches`` counts each call
+    by its table's type, and the calls that ran staged (two launches, the
+    pass and the walk) also under ``row_chase_staged``."""
     dev = _check_args(table, idx, (torch.float32, torch.bfloat16))
     n_rows, width = table.shape
     if width < CHASE_COLS or width % 8:
@@ -186,18 +198,20 @@ def row_chase(table, idx, steps: int):
     name = "row_chase_bf16" if bf16 else "row_chase_f32"
     n = idx.shape[0]
     # The staged form's scratch: the R + 1 (next index, row sum) pairs.
-    work = (torch.empty(n_rows + 1, 2, dtype=torch.int32, device=table.device)
-            if chase_staged(n_rows, n, steps) else None)
+    staged = chase_staged(n_rows, n, steps)
+    work = torch.empty(n_rows + 1, 2, dtype=torch.int32, device=table.device) if staged else None
     out = torch.empty(n, dtype=torch.float32, device=table.device)
     cuda_build.raise_on_error(_library().shimmer_row_chase(
         int(bf16), table.data_ptr(), n_rows, width, idx.data_ptr(), n, steps,
         None if work is None else work.data_ptr(), out.data_ptr(),
         cuda_build.stream_of(table)), name)
     row_chase.launches[name] += 1
+    if staged:
+        row_chase.launches["row_chase_staged"] += 1
     return out
 
 
-row_chase.launches = {"row_chase_f32": 0, "row_chase_bf16": 0}
+row_chase.launches = {"row_chase_f32": 0, "row_chase_bf16": 0, "row_chase_staged": 0}
 
 
 def chase_staged(n_rows: int, n: int, steps: int) -> bool:
@@ -205,15 +219,18 @@ def chase_staged(n_rows: int, n: int, steps: int) -> bool:
     ``n_rows`` rows staged: csrc/gather_body.cuh chase_staged, whose bounds
     the library is checked against when it loads (and the kernel refuses a
     staged chase without its scratch)."""
-    return (1 <= n <= STAGE_MAX_LANES and n_rows <= STAGE_MAX_ROWS
-            and steps >= STAGE_MIN_STEPS and steps >= n_rows // 64)
+    if n < 1 or n_rows > STAGE_MAX_ROWS:
+        return False
+    if n <= STAGE_MAX_LANES:
+        return steps >= STAGE_MIN_STEPS and steps >= n_rows // 64
+    return steps >= WIDE_MIN_STEPS or (n >= MANY_LANES and steps >= MANY_LANES_MIN_STEPS)
 
 
 def chase_walk(pairs, idx, steps: int):
     """The staged chase's walk alone: ``steps`` steps per lane over
     ``pairs`` ((R + 1, 2) int32, :func:`chase_pairs_plain` of the table:
-    each row's next index and the bits of its float32 row sum), at most
-    ``STAGE_MAX_LANES`` lanes and ``STAGE_MAX_ROWS`` rows.  Equal to
+    each row's next index and the bits of its float32 row sum), at least
+    one lane and at most ``STAGE_MAX_ROWS`` rows on the card.  Equal to
     ``row_chase(table, idx, steps)``."""
     if pairs.dim() != 2 or pairs.shape[1] != 2 or pairs.dtype != torch.int32:
         raise ValueError(f"pairs must be (R + 1, 2) int32, got {tuple(pairs.shape)} "
@@ -226,9 +243,9 @@ def chase_walk(pairs, idx, steps: int):
     if dev == "cpu":
         return chase_walk_plain(pairs, idx, steps)
     n = idx.shape[0]
-    if not 1 <= n <= STAGE_MAX_LANES or not 1 <= n_rows <= STAGE_MAX_ROWS:
-        raise ValueError(f"the staged walk takes 1-{STAGE_MAX_LANES} lanes and 1-"
-                         f"{STAGE_MAX_ROWS} rows, got {n} and {n_rows}")
+    if n < 1 or not 1 <= n_rows <= STAGE_MAX_ROWS:
+        raise ValueError(f"the staged walk takes at least 1 lane and 1-{STAGE_MAX_ROWS} rows, "
+                         f"got {n} and {n_rows}")
     out = torch.empty(n, dtype=torch.float32, device=pairs.device)
     cuda_build.raise_on_error(_library().shimmer_chase_walk(
         pairs.data_ptr(), n_rows, idx.data_ptr(), n, steps, out.data_ptr(),

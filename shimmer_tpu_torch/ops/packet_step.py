@@ -20,7 +20,11 @@ traversal and its parts:
   alone;
 * :func:`step_ablate` (row 16) -- a chain ``r = meta[r]`` with one more
   ingredient of the step per variant, over a table packed by
-  :func:`pack_bf16_hilo`.
+  :func:`pack_bf16_hilo`.  On the card the programs share one
+  computation: the next row is a function of the row
+  (:func:`ablate_next_plain`), so a short walk to the chain's cycle
+  (:func:`ablate_walk_plain`) gives every step's row, and only the adds
+  stay in step order.
 
 Each wrapper dispatches on the tensors' device: CUDA tensors launch the
 kernel or raise; CPU tensors run the ``*_plain`` version.  Nothing falls
@@ -74,8 +78,11 @@ ATTRIB_MAX_STACK = 128
 # What an int32 scratch slot holds before it is written, in the
 # reference's interpret mode (jax._src.pallas.primitives.uninitialized_value).
 INT32_MIN = -(2**31)
-# Kernel C's variants v0-v4 are 0-4.
+# Kernel C's variants v0-v4 are 0-4, and the most rows its block stages
+# on the card (kAblateMaxRows: the next table and first-visit marks, 16
+# bits a row each, beside the visited rows in 227 KB of shared memory).
 ABLATE_VARIANTS = 5
+MAX_ABLATE_ROWS = 32768
 _INT_MAX = 2**31 - 1
 
 _lock = threading.Lock()
@@ -95,18 +102,18 @@ def _library():
             lib.shimmer_packet_slab_chase_max_rows.argtypes = []
             lib.shimmer_step_attrib.argtypes = [ci, p, p, ci, p, ci, ci, ci, ci, p, p, p, p]
             lib.shimmer_step_attrib_chain.argtypes = [ci, p, ci, ci, ci, ci, ci, p, p, p]
-            lib.shimmer_step_ablate.argtypes = [ci, p, p, p, ci, ci, ci, p, p]
-            lib.shimmer_step_attrib_max_packets.argtypes = []
-            lib.shimmer_step_attrib_max_stack.argtypes = []
+            lib.shimmer_step_ablate.argtypes = [ci, p, p, p, ci, ci, ci, p, p, p]
+            bounds = (lib.shimmer_step_attrib_max_packets, lib.shimmer_step_attrib_max_stack,
+                      lib.shimmer_packet_slab_chase_max_steps,
+                      lib.shimmer_packet_slab_chase_max_rows, lib.shimmer_step_ablate_max_rows)
+            for fn in bounds:
+                fn.argtypes = []
             for fn in (lib.shimmer_packet_slab_chase, lib.shimmer_step_attrib,
-                       lib.shimmer_step_attrib_chain, lib.shimmer_step_ablate,
-                       lib.shimmer_step_attrib_max_packets, lib.shimmer_step_attrib_max_stack, lib.shimmer_packet_slab_chase_max_steps,
-                       lib.shimmer_packet_slab_chase_max_rows):
+                       lib.shimmer_step_attrib_chain, lib.shimmer_step_ablate, *bounds):
                 fn.restype = ci
-            if (lib.shimmer_step_attrib_max_packets(), lib.shimmer_step_attrib_max_stack(),
-                    lib.shimmer_packet_slab_chase_max_steps(),
-                    lib.shimmer_packet_slab_chase_max_rows()) != (
-                    ATTRIB_MAX_PACKETS, ATTRIB_MAX_STACK, MAX_CHASE_STEPS, MAX_COUNTED_ROWS):
+            if tuple(fn() for fn in bounds) != (ATTRIB_MAX_PACKETS, ATTRIB_MAX_STACK,
+                                                 MAX_CHASE_STEPS, MAX_COUNTED_ROWS,
+                                                 MAX_ABLATE_ROWS):
                 raise cuda_build.KernelBuildError("packet-step bounds disagree with the wrapper")
             _lib = lib
         return _lib
@@ -569,6 +576,9 @@ def _ablate_args(meta, tab, tab_i, variant, steps, programs):
     n_rows = meta.shape[0] if meta.dim() == 1 else -1
     if n_rows < 2 or n_rows & (n_rows - 1):
         raise ValueError(f"meta must have a power-of-two length >= 2, got {tuple(meta.shape)}")
+    if n_rows > MAX_ABLATE_ROWS:
+        raise ValueError(f"the card's step ablation stages at most {MAX_ABLATE_ROWS} rows, "
+                         f"got {n_rows}")
     cuda_build.check_tensor("meta", meta, torch.int32, (n_rows,), dev)
     cuda_build.check_tensor("tab", tab, torch.float32, (n_rows, NODE_WIDTH), dev)
     cuda_build.check_tensor("tab_i", tab_i, torch.int32, (n_rows, NODE_WIDTH), dev)
@@ -581,16 +591,21 @@ def step_ablate(meta, tab, tab_i, variant: int, steps: int, programs: int = 64):
     each of ``programs`` programs runs one packet down the chain from
     r = 1 for ``steps`` steps.  meta: (R,) int32, R a power of two; tab:
     (R, 128) float32; tab_i: (R, 128) int32, :func:`pack_bf16_hilo` of
-    tab.  Returns (programs, 8, 128) float32, acc + float(r) of each."""
+    tab.  Returns (programs, 8, 128) float32, acc + float(r) of each.  R
+    is at most ``MAX_ABLATE_ROWS`` (what the card's block stages; CPU
+    tensors are held to it too); on the card v3 and v4 are two launches
+    (the next table, then the walk and sums), counted as one call."""
     dev, n_rows, variant, steps, programs = _ablate_args(meta, tab, tab_i, variant, steps,
                                                          programs)
     if _device_type(tab) == "cpu":
         return step_ablate_plain(meta, tab, tab_i, variant, steps, programs)
     _device_type(tab_i)
+    _device_type(meta)  # read 16 bytes at a time
     out = torch.empty(programs, 8, LANES, dtype=torch.float32, device=dev)
+    work = torch.empty(n_rows, dtype=torch.int32, device=dev)  # v3, v4: the next table
     cuda_build.raise_on_error(_library().shimmer_step_ablate(
         variant, meta.data_ptr(), tab.data_ptr(), tab_i.data_ptr(), n_rows, programs, steps,
-        out.data_ptr(), cuda_build.stream_of(tab)), "step_ablate")
+        work.data_ptr(), out.data_ptr(), cuda_build.stream_of(tab)), "step_ablate")
     step_ablate.launches["step_ablate"] += 1
     return out
 
@@ -604,9 +619,12 @@ def step_ablate_plain(meta, tab, tab_i, variant: int, steps: int, programs: int,
     time in the kernel's order, copied to every program.  ``stats``, a
     dict or None, receives ``bytes_read`` (the distinct table words the
     steps read: 8 floats of a row for v1, 16 for v4's leaf branch, 40
-    packed words for the slab), ``meta_read`` (distinct meta words) and
+    packed words for the slab), ``meta_read`` (distinct meta words),
     ``slab_steps`` (the steps that ran the slab; v4 splits its steps on
-    r & 1)."""
+    r & 1), ``slab_rows`` and ``leaf_rows`` (the distinct rows of each
+    branch), and the chain's shape as the steps met it: ``distinct`` rows,
+    the tail ``mu`` before its cycle and the cycle's length ``lam`` (0: no
+    row repeated within the steps)."""
     dev = tab.device
     n_rows = meta.shape[0]
     nxt = meta.tolist()
@@ -615,13 +633,19 @@ def step_ablate_plain(meta, tab, tab_i, variant: int, steps: int, programs: int,
     acc = torch.zeros(8, LANES, dtype=torch.float32, device=dev)
     f32_rows, leaf_rows, slab_rows, meta_read = set(), set(), set(), set()
     slab_steps = 0
+    first, mu, lam = {}, None, 0
 
     def step_to(idx):
         meta_read.add(idx)
         return min(max(nxt[idx], 0), n_rows - 1)
 
     r = 1
-    for _ in range(int(steps)):
+    for i in range(int(steps)):
+        if mu is None:
+            if r in first:
+                mu, lam = first[r], i - first[r]
+            else:
+                first[r] = i
         if variant == 0:
             acc = acc + 1.0
             r = step_to(r)
@@ -659,8 +683,59 @@ def step_ablate_plain(meta, tab, tab_i, variant: int, steps: int, programs: int,
         stats["bytes_read"] = 4 * (8 * len(f32_rows) + 16 * len(leaf_rows) + 40 * len(slab_rows))
         stats["meta_read"] = len(meta_read)
         stats["slab_steps"] = slab_steps
+        stats["slab_rows"] = len(slab_rows)
+        stats["leaf_rows"] = len(leaf_rows)
+        stats["distinct"] = len(first)
+        stats["mu"] = len(first) if mu is None else mu
+        stats["lam"] = lam
     out = acc + float(r)
     return out[None].expand(programs, 8, LANES).contiguous()
+
+
+def ablate_next_plain(meta, tab, tab_i, variant: int) -> list:
+    """Row 16's next row of every row, next_v(r) (csrc/packet_step_body.cuh,
+    "The design"): meta[r] for v0-v2; for v3 and v4 meta[(r + bits(r)) &
+    (R - 1)], bits(r) the OR over the lanes of row r's slab hits (v4's odd
+    rows: its leaf branch's bits); meta's words clamped into the table."""
+    n_rows = meta.shape[0]
+    dev = tab.device
+    rows = torch.arange(n_rows, device=dev)
+    if variant in (3, 4):
+        ox = torch.arange(LANES, dtype=torch.float32, device=dev) * 0.01 + 0.5
+        pow2 = 1 << torch.arange(8, device=dev)
+        c = hilo_values(tab_i[:, 0:56])[:, :, None]
+        t0 = (c[:, 0:8] - ox) * 1.7
+        t1 = (c[:, 24:32] - ox) * 1.7
+        t0y = (c[:, 8:16] - ox) * 0.9
+        t1y = (c[:, 32:40] - ox) * 0.9
+        tn = torch.maximum(torch.minimum(t0, t1), torch.minimum(t0y, t1y))
+        tf = torch.minimum(torch.maximum(t0, t1), torch.maximum(t0y, t1y))
+        hit = (tn <= tf * 1.0001) & (c[:, 48:56] > 0.0)
+        bits = (hit.any(2) * pow2).sum(1)
+        if variant == 4:
+            leaf = LANES * ((tab[:, 0:8] * 0.0 > 1.0) * pow2).sum(1) + 1
+            bits = torch.where(rows % 2 == 1, leaf, bits)
+        rows = (rows + bits) & (n_rows - 1)
+    return meta.long()[rows].clamp(0, n_rows - 1).tolist()
+
+
+def ablate_walk_plain(nxt: list, steps: int):
+    """The chain from r = 1 over the next table ``nxt`` (a list), walked to
+    its first repeated row or ``steps`` steps: (the rows in step order,
+    mu, lam, the row after the last step).  With lam > 0 step k visits
+    seq[k] for k < mu + lam, else seq[mu + (k - mu) % lam]; lam = 0: no
+    row repeated within ``steps`` and mu = steps."""
+    seq, first = [], {}
+    r = 1
+    for k in range(int(steps)):
+        if r in first:
+            mu = first[r]
+            lam = k - mu
+            return seq, mu, lam, seq[mu + (steps - mu) % lam]
+        first[r] = k
+        seq.append(r)
+        r = nxt[r]
+    return seq, int(steps), 0, r
 
 
 WRAPPERS = (packet_slab_chase, step_attrib, step_attrib_chain, step_ablate)

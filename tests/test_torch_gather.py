@@ -256,10 +256,12 @@ def test_entry_point_runs_every_case_on_cpu():
     rows = [eg.run_case(c, *eg.make_inputs(c, "cpu")) for c in map(small, eg.cases())]
     assert len({r["name"] for r in rows}) == len(eg.cases())
     assert all(r["ok"] for r in rows)
-    # Every kernel runs: the cases' own, and the staged walk alone that
-    # the few-lane chases (6E) time beside theirs.
-    assert ({r["kernel"] for r in rows} | {r["chain_kernel"] for r in rows if "chain_kernel" in r}
-            == set(eg.KERNELS))
+    # Every kernel runs: the cases' own (a staged chase's the staged form
+    # too), and the staged walk alone that the few-lane chases (6E) time
+    # beside theirs.
+    assert ({k for r in rows for k in r["kernels"]}
+            | {r["chain_kernel"] for r in rows if "chain_kernel" in r} == set(eg.KERNELS))
+    assert all(("row_chase_staged" in r["kernels"]) == r.get("staged", False) for r in rows)
     assert [r["N"] for r in rows if r["row"] == "6E"] == [1, 1]
     assert [r["row"] for r in rows if "chain_ms" in r] == ["6E", "6E"]
     for r in rows:

@@ -12,9 +12,10 @@ SUM_RTOL of the plain version, which sums in torch's order.  Every body
 reads a row of zeros for an index outside [0, R), as the plain versions
 do, including indices that bf16 rounding pushes to R.  The staged chase
 (each row's next index and row sum written by a pass, then walked from
-shared memory) is bit-equal to the per-lane chase it replaces for few
-lanes with long chains, and the dispatch rule sends each entry-point case
-to the form the card runs it in.
+shared memory) is bit-equal to the per-lane chase it replaces, for few
+lanes with long chains and for many lanes walked by a grid of blocks (the
+lanes' partition into chunks over any number of blocks), and the dispatch
+rule sends each entry-point case to the form the card runs it in.
 """
 
 import ctypes
@@ -53,21 +54,26 @@ def host(tmp_path_factory):
                  "shimmer_row_gather_sum_host"):
         getattr(lib, name).argtypes = [p, ci, ci, p, ci, p]
         getattr(lib, name).restype = ci
-    for name in ("shimmer_row_chase_host", "shimmer_row_chase_staged_host"):
-        getattr(lib, name).argtypes = [ci, p, ci, ci, p, ci, ci, p]
-        getattr(lib, name).restype = ci
+    lib.shimmer_row_chase_host.argtypes = [ci, p, ci, ci, p, ci, ci, p]
+    lib.shimmer_row_chase_staged_host.argtypes = [ci, p, ci, ci, p, ci, ci, ci, p]
     lib.shimmer_chase_pairs_host.argtypes = [ci, p, ci, ci, p]
     lib.shimmer_row_chase_staged.argtypes = [ci, ci, ci]
     for name in ("shimmer_gather_sum_rows_per_warp", "shimmer_gather_sum_warps",
                  "shimmer_gather_sum_max_width", "shimmer_gather_cols_stage_max_rows",
                  "shimmer_chase_pairs_host", "shimmer_row_chase_staged",
                  "shimmer_chase_stage_max_lanes", "shimmer_chase_stage_max_rows",
-                 "shimmer_chase_stage_min_steps"):
+                 "shimmer_chase_stage_min_steps", "shimmer_chase_wide_min_steps",
+                 "shimmer_chase_many_lanes", "shimmer_chase_many_lanes_min_steps",
+                 "shimmer_chase_walk_threads", "shimmer_row_chase_host",
+                 "shimmer_row_chase_staged_host"):
         getattr(lib, name).restype = ci
+    lib.shimmer_chase_walk_threads.argtypes = [ci]
     assert lib.shimmer_gather_sum_max_width() == g.SUM_MAX_WIDTH
     assert (lib.shimmer_chase_stage_max_lanes(), lib.shimmer_chase_stage_max_rows(),
-            lib.shimmer_chase_stage_min_steps()) == (g.STAGE_MAX_LANES, g.STAGE_MAX_ROWS,
-                                                     g.STAGE_MIN_STEPS)
+            lib.shimmer_chase_stage_min_steps(), lib.shimmer_chase_wide_min_steps(),
+            lib.shimmer_chase_many_lanes(), lib.shimmer_chase_many_lanes_min_steps()) == (
+                g.STAGE_MAX_LANES, g.STAGE_MAX_ROWS, g.STAGE_MIN_STEPS, g.WIDE_MIN_STEPS,
+                g.MANY_LANES, g.MANY_LANES_MIN_STEPS)
     return lib
 
 
@@ -197,10 +203,10 @@ def test_staged_chase_matches_lane_and_plain(host, dtype, start, steps_list):
     n = idx.shape[0]
     for steps in steps_list:
         staged, lane = torch.empty(n), torch.empty(n)
-        for fn, out in ((host.shimmer_row_chase_staged_host, staged),
-                        (host.shimmer_row_chase_host, lane)):
-            call(fn, int(dtype == "bf16"), tab.data_ptr(), R, 128, idx.data_ptr(), n, steps,
-                 out.data_ptr())
+        call(host.shimmer_row_chase_staged_host, int(dtype == "bf16"), tab.data_ptr(), R, 128,
+             idx.data_ptr(), n, steps, 1, staged.data_ptr())
+        call(host.shimmer_row_chase_host, int(dtype == "bf16"), tab.data_ptr(), R, 128,
+             idx.data_ptr(), n, steps, lane.data_ptr())
         stats = {}
         want = g.row_chase_plain(tab, idx, steps, stats=stats)
         assert bits_equal(staged, want), steps
@@ -210,23 +216,65 @@ def test_staged_chase_matches_lane_and_plain(host, dtype, start, steps_list):
             assert bool(stats["oob_lanes"].all())
 
 
+# (lanes, blocks): one chunk of lanes or a few, the last one ragged, over
+# one block or several (a block takes every blocks-th chunk), more blocks
+# than chunks among them; chunks of 512 lanes up to 16,384 lanes and of
+# 1,024 beyond (None: one chunk, 1: one chunk and a lane).
+WIDE_CASES = {"n33_b1": (33, 1), "chunk_b2": (None, 2), "chunk_plus1_b2": (1, 2),
+              "n3000_b2": (3000, 2), "n5000_b3": (5000, 3), "n2500_b7": (2500, 7),
+              "n16385_b5": (16385, 5)}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n, blocks", list(WIDE_CASES.values()), ids=list(WIDE_CASES))
+def test_wide_staged_chase_matches_lane_and_plain(host, dtype, n, blocks):
+    """The staged walk of many lanes as the card's grid runs it (chunks of
+    lanes dealt to the blocks in turn, a thread's lanes side by side)
+    against the per-lane body and the plain version, bit for bit: out-of-
+    range starts, rows pointing out of the table and (bf16) indices
+    rounded to R among the lanes; every lane written once."""
+    chunk = host.shimmer_chase_walk_threads(512)
+    n = chunk if n is None else (chunk + 1 if n == 1 else n)
+    assert host.shimmer_chase_walk_threads(n) == (512 if n <= 16384 else 1024)
+    tab, idx = chase_table(dtype, 128, 9)
+    rng = np.random.default_rng(n)
+    idx = torch.from_numpy(rng.integers(-4, R + 4, n).astype(np.int32))
+    steps = 24
+    staged, lane = torch.full((n,), float("nan")), torch.empty(n)
+    call(host.shimmer_row_chase_staged_host, int(dtype == "bf16"), tab.data_ptr(), R, 128,
+         idx.data_ptr(), n, steps, blocks, staged.data_ptr())
+    call(host.shimmer_row_chase_host, int(dtype == "bf16"), tab.data_ptr(), R, 128,
+         idx.data_ptr(), n, steps, lane.data_ptr())
+    stats = {}
+    want = g.row_chase_plain(tab, idx, steps, stats=stats)
+    assert bits_equal(staged, want) and bits_equal(lane, want)
+    assert bits_equal(g.chase_walk(g.chase_pairs_plain(tab), idx, steps), want)
+    assert 0 < int(stats["oob_lanes"].sum()) < n
+
+
 def test_chase_dispatch_rule(host):
-    """The card stages 6E (one lane, 4,096 steps) and keeps the per-lane
-    form for 6B/6B2, 6C, the 7F chase and 7H; the host build's rule and the
-    wrapper's agree at and around every bound."""
+    """The card stages 6E (one lane, 4,096 steps) and, by the timing of
+    every chase case in both forms, every wider chase but 6C's at N =
+    8,192 (K = 8, faster per lane); the host build's rule and the wrapper's
+    agree at and around every bound."""
     staged = {c.name: bool(host.shimmer_row_chase_staged(c.n_rows, c.n, c.steps))
               for c in eg.cases() if c.kernel.startswith("row_chase")}
-    assert {n for n, s in staged.items() if s} == {
-        c.name for c in eg.cases() if c.row == "6E"}
-    assert any(n.startswith("6C") for n in staged) and any(n.startswith("7F") for n in staged)
+    assert {n for n, s in staged.items() if not s} == {
+        c.name for c in eg.cases() if c.row == "6C" and c.n == 8192}
+    assert any(n.startswith("6E") for n in staged) and any(n.startswith("7F") for n in staged)
+    assert any(n.startswith("7H") for n in staged) and any(n.startswith("6A") for n in staged)
     lanes, rows, steps = g.STAGE_MAX_LANES, g.STAGE_MAX_ROWS, g.STAGE_MIN_STEPS
     for n_rows in (1, 64, 16384, 16385, 64 * steps, 64 * steps + 64, rows, rows + 1):
-        for n in (0, 1, lanes, lanes + 1):
-            for k in (0, steps - 1, steps, n_rows // 64 - 1, n_rows // 64, 4096):
+        for n in (0, 1, lanes, lanes + 1, g.MANY_LANES - 1, g.MANY_LANES):
+            for k in (0, 1, g.MANY_LANES_MIN_STEPS - 1, g.MANY_LANES_MIN_STEPS,
+                      g.WIDE_MIN_STEPS - 1, g.WIDE_MIN_STEPS, steps - 1, steps,
+                      n_rows // 64 - 1, n_rows // 64, 4096):
                 want = g.chase_staged(n_rows, n, k)
                 assert bool(host.shimmer_row_chase_staged(n_rows, n, k)) == want, (n_rows, n, k)
-    assert g.chase_staged(16384, 1, 4096) and not g.chase_staged(16384, 131072, 32)
+    assert g.chase_staged(16384, 1, 4096) and g.chase_staged(16384, 131072, 32)
+    assert g.chase_staged(16384, 131072, 8) and not g.chase_staged(16384, 8192, 8)
     assert not g.chase_staged(rows + 1, 1, 2**20) and g.chase_staged(rows, 1, 2**20)
+    assert not g.chase_staged(rows + 1, 131072, 32) and not g.chase_staged(16384, 33, 31)
 
 
 def sum_in_kernel_order(tab, idx, rows_per_warp, warps):
@@ -272,7 +320,10 @@ def test_host_body_rejects_what_the_kernels_do_not_take(host):
     assert host.shimmer_row_gather_sum_host(*p, 132, idx.data_ptr(), N, out.data_ptr()) == -1
     assert host.shimmer_row_chase_host(0, *p, 12, idx.data_ptr(), N, 4, out.data_ptr()) == -1
     assert host.shimmer_row_chase_host(2, *p, 128, idx.data_ptr(), N, 4, out.data_ptr()) == -1
-    assert host.shimmer_row_chase_staged_host(0, *p, 12, idx.data_ptr(), 1, 4, out.data_ptr()) == -1
+    assert host.shimmer_row_chase_staged_host(0, *p, 12, idx.data_ptr(), 1, 4, 1,
+                                              out.data_ptr()) == -1
+    assert host.shimmer_row_chase_staged_host(0, *p, 128, idx.data_ptr(), 1, 4, 0,
+                                              out.data_ptr()) == -1
     assert host.shimmer_chase_pairs_host(2, *p, 128, out.data_ptr()) == -1
 
 

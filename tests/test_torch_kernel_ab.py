@@ -264,3 +264,46 @@ def test_time_attrib_and_scalar_rows_run_the_entry_point_cases(monkeypatch):
     rows = ab.time_scalar_rows(torch.device("cpu"))
     assert list(rows) == ["6E row_chase_f32 R=16384 N=1 W=128 K=64"]
     assert all(line["ms"] > 0 and np.isfinite(line["checksum"]) for line in rows.values())
+
+
+def test_time_ablate_and_wide_chase_run_the_entry_point_cases(monkeypatch):
+    """kernel_ab's row 16 and wide-chase timings on the CPU (the wrappers'
+    plain versions), the entry points' cases shrunk: every ablation variant
+    at both step counts and every chase case of more than one lane, with
+    the checksums of the plain versions' outputs; no kernel launched."""
+    import dataclasses
+
+    from shimmer_tpu_torch.experiments import gather as eg
+    from shimmer_tpu_torch.experiments import packet_step as eps
+    from shimmer_tpu_torch.ops import gather as gk
+    from shimmer_tpu_torch.ops import packet_step as ps
+
+    cases, gather_cases = eps.cases(), eg.cases()
+    monkeypatch.setattr(eps, "cases", lambda: [
+        dataclasses.replace(c, n_rows=256, steps=(8, 24), programs=2) for c in cases])
+    monkeypatch.setattr(eg, "cases", lambda: [
+        dataclasses.replace(c, n_rows=c.n_rows // 64, n=max(1, c.n // 256)) for c in gather_cases])
+    monkeypatch.setattr(ab, "ABLATE_REPS", 1)
+    monkeypatch.setattr(ab, "WIDE_CHASE_REPS", 1)
+    ps.reset_launches()
+    gk.reset_launches()
+    got = ab.time_ablate(torch.device("cpu"))
+    assert list(got) == [f"16 v{v} step_ablate/v{v} {s}" for v in range(ps.ABLATE_VARIANTS)
+                         for s in (8, 24)]
+    for v in range(ps.ABLATE_VARIANTS):
+        case = next(c for c in eps.cases() if c.variant == f"v{v}")
+        x = eps.make_inputs(case, "cpu")
+        for s in (8, 24):
+            want = ps.step_ablate_plain(x["meta"], x["tab"], x["tab_i"], v, s, 2)
+            line = got[f"{case.name} {s}"]
+            assert line["checksum"] == float(want.double().sum()) and line["ms"] > 0
+    chases = ab.time_wide_chase(torch.device("cpu"))
+    wide = [c for c in eg.cases() if c.kernel.startswith("row_chase") and c.row != "6E"]
+    assert list(chases) == [c.name for c in wide] and len(wide) == 19
+    for case in wide:
+        table, idx = eg.make_inputs(case, "cpu")
+        want = gk.row_chase_plain(table, idx, case.steps)
+        assert chases[case.name]["checksum"] == float(want.double().sum())
+    assert sum(ps.launch_counts().values()) == 0 and sum(gk.launch_counts().values()) == 0
+    assert {"ablate", "wide_chase"} <= set(ab.PARTS) and {"ablate", "wide_chase"} <= set(
+        ab.TIMED_SECTIONS)

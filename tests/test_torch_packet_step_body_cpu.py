@@ -13,10 +13,15 @@ pass's chunks of steps) equals both the plain version and the per-lane
 body it replaces on the card.  The step attribution runs as the card
 runs it (each program's packet on its own, its visits from the stack's
 slot 1 in closed form, the lanes' OR of hit bits taken after the steps),
-and the closed form of slot 1 equals the pops it stands for.
+and the closed form of slot 1 equals the pops it stands for.  The step
+ablation runs as the card runs it too: its next table (each row's next row,
+the lanes' OR of hits included), the walk to the chain's first repeated
+row, and the sums of the visited rows' terms in step order, each held
+against the plain versions.
 """
 
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 
@@ -53,15 +58,21 @@ def host(tmp_path_factory):
     lib.shimmer_step_attrib_chain_host.argtypes = [ci, p, ci, ci, ci, ci, ci, p, p]
     lib.shimmer_attrib_slot1_mismatches.argtypes = [p, ci, ci]
     lib.shimmer_attrib_slot1_mismatches.restype = ctypes.c_longlong
-    lib.shimmer_step_ablate_host.argtypes = [ci, p, p, p, ci, ci, ci, p]
+    lib.shimmer_step_ablate_host.argtypes = [ci, p, p, p, ci, ci, ci, ci, p]
+    lib.shimmer_ablate_next_host.argtypes = [ci, p, p, p, ci, p]
+    lib.shimmer_ablate_walk_host.argtypes = [p, ci, ci, p, p]
+    lib.shimmer_ablate_ones_mismatches.argtypes = [ci]
+    lib.shimmer_ablate_ones_mismatches.restype = ctypes.c_longlong
     for fn in (lib.shimmer_packet_slab_chase_host, lib.shimmer_packet_slab_chase_split_host,
                lib.shimmer_step_attrib_packet_host,
                lib.shimmer_step_attrib_chain_host,
                lib.shimmer_step_ablate_host, lib.shimmer_step_attrib_max_packets,
-               lib.shimmer_step_attrib_max_stack):
+               lib.shimmer_step_attrib_max_stack, lib.shimmer_ablate_next_host,
+               lib.shimmer_ablate_walk_host, lib.shimmer_step_ablate_max_rows):
         fn.restype = ci
     assert lib.shimmer_step_attrib_max_packets() == ps.ATTRIB_MAX_PACKETS
     assert lib.shimmer_step_attrib_max_stack() == ps.ATTRIB_MAX_STACK
+    assert lib.shimmer_step_ablate_max_rows() == ps.MAX_ABLATE_ROWS
     return lib
 
 
@@ -232,12 +243,126 @@ def test_step_ablate_body_matches_plain(host, ablate_data, variant):
         out = torch.empty(3, 8, P)
         assert host.shimmer_step_ablate_host(
             variant, meta.data_ptr(), tab.data_ptr(), tab_i.data_ptr(), meta.shape[0], 3, steps,
-            out.data_ptr()) == 0
+            -1, out.data_ptr()) == 0
         stats = {}
         want = ps.step_ablate_plain(meta, tab, tab_i, variant, steps, 3, stats=stats)
         assert torch.equal(out, want), steps
         if variant == 4 and steps == 200:
             assert 0 < stats["slab_steps"] < steps  # both branches ran
+
+
+# Row 16 as the card runs it.  Tables: the reference's draws at R = 512
+# (exp_ablate_step.py's order, through the entry point's make_inputs), and
+# built ones: every meta word 1 (r = 1 on a self-loop: mu = 0, lambda =
+# 1), every word 5 (a tail of one row into a self-loop), a three-row cycle
+# through r = 1 (mu = 0, lambda = 3; v0-v2), and R = 2.
+ABLATE_STEPS = (0, 1, 2, 20, 257, 2048)
+
+
+def _ablate_tables(kind):
+    if kind == "reference":
+        case = next(c for c in eps.cases() if c.kernel == "step_ablate")
+        x = eps.make_inputs(dataclasses.replace(case, n_rows=512), "cpu")
+        return x["meta"], x["tab"], x["tab_i"]
+    n = 2 if kind == "r2" else 64
+    rng = np.random.default_rng(11)
+    tab = torch.from_numpy(rng.normal(size=(n, 128)).astype(np.float32))
+    if kind == "r2":
+        meta = torch.tensor([1, 0], dtype=torch.int32)
+    elif kind == "cycle3":
+        meta = torch.from_numpy(rng.integers(0, n, n).astype(np.int32))
+        meta[1], meta[2], meta[3] = 2, 3, 1
+    else:
+        meta = torch.full((n,), 1 if kind == "self_loop" else 5, dtype=torch.int32)
+    return meta, tab, ps.pack_bf16_hilo(tab)
+
+
+ABLATE_TABLES = ("reference", "self_loop", "tail_loop", "cycle3", "r2")
+
+
+@pytest.mark.parametrize("kind", ABLATE_TABLES)
+@pytest.mark.parametrize("variant", range(ps.ABLATE_VARIANTS))
+def test_ablate_next_table_and_walk_match_plain(host, variant, kind):
+    """The next table (v3 and v4: each row's lanes' OR of hits) and the
+    walk to the chain's first repeated row (its rows, mu, lambda and the
+    row after the last step) against the plain versions, and the walk's mu
+    and lambda against the step-by-step plain version's."""
+    meta, tab, tab_i = _ablate_tables(kind)
+    n = meta.shape[0]
+    nxt = torch.empty(n, dtype=torch.int32)
+    assert host.shimmer_ablate_next_host(variant, meta.data_ptr(), tab.data_ptr(),
+                                         tab_i.data_ptr(), n, nxt.data_ptr()) == 0
+    want_next = ps.ablate_next_plain(meta, tab, tab_i, variant)
+    assert nxt.tolist() == want_next
+    for steps in ABLATE_STEPS:
+        seq = torch.empty(max(1, min(steps, n)), dtype=torch.int32)
+        walk = torch.empty(4, dtype=torch.int32)
+        assert host.shimmer_ablate_walk_host(nxt.data_ptr(), n, steps, seq.data_ptr(),
+                                             walk.data_ptr()) == 0
+        rows, mu, lam, last = ps.ablate_walk_plain(want_next, steps)
+        assert walk.tolist() == [len(rows), mu, lam, last] and seq[:len(rows)].tolist() == rows
+        stats = {}
+        ps.step_ablate_plain(meta, tab, tab_i, variant, min(steps, 300), 1, stats=stats)
+        if lam and steps <= 300:
+            assert (stats["mu"], stats["lam"], stats["distinct"]) == (mu, lam, mu + lam)
+    _, mu, lam, _ = ps.ablate_walk_plain(want_next, 4096)
+    if kind == "self_loop":
+        assert (mu, lam) == (0, 1)
+    elif kind == "tail_loop":
+        assert (mu, lam) == (1, 1)
+    elif kind == "cycle3" and variant < 3:
+        assert (mu, lam) == (0, 3)
+
+
+@pytest.mark.parametrize("programs", [1, 3])
+@pytest.mark.parametrize("kind", ABLATE_TABLES)
+@pytest.mark.parametrize("variant", range(ps.ABLATE_VARIANTS))
+def test_step_ablate_card_form_matches_plain(host, variant, kind, programs):
+    """Row 16 as the card computes it (next table, walk, the visited rows'
+    terms held in shared memory or computed in place, the adds in step
+    order, copied to every program) bit-equal to the step-by-step plain
+    version, at step counts around the chain's mu + lambda too."""
+    meta, tab, tab_i = _ablate_tables(kind)
+    n = meta.shape[0]
+    _, mu, lam, _ = ps.ablate_walk_plain(ps.ablate_next_plain(meta, tab, tab_i, variant), 4096)
+    closing = (mu + lam - 1, mu + lam, mu + lam + 1) if lam else ()
+    for steps in sorted({*ABLATE_STEPS, *closing} - {-1}):
+        want = ps.step_ablate_plain(meta, tab, tab_i, variant, steps, programs)
+        for term_rows in (-1, 0, 2):  # as the card holds them; none held; few held
+            out = torch.empty(programs, 8, P)
+            assert host.shimmer_step_ablate_host(variant, meta.data_ptr(), tab.data_ptr(),
+                                                 tab_i.data_ptr(), n, programs, steps, term_rows,
+                                                 out.data_ptr()) == 0
+            assert torch.equal(out, want), (steps, term_rows)
+        if steps == 0:
+            assert bool((want == 1.0).all())
+
+
+def test_ablate_v0_sum_stays_exact_past_2_24(host, ablate_data):
+    """v0's sum in closed form, min(k, 2^24), equals float32 adds of 1.0 at
+    every k up to 2^24 + 3, and the host form at 2^24 + 5 steps equals the
+    adds plus the last row."""
+    assert host.shimmer_ablate_ones_mismatches(2**24 + 3) == 0
+    meta, tab, tab_i = ablate_data
+    steps = 2**24 + 5
+    out = torch.empty(1, 8, P)
+    assert host.shimmer_step_ablate_host(0, meta.data_ptr(), tab.data_ptr(), tab_i.data_ptr(),
+                                         meta.shape[0], 1, steps, -1, out.data_ptr()) == 0
+    ones = np.add.accumulate(np.ones(steps, np.float32), dtype=np.float32)[-1]
+    _, _, _, last = ps.ablate_walk_plain(ps.ablate_next_plain(meta, tab, tab_i, 0), steps)
+    assert ones == np.float32(2**24)
+    assert bool((out == float(np.float32(ones) + np.float32(last))).all())
+
+
+def test_ablate_card_limit_holds_its_tables():
+    """At MAX_ABLATE_ROWS rows the card's block holds the next table, the
+    first-visit marks and the visited rows in its shared memory with room
+    for terms; twice as many do not fit."""
+    room = 226 * 1024
+    for steps in (2048, 2 * ps.MAX_ABLATE_ROWS):
+        visited = min(steps, ps.MAX_ABLATE_ROWS)
+        assert 4 * ps.MAX_ABLATE_ROWS + 2 * visited + 2 * 32 * 4 <= room
+    assert 4 * 2 * ps.MAX_ABLATE_ROWS > room
 
 
 def test_host_bodies_reject_what_the_kernels_do_not_take(host, chase_data, ablate_data):
@@ -251,9 +376,17 @@ def test_host_bodies_reject_what_the_kernels_do_not_take(host, chase_data, ablat
             out.data_ptr()) == -1
     meta, tab, tab_i = ablate_data
     assert host.shimmer_step_ablate_host(0, meta.data_ptr(), tab.data_ptr(), tab_i.data_ptr(),
-                                         255, 1, 4, out.data_ptr()) == -1
+                                         255, 1, 4, -1, out.data_ptr()) == -1
     assert host.shimmer_step_ablate_host(5, meta.data_ptr(), tab.data_ptr(), tab_i.data_ptr(),
-                                         256, 1, 4, out.data_ptr()) == -1
+                                         256, 1, 4, -1, out.data_ptr()) == -1
+    # Beyond the rows the card's block stages (the host build's next table
+    # and walk take any R below 2^16).
+    assert host.shimmer_step_ablate_host(0, meta.data_ptr(), tab.data_ptr(), tab_i.data_ptr(),
+                                         2 * ps.MAX_ABLATE_ROWS, 1, 4, -1, out.data_ptr()) == -1
+    assert host.shimmer_ablate_next_host(3, meta.data_ptr(), tab.data_ptr(), tab_i.data_ptr(),
+                                         255, out.data_ptr()) == -1
+    assert host.shimmer_ablate_walk_host(meta.data_ptr(), 1, 4, out.data_ptr(),
+                                         out.data_ptr()) == -1
     st = torch.zeros(8, 200, dtype=torch.int32)
     # Row 15 and its chain need slot 2 apart from slot 1 (stack_size >= 3).
     for packets, size in ((5, 16), (2, 200), (0, 16), (2, 2)):
@@ -296,7 +429,7 @@ def test_cpu_tensors_take_the_plain_version(chase_data, attrib_data, ablate_data
     ["chase_body", "chase_layout", "chase_f64", "chase_rays_shape", "chase_nxt_i64",
      "chase_steps", "chase_steps_limit", "attrib_variant", "attrib_packets", "attrib_split", "attrib_stack_size",
      "attrib_stack_init", "ablate_variant", "ablate_rows_not_pow2", "ablate_tab_i_dtype",
-     "ablate_strided", "meta_device"],
+     "ablate_strided", "ablate_rows_limit", "meta_device"],
 )
 def test_wrappers_reject_bad_arguments(chase_data, attrib_data, ablate_data, case):
     tab_t, nxt, rays = chase_data
@@ -337,6 +470,11 @@ def test_wrappers_reject_bad_arguments(chase_data, attrib_data, ablate_data, cas
         fn, args, err = ps.step_ablate, (m, tab, tab_i.float(), 2, 4, 2), TypeError
     elif case == "ablate_strided":
         fn, args = ps.step_ablate, (m, tab.T.contiguous().T, tab_i, 2, 4, 2)
+    elif case == "ablate_rows_limit":
+        # More rows than the card's block stages: refused on CPU tensors too.
+        n = 2 * ps.MAX_ABLATE_ROWS
+        fn, args = ps.step_ablate, (torch.zeros(n, dtype=torch.int32), torch.zeros(n, 128),
+                                    torch.zeros(n, 128, dtype=torch.int32), 0, 4, 2)
     else:
         fn, args = ps.step_ablate, (m.to("meta"), tab.to("meta"), tab_i.to("meta"), 0, 4, 2)
     with pytest.raises(err):
