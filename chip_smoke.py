@@ -31,13 +31,17 @@ Phases, each printing its own numbers:
      min-id winner, each compared with the v1 image;
   7. the 1.3M-triangle leg: v1 and v2 against the plain version on one
      merged batch, then pixel-block waves 0-2 rendered under v1 and v2;
-  8. the row-gather kernels (gather, transposed gather, gather-sum, float32
-     and bf16 row chase, 6E's one-lane chase staged and its walk alone,
-     chain_ms) through the entry point's every case, each against its
-     plain version on the same tensors (gathers and chases bit-equal, the
-     gather-sum within SUM_RTOL), with the library call that computes the
-     same function timed beside the kernel where there is one
-     (index_select, embedding_bag);
+  8. the row-gather kernels (gather, transposed gather, gather-sum direct
+     and counted, one-column sum, float32 and bf16 row chase, 6E's
+     one-lane chase staged and its walk alone, chain_ms) through the entry
+     point's every case, each against its plain version on the same
+     tensors (gathers and chases bit-equal, the gather-sums within
+     SUM_RTOL), each chase and gather-sum in the form its rule names; each
+     gather-sum launched twice, the same bits both times, and equal to the
+     host build of its body (csrc/gather_host.cpp, g++) on the same inputs
+     copied to the CPU; the one-column sum's floor (N = 32, floor_ms); with
+     the library call that computes the same function timed beside the
+     kernel where there is one (index_select, embedding_bag);
   9. the packet-step kernels (the packet slab chase, the step attribution
      over the bench scene's BVH8 of phase 2 and its chain alone, the bf16
      hi|lo step ablation) through the entry point's every case, each at
@@ -59,6 +63,7 @@ goes to chiprun_out/chip_smoke.log.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -167,8 +172,15 @@ GATHER_ROWS = {
         "7G row_gather_cols R=8192 N=8192 W=128 K=1",
         "experiments/pallas_gather2.py:116 (check_and_bench_taa1)"),
     "row_gather_sum": (
+        "9 row_gather_sum R=16384 N=8192 W=128 K=1",
+        "experiments/exp_pallas_gather2.py:74 (make_scalar_reduce): the direct form, where N "
+        "is small against R"),
+    "row_gather_sum_counted": (
         "9 row_gather_sum R=16384 N=131072 W=128 K=1",
-        "experiments/exp_pallas_gather2.py:74 (make_scalar_reduce); "
+        "experiments/exp_pallas_gather2.py:74 (make_scalar_reduce): the counted form, each "
+        "distinct row read once and added times its count"),
+    "row_gather_col_sum": (
+        "6D row_gather_col_sum R=16384 N=8192 W=128 K=4",
         "experiments/pallas_gather.py:181 (bench_pallas_dma)"),
     "row_chase_f32": (
         "6A/6B/6B2 row_chase_f32 R=16384 N=131072 W=128 K=32",
@@ -199,6 +211,13 @@ WALK_CASE = GATHER_ROWS["chase_walk"][0]
 def staged_by_measurement(res: dict) -> bool:
     return res["kernel"].startswith("row_chase") and not (res["row"] == "6C"
                                                           and res["N"] == 8192)
+
+
+# The gather-sums the card runs counted (ops.gather.gather_sum_counted,
+# set by timing both forms over a grid of sizes, PERF.md): row 9 at N =
+# 131,072; its sums at 6D's sizes (N = 8,192) run direct.
+def counted_by_measurement(res: dict) -> bool:
+    return res["kernel"] == "row_gather_sum" and res["N"] == 131072
 
 
 # The per-lane chase beyond the staged form's table limit, held against
@@ -527,6 +546,7 @@ def library_call(kernel: str, table, idx):
         return lambda: torch.index_select(table, 0, idx)
     if kernel == "row_gather_cols":
         return lambda: torch.index_select(table, 1, idx)
+    # The gather-sums: all W columns (6D's one-column sum computes less).
     return lambda: torch.nn.functional.embedding_bag(idx[None], table, mode="sum")
 
 
@@ -564,6 +584,18 @@ def phase8(dev) -> dict:
     staged = sorted(name for name, res in rows.items() if res.get("staged"))
     check(staged == sorted(name for name, res in rows.items() if staged_by_measurement(res)),
           f"phase 8: the staged chase ran for {staged}")
+    # Likewise each gather-sum (ops.gather.gather_sum_counted); and every
+    # gather-sum gave the same bits on its two launches.
+    for name, res in rows.items():
+        if "counted" in res:
+            check(res["ran_counted"] == res["counted"],
+                  f"phase 8 {name}: ran {'counted' if res['ran_counted'] else 'direct'}, "
+                  f"the rule says {'counted' if res['counted'] else 'direct'}")
+        if "repeat_equal" in res:
+            check(res["repeat_equal"], f"phase 8 {name}: two launches gave different bits")
+    counted = sorted(name for name, res in rows.items() if res.get("counted"))
+    check(counted == sorted(name for name, res in rows.items() if counted_by_measurement(res)),
+          f"phase 8: the counted gather-sum ran for {counted}")
     oob = {name: res["oob_lanes"] for name, res in rows.items() if res["kernel"] == "row_chase_bf16"}
     check(sum(oob.values()) > 0, "phase 8: no bf16 chase lane met an index rounded out of range")
     log(f"phase 8 entry point: {len(rows)} cases in {seconds:.1f}s, launches {json.dumps(launches)}, "
@@ -576,14 +608,15 @@ def phase8(dev) -> dict:
             continue
         table, idx = eg.make_inputs(case, dev)
         lib = library_call(case.kernel, table, idx)
-        if case.kernel != "row_gather_sum":
+        if case.kernel in ("row_gather", "row_gather_cols"):
             kernel = gk.row_gather_cols if case.kernel == "row_gather_cols" else gk.row_gather
             check(torch.equal(lib(), kernel(table, idx)),
                   f"phase 8 {case.name}: index_select disagrees with the kernel")
         library[case.name] = eg.time_ms(lib, dev)
     for name, res in rows.items():
-        keys = ("ms", "chain_ms", "chain_plain_ms", "plain_ms", "max_abs_err", "max_rel_err",
-                "distinct_rows", "ns_per_step", "oob_lanes", "checksum")
+        keys = ("ms", "chain_ms", "chain_plain_ms", "floor_ms", "plain_ms", "max_abs_err",
+                "max_rel_err", "distinct_rows", "ns_per_step", "oob_lanes", "checksum", "counted",
+                "repeat_equal")
         line = {**{k: res[k] for k in keys if k in res}, **gather_bound(res),
                 "library_ms": library.get(name)}
         log(f"phase 8 case {name}: {json.dumps(line)}")
@@ -609,8 +642,11 @@ def phase8(dev) -> dict:
             out[kernel]["ns_per_step"] = res["ns_per_step"]
         if "max_rel_err" in res:
             out[kernel]["max_rel_err"] = max(r["max_rel_err"] for r in rows.values()
-                                             if r["kernel"] == kernel)
+                                             if kernel in r["kernels"])
             out[kernel]["rel_tolerance"] = eg.SUM_RTOL
+        if "floor_ms" in res:
+            out[kernel]["floor_ms"] = res["floor_ms"]
+            out[kernel]["library_computes"] = "embedding_bag: all 128 columns, more than 6D's one"
         log(f"phase 8 {kernel}: {json.dumps(out[kernel])}")
     # 6E's staged walk alone, a kernel of its own.
     res = rows[WALK_CASE]
@@ -630,7 +666,44 @@ def phase8(dev) -> dict:
     }
     log(f"phase 8 chase_walk: {json.dumps(out['chase_walk'])}")
     per_lane_beyond_stage(dev)
+    gather_sums_against_host(dev)
     return out
+
+
+def gather_sums_against_host(dev):
+    """Each gather-sum case of the entry point (and the one-column sum at
+    its floor's N), its inputs made again from the entry point's SEED: the
+    card's sum, launched twice, and the host build of the kernels' bodies
+    (csrc/gather_host.cpp, g++ without FMA contraction) on the same inputs
+    copied to the CPU, all the same bits."""
+    host = cuda_build.load_host("gather")
+    p, ci = ctypes.c_void_p, ctypes.c_int
+    host.shimmer_row_gather_sum_host.argtypes = [p, ci, ci, p, ci, p]
+    host.shimmer_row_gather_col_sum_host.argtypes = [p, ci, ci, p, ci, ci, ci, p]
+    checks = []
+    for case in eg.cases():
+        table, idx = eg.make_inputs(case, dev)
+        if case.kernel == "row_gather_sum":
+            checks.append((case.name, table, idx, ()))
+        elif case.kernel == "row_gather_col_sum":
+            for ix in (idx, idx[:eg.FLOOR_N]):
+                checks.append((f"{case.name} at N={ix.shape[0]}", table, ix,
+                               (eg.COL_SUM_COL, case.steps)))
+    for name, table, idx, col in checks:
+        def card():
+            return (gk.row_gather_col_sum(table, idx, *col) if col
+                    else gk.row_gather_sum(table, idx)).cpu().view(torch.int32)
+
+        first, second = card(), card()
+        tc, ic = table.cpu(), idx.cpu()
+        want = torch.empty(() if col else tc.shape[1])
+        fn = host.shimmer_row_gather_col_sum_host if col else host.shimmer_row_gather_sum_host
+        check(fn(tc.data_ptr(), tc.shape[0], tc.shape[1], ic.data_ptr(), ic.shape[0], *col,
+                 want.data_ptr()) == 0, f"phase 8 {name}: the host build refused the case")
+        check(torch.equal(first, second), f"phase 8 {name}: two launches gave different bits")
+        check(torch.equal(first, want.view(torch.int32)),
+              f"phase 8 {name}: the card's sum differs from the host build's")
+        log(f"phase 8 {name}: two launches and the host build the same bits")
 
 
 def per_lane_beyond_stage(dev):

@@ -12,9 +12,10 @@
 //   row_gather_cols   out[:, i] = Tt[:, idx[i]] on the transposed table
 //                     pallas_gather2.py:108 (check_and_bench_taa1);
 //   row_gather_sum    out[:] = sum_i T[idx[i], :]
-//                     exp_pallas_gather2.py:74 (make_scalar_reduce), and
-//                     pallas_gather.py:181 (bench_pallas_dma, whose value is
-//                     4 * out[1]);
+//                     exp_pallas_gather2.py:74 (make_scalar_reduce);
+//   row_gather_col_sum  repeats * sum_i T[idx[i], col]
+//                     pallas_gather.py:181 (bench_pallas_dma, K = 4 passes
+//                     over column 1);
 //   row_chase<T>      K dependent steps per lane, idx = int(row[0]),
 //                     acc += row[1] + ... + row[8]
 //                     T = float: pallas_gather.py:72 (bench_pallas_vmem_take),
@@ -45,13 +46,36 @@
 //     i.  The table is read once per chunk (4 MB x 4 at that size) and idx
 //     once per column pair; the grid is 4 x 64 blocks of 512 threads, ~2
 //     per SM.  A larger table takes the direct form, one element a thread.
-//   * gather-sum: bytes of the distinct rows read, and the latency of
-//     reaching them, since the output is one row.  Each warp keeps 8 rows in
-//     flight in a shared-memory ring filled by cp.async (16 bytes per lane,
-//     zero-filled for an out-of-range index), the counterpart of the
-//     reference's 8 in-flight row DMAs, and adds them in registers; blocks
-//     combine with one atomicAdd per column (so the last bits of the sum
-//     vary from run to run with the blocks' order).
+//   * gather-sum: bytes of the distinct rows read, since the output is
+//     one row, and at these sizes the latency of each step before the sum
+//     can be written.  Read index by index, each occurrence of a row is
+//     another 512-byte read: at R = 16,384 and N = 131,072 that is 67 MB
+//     of L2 traffic for 8.4 MB of distinct rows, and the first port (a
+//     cp.async ring per warp, blocks meeting in `out` by float atomics
+//     after a memset) took 0.0157 ms (NVIDIA H100 80GB HBM3, 700.00 W).
+//     So where gather_sum_counted says so (many indices over many wide
+//     rows), the sum is counted, in one cooperative launch: the grid counts
+//     the indices per row with integer atomics (exact in any order) into a
+//     scratch that is zero at rest, waits for the whole count (a grid
+//     barrier), then each warp reads the counts of its chunk of rows,
+//     loads the rows that occur (16 bytes a lane, kSumRowsPerWarp rows in
+//     flight), zeroes the counts it read and adds float(count) * row in
+//     row order: each distinct row is read once, and no memset or second
+//     launch is paid.  Elsewhere the direct form adds the indices' rows in
+//     the same way with weight 1, one launch.  Both forms write a partial
+//     per block (1,024 threads), and the last block to finish (by a
+//     ticket) adds them in block order: no float atomics, so the sum is the
+//     same bits on every run and in the host build (gather_body.cuh,
+//     sum_warp_col).  A memset and three launches, shared-memory counts,
+//     a finishing launch, 256 threads a block, fewer or more rows in
+//     flight and a finish staged in shared memory were measured and
+//     dropped (PERF.md).
+//   * one-column sum (6D): one float of a row, a 32-byte sector, where a
+//     whole-row sum reads 512 bytes; one thread an index, a shuffle tree
+//     per warp, partials and a ticket as above, in one launch.  Its bound
+//     (72 ns at N = 8,192) lies far below any launch: its time is the
+//     launch and the chain of dependent accesses (index, value, partial,
+//     ticket, partials), which floor_ms measures at N = 32.
 //   * chase: neither bytes nor operations but the latency of K dependent
 //     reads per lane (each step needs the last step's row to find the next
 //     one), and the traffic of reaching them.  Read from the table, one
@@ -77,6 +101,7 @@
 // synchronise, allocates nothing, and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the kernels do not take.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "gather_body.cuh"
@@ -90,7 +115,6 @@ constexpr int kGatherWarps = 8;       // rows per block of row_gather
 constexpr int kColsThreads = 256;     // output elements per block, direct cols form
 constexpr int kStageThreads = 512;    // staged cols form
 constexpr int kChaseThreads = 128;
-constexpr int kRing = 8;              // rows in flight per warp, gather-sum
 constexpr int kPairThreads = 256;     // rows per block of the chase's pair pass
 
 __global__ void __launch_bounds__(kGatherWarps * kWarp)
@@ -135,67 +159,78 @@ __global__ void __launch_bounds__(kColsThreads)
       table_t + static_cast<size_t>(col) * n_rows, n_rows, __ldg(idx + i));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool ok) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  // src-size 0 copies nothing and fills the 16 bytes with zeros.
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(ok ? 16 : 0)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// True in the last block of the grid to get here, after every block's
+// global writes before the call are visible to it; that block resets the
+// ticket to 0 for the next launch on the stream.
+__device__ bool last_block(int* ticket) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    if (threadIdx.x == 0) *ticket = 0;
+  }
+  return last;
 }
 
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 1) : "memory");
-}
-
-__global__ void __launch_bounds__(kSumWarps * kWarp)
-    row_gather_sum_kernel(const float* __restrict__ table, int n_rows,
-                          int width, const int* __restrict__ idx, int n,
-                          float* __restrict__ out) {
-  __shared__ __align__(16) float ring[kSumWarps][kRing][kSumMaxWidth];
+// One block's partial of the gather-sum over `items` items (gather_body.cuh):
+// counted, item r is row r with weight counts[r], which the block resets to
+// 0 once read; direct, item i is row idx[i] with weight 1.  Lane l holds
+// columns 4l .. 4l + 3; a warp loads its chunk's weights, then the rows of
+// weight > 0 (kSumRowsPerWarp in flight), then adds them in order.
+template <bool kCounted>
+__device__ void sum_block_partial(const float* __restrict__ table, int n_rows,
+                                  int width, const int* __restrict__ idx,
+                                  int* counts, int items,
+                                  float* __restrict__ partials) {
   __shared__ float part[kSumWarps][kSumMaxWidth];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int chunk = blockIdx.x * kSumWarps + warp;
-  const int begin = chunk_begin(chunk, n);
-  const int end = chunk_end(chunk, n);
-  const int col = 4 * lane;  // this lane's columns: col .. col + 3
+  const int col = 4 * lane;
   const bool has_cols = col < width;
-
-  // Row `i` of the chunk into ring slot `slot` (this lane's 16 bytes).
-  auto issue = [&](int i, int slot) {
-    if (has_cols && i < end) {
-      const int r = __ldg(idx + i);
-      const bool ok = in_range(r, n_rows);
-      cp_async16(&ring[warp][slot][col],
-                 table + (ok ? static_cast<size_t>(r) * width + col : 0), ok);
+  const int chunks = sum_chunks(items);
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int c = blockIdx.x * kSumWarps + warp; c < chunks; c += gridDim.x * kSumWarps) {
+    int row[kSumRowsPerWarp], weight[kSumRowsPerWarp];
+#pragma unroll
+    for (int j = 0; j < kSumRowsPerWarp; ++j) {
+      const int i = c * kSumRowsPerWarp + j;
+      row[j] = i < items ? sum_item_row(kCounted, idx, i) : 0;
+      weight[j] = i < items ? sum_item_weight(kCounted, counts, row[j], n_rows) : 0;
     }
-    // One group per row, empty past the chunk's end, so that waiting
-    // for all but kRing - 1 groups always means the oldest row landed.
-    cp_async_commit();
-  };
-
-  for (int s = 0; s < kRing; ++s) issue(begin + s, s);
-  Float4 acc{0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = begin; i < end; ++i) {
-    const int slot = (i - begin) % kRing;
-    cp_async_wait_ring();
-    if (has_cols) {
-      const float4 v = *reinterpret_cast<const float4*>(&ring[warp][slot][col]);
-      acc.x = acc.x + v.x;
-      acc.y = acc.y + v.y;
-      acc.z = acc.z + v.z;
-      acc.w = acc.w + v.w;
+    float4 v[kSumRowsPerWarp];
+#pragma unroll
+    for (int j = 0; j < kSumRowsPerWarp; ++j) {
+      v[j] = weight[j] != 0 && has_cols
+                 ? __ldg(reinterpret_cast<const float4*>(
+                       table + static_cast<size_t>(row[j]) * width + col))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-    // The slot is read before the next copy into it is issued.
-    __syncwarp();
-    issue(i + kRing, slot);
+    if (kCounted) {
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < kSumRowsPerWarp; ++j) {
+        if (lane == 0 && weight[j] != 0) counts[row[j]] = 0;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSumRowsPerWarp; ++j) {
+      if (weight[j] != 0) {
+        acc.x = sum_weighted(acc.x, weight[j], v[j].x);
+        acc.y = sum_weighted(acc.y, weight[j], v[j].y);
+        acc.z = sum_weighted(acc.z, weight[j], v[j].z);
+        acc.w = sum_weighted(acc.w, weight[j], v[j].w);
+      }
+    }
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
   if (has_cols) {
     part[warp][col + 0] = acc.x;
     part[warp][col + 1] = acc.y;
@@ -203,10 +238,88 @@ __global__ void __launch_bounds__(kSumWarps * kWarp)
     part[warp][col + 3] = acc.w;
   }
   __syncthreads();
-  if (threadIdx.x < width) {
-    float s = part[0][threadIdx.x];
-    for (int w = 1; w < kSumWarps; ++w) s = s + part[w][threadIdx.x];
-    atomicAdd(out + threadIdx.x, s);
+  const int t = threadIdx.x;
+  if (t < width) {
+    float s = part[0][t];
+    for (int w = 1; w < kSumWarps; ++w) s = s + part[w][t];
+    partials[static_cast<size_t>(blockIdx.x) * width + t] = s;
+  }
+}
+
+// The last block's finish: the grid's partials added per column in block
+// order.
+__device__ void finish_sum(const float* __restrict__ partials, int width,
+                           float* __restrict__ out) {
+  const int t = threadIdx.x;
+  if (t < width) {
+    float s = __ldcg(partials + t);
+    for (int b = 1; b < static_cast<int>(gridDim.x); ++b) {
+      s = s + __ldcg(partials + static_cast<size_t>(b) * width + t);
+    }
+    out[t] = s;
+  }
+}
+
+// The direct gather-sum: grid sum_blocks(n); scratch[0] the ticket.
+__global__ void __launch_bounds__(kSumWarps * kWarp)
+    direct_sum_kernel(const float* __restrict__ table, int n_rows, int width,
+                      const int* __restrict__ idx, int n,
+                      float* __restrict__ partials, int* scratch,
+                      float* __restrict__ out) {
+  sum_block_partial<false>(table, n_rows, width, idx, nullptr, n, partials);
+  if (last_block(scratch)) finish_sum(partials, width, out);
+}
+
+// The counted gather-sum in one cooperative launch (every block resident):
+// the grid counts the indices into scratch[1 ..] (integer atomics, exact
+// in any order), waits for the whole count, then sums the rows by their
+// counts, zeroing each count it read; scratch[0] the ticket.  grid:
+// sum_blocks(R).
+__global__ void __launch_bounds__(kSumWarps * kWarp)
+    counted_sum_kernel(const float* __restrict__ table, int n_rows, int width,
+                       const int* __restrict__ idx, int n,
+                       float* __restrict__ partials, int* scratch,
+                       float* __restrict__ out) {
+  int* counts = scratch + 1;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const int r = __ldg(idx + i);
+    if (in_range(r, n_rows)) atomicAdd(counts + r, 1);
+  }
+  __threadfence();
+  cooperative_groups::this_grid().sync();
+  sum_block_partial<true>(table, n_rows, width, idx, counts, n_rows, partials);
+  if (last_block(scratch)) finish_sum(partials, width, out);
+}
+
+// The one-column sum (gather_body.cuh, col_sum_thread): grid
+// col_sum_blocks(n) blocks; partials: one float a block; scratch[0] the
+// ticket.
+__global__ void __launch_bounds__(kColSumThreads)
+    col_sum_kernel(const float* __restrict__ table, int n_rows, int width,
+                   const int* __restrict__ idx, int n, int col, int repeats,
+                   float* __restrict__ partials, int* scratch,
+                   float* __restrict__ out) {
+  __shared__ float warp_sum[kColSumThreads / kWarp];
+  float s = col_sum_thread(table, n_rows, width, idx, n, col,
+                           blockIdx.x * kColSumThreads + threadIdx.x,
+                           gridDim.x * kColSumThreads);
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    s = s + __shfl_down_sync(0xffffffffu, s, off);
+  }
+  if (threadIdx.x % kWarp == 0) warp_sum[threadIdx.x / kWarp] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float b = warp_sum[0];
+    for (int w = 1; w < kColSumThreads / kWarp; ++w) b = b + warp_sum[w];
+    partials[blockIdx.x] = b;
+  }
+  if (!last_block(scratch)) return;
+  if (threadIdx.x == 0) {
+    float total = __ldcg(partials);
+    for (int b = 1; b < static_cast<int>(gridDim.x); ++b) total = total + __ldcg(partials + b);
+    out[0] = static_cast<float>(repeats) * total;
   }
 }
 
@@ -240,7 +353,7 @@ __global__ void __launch_bounds__(kWalkThreads)
   extern __shared__ ChasePair staged[];
   const int entries = n_rows + 1;
   for (int c = threadIdx.x; 2 * c + 1 < entries; c += blockDim.x) {
-    cp_async16(staged + 2 * c, pairs + 2 * c, true);
+    cp_async16(staged + 2 * c, pairs + 2 * c);
   }
   if (threadIdx.x == 0 && entries % 2 == 1) staged[entries - 1] = pairs[entries - 1];
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -295,22 +408,48 @@ extern "C" int shimmer_row_gather_cols(const float* table_t, int n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// W a positive multiple of 4, at most kSumMaxWidth; out (W,) is zeroed
-// here (on the stream) and then accumulated into.
+// W a positive multiple of 4, at most kSumMaxWidth; out (W,).  partials:
+// kSumMaxBlocks * W floats.  scratch: int32, 0 at rest (each launch leaves
+// it so), used by one launch at a time: scratch[0] the ticket, and where
+// gather_sum_counted(n_rows, n, W) the R counts after it.  One launch
+// either way (counted: a cooperative one).
 extern "C" int shimmer_row_gather_sum(const float* table, int n_rows,
                                       int width, const int* idx, int n,
-                                      float* out, void* stream) {
+                                      float* partials, int* scratch, float* out,
+                                      void* stream) {
   if (n_rows <= 0 || width <= 0 || width % 4 != 0 || width > kSumMaxWidth ||
-      n < 0) {
+      n < 0 || partials == nullptr || scratch == nullptr) {
     return invalid();
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * width, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    row_gather_sum_kernel<<<sum_blocks(n), kSumWarps * kWarp, 0, s>>>(
-        table, n_rows, width, idx, n, out);
+  if (!gather_sum_counted(n_rows, n, width)) {
+    direct_sum_kernel<<<sum_blocks(n), kSumWarps * kWarp, 0, s>>>(
+        table, n_rows, width, idx, n, partials, scratch, out);
+    return static_cast<int>(cudaGetLastError());
   }
+  void* args[] = {&table, &n_rows, &width, &idx, &n, &partials, &scratch, &out};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(counted_sum_kernel), dim3(sum_blocks(n_rows)),
+      dim3(kSumWarps * kWarp), args, 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// repeats * sum_i T[idx[i], col] into out (one float); 0 <= col < W,
+// 0 <= repeats <= kColSumMaxRepeats.  partials: kColSumMaxBlocks floats;
+// scratch[0] the ticket, as for shimmer_row_gather_sum.  One launch.
+extern "C" int shimmer_row_gather_col_sum(const float* table, int n_rows,
+                                          int width, const int* idx, int n,
+                                          int col, int repeats, float* partials,
+                                          int* scratch, float* out, void* stream) {
+  if (n_rows <= 0 || width <= 0 || n < 0 || col < 0 || col >= width ||
+      repeats < 0 || repeats > kColSumMaxRepeats || partials == nullptr ||
+      scratch == nullptr) {
+    return invalid();
+  }
+  col_sum_kernel<<<col_sum_blocks(n), kColSumThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      table, n_rows, width, idx, n, col, repeats, partials, scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -408,3 +547,17 @@ extern "C" int shimmer_chase_many_lanes() { return kChaseManyLanes; }
 extern "C" int shimmer_chase_many_lanes_min_steps() { return kChaseManyLanesMinSteps; }
 
 extern "C" int shimmer_gather_sum_max_width() { return kSumMaxWidth; }
+
+extern "C" int shimmer_gather_sum_max_blocks() { return kSumMaxBlocks; }
+
+extern "C" int shimmer_gather_sum_counted_max_n() { return kSumCountedMaxN; }
+
+extern "C" int shimmer_gather_sum_counted_indices_per_row() { return kSumCountedIndicesPerRow; }
+
+extern "C" int shimmer_gather_sum_counted_min_rows() { return kSumCountedMinRows; }
+
+extern "C" int shimmer_gather_sum_counted_min_width() { return kSumCountedMinWidth; }
+
+extern "C" int shimmer_col_sum_max_blocks() { return kColSumMaxBlocks; }
+
+extern "C" int shimmer_col_sum_max_repeats() { return kColSumMaxRepeats; }

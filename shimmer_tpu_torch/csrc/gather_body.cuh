@@ -10,7 +10,8 @@
 // exp_pallas_gather2.py):
 //   gather      out[i, :] = T[idx[i], :]     (and the transposed layout,
 //                                             out[:, i] = Tt[:, idx[i]])
-//   gather-sum  out[:] = sum_i T[idx[i], :]
+//   gather-sum  out[:] = sum_i T[idx[i], :]   (and one column of it,
+//                                             repeats * sum_i T[idx[i], col])
 //   chase       per lane, K dependent steps from idx[i]:
 //                 row = T[idx]; acc += row[1] + ... + row[8]; idx = int(row[0])
 //               (read from the table a step, or, where chase_staged
@@ -43,12 +44,6 @@ namespace gather {
 
 // Columns a chase step reads: row[0] (the next index) and row[1..8].
 constexpr int kChaseCols = 9;
-// The gather-sum's partition of the indices: each warp sums
-// kSumRowsPerWarp consecutive indices, kSumWarps warps to a block; its
-// widest row is kSumMaxWidth floats (one float4 per lane of a warp).
-constexpr int kSumRowsPerWarp = 64;
-constexpr int kSumWarps = 8;
-constexpr int kSumMaxWidth = 128;
 
 // 16-byte aligned, so that a store of one is a single 16-byte store.
 struct alignas(16) Float4 {
@@ -303,37 +298,153 @@ SHIMMER_GATHER_HD float gather_col_elem(const float* table_t_col, int n_rows,
 #endif
 }
 
-// The gather-sum's summation order for column `col`: each warp's chunk of
-// kSumRowsPerWarp indices is summed left to right from 0 (sum_chunk_col),
-// a block adds its kSumWarps chunk sums in warp order, and
-// the blocks' sums meet in `out` through one atomicAdd per column and
-// block, in whatever order the blocks finish.  The host build adds the
-// blocks in block order.
-SHIMMER_GATHER_HD float sum_chunk_col(const float* table, int n_rows,
-                                      int width, const int* idx, int begin,
-                                      int end, int col) {
+// The gather-sum, out[c] = sum_i T[idx[i], c], W <= kSumMaxWidth (one
+// float4 per lane of a warp), in two forms over one partition:
+//   * direct: item i is row idx[i] with weight 1 (0, skipped, where the
+//     index is outside [0, R));
+//   * counted: a pass counts the indices per row (integer adds, exact in
+//     any order), then item r is row r with weight count[r] (skipped where
+//     0), so each distinct row is read once however often it occurs.
+// The items are cut into chunks of kSumRowsPerWarp consecutive items (a
+// warp's rows in flight); chunk c goes to warp slot c % (blocks *
+// kSumWarps) of block slot / kSumWarps, and each warp adds its chunks'
+// items in item order, acc = acc + float(weight) * row (the product and
+// the add rounded apart: the kernels build with -fmad=false, the host with
+// -ffp-contract=off), from 0.  A block adds its warps' sums in warp order
+// into its partial, and the last block to finish (by a ticket) adds the
+// partials in block order.  No float atomics: the order is a function of
+// (R, N, W) alone, the same on every run and in the host build.
+constexpr int kSumMaxWidth = 128;
+constexpr int kSumWarps = 32;
+constexpr int kSumRowsPerWarp = 8;
+constexpr int kSumMaxBlocks = 128;
+// float(count) is exact only below 2^24, and a count is at most N.
+constexpr int kSumCountedMaxN = (1 << 24) - 1;
+// The rule between the forms (gather_sum_counted), set by timing both on
+// the card over R in {2,048 .. 2^20}, N in {1,024 .. 524,288}, W in {8,
+// 128} (PERF.md): counted where the indices repeat each row at least
+// kSumCountedIndicesPerRow times on average, over at least
+// kSumCountedMinRows rows (fewer rows share their counts among too many
+// atomics), with rows of kSumCountedMinWidth floats (a narrow row costs no
+// more to read again than its count); direct elsewhere.  The counted grid,
+// sum_blocks(R) <= kSumMaxBlocks blocks of 1,024 threads, is resident at
+// once on an H100 SXM (132 SMs), as its cooperative launch requires.
+constexpr int kSumCountedIndicesPerRow = 4;
+constexpr int kSumCountedMinRows = 16384;
+constexpr int kSumCountedMinWidth = 128;
+
+SHIMMER_GATHER_HD bool gather_sum_counted(int n_rows, int n, int width) {
+  return n <= kSumCountedMaxN && n_rows >= kSumCountedMinRows &&
+         width >= kSumCountedMinWidth &&
+         static_cast<long long>(n) >= static_cast<long long>(kSumCountedIndicesPerRow) * n_rows;
+}
+
+SHIMMER_GATHER_HD int sum_chunks(int items) {
+  return static_cast<int>((static_cast<long long>(items) + kSumRowsPerWarp - 1) /
+                          kSumRowsPerWarp);
+}
+
+// Blocks of a sum over `items` items: one warp a chunk up to kSumMaxBlocks
+// blocks (then the warps take chunks in turn), and at least one block, which
+// writes zeros for no items.
+SHIMMER_GATHER_HD int sum_blocks(int items) {
+  const int b = (sum_chunks(items) + kSumWarps - 1) / kSumWarps;
+  return b < 1 ? 1 : (b > kSumMaxBlocks ? kSumMaxBlocks : b);
+}
+
+// Item i < items of a sum: its row and weight (0: the item adds nothing).
+SHIMMER_GATHER_HD int sum_item_row(bool counted, const int* idx, int i) {
+#if defined(__CUDA_ARCH__)
+  return counted ? i : __ldg(idx + i);
+#else
+  return counted ? i : idx[i];
+#endif
+}
+
+// The counts are written by the same launch (atomics, in L2): the device
+// reads them there, past the non-coherent L1.
+SHIMMER_GATHER_HD int sum_item_weight(bool counted, const int* counts, int row,
+                                      int n_rows) {
+  if (counted) {
+#if defined(__CUDA_ARCH__)
+    return __ldcg(counts + row);
+#else
+    return counts[row];
+#endif
+  }
+  return in_range(row, n_rows) ? 1 : 0;
+}
+
+SHIMMER_GATHER_HD float sum_weighted(float acc, int weight, float v) {
+  const float w = static_cast<float>(weight);
+  const float p = w * v;
+  return acc + p;
+}
+
+// Warp `warp` of block `block` (of `blocks`): its sum of column `col`
+// over its chunks in order, as the kernel's lane holding `col` adds it.
+SHIMMER_GATHER_HD float sum_warp_col(bool counted, const float* table, int n_rows,
+                                     int width, const int* idx, const int* counts,
+                                     int items, int blocks, int block, int warp,
+                                     int col) {
   float acc = 0.0f;
-  for (int i = begin; i < end; ++i) {
-    const int r = idx[i];
-    acc = acc + (in_range(r, n_rows) ? table[static_cast<size_t>(r) * width + col]
-                                     : 0.0f);
+  for (int c = block * kSumWarps + warp; c < sum_chunks(items); c += blocks * kSumWarps) {
+    for (int j = 0; j < kSumRowsPerWarp; ++j) {
+      const int i = c * kSumRowsPerWarp + j;
+      if (i >= items) break;
+      const int row = sum_item_row(counted, idx, i);
+      const int weight = sum_item_weight(counted, counts, row, n_rows);
+      if (weight != 0) {
+        acc = sum_weighted(acc, weight, table[static_cast<size_t>(row) * width + col]);
+      }
+    }
   }
   return acc;
 }
 
-SHIMMER_GATHER_HD int chunk_begin(int chunk, int n) {
-  const long long b = static_cast<long long>(chunk) * kSumRowsPerWarp;
-  return b < n ? static_cast<int>(b) : n;
+// The one-column sum (6D), repeats * sum_i T[idx[i], col]: thread t of
+// block b (kColSumThreads threads, col_sum_blocks(n) blocks) adds the
+// values of items t + b * kColSumThreads + k * stride, k = 0, 1, ... in
+// order, from 0 (an index outside [0, R) adds 0); a warp reduces its
+// threads' sums by a shuffle-down tree (offsets 16, 8, 4, 2, 1; lane 0
+// keeps the sum), a block adds its warps' sums in warp order, and the
+// last block to finish (by a ticket) adds the partials in block order and
+// multiplies by float(repeats).
+constexpr int kColSumThreads = 256;
+constexpr int kColSumMaxBlocks = 128;
+// repeats converts to float exactly.
+constexpr int kColSumMaxRepeats = 1 << 24;
+
+SHIMMER_GATHER_HD int col_sum_blocks(int n) {
+  const long long b = (static_cast<long long>(n) + kColSumThreads - 1) / kColSumThreads;
+  return b < 1 ? 1 : (b > kColSumMaxBlocks ? kColSumMaxBlocks : static_cast<int>(b));
 }
 
-SHIMMER_GATHER_HD int chunk_end(int chunk, int n) {
-  const long long e = static_cast<long long>(chunk + 1) * kSumRowsPerWarp;
-  return e < n ? static_cast<int>(e) : n;
+SHIMMER_GATHER_HD float col_value(const float* table, int n_rows, int width,
+                                  int idx, int col) {
+  if (!in_range(idx, n_rows)) return 0.0f;
+#if defined(__CUDA_ARCH__)
+  return __ldg(table + static_cast<size_t>(idx) * width + col);
+#else
+  return table[static_cast<size_t>(idx) * width + col];
+#endif
 }
 
-SHIMMER_GATHER_HD int sum_blocks(int n) {
-  const int rows_per_block = kSumRowsPerWarp * kSumWarps;
-  return (n + rows_per_block - 1) / rows_per_block;
+// Thread `thread` of the one-column sum's grid (`threads` = blocks *
+// kColSumThreads): its values in order.
+SHIMMER_GATHER_HD float col_sum_thread(const float* table, int n_rows, int width,
+                                       const int* idx, int n, int col, int thread,
+                                       int threads) {
+  float s = 0.0f;
+  for (long long i = thread; i < n; i += threads) {
+#if defined(__CUDA_ARCH__)
+    const int r = __ldg(idx + i);
+#else
+    const int r = idx[i];
+#endif
+    s = s + col_value(table, n_rows, width, r, col);
+  }
+  return s;
 }
 
 }  // namespace gather

@@ -58,31 +58,83 @@ extern "C" int shimmer_row_gather_cols_host(const float* table_t, int n_rows,
   return 0;
 }
 
-// The kernel's order within each block (chunks left to right, chunk sums
-// in warp order); the blocks' sums are added in block order, one of the
-// orders the kernel's atomics can take.
-extern "C" int shimmer_row_gather_sum_host(const float* table, int n_rows,
-                                           int width, const int* idx, int n,
-                                           float* out) {
+// The gather-sum in the form `counted` (1) or direct (0), in the kernels'
+// order: each warp's chunks (sum_warp_col), the warps of a block in order,
+// the blocks' partials in order.  The counted form counts the indices
+// first, as counted_sum_kernel does.  N must be below 2^24 when counted.
+extern "C" int shimmer_row_gather_sum_form_host(const float* table, int n_rows,
+                                                int width, const int* idx, int n,
+                                                int counted, float* out) {
   if (n_rows <= 0 || width <= 0 || width % 4 != 0 || width > kSumMaxWidth ||
-      n < 0) {
+      n < 0 || (counted != 0 && counted != 1) || (counted && n > kSumCountedMaxN)) {
     return -1;
   }
+  std::vector<int> counts(counted ? n_rows : 0, 0);
+  for (int i = 0; counted && i < n; ++i) {
+    if (in_range(idx[i], n_rows)) ++counts[idx[i]];
+  }
+  const int items = counted ? n_rows : n;
+  const int blocks = sum_blocks(items);
   for (int col = 0; col < width; ++col) {
     float total = 0.0f;
-    for (int b = 0; b < sum_blocks(n); ++b) {
+    for (int b = 0; b < blocks; ++b) {
       float block = 0.0f;
       for (int w = 0; w < kSumWarps; ++w) {
-        const int chunk = b * kSumWarps + w;
-        const float s = sum_chunk_col(table, n_rows, width, idx,
-                                      chunk_begin(chunk, n),
-                                      chunk_end(chunk, n), col);
+        const float s = sum_warp_col(counted != 0, table, n_rows, width, idx,
+                                     counts.data(), items, blocks, b, w, col);
         block = w == 0 ? s : block + s;
       }
-      total = total + block;
+      total = b == 0 ? block : total + block;
     }
     out[col] = total;
   }
+  return 0;
+}
+
+// The gather-sum in the form the card takes for (R, N, W).
+extern "C" int shimmer_row_gather_sum_host(const float* table, int n_rows,
+                                           int width, const int* idx, int n,
+                                           float* out) {
+  return shimmer_row_gather_sum_form_host(
+      table, n_rows, width, idx, n,
+      n >= 0 && gather_sum_counted(n_rows, n, width) ? 1 : 0, out);
+}
+
+extern "C" int shimmer_gather_sum_counted_host(int n_rows, int n, int width) {
+  return gather_sum_counted(n_rows, n, width) ? 1 : 0;
+}
+
+// The one-column sum as col_sum_kernel adds it: each thread's values, the
+// shuffle-down tree of each warp (lane l takes lane l + offset's value,
+// offsets 16 .. 1), the warps in order, the blocks in order, times
+// float(repeats).
+extern "C" int shimmer_row_gather_col_sum_host(const float* table, int n_rows,
+                                               int width, const int* idx, int n,
+                                               int col, int repeats, float* out) {
+  if (n_rows <= 0 || width <= 0 || n < 0 || col < 0 || col >= width ||
+      repeats < 0 || repeats > kColSumMaxRepeats) {
+    return -1;
+  }
+  constexpr int kWarp = 32;
+  const int blocks = col_sum_blocks(n);
+  const int threads = blocks * kColSumThreads;
+  float total = 0.0f;
+  for (int b = 0; b < blocks; ++b) {
+    float block = 0.0f;
+    for (int w = 0; w < kColSumThreads / kWarp; ++w) {
+      float lane[kWarp];
+      for (int l = 0; l < kWarp; ++l) {
+        lane[l] = col_sum_thread(table, n_rows, width, idx, n, col,
+                                 b * kColSumThreads + w * kWarp + l, threads);
+      }
+      for (int off = kWarp / 2; off > 0; off /= 2) {
+        for (int l = 0; l + off < kWarp; ++l) lane[l] = lane[l] + lane[l + off];
+      }
+      block = w == 0 ? lane[0] : block + lane[0];
+    }
+    total = b == 0 ? block : total + block;
+  }
+  *out = static_cast<float>(repeats) * total;
   return 0;
 }
 
@@ -163,5 +215,21 @@ extern "C" int shimmer_gather_sum_rows_per_warp() { return kSumRowsPerWarp; }
 extern "C" int shimmer_gather_sum_warps() { return kSumWarps; }
 
 extern "C" int shimmer_gather_sum_max_width() { return kSumMaxWidth; }
+
+extern "C" int shimmer_gather_sum_max_blocks() { return kSumMaxBlocks; }
+
+extern "C" int shimmer_gather_sum_counted_max_n() { return kSumCountedMaxN; }
+
+extern "C" int shimmer_gather_sum_counted_indices_per_row() { return kSumCountedIndicesPerRow; }
+
+extern "C" int shimmer_gather_sum_counted_min_rows() { return kSumCountedMinRows; }
+
+extern "C" int shimmer_gather_sum_counted_min_width() { return kSumCountedMinWidth; }
+
+extern "C" int shimmer_col_sum_threads() { return kColSumThreads; }
+
+extern "C" int shimmer_col_sum_max_blocks() { return kColSumMaxBlocks; }
+
+extern "C" int shimmer_col_sum_max_repeats() { return kColSumMaxRepeats; }
 
 extern "C" int shimmer_gather_cols_stage_max_rows() { return kStageMaxRows; }

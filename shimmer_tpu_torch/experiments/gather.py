@@ -11,9 +11,10 @@ Cases, by kernel-table row (PERF.md) and the reference script they mirror:
   function, two TPU fetch strategies), the plain torch chase is 6A (the
   reference's XLA ``jnp.take`` loop);
 * 6C: the same chase over the table rounded to bf16, K=8;
-* 6D: the gather-sum at N=8192 (the reference's value is 4 * out[1]; its
-  bound counts what 6D needs, one sector of column 1 a row, though the
-  kernel sums all W columns);
+* 6D: the one-column sum at N=8192, ``4 * sum_i T[idx_i, 1]`` (the
+  reference's K = 4 passes over column 1; ``ops.gather.row_gather_col_sum``),
+  with ``floor_ms``, the same kernel at N = 32 (one warp's indices: what
+  a launch costs whatever its work);
 * 6E: one lane from index 0, K=4096 (the latency of a dependent read);
   the case also times the staged walk alone (``chain_ms``: the walk over
   the rows' (next index, row sum) pairs, ``ops.gather.chase_walk``);
@@ -22,20 +23,27 @@ Cases, by kernel-table row (PERF.md) and the reference script they mirror:
   table, R in {1024, 8192}; 7H: the chase with narrow rows, R=16384,
   W in {16, 32, 64, 128}, N in {131072, 524288};
 * 8/9 (``exp_pallas_gather.py``, ``exp_pallas_gather2.py``): the gather,
-  and (9) the gather-sum, R=16384, N=131072, W=128.
+  and (9) the gather-sum, R=16384, N=131072, W=128; the gather-sum also
+  at 6D's sizes (R in {2048, 16384}, N=8192), the whole-row sum the port
+  computed for 6D before it had the one-column sum.
 
 On the card a chase runs staged where ``ops.gather.chase_staged`` says so
 (a pass writes each row's next index and row sum, and the walk reads them
 from shared memory; each chase case reports ``staged``, the rule's
 choice, and ``ran_staged``, whether its compared call launched the staged
-form) and per lane otherwise.
+form) and per lane otherwise.  A gather-sum runs counted where
+``ops.gather.gather_sum_counted`` says so and direct otherwise (each
+gather-sum case reports ``counted``, the rule's choice, and
+``ran_counted``, what launched), and each gather-sum case runs its
+kernel twice and reports whether the two results are the same bits
+(``repeat_equal``).
 
 Tables and indices come from ``numpy.random.default_rng`` seeded by
 ``SEED`` and the case's sizes: a standard-normal (R, W) table whose
 column 0 holds row indices where the reference's table does (its
 ``table_np[:, 0]``: rows 6 and 7F, 7H), and uniform indices in [0, R).
 Each case runs the kernel and its plain version on the same tensors and compares them: bit-equal for the gathers
-and the chases, within ``SUM_RTOL`` for the gather-sum.  It prints one
+and the chases, within ``SUM_RTOL`` for the gather-sums.  It prints one
 line in the reference's units (us per step and ns per lane for the
 chases, GB/s for the gathers, the checksum) and returns the rows.  With
 ``device="cpu"`` the wrappers run the plain versions and the times are
@@ -54,10 +62,11 @@ import torch
 from shimmer_tpu_torch.config import resolve_device
 from shimmer_tpu_torch.ops import gather as g
 
-# The gather-sum's tolerance, per column: |kernel - plain| <= SUM_RTOL *
-# sum_i |T[idx_i, c]|.  The kernel adds in chunks of 64 rows and then
-# across blocks by atomics in a varying order; torch reduces by its own
-# tree.  Both orders stay within about sqrt(N) float32 roundings of the
+# The gather-sums' tolerance, per column: |kernel - plain| <= SUM_RTOL *
+# sum_i |T[idx_i, c]| (times the repeat count for the one-column sum).
+# The kernels add in chunks per warp, warps and then blocks in order (the
+# counted form a row times its count, rounded once); torch reduces by its
+# own tree.  Both orders stay within about sqrt(N) float32 roundings of the
 # partial sums (~1e-7 of sum |x| at N=131072); one row left out or added
 # twice moves a column by |T[i, c]|, about 8e-6 of sum |x| there.
 SUM_RTOL = 1e-6
@@ -66,8 +75,13 @@ SEED = 0
 # Timed launches of a kernel per case, after one warm-up (the plain
 # version: 2).
 REPS = 20
-KERNELS = ("row_gather", "row_gather_cols", "row_gather_sum", "row_chase_f32",
-           "row_chase_bf16", "row_chase_staged", "chase_walk")
+KERNELS = ("row_gather", "row_gather_cols", "row_gather_sum", "row_gather_sum_counted",
+           "row_gather_col_sum", "row_chase_f32", "row_chase_bf16", "row_chase_staged",
+           "chase_walk")
+# 6D's column and, as its repeat count, the reference's K passes.
+COL_SUM_COL = 1
+# Indices of the one-column sum's floor (floor_ms): one warp's.
+FLOOR_N = 32
 # Float operations per chase step: 8 additions and the index conversion.
 CHASE_OPS_PER_STEP = 9
 # Bytes of one memory sector, the least a row read can move.
@@ -97,7 +111,8 @@ def cases() -> list[Case]:
             out.append(Case("6A/6B/6B2", "row_chase_f32", r, n, steps=32))
             out.append(Case("6C", "row_chase_bf16", r, n, steps=8))
             if n <= 8192:
-                out.append(Case("6D", "row_gather_sum", r, n, steps=4))
+                out.append(Case("6D", "row_gather_col_sum", r, n, steps=4))
+                out.append(Case("9", "row_gather_sum", r, n))
         out.append(Case("6E", "row_chase_f32", r, 1, steps=4096))
     for r in (1024, 8192, 16384):
         out.append(Case("7F", "row_gather", r, r))
@@ -163,6 +178,9 @@ def _functions(case: Case, table, idx):
         return lambda: g.row_gather_cols(table, idx), lambda: g.row_gather_cols_plain(table, idx)
     if case.kernel == "row_gather_sum":
         return lambda: g.row_gather_sum(table, idx), lambda: g.row_gather_sum_plain(table, idx)
+    if case.kernel == "row_gather_col_sum":
+        return (lambda: g.row_gather_col_sum(table, idx, COL_SUM_COL, case.steps),
+                lambda: g.row_gather_col_sum_plain(table, idx, COL_SUM_COL, case.steps))
     return (lambda: g.row_chase(table, idx, case.steps),
             lambda: g.row_chase_plain(table, idx, case.steps))
 
@@ -173,18 +191,24 @@ def run_case(case: Case, table, idx) -> dict:
     read, bytes moved once, float operations)."""
     dev = table.device
     kernel, plain = _functions(case, table, idx)
-    before = g.row_chase.launches["row_chase_staged"]
+    before = g.launch_counts()
     got = kernel()
-    ran_staged = g.row_chase.launches["row_chase_staged"] > before
+    ran = {k: v - before[k] for k, v in g.launch_counts().items()}
     stats = {}
     chase = case.kernel.startswith("row_chase")
     # The chase's plain version also records the rows it read.
     want = g.row_chase_plain(table, idx, case.steps, stats=stats) if chase else plain()
-    if case.kernel == "row_gather_sum":
-        scale = g.row_gather_plain(table, idx).abs().sum(0)
+    summed = case.kernel in ("row_gather_sum", "row_gather_col_sum")
+    if summed:
+        if case.kernel == "row_gather_sum":
+            scale = g.row_gather_plain(table, idx).abs().sum(0)
+        else:
+            scale = case.steps * g.row_gather_col_sum_plain(table.abs(), idx, COL_SUM_COL)
         err = (got - want).abs()
         ok = bool((err <= SUM_RTOL * scale).all())
         rel_err = float((err / scale).max())
+        # A second launch on the same inputs: the same bits.
+        repeat_equal = torch.equal(kernel().view(torch.int32), got.view(torch.int32))
     else:
         err = (got.float() - want.float()).abs()
         ok = torch.equal(got, want)
@@ -214,7 +238,7 @@ def run_case(case: Case, table, idx) -> dict:
         distinct = int(stats["rows_read"].sum())
         res["oob_lanes"] = int(stats["oob_lanes"].sum())
         res["staged"] = g.chase_staged(table.shape[0], idx.shape[0], case.steps)
-        res["ran_staged"] = ran_staged
+        res["ran_staged"] = ran["row_chase_staged"] > 0
         if res["staged"]:
             res["kernels"] = (case.kernel, "row_chase_staged")
         res["checksum"] = float(got.sum())
@@ -229,18 +253,28 @@ def run_case(case: Case, table, idx) -> dict:
     else:
         ok_idx = idx[(idx >= 0) & (idx < n_rows)]
         distinct = int(torch.unique(ok_idx).numel())
-        if case.kernel == "row_gather_sum":
+        if summed:
             res["max_rel_err"] = rel_err  # of sum_i |T[idx_i, c]|, against SUM_RTOL
-            res["checksum"] = float(case.steps * got[1])
-            if case.row == "6D":
-                # 6D's function, sum_k sum_i T[idx_i, 1], needs one sector
-                # of column 1 a distinct row, idx and one float out.
-                res["bytes"] = distinct * SECTOR_BYTES + 4 * n + 4
-                res["ops"] = case.steps * n
-            else:
-                res["bytes"] = distinct * width * elem + 4 * n + 4 * width
-                res["ops"] = n * width
+            res["repeat_equal"] = repeat_equal
             res["ns_per_row"] = ms * 1e6 / n
+        if case.kernel == "row_gather_col_sum":
+            res["checksum"] = float(got)
+            # 6D's function, sum_k sum_i T[idx_i, 1], needs one sector of
+            # column 1 a distinct row, idx and one float out.
+            res["bytes"] = distinct * SECTOR_BYTES + 4 * n + 4
+            res["ops"] = case.steps * n
+            few = idx[:FLOOR_N]
+            res["floor_ms"] = time_ms(
+                lambda: g.row_gather_col_sum(table, few, COL_SUM_COL, case.steps), dev)
+            res["floor_n"] = few.shape[0]
+        elif case.kernel == "row_gather_sum":
+            res["checksum"] = float(got.sum())
+            res["bytes"] = distinct * width * elem + 4 * n + 4 * width
+            res["ops"] = n * width
+            res["counted"] = g.gather_sum_counted(n_rows, n, width)
+            res["ran_counted"] = ran["row_gather_sum_counted"] > 0
+            if res["counted"]:
+                res["kernels"] = ("row_gather_sum_counted",)
         else:
             res["checksum"] = float(got.sum())
             res["bytes"] = n * width * 4 + 4 * n + distinct * width * elem
@@ -262,8 +296,10 @@ def format_line(res: dict) -> str:
         return (f"{head} {res['ms'] * 1e3 / k:9.3f} us/step ({res['ns_per_lane_step']:8.4f} ns/lane), "
                 f"plain {res['plain_ms'] * 1e3 / k:9.3f} us/step; oob lanes {res['oob_lanes']}; "
                 f"{walk}{tail}")
-    if res["kernel"] == "row_gather_sum":
-        return f"{head} {res['ns_per_row']:8.4f} ns/row; {tail}"
+    if "ns_per_row" in res:
+        floor = f"floor (N={res['floor_n']}) {res['floor_ms']:.5f} ms; " if "floor_ms" in res else ""
+        form = ("counted; " if res["counted"] else "direct; ") if "counted" in res else ""
+        return f"{head} {res['ns_per_row']:8.4f} ns/row; {form}{floor}{tail}"
     return f"{head} {res['out_gb_per_s']:8.1f} GB/s out; {tail}"
 
 

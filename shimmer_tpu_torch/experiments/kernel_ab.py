@@ -24,11 +24,19 @@ batches chip_smoke.py's phases 3 and 7 hold the kernels to
 * every wide row chase of the gather entry point (6A/6B/6B2, 6C, the 7F
   chase and 7H at their sizes: every chase case but 6E's one lane;
   ``wide_chase``);
+* the gather-sums of the gather entry point (``gather_sum``): 6D, ``4 *
+  sum_i T[idx_i, 1]`` at R = 2,048 and 16,384 (N = 8,192), by
+  ``ops.gather.row_gather_col_sum`` where the checkout has it and else as
+  ``4 * row_gather_sum(...)[1]``, as the port computed it before; row 9's
+  ``row_gather_sum`` at R = 16,384, N = 131,072, and at 6D's sizes;
+* ``row_gather_sum`` over the grid of (W, R, N) that its rule between the
+  direct and counted forms was set on (``gather_sum_grid``: run it on
+  snapshots with the rule forced each way to time the forms);
 
 with each traversal's visits per live ray, SIMD efficiency in launch order,
 its bound from the rows and visits of its own launch, and a checksum of its
 hits (equal checksums: the same t on the same lanes), each chase's output
-checksum, and the registers, stack frame and spills of each kernel it
+checksum (a gather-sum's beside its float64 sum, ``exact``), and the registers, stack frame and spills of each kernel it
 builds.  It uses only entry points that the port has offered since before
 the v1 redesign (``ops.traverse._launch_kernel`` with ``touched``,
 ``ops.gather.row_gather_cols``, ``ops.gather.row_chase``,
@@ -100,9 +108,20 @@ SCALAR_ROWS_R = 16384
 # chases'.
 ABLATE_REPS = 10
 WIDE_CHASE_REPS = 20
-PARTS = ("traverse", "cols", "chase", "attrib", "scalar_rows", "ablate", "wide_chase")
+# The gather-sum cases (row, R, N) of the gather entry point: 6D's one
+# column (4 passes over column 1) and row 9's whole-row sum.
+GATHER_SUM_CASES = (("6D", 2048, 8192), ("6D", 16384, 8192), ("9", 16384, 131072),
+                    ("9", 2048, 8192), ("9", 16384, 8192))
+# The grid of the gather-sum's rule: (W, R values, N values), on tables and
+# indices drawn on the card (torch's generator, seeded by the sizes).
+GATHER_SUM_GRID = ((128, (2048, 16384, 131072, 1048576),
+                    (1024, 8192, 16384, 32768, 65536, 131072, 524288)),
+                   (8, (2048, 16384, 131072), (1024, 8192, 32768, 131072)))
+PARTS = ("traverse", "cols", "chase", "attrib", "scalar_rows", "ablate", "wide_chase",
+         "gather_sum", "gather_sum_grid")
 # The sections of a run that are {measurement: {"ms", "checksum"}}.
-TIMED_SECTIONS = ("chase", "attrib", "scalar_rows", "ablate", "wide_chase")
+TIMED_SECTIONS = ("chase", "attrib", "scalar_rows", "ablate", "wide_chase", "gather_sum",
+                  "gather_sum_grid")
 # Per traversal layout: what the summary averages over the runs of a side.
 SUMMARY_KEYS = ("ms", "steps_mean", "steps_p50", "steps_p99", "steps_max", "simd_efficiency",
                 "bound_ms", "visits", "internal_rows_read", "leaf_rows_read")
@@ -241,6 +260,63 @@ def time_wide_chase(dev) -> dict:
     return out
 
 
+def gather_sum_calls(dev) -> dict:
+    """{name: (call, float64 value)} of GATHER_SUM_CASES on the gather entry
+    point's inputs (its table and indices for the same sizes)."""
+    from shimmer_tpu_torch.experiments import gather as eg
+    from shimmer_tpu_torch.ops import gather as gk
+
+    calls = {}
+    for row, n_rows, n in GATHER_SUM_CASES:
+        # The entry point's cases at N = 8,192 hold row indices in column 0.
+        case = eg.Case(row, "row_gather_sum", n_rows, n, index_col=n == 8192)
+        table, idx = eg.make_inputs(case, dev)
+        rows = table[idx.long()].double()
+        if row == "9":
+            calls[f"{row} R={n_rows} N={n}"] = (lambda t=table, i=idx: gk.row_gather_sum(t, i),
+                                                float(rows.sum()))
+        elif hasattr(gk, "row_gather_col_sum"):
+            calls[f"{row} R={n_rows} N={n}"] = (
+                lambda t=table, i=idx: gk.row_gather_col_sum(t, i, 1, 4), float(4 * rows[:, 1].sum()))
+        else:
+            calls[f"{row} R={n_rows} N={n}"] = (
+                lambda t=table, i=idx: 4 * gk.row_gather_sum(t, i)[1], float(4 * rows[:, 1].sum()))
+    return calls
+
+
+def time_gather_sum(dev) -> dict:
+    """Each of GATHER_SUM_CASES through the checkout's wrappers: ms (the
+    entry point's timer), the output's checksum and its float64 sum."""
+    from shimmer_tpu_torch.experiments import gather as eg
+
+    calls = gather_sum_calls(dev)
+    for call, _ in calls.values():  # every kernel loaded and the card busy first
+        call()
+    return {name: {"ms": eg.time_ms(call, dev), "checksum": float(call().double().sum()),
+                   "exact": exact} for name, (call, exact) in calls.items()}
+
+
+def time_gather_sum_grid(dev) -> dict:
+    """row_gather_sum at each (W, R, N) of GATHER_SUM_GRID: ms and the
+    output's checksum."""
+    from shimmer_tpu_torch.experiments import gather as eg
+    from shimmer_tpu_torch.ops import gather as gk
+
+    out = {}
+    for width, rows, lanes in GATHER_SUM_GRID:
+        for n_rows in rows:
+            gen = torch.Generator(device=dev).manual_seed(n_rows * width)
+            table = torch.randn(n_rows, width, generator=gen, device=dev)
+            for n in lanes:
+                idx = torch.randint(0, n_rows, (n,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                out[f"W={width} R={n_rows} N={n}"] = {
+                    "ms": eg.time_ms(lambda: gk.row_gather_sum(table, idx), dev),
+                    "checksum": float(gk.row_gather_sum(table, idx).double().sum())}
+            del table
+    return out
+
+
 def run(label: str, parts=PARTS) -> dict:
     """One checkout's timings of ``parts`` (PARTS) on the card."""
     from shimmer_tpu_torch.bench_scene import BENCH_RESOLUTION, BENCH_TRIS, build_bench_scene
@@ -278,6 +354,10 @@ def run(label: str, parts=PARTS) -> dict:
         res["ablate"] = time_ablate(dev)
     if "wide_chase" in parts:
         res["wide_chase"] = time_wide_chase(dev)
+    if "gather_sum" in parts:
+        res["gather_sum"] = time_gather_sum(dev)
+    if "gather_sum_grid" in parts:
+        res["gather_sum_grid"] = time_gather_sum_grid(dev)
     res["seconds"] = time.perf_counter() - t0
     return res
 

@@ -122,6 +122,31 @@ def load(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
+def load_host(name: str) -> ctypes.CDLL:
+    """``csrc/{name}_host.cpp``, the host build of a library's kernel bodies
+    (the kernels' own order of operations on the CPU), compiled with g++
+    without FMA contraction (as nvcc builds the kernels, -fmad=false) into
+    ``_build/`` and loaded.  chip_smoke.py holds the card's results to it;
+    no wrapper loads it."""
+    source = CSRC / f"{name}_host.cpp"
+    lib = BUILD_DIR / f"libshimmer_{name}_host.so"
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run(["g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
+                                   "-fPIC", "-I", str(CSRC), str(source), "-o", tmp],
+                                  capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise KernelBuildError(f"g++ failed ({proc.returncode}) on {source}:\n{proc.stderr}")
+            os.replace(tmp, lib)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return ctypes.CDLL(str(lib))
+
+
 # --- shared by the wrappers of every library ---
 
 

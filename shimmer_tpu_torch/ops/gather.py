@@ -8,7 +8,13 @@ function it replaces):
 * :func:`row_gather` -- ``out[i] = T[idx[i]]``;
 * :func:`row_gather_cols` -- the same from the transposed (W, R) table:
   ``out[:, i] = Tt[:, idx[i]]``;
-* :func:`row_gather_sum` -- ``sum_i T[idx[i]]``;
+* :func:`row_gather_sum` -- ``sum_i T[idx[i]]``, on the card counted
+  (the indices counted per row, then each distinct row read once and
+  added times its count) where :func:`gather_sum_counted` says so, else
+  direct; both add in a fixed order, so the sum is the same bits on
+  every run;
+* :func:`row_gather_col_sum` -- one column of it, ``repeats * sum_i
+  T[idx[i], col]`` (6D);
 * :func:`row_chase` -- per lane, ``steps`` dependent reads:
   ``row = T[idx]; acc += row[1] + ... + row[8]; idx = int(row[0])``, over
   float32 or bf16 rows.  On the card a chase that :func:`chase_staged`
@@ -42,8 +48,22 @@ from shimmer_tpu_torch.ops import cuda_build
 
 # Columns a chase step reads (csrc/gather_body.cuh kChaseCols).
 CHASE_COLS = 9
-# Widest row the gather-sum kernel takes (kSumMaxWidth).
+# Widest row the gather-sum kernel takes (kSumMaxWidth), and most blocks
+# (partials) of its grid (kSumMaxBlocks).
 SUM_MAX_WIDTH = 128
+SUM_MAX_BLOCKS = 128
+# The counted gather-sum (csrc/gather_body.cuh gather_sum_counted): at
+# most SUM_COUNTED_MAX_N indices (a count converts to float exactly below
+# 2^24), at least SUM_COUNTED_INDICES_PER_ROW times R, over at least
+# SUM_COUNTED_MIN_ROWS rows of at least SUM_COUNTED_MIN_WIDTH floats.
+SUM_COUNTED_MAX_N = 2**24 - 1
+SUM_COUNTED_INDICES_PER_ROW = 4
+SUM_COUNTED_MIN_ROWS = 16384
+SUM_COUNTED_MIN_WIDTH = 128
+# The one-column sum: most blocks (partials) of its grid, and the largest
+# repeat count (it converts to float exactly).
+COL_SUM_MAX_BLOCKS = 128
+COL_SUM_MAX_REPEATS = 2**24
 # The staged chase (csrc/gather_body.cuh chase_staged): at most
 # STAGE_MAX_ROWS rows (R + 1 pairs of 8 bytes in 227 KB of shared memory);
 # a few lanes (at most STAGE_MAX_LANES) with at least STAGE_MIN_STEPS steps
@@ -57,8 +77,19 @@ MANY_LANES = 131072
 MANY_LANES_MIN_STEPS = 8
 _INT_MAX = 2**31 - 1
 
+# The bounds the library reports, in the order _library reads them.
+LIBRARY_BOUNDS = (SUM_MAX_WIDTH, STAGE_MAX_LANES, STAGE_MAX_ROWS, STAGE_MIN_STEPS,
+                  WIDE_MIN_STEPS, MANY_LANES, MANY_LANES_MIN_STEPS, SUM_MAX_BLOCKS,
+                  SUM_COUNTED_MAX_N, SUM_COUNTED_INDICES_PER_ROW, SUM_COUNTED_MIN_ROWS,
+                  SUM_COUNTED_MIN_WIDTH,
+                  COL_SUM_MAX_BLOCKS, COL_SUM_MAX_REPEATS)
+
 _lock = threading.Lock()
 _lib = None
+# The gather-sums' int32 scratch, one per (card, stream), 0 between
+# launches (each launch leaves it so; launches on one stream run one at a
+# time): [0] the ticket of the last block, [1 ..] the counted form's counts.
+_scratch: dict = {}
 
 
 def _library():
@@ -71,22 +102,26 @@ def _library():
             p, ci = ctypes.c_void_p, ctypes.c_int
             lib.shimmer_row_gather.argtypes = [p, ci, ci, p, ci, p, p]
             lib.shimmer_row_gather_cols.argtypes = [p, ci, ci, p, ci, p, p]
-            lib.shimmer_row_gather_sum.argtypes = [p, ci, ci, p, ci, p, p]
+            lib.shimmer_row_gather_sum.argtypes = [p, ci, ci, p, ci, p, p, p, p]
+            lib.shimmer_row_gather_col_sum.argtypes = [p, ci, ci, p, ci, ci, ci, p, p, p, p]
             lib.shimmer_row_chase.argtypes = [ci, p, ci, ci, p, ci, ci, p, p, p]
             lib.shimmer_chase_walk.argtypes = [p, ci, p, ci, ci, p, p]
             bounds = (lib.shimmer_gather_sum_max_width, lib.shimmer_chase_stage_max_lanes,
                       lib.shimmer_chase_stage_max_rows, lib.shimmer_chase_stage_min_steps,
                       lib.shimmer_chase_wide_min_steps, lib.shimmer_chase_many_lanes,
-                      lib.shimmer_chase_many_lanes_min_steps)
+                      lib.shimmer_chase_many_lanes_min_steps, lib.shimmer_gather_sum_max_blocks,
+                      lib.shimmer_gather_sum_counted_max_n,
+                      lib.shimmer_gather_sum_counted_indices_per_row,
+                      lib.shimmer_gather_sum_counted_min_rows,
+                      lib.shimmer_gather_sum_counted_min_width,
+                      lib.shimmer_col_sum_max_blocks, lib.shimmer_col_sum_max_repeats)
             for fn in (lib.shimmer_row_gather, lib.shimmer_row_gather_cols,
-                       lib.shimmer_row_gather_sum, lib.shimmer_row_chase,
-                       lib.shimmer_chase_walk, *bounds):
+                       lib.shimmer_row_gather_sum, lib.shimmer_row_gather_col_sum,
+                       lib.shimmer_row_chase, lib.shimmer_chase_walk, *bounds):
                 fn.restype = ci
             for fn in bounds:
                 fn.argtypes = []
-            if tuple(fn() for fn in bounds) != (SUM_MAX_WIDTH, STAGE_MAX_LANES, STAGE_MAX_ROWS,
-                                                 STAGE_MIN_STEPS, WIDE_MIN_STEPS, MANY_LANES,
-                                                 MANY_LANES_MIN_STEPS):
+            if tuple(fn() for fn in bounds) != LIBRARY_BOUNDS:
                 raise cuda_build.KernelBuildError("gather bounds disagree with the wrapper")
             _lib = lib
         return _lib
@@ -157,25 +192,75 @@ def row_gather_cols(table_t, idx):
 row_gather_cols.launches = {"row_gather_cols": 0}
 
 
+def _zero_scratch(t, size: int):
+    """The gather-sums' scratch of ``t``'s card and current stream, at least
+    ``size`` int32, made (zero) or grown at first need."""
+    key = (t.device.index, cuda_build.stream_of(t))
+    if key not in _scratch or _scratch[key].shape[0] < size:
+        _scratch[key] = torch.zeros(size, dtype=torch.int32, device=t.device)
+    return _scratch[key]
+
+
+def gather_sum_counted(n_rows: int, n: int, width: int) -> bool:
+    """Whether the card sums ``n`` indices over ``n_rows`` rows of
+    ``width`` floats counted: csrc/gather_body.cuh gather_sum_counted,
+    whose bounds the library is checked against when it loads (the kernel
+    takes the counts' scratch only then)."""
+    return (n <= SUM_COUNTED_MAX_N and n_rows >= SUM_COUNTED_MIN_ROWS
+            and width >= SUM_COUNTED_MIN_WIDTH and n >= SUM_COUNTED_INDICES_PER_ROW * n_rows)
+
+
 def row_gather_sum(table, idx):
     """``table[idx].sum(0)`` of a (R, W) float32 table, W a multiple of 4
-    and at most 128 -> (W,).  The kernel's sum is in another order than
-    the plain version's, and its last bits vary from run to run."""
+    and at most 128 -> (W,).  Out-of-range indices add nothing.  On the
+    card the sum is counted or direct (:func:`gather_sum_counted`), each in
+    a fixed order: the same bits on every run, another order than the plain
+    version's.  ``launches`` counts the calls by the form that ran."""
     dev = _check_args(table, idx, (torch.float32,))
     n_rows, width = table.shape
     if width % 4 or width > SUM_MAX_WIDTH:
         raise ValueError(f"row width {width}: expected a multiple of 4, at most {SUM_MAX_WIDTH}")
     if dev == "cpu":
         return row_gather_sum_plain(table, idx)
+    n = idx.shape[0]
+    counted = gather_sum_counted(n_rows, n, width)
+    scratch = _zero_scratch(table, 1 + (n_rows if counted else 0))
+    partials = torch.empty(SUM_MAX_BLOCKS * width, dtype=torch.float32, device=table.device)
     out = torch.empty(width, dtype=torch.float32, device=table.device)
     cuda_build.raise_on_error(_library().shimmer_row_gather_sum(
-        table.data_ptr(), n_rows, width, idx.data_ptr(), idx.shape[0], out.data_ptr(),
-        cuda_build.stream_of(table)), "row_gather_sum")
-    row_gather_sum.launches["row_gather_sum"] += 1
+        table.data_ptr(), n_rows, width, idx.data_ptr(), n, partials.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), cuda_build.stream_of(table)), "row_gather_sum")
+    row_gather_sum.launches["row_gather_sum_counted" if counted else "row_gather_sum"] += 1
     return out
 
 
-row_gather_sum.launches = {"row_gather_sum": 0}
+row_gather_sum.launches = {"row_gather_sum": 0, "row_gather_sum_counted": 0}
+
+
+def row_gather_col_sum(table, idx, col: int, repeats: int = 1):
+    """``repeats * table[idx, col].sum()`` of a (R, W) float32 table -> a
+    0-d float32 tensor; out-of-range indices add 0.  On the card one
+    launch, in a fixed order (the same bits on every run)."""
+    dev = _check_args(table, idx, (torch.float32,))
+    n_rows, width = table.shape
+    col, repeats = int(col), int(repeats)
+    if not 0 <= col < width:
+        raise ValueError(f"col={col} outside a row of width {width}")
+    if not 0 <= repeats <= COL_SUM_MAX_REPEATS:
+        raise ValueError(f"repeats={repeats}: expected 0-{COL_SUM_MAX_REPEATS}")
+    if dev == "cpu":
+        return row_gather_col_sum_plain(table, idx, col, repeats)
+    partials = torch.empty(COL_SUM_MAX_BLOCKS, dtype=torch.float32, device=table.device)
+    out = torch.empty((), dtype=torch.float32, device=table.device)
+    cuda_build.raise_on_error(_library().shimmer_row_gather_col_sum(
+        table.data_ptr(), n_rows, width, idx.data_ptr(), idx.shape[0], col, repeats,
+        partials.data_ptr(), _zero_scratch(table, 1).data_ptr(), out.data_ptr(),
+        cuda_build.stream_of(table)), "row_gather_col_sum")
+    row_gather_col_sum.launches["row_gather_col_sum"] += 1
+    return out
+
+
+row_gather_col_sum.launches = {"row_gather_col_sum": 0}
 
 
 def row_chase(table, idx, steps: int):
@@ -256,7 +341,7 @@ def chase_walk(pairs, idx, steps: int):
 
 chase_walk.launches = {"chase_walk": 0}
 
-WRAPPERS = (row_gather, row_gather_cols, row_gather_sum, row_chase, chase_walk)
+WRAPPERS = (row_gather, row_gather_cols, row_gather_sum, row_gather_col_sum, row_chase, chase_walk)
 
 
 def launch_counts() -> dict:
@@ -290,6 +375,13 @@ def row_gather_sum_plain(table, idx):
     """Plain torch version of :func:`row_gather_sum` (torch's own
     reduction order)."""
     return row_gather_plain(table, idx).sum(0)
+
+
+def row_gather_col_sum_plain(table, idx, col: int, repeats: int = 1):
+    """Plain torch version of :func:`row_gather_col_sum` (torch's own
+    reduction order, then one multiplication)."""
+    ok, safe = _in_range(idx, table.shape[0])
+    return torch.where(ok, table[safe, int(col)], 0.0).sum() * float(repeats)
 
 
 def row_chase_plain(table, idx, steps: int, stats: dict | None = None):

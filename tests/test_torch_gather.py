@@ -20,7 +20,7 @@ The reference scripts are run as they are, without editing them:
 
 The same numpy arrays go to both sides.  Tolerances: the gathers
 bit-equal (they only move values).  The chases (6B, 6B2, 6C, 6E, 7F),
-6D and the gather-sum rtol 1e-5: JAX sums ``row[1:9]`` and reduces rows
+6D's one-column sum and the gather-sum rtol 1e-5: JAX sums ``row[1:9]`` and reduces rows
 in its own order, the port left to right or by torch's tree, so the sums
 differ by a few float32 roundings of their partial sums; a row read from
 the wrong index moves a lane by O(1).
@@ -133,7 +133,8 @@ def test_onehot_chase_6c(n_rows):
 @pytest.mark.parametrize("indices", ["period_8", "random"])
 def test_dma_6d(inputs, indices):
     """6D: per-row DMA, 8 in flight: sum over K=4 passes of T[idx_i, 1],
-    added one scalar at a time; the port's value is 4 * gather_sum[1].
+    added one scalar at a time; the port's value is the one-column sum
+    row_gather_col_sum(T, idx, col=1, repeats=4).
 
     The reference starts the copy of row i + 8 into ring slot i % 8 before
     it reads row i from that slot (pallas_gather.py:195-203).  In
@@ -150,8 +151,9 @@ def test_dma_6d(inputs, indices):
     mod.bench_pallas_dma(jnp.asarray(tab), jnp.asarray(idx), K=4)
     (rec,) = records
     read = idx if indices == "period_8" else np.concatenate([idx[8:], idx[-8:]])
-    got = 4 * g.row_gather_sum(torch.from_numpy(tab), torch.from_numpy(read))[1].item()
-    np.testing.assert_allclose(got, rec[-1][0, 0], rtol=RTOL)
+    got = g.row_gather_col_sum(torch.from_numpy(tab), torch.from_numpy(read), col=1, repeats=4)
+    assert got.shape == () and got.dtype == torch.float32
+    np.testing.assert_allclose(got.item(), rec[-1][0, 0], rtol=RTOL)
 
 
 def test_scalar_rows_6e(inputs):
@@ -242,7 +244,10 @@ def test_gather_sum_9(gather_inputs):
 
 def small(case, by=64):
     """A case of the entry point at 1/``by`` of its R, N and (6E) chain
-    length, for the CPU."""
+    length, for the CPU; a gather-sum case as it is (its form is a function
+    of its sizes, and each form runs in some case)."""
+    if case.kernel == "row_gather_sum":
+        return case
     return dataclasses.replace(
         case, n_rows=case.n_rows // by, n=max(1, case.n // by),
         steps=case.steps // by if case.row == "6E" else case.steps)
@@ -262,6 +267,11 @@ def test_entry_point_runs_every_case_on_cpu():
     assert ({k for r in rows for k in r["kernels"]}
             | {r["chain_kernel"] for r in rows if "chain_kernel" in r} == set(eg.KERNELS))
     assert all(("row_chase_staged" in r["kernels"]) == r.get("staged", False) for r in rows)
+    assert all(("row_gather_sum_counted" in r["kernels"]) == r.get("counted", False)
+               for r in rows)
+    sums = [r for r in rows if r["kernel"] in ("row_gather_sum", "row_gather_col_sum")]
+    assert len(sums) == 5 and all(r["repeat_equal"] for r in sums)
+    assert [r["floor_n"] for r in sums if "floor_ms" in r] == [eg.FLOOR_N, eg.FLOOR_N]
     assert [r["N"] for r in rows if r["row"] == "6E"] == [1, 1]
     assert [r["row"] for r in rows if "chain_ms" in r] == ["6E", "6E"]
     for r in rows:

@@ -5,10 +5,13 @@ a card.
 
 The gathers and the chases are bit-equal: they move values or add them
 in the same order (row[1..8] left to right, then into the accumulator),
-and g++ builds without FMA contraction.  The gather-sum is bit-equal to a
-numpy sum in the kernel's own order (chunks of rows per warp, warps in
-order within a block, blocks in order), and within the entry point's
-SUM_RTOL of the plain version, which sums in torch's order.  Every body
+and g++ builds without FMA contraction.  The gather-sum, in both its forms
+(direct: the indices' rows; counted: each row times its count) and in
+the form the rule picks, and the one-column sum are bit-equal to a numpy
+sum in the kernels' own order (chunks of rows per warp, warps in order
+within a block, blocks in order; the one-column sum's shuffle tree), and
+within the entry point's SUM_RTOL of the plain versions, which sum in
+torch's order.  Every body
 reads a row of zeros for an index outside [0, R), as the plain versions
 do, including indices that bf16 rounding pushes to R.  The staged chase
 (each row's next index and row sum written by a pass, then walked from
@@ -35,6 +38,14 @@ torch.set_num_threads(1)
 
 R = 96
 N = 1000
+# The gather-sums' bounds the host build reports, as the wrapper holds them.
+SUM_BOUNDS = ("shimmer_gather_sum_max_blocks", "shimmer_gather_sum_counted_max_n",
+              "shimmer_gather_sum_counted_indices_per_row", "shimmer_gather_sum_counted_min_rows",
+              "shimmer_gather_sum_counted_min_width", "shimmer_col_sum_max_blocks",
+              "shimmer_col_sum_max_repeats")
+# The form the card runs each gather-sum case of the entry point in, (R, N)
+# -> counted, by the timing of both forms (PERF.md).
+EXPECTED_FORMS = {(2048, 8192): False, (16384, 8192): False, (16384, 131072): True}
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +65,9 @@ def host(tmp_path_factory):
                  "shimmer_row_gather_sum_host"):
         getattr(lib, name).argtypes = [p, ci, ci, p, ci, p]
         getattr(lib, name).restype = ci
+    lib.shimmer_row_gather_sum_form_host.argtypes = [p, ci, ci, p, ci, ci, p]
+    lib.shimmer_row_gather_col_sum_host.argtypes = [p, ci, ci, p, ci, ci, ci, p]
+    lib.shimmer_gather_sum_counted_host.argtypes = [ci, ci, ci]
     lib.shimmer_row_chase_host.argtypes = [ci, p, ci, ci, p, ci, ci, p]
     lib.shimmer_row_chase_staged_host.argtypes = [ci, p, ci, ci, p, ci, ci, ci, p]
     lib.shimmer_chase_pairs_host.argtypes = [ci, p, ci, ci, p]
@@ -65,7 +79,9 @@ def host(tmp_path_factory):
                  "shimmer_chase_stage_min_steps", "shimmer_chase_wide_min_steps",
                  "shimmer_chase_many_lanes", "shimmer_chase_many_lanes_min_steps",
                  "shimmer_chase_walk_threads", "shimmer_row_chase_host",
-                 "shimmer_row_chase_staged_host"):
+                 "shimmer_row_chase_staged_host", "shimmer_row_gather_sum_form_host",
+                 "shimmer_row_gather_col_sum_host", "shimmer_gather_sum_counted_host",
+                 *SUM_BOUNDS):
         getattr(lib, name).restype = ci
     lib.shimmer_chase_walk_threads.argtypes = [ci]
     assert lib.shimmer_gather_sum_max_width() == g.SUM_MAX_WIDTH
@@ -74,6 +90,10 @@ def host(tmp_path_factory):
             lib.shimmer_chase_many_lanes(), lib.shimmer_chase_many_lanes_min_steps()) == (
                 g.STAGE_MAX_LANES, g.STAGE_MAX_ROWS, g.STAGE_MIN_STEPS, g.WIDE_MIN_STEPS,
                 g.MANY_LANES, g.MANY_LANES_MIN_STEPS)
+    assert tuple(getattr(lib, name)() for name in SUM_BOUNDS) == (
+        g.SUM_MAX_BLOCKS, g.SUM_COUNTED_MAX_N, g.SUM_COUNTED_INDICES_PER_ROW,
+        g.SUM_COUNTED_MIN_ROWS, g.SUM_COUNTED_MIN_WIDTH, g.COL_SUM_MAX_BLOCKS,
+        g.COL_SUM_MAX_REPEATS)
     return lib
 
 
@@ -277,39 +297,150 @@ def test_chase_dispatch_rule(host):
     assert not g.chase_staged(rows + 1, 131072, 32) and not g.chase_staged(16384, 33, 31)
 
 
-def sum_in_kernel_order(tab, idx, rows_per_warp, warps):
-    """numpy float32 sum in the kernel's order: rows left to right within
-    a warp's chunk, the chunk sums in warp order, the blocks in order."""
-    rows = g.row_gather_plain(tab, idx).numpy()
-    n, width = rows.shape
-    total = np.zeros(width, np.float32)
-    n_blocks = -(-n // (rows_per_warp * warps))
-    for b in range(n_blocks):
+def sum_in_kernel_order(tab, idx, counted, host):
+    """numpy float32 sum in the kernels' order: item i is row idx[i] with
+    weight 1 (direct; 0 out of range) or row i with weight count[i]
+    (counted); chunks of K items to warp slots in turn, a warp's items in
+    order (acc + float(weight) * row, skipping weight 0), the warps of a
+    block in order, the blocks in order."""
+    tab, idx = tab.numpy(), idx.numpy()
+    n_rows, width = tab.shape
+    k, warps = host.shimmer_gather_sum_rows_per_warp(), host.shimmer_gather_sum_warps()
+    ok = (idx >= 0) & (idx < n_rows)
+    counts = np.bincount(idx[ok], minlength=n_rows)
+    items = n_rows if counted else len(idx)
+    chunks = -(-items // k)
+    blocks = min(max(-(-chunks // warps), 1), host.shimmer_gather_sum_max_blocks())
+    total = None
+    for b in range(blocks):
         block = None
         for w in range(warps):
-            c = b * warps + w
-            s = np.zeros(width, np.float32)
-            for i in range(min(n, c * rows_per_warp), min(n, (c + 1) * rows_per_warp)):
-                s = s + rows[i]
-            block = s if block is None else block + s
-        total = total + block
+            acc = np.zeros(width, np.float32)
+            for c in range(b * warps + w, chunks, blocks * warps):
+                for i in range(c * k, min((c + 1) * k, items)):
+                    row, weight = (i, counts[i]) if counted else (idx[i], int(ok[i]))
+                    if weight:
+                        acc = acc + np.float32(weight) * tab[row]
+            block = acc if block is None else block + acc
+        total = block if total is None else total + block
     return total
+
+
+def sum_indices(n, width, seed=3):
+    """A finite table and n indices with repeats, some outside [0, R)."""
+    tab, idx = table_and_indices(seed, width, n=max(n, 8), finite=True)
+    return tab, idx[:n].contiguous()
+
+
+def check_sum(host, tab, idx, out, counted):
+    np.testing.assert_array_equal(out.numpy(), sum_in_kernel_order(tab, idx, counted, host))
+    plain = g.row_gather_sum_plain(tab, idx)
+    scale = g.row_gather_plain(tab, idx).abs().sum(0)
+    assert bool(((out - plain).abs() <= eg.SUM_RTOL * scale).all())
 
 
 @pytest.mark.parametrize("n", [1, 64, 1000, 1536])
 @pytest.mark.parametrize("width", [8, 128])
 def test_gather_sum_body_in_its_order(host, width, n):
-    tab, idx = table_and_indices(3, width, n=max(n, 8), finite=True)
-    idx = idx[:n].contiguous()
+    """The gather-sum in the form the rule picks for (R, N, W), as the card
+    runs it."""
+    tab, idx = sum_indices(n, width)
     out = torch.empty(width)
     call(host.shimmer_row_gather_sum_host, tab.data_ptr(), R, width, idx.data_ptr(), n,
          out.data_ptr())
-    want = sum_in_kernel_order(tab, idx, host.shimmer_gather_sum_rows_per_warp(),
-                               host.shimmer_gather_sum_warps())
-    np.testing.assert_array_equal(out.numpy(), want)
-    plain = g.row_gather_sum_plain(tab, idx)
-    scale = g.row_gather_plain(tab, idx).abs().sum(0)
-    assert bool(((out - plain).abs() <= eg.SUM_RTOL * scale).all())
+    check_sum(host, tab, idx, out, g.gather_sum_counted(R, n, width))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 1000, 8192])
+@pytest.mark.parametrize("width", [8, 128])
+@pytest.mark.parametrize("form", ["direct", "counted"])
+def test_gather_sum_forms_in_their_order(host, form, width, n):
+    """Each form of the gather-sum, whatever the rule picks: bit-equal to
+    numpy in its order and within SUM_RTOL of the plain version; repeated
+    indices and indices outside [0, R) (each way) among them; no index
+    gives zeros."""
+    tab, idx = sum_indices(n, width)
+    if n >= 1000:
+        assert bool(((idx < 0) | (idx >= R)).any()) and len(set(idx.tolist())) < n
+    out = torch.full((width,), float("nan"))
+    call(host.shimmer_row_gather_sum_form_host, tab.data_ptr(), R, width, idx.data_ptr(), n,
+         int(form == "counted"), out.data_ptr())
+    check_sum(host, tab, idx, out, form == "counted")
+    if n == 0:
+        assert bits_equal(out, torch.zeros(width))
+
+
+def col_sum_in_kernel_order(tab, idx, col, repeats, host):
+    """numpy float32 one-column sum in the kernel's order: each thread's
+    values in order, each warp's shuffle-down tree, the warps, the blocks,
+    times float(repeats)."""
+    tab, idx = tab.numpy(), idx.numpy()
+    n_rows, n = tab.shape[0], len(idx)
+    threads_per_block = host.shimmer_col_sum_threads()
+    blocks = min(max(-(-n // threads_per_block), 1), host.shimmer_col_sum_max_blocks())
+    threads = blocks * threads_per_block
+    ok = (idx >= 0) & (idx < n_rows)
+    vals = np.where(ok, tab[np.where(ok, idx, 0), col], np.float32(0)).astype(np.float32)
+    s = np.zeros(threads, np.float32)
+    for k in range(0, n, threads):
+        part = vals[k:k + threads]
+        s[:len(part)] = s[:len(part)] + part
+    lanes = s.reshape(-1, 32)
+    for off in (16, 8, 4, 2, 1):
+        lanes[:, :32 - off] = lanes[:, :32 - off] + lanes[:, off:]
+    warp_sums = lanes[:, 0].reshape(blocks, threads_per_block // 32)
+    total = None
+    for b in range(blocks):
+        block = warp_sums[b, 0]
+        for w in range(1, warp_sums.shape[1]):
+            block = block + warp_sums[b, w]
+        total = block if total is None else total + block
+    return np.float32(repeats) * total
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 1000, 8192])
+@pytest.mark.parametrize("width", [8, 128])
+def test_col_sum_body_in_its_order(host, width, n):
+    """The one-column sum (6D, K = 4 repeats) bit-equal to numpy in the
+    kernel's order and within SUM_RTOL of the plain version, at column 1
+    and the last column; indices outside [0, R) add 0."""
+    tab, idx = sum_indices(n, width, seed=4)
+    for col in (1, width - 1):
+        out = torch.full((), float("nan"))
+        call(host.shimmer_row_gather_col_sum_host, tab.data_ptr(), R, width, idx.data_ptr(), n,
+             col, 4, out.data_ptr())
+        np.testing.assert_array_equal(out.numpy(), col_sum_in_kernel_order(tab, idx, col, 4, host))
+        plain = g.row_gather_col_sum_plain(tab, idx, col, 4)
+        scale = 4 * g.row_gather_col_sum_plain(tab.abs(), idx, col)
+        assert float((out - plain).abs()) <= eg.SUM_RTOL * float(scale)
+        if n == 0:
+            assert float(out) == 0.0
+
+
+def test_gather_sum_rule(host):
+    """The host build's rule and the wrapper's agree at and around every
+    bound; the entry point's gather-sum cases take the form the card was
+    measured faster in (PERF.md)."""
+    per_row, min_rows, width = (g.SUM_COUNTED_INDICES_PER_ROW, g.SUM_COUNTED_MIN_ROWS,
+                                g.SUM_COUNTED_MIN_WIDTH)
+    hi = g.SUM_COUNTED_MAX_N
+    for n_rows in (1, 96, 2048, min_rows - 1, min_rows, min_rows + 1, 131072, hi // per_row,
+                   hi // per_row + 1, 2**31 - 1):
+        for n in (0, 1, per_row * n_rows - 1, per_row * n_rows, per_row * n_rows + 1, 131072,
+                  hi, hi + 1):
+            if not 0 <= n < 2**31:
+                continue
+            for w in (4, 8, width - 4, width):
+                want = g.gather_sum_counted(n_rows, n, w)
+                assert bool(host.shimmer_gather_sum_counted_host(n_rows, n, w)) == want
+    assert g.gather_sum_counted(min_rows, per_row * min_rows, width)
+    assert not g.gather_sum_counted(min_rows - 1, hi, width)
+    assert not g.gather_sum_counted(min_rows, per_row * min_rows - 1, width)
+    assert not g.gather_sum_counted(min_rows, hi, width - 4)
+    assert not g.gather_sum_counted(min_rows, hi + 1, width)
+    forms = {(c.n_rows, c.n): g.gather_sum_counted(c.n_rows, c.n, c.width)
+             for c in eg.cases() if c.kernel == "row_gather_sum"}
+    assert forms == EXPECTED_FORMS
 
 
 def test_host_body_rejects_what_the_kernels_do_not_take(host):
@@ -318,6 +449,14 @@ def test_host_body_rejects_what_the_kernels_do_not_take(host):
     p = (tab.data_ptr(), R)
     assert host.shimmer_row_gather_host(*p, 6, idx.data_ptr(), N, out.data_ptr()) == -1
     assert host.shimmer_row_gather_sum_host(*p, 132, idx.data_ptr(), N, out.data_ptr()) == -1
+    assert host.shimmer_row_gather_sum_form_host(*p, 6, idx.data_ptr(), N, 0, out.data_ptr()) == -1
+    assert host.shimmer_row_gather_sum_form_host(*p, 128, idx.data_ptr(), N, 2,
+                                                 out.data_ptr()) == -1
+    assert host.shimmer_row_gather_sum_form_host(*p, 128, idx.data_ptr(), 2**24, 1,
+                                                 out.data_ptr()) == -1
+    for col, repeats in ((-1, 4), (128, 4), (1, -1), (1, 2**24 + 1)):
+        assert host.shimmer_row_gather_col_sum_host(*p, 128, idx.data_ptr(), N, col, repeats,
+                                                    out.data_ptr()) == -1
     assert host.shimmer_row_chase_host(0, *p, 12, idx.data_ptr(), N, 4, out.data_ptr()) == -1
     assert host.shimmer_row_chase_host(2, *p, 128, idx.data_ptr(), N, 4, out.data_ptr()) == -1
     assert host.shimmer_row_chase_staged_host(0, *p, 12, idx.data_ptr(), 1, 4, 1,
@@ -337,10 +476,10 @@ def test_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["gather", "gather_cols", "gather_sum", "chase_f32",
-                                  "chase_bf16"])
+                                  "chase_bf16", "gather_col_sum"])
 def test_cpu_tensors_take_the_plain_version(kind):
     g.reset_launches()
-    tab, idx = table_and_indices(5, 128, finite=kind == "gather_sum")
+    tab, idx = table_and_indices(5, 128, finite=kind.endswith("sum"))
     if kind == "gather":
         got, want = g.row_gather(tab, idx), g.row_gather_plain(tab, idx)
     elif kind == "gather_cols":
@@ -348,6 +487,9 @@ def test_cpu_tensors_take_the_plain_version(kind):
         got, want = g.row_gather_cols(t, idx), g.row_gather_cols_plain(t, idx)
     elif kind == "gather_sum":
         got, want = g.row_gather_sum(tab, idx), g.row_gather_sum_plain(tab, idx)
+    elif kind == "gather_col_sum":
+        got, want = g.row_gather_col_sum(tab, idx, 1, 4), g.row_gather_col_sum_plain(tab, idx, 1, 4)
+        assert got.shape == () and got.dtype == torch.float32
     else:
         t = tab.to(torch.bfloat16) if kind == "chase_bf16" else tab
         got, want = g.row_chase(t, idx, 8), g.row_chase_plain(t, idx, 8)
@@ -359,7 +501,8 @@ def test_cpu_tensors_take_the_plain_version(kind):
     "case",
     ["table_f64", "idx_i64", "table_1d", "idx_2d", "table_strided", "idx_strided",
      "gather_width_6", "sum_width_132", "chase_width_12", "chase_f16", "empty_table",
-     "meta_device", "cols_idx_2d"],
+     "meta_device", "cols_idx_2d", "col_sum_col_128", "col_sum_col_negative",
+     "col_sum_repeats_negative", "col_sum_repeats_past_2_24", "col_sum_idx_i64"],
 )
 def test_wrappers_reject_bad_arguments(case):
     tab, idx = table_and_indices(6, 128)
@@ -388,6 +531,16 @@ def test_wrappers_reject_bad_arguments(case):
         fn, args = g.row_gather, (torch.zeros(0, 128), idx)
     elif case == "cols_idx_2d":
         fn, args = g.row_gather_cols, (tab.T.contiguous(), idx.view(-1, 8))
+    elif case == "col_sum_col_128":
+        fn, args = g.row_gather_col_sum, (tab, idx, 128, 4)
+    elif case == "col_sum_col_negative":
+        fn, args = g.row_gather_col_sum, (tab, idx, -1, 4)
+    elif case == "col_sum_repeats_negative":
+        fn, args = g.row_gather_col_sum, (tab, idx, 1, -1)
+    elif case == "col_sum_repeats_past_2_24":
+        fn, args = g.row_gather_col_sum, (tab, idx, 1, g.COL_SUM_MAX_REPEATS + 1)
+    elif case == "col_sum_idx_i64":
+        fn, args, err = g.row_gather_col_sum, (tab, idx.long(), 1, 4), TypeError
     else:
         fn, args = g.row_gather, (tab.to("meta"), idx.to("meta"))
     with pytest.raises(err):
@@ -399,6 +552,32 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(cuda_build.KernelBuildError, match="nvcc"):
         cuda_build.build(force=True)
+
+
+def test_load_host_builds_the_bodies_the_card_is_held_to(host, tmp_path, monkeypatch):
+    """cuda_build.load_host, which chip_smoke.py holds the card's gather-sums
+    to, builds the same host bodies as this file's build: the same bounds
+    and the same bits on a case of each sum."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the host build of the kernel bodies needs it")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    lib = cuda_build.load_host("gather")
+    assert (tmp_path / "libshimmer_gather_host.so").is_file()
+    for name in ("shimmer_gather_sum_warps", "shimmer_gather_sum_rows_per_warp", *SUM_BOUNDS):
+        assert getattr(lib, name)() == getattr(host, name)()
+    p, ci = ctypes.c_void_p, ctypes.c_int
+    lib.shimmer_row_gather_sum_host.argtypes = [p, ci, ci, p, ci, p]
+    lib.shimmer_row_gather_col_sum_host.argtypes = [p, ci, ci, p, ci, ci, ci, p]
+    tab, idx = sum_indices(1000, 128)
+    got, want = torch.empty(128), torch.empty(128)
+    for fn, out in ((lib.shimmer_row_gather_sum_host, got), (host.shimmer_row_gather_sum_host, want)):
+        call(fn, tab.data_ptr(), R, 128, idx.data_ptr(), 1000, out.data_ptr())
+    assert bits_equal(got, want)
+    got, want = torch.empty(()), torch.empty(())
+    for fn, out in ((lib.shimmer_row_gather_col_sum_host, got),
+                    (host.shimmer_row_gather_col_sum_host, want)):
+        call(fn, tab.data_ptr(), R, 128, idx.data_ptr(), 1000, 1, 4, out.data_ptr())
+    assert bits_equal(got.reshape(1), want.reshape(1))
 
 
 def test_every_library_source_is_in_the_checkout():

@@ -307,3 +307,78 @@ def test_time_ablate_and_wide_chase_run_the_entry_point_cases(monkeypatch):
     assert sum(ps.launch_counts().values()) == 0 and sum(gk.launch_counts().values()) == 0
     assert {"ablate", "wide_chase"} <= set(ab.PARTS) and {"ablate", "wide_chase"} <= set(
         ab.TIMED_SECTIONS)
+
+
+def test_time_gather_sum_runs_the_entry_point_cases(monkeypatch):
+    """kernel_ab's gather-sum part on the CPU (the wrappers' plain
+    versions), the cases shrunk: 6D through the one-column sum, row 9
+    through the whole-row sum, each checksum beside its float64 sum; on a
+    checkout without the one-column sum, 6D as 4 * row_gather_sum(...)[1]
+    on the same inputs.  No kernel launched."""
+    from shimmer_tpu_torch.experiments import gather as eg
+    from shimmer_tpu_torch.ops import gather as gk
+
+    monkeypatch.setattr(ab, "GATHER_SUM_CASES", (("6D", 64, 8192), ("9", 256, 4096),
+                                                 ("9", 64, 8192)))
+    gk.reset_launches()
+    got = ab.time_gather_sum(torch.device("cpu"))
+    assert list(got) == ["6D R=64 N=8192", "9 R=256 N=4096", "9 R=64 N=8192"]
+    for name, line in got.items():
+        assert line["ms"] > 0
+        assert line["checksum"] == pytest.approx(line["exact"], rel=eg.SUM_RTOL, abs=1e-3)
+    case = eg.Case("6D", "row_gather_col_sum", 64, 8192, steps=4)
+    table, idx = eg.make_inputs(case, "cpu")
+    assert got["6D R=64 N=8192"]["checksum"] == float(gk.row_gather_col_sum(table, idx, 1, 4))
+    case = eg.Case("9", "row_gather_sum", 256, 4096, index_col=False)
+    table9, idx9 = eg.make_inputs(case, "cpu")
+    assert got["9 R=256 N=4096"]["checksum"] == float(
+        gk.row_gather_sum(table9, idx9).double().sum())
+    monkeypatch.delattr(gk, "row_gather_col_sum")
+    older = ab.time_gather_sum(torch.device("cpu"))
+    assert older["6D R=64 N=8192"]["checksum"] == float(4 * gk.row_gather_sum(table, idx)[1])
+    assert sum(gk.launch_counts().values()) == 0
+    assert "gather_sum" in ab.PARTS and "gather_sum" in ab.TIMED_SECTIONS
+
+
+def test_summarize_gather_sum_part(tmp_path):
+    """Runs of ``--parts gather_sum``: the summary holds the 6D and row 9
+    lines with their A and B means and B / A, and only that section."""
+    paths = []
+    for label, ms, checksum in (("A1", 0.0133, 2.5), ("B1", 0.005, 2.5), ("B2", 0.006, 2.5),
+                                ("A2", 0.0135, 2.5)):
+        run = {"label": label, "card": "NVIDIA H100 80GB HBM3, 700.00 W", "parts": ["gather_sum"],
+               "gather_sum": {name: {"ms": ms, "checksum": checksum, "exact": 2.5}
+                              for name in ("6D R=16384 N=8192", "9 R=16384 N=131072")}}
+        paths.append(tmp_path / f"{label}.json")
+        paths[-1].write_text(json.dumps(run))
+    out = ab.summarize(paths)
+    assert set(out) == {"cards", "gather_sum"}
+    line = out["gather_sum"]["6D R=16384 N=8192"]
+    assert line["A"]["ms"] == pytest.approx(0.0134) and line["B"]["ms"] == pytest.approx(0.0055)
+    assert line["B_over_A_ms"] == pytest.approx(0.0055 / 0.0134) and line["same_output"]
+    assert line["B"]["ms_runs"] == [0.005, 0.006]
+
+
+def test_time_gather_sum_grid_covers_the_rule(monkeypatch):
+    """kernel_ab's grid of the gather-sum's rule on the CPU (the plain
+    version), shrunk: one line per (W, R, N), each checksum the plain sum's;
+    the full grid holds the entry point's row-9 sizes and both sides of
+    every bound of the rule."""
+    from shimmer_tpu_torch.ops import gather as gk
+
+    full = ab.GATHER_SUM_GRID
+    sizes = {(w, r, n) for w, rows, lanes in full for r in rows for n in lanes}
+    assert (128, 16384, 131072) in sizes and (128, 16384, 8192) in sizes
+    for w, r, n in sizes:
+        # Every size the rule sends counted has a direct neighbour in N.
+        if gk.gather_sum_counted(r, n, w):
+            assert any(not gk.gather_sum_counted(r, m, w) for ww, rr, m in sizes
+                       if (ww, rr) == (w, r))
+    assert any(gk.gather_sum_counted(r, n, w) for w, r, n in sizes)
+    assert {w for w, _, _ in sizes} == {8, gk.SUM_COUNTED_MIN_WIDTH}
+    monkeypatch.setattr(ab, "GATHER_SUM_GRID", ((8, (64,), (16, 100)), (128, (32,), (8,))))
+    gk.reset_launches()
+    got = ab.time_gather_sum_grid(torch.device("cpu"))
+    assert list(got) == ["W=8 R=64 N=16", "W=8 R=64 N=100", "W=128 R=32 N=8"]
+    assert all(line["ms"] > 0 and np.isfinite(line["checksum"]) for line in got.values())
+    assert sum(gk.launch_counts().values()) == 0
