@@ -53,7 +53,18 @@ Phases, each printing its own numbers:
      bench geometry with a mix of rough gold and dispersive BK7 glass on the
      sphere and a coated diffuse floor): a small render (64x48, 4 spp) on
      the card and on the CPU, compared, then the full render under v1
-     through shimmer_tpu_torch.render.render.
+     through shimmer_tpu_torch.render.render;
+ 11. scene files through the port's pbrt-v4 loader: (a) the three
+     committed golden scenes (tests/scenes/*.pbrt, analytic spheres beside
+     triangles) rendered on the card under v1 at their in-file settings
+     and held against tests/scenes/golden_*.npz at tests/test_golden.py's
+     tolerances; (b) a loaded scene at full width: the bench sphere
+     written as a binary PLY, with the bench camera, floor, emissive quad
+     and infinite light and three analytic spheres (dielectric, rough
+     gold, and a small sphere area light) in a .pbrt file, rendered at
+     1280x720, 16 spp, depth 5 through shimmer_tpu_torch.cli.main to a
+     PFM that must equal the image render returned, then the same file
+     at 64x48, 4 spp on the card and on the CPU, compared.
 Launch counters are set to 0 just before each render path and each
 micro-benchmark entry point, and read just after it.  No phase catches its
 own failure.  The last lines are the kernel table as JSON, the card's name
@@ -73,7 +84,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from shimmer_tpu_torch import native
+from shimmer_tpu_torch import cli, native
+from shimmer_tpu_torch import render as render_module
 from shimmer_tpu_torch.bench_scene import (
     BENCH_RESOLUTION,
     BENCH_TRIS,
@@ -81,7 +93,11 @@ from shimmer_tpu_torch.bench_scene import (
     bench_camera_film,
     build_bench_scene,
     build_material_bench_scene,
+    make_displaced_sphere,
 )
+from shimmer_tpu_torch.film.image import Image
+from shimmer_tpu_torch.loading.parser import parse_file
+from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
 from shimmer_tpu_torch.experiments import gather as eg
 from shimmer_tpu_torch.experiments import packet_step as eps
 from shimmer_tpu_torch.measure import (
@@ -421,8 +437,8 @@ def phase4(scene_cpu, scene_gpu) -> dict:
         for dev_name, scene in targets:
             sampler = ZSobolSampler(SMALL_SPP, SMALL_RES)
             t0 = time.perf_counter()
-            img, _, _ = render(with_config(scene, name), cam, film, sampler, spp=SMALL_SPP,
-                               max_depth=MAX_DEPTH, wave_spp=SMALL_SPP, pixel_block=BLOCK)
+            img, _ = render(with_config(scene, name), cam, film, sampler, spp=SMALL_SPP,
+                            max_depth=MAX_DEPTH, wave_spp=SMALL_SPP, pixel_block=BLOCK)
             images[dev_name] = img.cpu().numpy()
             seconds[dev_name] = time.perf_counter() - t0
         if "cpu" in images:
@@ -448,7 +464,7 @@ def full_render(scene_gpu, name: str, phase: str) -> tuple[dict, np.ndarray]:
     reset_counts()
     t0 = time.perf_counter()
     img, _, stats = render(scene, cam, film, sampler, spp=SPP, max_depth=MAX_DEPTH,
-                           wave_spp=WAVE_SPP, pixel_block=BLOCK)
+                           wave_spp=WAVE_SPP, pixel_block=BLOCK, collect_stats=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts(f"{phase} {name}", name)
@@ -847,9 +863,9 @@ def phase10(dev) -> dict:
     images, seconds = {}, {}
     for dev_name, scene in (("gpu", scene_gpu), ("cpu", scene_cpu)):
         t0 = time.perf_counter()
-        img, _, _ = render(with_config(scene, "v1"), cam, film, ZSobolSampler(SMALL_SPP, SMALL_RES),
-                           spp=SMALL_SPP, max_depth=MAX_DEPTH, wave_spp=SMALL_SPP,
-                           pixel_block=BLOCK)
+        img, _ = render(with_config(scene, "v1"), cam, film, ZSobolSampler(SMALL_SPP, SMALL_RES),
+                        spp=SMALL_SPP, max_depth=MAX_DEPTH, wave_spp=SMALL_SPP,
+                        pixel_block=BLOCK)
         images[dev_name] = img.cpu().numpy()
         seconds[dev_name] = time.perf_counter() - t0
         check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
@@ -863,6 +879,197 @@ def phase10(dev) -> dict:
     log(f"phase 10 full render {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {SPP}: "
         f"{json.dumps(res)}")
     return res
+
+
+# Phase 11: the committed golden scenes and tests/test_golden.py's
+# tolerances (mean and 99th percentile of the absolute difference,
+# relative to the golden's mean absolute value).
+GOLDEN_DIR = Path("tests") / "scenes"
+GOLDEN_SCENES = ("diffuse_box", "conductor_env", "dielectric")
+GOLDEN_MEAN_REL, GOLDEN_P99_REL = 0.01, 0.05
+LOADED_DIR = Path("chiprun_out") / "phase11"
+LOADED_PLY = "bench_sphere.ply"
+
+
+def golden_drift(img: np.ndarray, golden: np.ndarray) -> dict:
+    scale = max(float(np.abs(golden).mean()), 1e-6)
+    diff = np.abs(img - golden)
+    return {"mean_rel": float(diff.mean() / scale),
+            "p99_rel": float(np.quantile(diff, 0.99) / scale)}
+
+
+def write_ply(path: Path, verts: np.ndarray, faces: np.ndarray):
+    """Binary little-endian PLY: float32 x y z, uchar-counted int32 faces."""
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(verts)}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              f"element face {len(faces)}\nproperty list uchar int vertex_indices\n"
+              "end_header\n")
+    face_rows = np.zeros(len(faces), np.dtype([("n", "u1"), ("v", "<i4", 3)]))
+    face_rows["n"] = 3
+    face_rows["v"] = faces
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(np.ascontiguousarray(verts, "<f4").tobytes())
+        f.write(face_rows.tobytes())
+
+
+def loaded_scene_text(res, spp: int) -> str:
+    """The bench scene as a pbrt-v4 file: the bench camera, the sphere
+    mesh from the PLY, the floor, the emissive quad and the infinite
+    light, with three analytic spheres beside the mesh."""
+    return f"""# The bench scene of bench.py as a scene file, with three analytic spheres.
+LookAt 0 0.6 -3.2  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+Film "rgb" "integer xresolution" [{res[0]}] "integer yresolution" [{res[1]}]
+Sampler "zsobol" "integer pixelsamples" [{spp}]
+Integrator "path" "integer maxdepth" [{MAX_DEPTH}]
+PixelFilter "box"
+WorldBegin
+LightSource "infinite" "float scale" [0.3]
+Material "diffuse" "rgb reflectance" [0.55 0.45 0.35]
+Shape "plymesh" "string filename" "{LOADED_PLY}"
+Material "diffuse" "rgb reflectance" [0.4 0.4 0.42]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point3 P" [-8 -1.3 -8  8 -1.3 -8  8 -1.3 8  -8 -1.3 8]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [15 15 15]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+      "point3 P" [-1 4 -1  1 4 -1  1 4 1  -1 4 1]
+AttributeEnd
+AttributeBegin
+  Material "dielectric" "float eta" [1.5]
+  Translate -1.55 -0.8 -0.9
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+AttributeBegin
+  Material "conductor" "spectrum eta" "metal-Au-eta" "spectrum k" "metal-Au-k"
+      "float roughness" [0.08]
+  Translate 1.55 -0.8 -0.9
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [40 36 30]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Translate 0.6 1.5 -1.4
+  Shape "sphere" "float radius" [0.12]
+AttributeEnd
+"""
+
+
+def render_job(job):
+    """Render a loaded job at its in-file settings; returns the image and
+    the render's seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, _ = render(job.scene, job.camera, job.film, job.sampler, spp=job.spp,
+                    max_depth=job.max_depth, wave_spp=WAVE_SPP, pixel_block=BLOCK)
+    torch.cuda.synchronize()
+    return img, time.perf_counter() - t0
+
+
+def phase11(dev) -> dict:
+    out = {"golden": {}}
+    # (a) the golden scenes, parsed by the port's loader.
+    for name in GOLDEN_SCENES:
+        builder = SceneBuilder(search_dir=GOLDEN_DIR)
+        parse_file(str(GOLDEN_DIR / f"{name}.pbrt"), builder)
+        job = builder.create(device=dev, traverse=CONFIGS["v1"])
+        reset_counts()
+        img, seconds = render_job(job)
+        launches = read_counts(f"phase 11 {name}", "v1")
+        img = img.cpu().numpy()
+        golden = np.load(GOLDEN_DIR / f"golden_{name}.npz")["image"]
+        check(img.shape == golden.shape and np.isfinite(img).all(), f"phase 11 {name}: bad image")
+        res = {**golden_drift(img, golden), "seconds": seconds, "kernel_launches": launches,
+               "spheres": int(job.scene.spheres.radius.shape[0]), "spp": job.spp,
+               "max_depth": job.max_depth}
+        check(res["mean_rel"] < GOLDEN_MEAN_REL, f"phase 11 {name}: mean drift {res['mean_rel']}")
+        check(res["p99_rel"] < GOLDEN_P99_REL, f"phase 11 {name}: p99 drift {res['p99_rel']}")
+        log(f"phase 11 golden {name}: {json.dumps(res)}")
+        out["golden"][name] = res
+
+    # (b) the loaded scene at full width, through the CLI.
+    LOADED_DIR.mkdir(parents=True, exist_ok=True)
+    verts, faces = make_displaced_sphere(BENCH_TRIS)
+    write_ply(LOADED_DIR / LOADED_PLY, verts, faces)
+    scene_file = LOADED_DIR / "loaded_bench.pbrt"
+    scene_file.write_text(loaded_scene_text(BENCH_RESOLUTION, SPP))
+    pfm = LOADED_DIR / "loaded_bench.pfm"
+    # The CLI's own render call, watched: its returned image and its
+    # counters, with the stats the CLI does not ask for.
+    real_render, seen = render_module.render, {}
+
+    def watched_render(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image, state, stats = real_render(*args, **kwargs, collect_stats=True)
+        torch.cuda.synchronize()
+        seen.update(image=image.cpu().numpy(), stats=stats, scene=args[0],
+                    seconds=time.perf_counter() - t0)
+        return image, state
+
+    render_module.render = watched_render
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main([str(scene_file), "--outfile", str(pfm), "--wave-spp", str(WAVE_SPP),
+                       "--pixel-block", str(BLOCK), "--quiet", "--device", str(dev)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        render_module.render = real_render
+    launches = read_counts("phase 11 loaded scene", "v1")
+    check(rc == 0, f"phase 11: the CLI returned {rc}")
+    img = seen["image"]
+    written = Image.read(pfm).data
+    check(np.array_equal(written, img), "phase 11: the PFM differs from the rendered image")
+    check(np.isfinite(img).all() and img.mean() > 0, "phase 11: bad loaded-scene image")
+    scene = seen["scene"]
+    stats = seen["stats"]
+    res = {
+        "triangles": int(scene.triangles.orig_indices.shape[0]),
+        "spheres": int(scene.spheres.radius.shape[0]),
+        "lights": scene.n_lights,
+        "render_seconds": seen["seconds"],
+        "cli_seconds": seconds,
+        "rays": stats["rays"],
+        "mrays_per_s": stats["rays"] / seen["seconds"] / 1e6,
+        "iters": stats["iters"],
+        "kernel_launches": launches,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "image_mean": float(img.mean()),
+        "card": nvidia_smi_line(),
+    }
+    check(res["spheres"] == 3 and res["triangles"] == faces.shape[0] + 4,
+          "phase 11: the loaded scene lacks shapes")
+    log(f"phase 11 loaded scene {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {SPP} "
+        f"(cli.main; cli_seconds add the parse, PLY read, BVH build and PFM write): "
+        f"{json.dumps(res)}")
+    out["loaded"] = res
+
+    # The same file small, on the card and on the CPU.
+    small = LOADED_DIR / "loaded_small.pbrt"
+    small.write_text(loaded_scene_text(SMALL_RES, SMALL_SPP))
+    builder = SceneBuilder(search_dir=LOADED_DIR)
+    parse_file(str(small), builder)
+    job = builder.create(device="cpu", traverse=CONFIGS["v1"])
+    images, seconds = {}, {}
+    for dev_name, scene in (("gpu", job.scene.to(dev)), ("cpu", job.scene)):
+        t0 = time.perf_counter()
+        img, _ = render(scene, job.camera, job.film, job.sampler, spp=job.spp,
+                        max_depth=job.max_depth, wave_spp=SMALL_SPP, pixel_block=BLOCK)
+        images[dev_name] = img.cpu().numpy()
+        seconds[dev_name] = time.perf_counter() - t0
+        check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
+              f"phase 11: bad {dev_name} small image")
+    agree = check_agreement("phase 11 small loaded render", images["gpu"], images["cpu"])
+    log(f"phase 11 small loaded render {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP}: "
+        f"seconds {json.dumps(seconds)} {json.dumps(agree)}")
+    out["small"] = agree
+    return out
 
 
 def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
@@ -960,6 +1167,9 @@ def main():
     torch.cuda.empty_cache()
     # 10. the material bench scene through the port's entry point (v1)
     phase10(dev)
+    torch.cuda.empty_cache()
+    # 11. scene files through the loader: the goldens, a loaded bench scene
+    phase11(dev)
 
     print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets)}),
           flush=True)

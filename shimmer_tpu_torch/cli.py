@@ -1,0 +1,107 @@
+"""Command-line renderer (port of ``shimmer_tpu/cli.py``): parse a pbrt-v4
+scene, render it on the CUDA card, write the image.
+
+    python -m shimmer_tpu_torch.cli scene.pbrt -o out.pfm [--spp N] ...
+
+``--device cpu`` renders with the plain torch versions on the CPU; there
+is no silent fallback, so without a card and without ``--device cpu`` the
+command raises.  The flags of features the port does not have yet
+(another integrator, ``--shard``, ``--megakernel``, ``--checkpoint``,
+``--stats``) raise NotImplementedError naming the ROADMAP item that ports
+them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+# Flags of unported features -> the ROADMAP queue 1 item that ports them.
+_UNPORTED_FLAGS = {
+    "shard": "multi-GPU rendering, ROADMAP queue 1 item 10",
+    "megakernel": "the megakernel, ROADMAP queue 1 item 7",
+    "checkpoint": "render checkpoints, ROADMAP queue 1 item 8",
+    "stats": "the statistics report, ROADMAP queue 1 item 8",
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="shimmer-tpu-torch",
+                                 description="spectral path tracer on a CUDA card")
+    ap.add_argument("scene", help="pbrt-v4 scene file")
+    ap.add_argument("--outfile", "-o", default=None, help="output image (.pfm/.png)")
+    ap.add_argument("--spp", type=int, default=None, help="override samples per pixel")
+    ap.add_argument("--maxdepth", type=int, default=None)
+    ap.add_argument("--integrator", default=None, choices=["path", "simplepath", "randomwalk"])
+    ap.add_argument("--wave-spp", type=int, default=4)
+    ap.add_argument("--pixel-block", type=int, default=1 << 15)
+    ap.add_argument("--shard", action="store_true", help="shard across all local devices")
+    ap.add_argument("--megakernel", action="store_true",
+                    help="the masked megakernel instead of the wavefront integrator")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="override the sampler's seed (default: the scene's)")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH")
+    ap.add_argument("--checkpoint-every", type=int, default=1)
+    ap.add_argument("--quiet", "-q", action="store_true")
+    ap.add_argument("--stats", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; no fallback from one to the other")
+    args = ap.parse_args(argv)
+    for flag, what in _UNPORTED_FLAGS.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag}: {what}, is not ported yet")
+    if args.integrator not in (None, "path"):
+        raise NotImplementedError(
+            f"--integrator {args.integrator}: the other estimators, ROADMAP queue 1 item 7, "
+            "are not ported yet")
+
+    from pathlib import Path
+
+    import torch
+
+    from shimmer_tpu_torch.film.image import Image
+    from shimmer_tpu_torch.loading.parser import parse_file
+    from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
+    from shimmer_tpu_torch.render import render
+    from shimmer_tpu_torch.samplers import ZSobolSampler
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA card is available; "
+                           "pass --device cpu to render on the CPU")
+
+    t0 = time.time()
+    builder = SceneBuilder(search_dir=Path(args.scene).parent)
+    parse_file(args.scene, builder)
+    job = builder.create(device=device)
+    if not args.quiet:
+        print(f"scene build: {time.time() - t0:.2f}s", file=sys.stderr)
+
+    spp = args.spp or job.spp
+    sampler = job.sampler
+    if args.seed is not None:
+        sampler = ZSobolSampler(sampler.samples_per_pixel, job.film.resolution, args.seed)
+
+    def progress(done, total):
+        if not args.quiet:
+            print(f"\r{done}/{total} spp", end="", file=sys.stderr, flush=True)
+
+    t0 = time.time()
+    image, _ = render(
+        job.scene, job.camera, job.film, sampler,
+        integrator=job.integrator, spp=spp, max_depth=args.maxdepth or job.max_depth,
+        wave_spp=args.wave_spp, pixel_block=args.pixel_block, progress=progress,
+    )
+    img = image.cpu().numpy()
+    if not args.quiet:
+        print(f"\nrender: {time.time() - t0:.2f}s", file=sys.stderr)
+    out = args.outfile or job.filename
+    Image(img).write(out)
+    if not args.quiet:
+        print(f"wrote {out}", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

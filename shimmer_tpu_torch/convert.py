@@ -5,8 +5,8 @@
 ``materials.reflectance``, ``lights.spectrum``, ``spectra_table``, ...)
 plus its static census keyed the same way (``triangles.stack_depth``,
 ``material_kinds``, ...), so both packages can render from identical
-tables.  Only the ported slice converts (triangles, untextured materials,
-area and uniform infinite lights); anything else raises
+tables.  Only the ported slice converts (spheres, triangles, untextured
+materials, area and uniform infinite lights); anything else raises
 NotImplementedError.
 """
 
@@ -21,11 +21,11 @@ from shimmer_tpu_torch.materials import material as mtl
 from shimmer_tpu_torch.materials.material import MaterialTable
 from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.scene import Scene
+from shimmer_tpu_torch.shapes.sphere import SphereData
 from shimmer_tpu_torch.shapes.triangle import TriangleSceneData
 
 # Census entries the slice cannot render, with the value it requires.
 _UNPORTED_CENSUS = {
-    "has_spheres": False,
     "has_patches": False,
     "has_instanced": False,
     "has_interface_media": False,
@@ -37,7 +37,9 @@ _UNPORTED_CENSUS = {
     "triangles.differentiable_hits": False,
 }
 # Array groups whose presence means an unported feature.
-_UNPORTED_GROUPS = ("spheres", "patches", "instanced", "media", "env", "textures")
+_UNPORTED_GROUPS = ("patches", "instanced", "media", "env", "textures")
+_SPHERE_F32 = ("radius", "z_min", "z_max", "theta_z_min", "theta_z_max", "phi_max",
+               "object_to_render", "render_to_object")
 # MaterialTable columns by type (every column of the reference's table).
 _MATERIAL_F32 = ("reflectance", "eta_float", "uroughness", "vroughness", "mix_amount",
                  "thickness", "hg_g", "albedo", "bot_uroughness", "bot_vroughness")
@@ -67,7 +69,9 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
     def a(key):
         return np.asarray(arrays[key])
 
-    tris = TriangleSceneData(
+    has_triangles = bool(census["has_triangles"])
+    has_spheres = bool(census["has_spheres"])
+    tris = None if not has_triangles else TriangleSceneData(
         p=f32(a("triangles.p"), device),
         n=f32(a("triangles.n"), device),
         uv=f32(a("triangles.uv"), device),
@@ -85,6 +89,13 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         has_normals=bool(census["triangles.has_normals"]),
         has_uv=bool(census["triangles.has_uv"]),
         traverse=TraverseConfig(leaf="watertight"),
+    )
+    spheres = None if not has_spheres else SphereData(
+        **{c: f32(a(f"spheres.{c}"), device) for c in _SPHERE_F32},
+        reverse_orientation=torch.from_numpy(
+            a("spheres.reverse_orientation").astype(bool)).to(device),
+        material_id=i32(a("spheres.material_id"), device),
+        area_light_id=i32(a("spheres.area_light_id"), device),
     )
     materials = MaterialTable(
         **{c: f32(a(f"materials.{c}"), device) for c in _MATERIAL_F32},
@@ -105,6 +116,9 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
     )
     return Scene(
         triangles=tris,
+        spheres=spheres,
+        has_spheres=has_spheres,
+        has_triangles=has_triangles,
         materials=materials,
         lights=lights,
         light_sample_weights=f32(a("light_sample_weights"), device),

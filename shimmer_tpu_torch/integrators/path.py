@@ -29,12 +29,16 @@ INF = float("inf")
 
 
 def _tri_sampler(scene):
+    if not scene.has_triangles:
+        return None
     return lambda sidx, ref_p, ref_ns, u: triangle_light_sample(
         scene.triangles, sidx, ref_p, ref_ns, u
     )
 
 
 def _tri_pdf(scene):
+    if not scene.has_triangles:
+        return None
     return lambda sidx, ref_p, ref_ns, wi, si_p, si_n: triangle_light_pdf(
         scene.triangles, sidx, ref_p, ref_ns, wi, si_p, si_n
     )
@@ -47,7 +51,7 @@ def _area_le_with_mis(scene, si, swl, beta, p_b, specular, prev_p, prev_ns, l, a
     le = lt.area_light_l(scene.lights, lid, si.n, si.wo, swl)
     pdf_l = light_pmf(scene, lid) * lt.pdf_li(
         scene.lights, lid, prev_p, prev_ns, normalize(si.p - prev_p), si.p, si.n,
-        scene.light_kinds, tri_pdf=_tri_pdf(scene),
+        scene.spheres, scene.light_kinds, tri_pdf=_tri_pdf(scene),
     )
     w = torch.where(specular, 1.0, power_heuristic(1.0, p_b, 1.0, pdf_l))
     return l + torch.where(has_light[..., None], beta * w[..., None] * le, 0.0)
@@ -75,7 +79,7 @@ def sample_ld_prepare(scene: Scene, si, frame, swl, sampler, s_state, bsdf_ctx):
     u2, s_state = sampler.get_2d(s_state)
     light_idx, pmf, _ = sample_light(scene, uc)
     ls = lt.sample_li(
-        scene.lights, light_idx, si.p, si.ns, u2, swl, scene.light_kinds,
+        scene.lights, light_idx, si.p, si.ns, u2, swl, scene.spheres, scene.light_kinds,
         tri_sampler=_tri_sampler(scene),
     )
     f = bsdf_f(

@@ -1,5 +1,5 @@
 """Light sources as a flat SoA table (port of ``shimmer_tpu/lights/lights.py``:
-triangle area lights and the uniform infinite light).
+area lights on spheres and triangles, and the uniform infinite light).
 
 The light kinds of a scene are host metadata; a scene with a kind the port
 has not brought over yet raises NotImplementedError.
@@ -14,6 +14,7 @@ import torch
 from shimmer_tpu_torch.ops.math import take_clamped
 from shimmer_tpu_torch.ops.sampling import UNIFORM_SPHERE_PDF, sample_uniform_sphere
 from shimmer_tpu_torch.ops.vecmath import distance_squared, dot, normalize
+from shimmer_tpu_torch.shapes.sphere import sphere_pdf_with_context, sphere_sample_with_context
 from shimmer_tpu_torch.spectra.spectrum import dense_sample_rows
 
 POINT = 0
@@ -23,6 +24,8 @@ AREA = 3
 UNIFORM_INFINITE = 4
 
 PORTED_KINDS = (AREA, UNIFORM_INFINITE)
+# Area-light shape kinds (the reference's shape_kind column).
+SPHERE_SHAPE = 0
 TRIANGLE_SHAPE = 1
 
 
@@ -35,8 +38,8 @@ class LightData:
     kind: torch.Tensor          # (L,) int32
     spectrum: torch.Tensor      # (L, 471) dense emission spectrum
     scale: torch.Tensor         # (L,)
-    shape_idx: torch.Tensor     # (L,) int32 area light: triangle index
-    shape_kind: torch.Tensor    # (L,) int32 (1 = triangle)
+    shape_idx: torch.Tensor     # (L,) int32 area light: sphere / triangle index
+    shape_kind: torch.Tensor    # (L,) int32 (0 = sphere, 1 = triangle)
     two_sided: torch.Tensor     # (L,) bool
     scene_radius: torch.Tensor  # ()
 
@@ -64,9 +67,10 @@ def _spectrum_of(lights, light_idx, swl):
     )
 
 
-def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl,
+def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl, spheres,
               kinds_present: tuple, tri_sampler=None) -> LightLiSample:
-    """Sample an incident direction from light ``light_idx`` per lane."""
+    """Sample an incident direction from light ``light_idx`` per lane;
+    ``spheres`` is the scene's SphereData or None."""
     check_kinds(kinds_present)
     dev = ref_p.device
     kind = take_clamped(lights.kind, light_idx)
@@ -96,14 +100,21 @@ def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl,
             is_delta=cur.is_delta,
         )
 
-    if AREA in kinds_present and tri_sampler is not None:
-        tm = (kind == AREA) & (take_clamped(lights.shape_kind, light_idx) == TRIANGLE_SHAPE)
-        p, n, pdf = tri_sampler(take_clamped(lights.shape_idx, light_idx), ref_p, ref_ns, u)
+    def area(shape_kind, p, n, pdf, cur):
+        m = (kind == AREA) & (take_clamped(lights.shape_kind, light_idx) == shape_kind)
         wi = normalize(p - ref_p)
         emits = take_clamped(lights.two_sided, light_idx) | (dot(n, -wi) > 0.0)
         l = torch.where(emits[..., None], spec, 0.0)
         valid = (pdf > 0.0) & (distance_squared(p, ref_p) > 0.0) & emits
-        out = sel(tm, l, wi, pdf, p, n, valid, out)
+        return sel(m, l, wi, pdf, p, n, valid, cur)
+
+    if AREA in kinds_present:
+        sidx = take_clamped(lights.shape_idx, light_idx)
+        if spheres is not None:
+            out = area(SPHERE_SHAPE, *sphere_sample_with_context(spheres, sidx, ref_p, ref_ns, u),
+                       out)
+        if tri_sampler is not None:
+            out = area(TRIANGLE_SHAPE, *tri_sampler(sidx, ref_p, ref_ns, u), out)
 
     if UNIFORM_INFINITE in kinds_present:
         m = kind == UNIFORM_INFINITE
@@ -114,16 +125,21 @@ def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl,
     return out
 
 
-def pdf_li(lights: LightData, light_idx, ref_p, ref_ns, wi, si_p, si_n,
+def pdf_li(lights: LightData, light_idx, ref_p, ref_ns, wi, si_p, si_n, spheres,
            kinds_present: tuple, tri_pdf=None):
-    """Solid-angle pdf that sample_li would have produced direction wi."""
+    """Solid-angle pdf that sample_li would have produced direction wi;
+    for area lights, si_p / si_n is the point reached on the light."""
     check_kinds(kinds_present)
     kind = take_clamped(lights.kind, light_idx)
     pdf = torch.zeros(light_idx.shape, device=ref_p.device)
+    sidx = take_clamped(lights.shape_idx, light_idx)
+    shape_kind = take_clamped(lights.shape_kind, light_idx)
+    if AREA in kinds_present and spheres is not None:
+        p = sphere_pdf_with_context(spheres, sidx, ref_p, wi, si_p, si_n)
+        pdf = torch.where((kind == AREA) & (shape_kind == SPHERE_SHAPE), p, pdf)
     if AREA in kinds_present and tri_pdf is not None:
-        m = (kind == AREA) & (take_clamped(lights.shape_kind, light_idx) == TRIANGLE_SHAPE)
-        p = tri_pdf(take_clamped(lights.shape_idx, light_idx), ref_p, ref_ns, wi, si_p, si_n)
-        pdf = torch.where(m, p, pdf)
+        p = tri_pdf(sidx, ref_p, ref_ns, wi, si_p, si_n)
+        pdf = torch.where((kind == AREA) & (shape_kind == TRIANGLE_SHAPE), p, pdf)
     if UNIFORM_INFINITE in kinds_present:
         pdf = torch.where(kind == UNIFORM_INFINITE, UNIFORM_SPHERE_PDF, pdf)
     return pdf

@@ -1,0 +1,647 @@
+"""SceneBuilder: pbrt-v4 directive handling and device-scene creation (port
+of ``shimmer_tpu/loading/scene_builder.py``).
+
+The graphics state (CTM, reverse orientation, material, area light,
+scoped ``Attribute`` parameters), named coordinate systems and the
+attribute stack follow the reference; ``create()`` runs its creation
+passes in its order (film and filter, camera, materials, shapes with
+their area lights, the other lights, the triangle BVH, the scene) and
+returns a ``RenderJob``.  Transforms are kept in float64 while parsing;
+each matrix and its float64 inverse are rounded once to float32, and
+every array reaches the device through ``config.f32`` / ``config.i32``.
+
+The port's slice of pbrt-v4: ``trianglemesh``, ``plymesh`` and
+``sphere`` shapes; materials ``diffuse``, ``conductor``, ``dielectric``,
+``thindielectric``, ``coateddiffuse``, ``coatedconductor`` and ``mix``
+with constant parameters (named through ``MakeNamedMaterial`` /
+``NamedMaterial`` or not); ``diffuse`` area lights on triangles and
+spheres; the ``infinite`` light with a constant ``L``; the
+``perspective`` camera with the default screen window and no lens; the
+``rgb`` film with the CIE 1931 sensor; the ``box`` filter; the
+``zsobol`` sampler; the ``path`` integrator.  Everything else raises
+NotImplementedError naming what it lacks, and so does any parameter that
+nothing looked up when the job was created: no directive or parameter is
+dropped silently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from pathlib import Path
+
+import numpy as np
+
+from shimmer_tpu_torch.color.colorspace import get_named_color_space
+from shimmer_tpu_torch.loading.errors import ParameterError
+from shimmer_tpu_torch.loading.paramdict import ParameterDictionary, SpectrumType
+from shimmer_tpu_torch.ops.transform import Transform
+from shimmer_tpu_torch.spectra.spectrum import ConstantSpectrum, named_spectrum
+
+
+class _Mat4:
+    """Host 4x4 CTM helpers in float64."""
+
+    @staticmethod
+    def identity():
+        return np.eye(4, dtype=np.float64)
+
+    @staticmethod
+    def translate(d):
+        m = np.eye(4)
+        m[:3, 3] = d
+        return m
+
+    @staticmethod
+    def scale(s):
+        return np.diag([s[0], s[1], s[2], 1.0])
+
+    @staticmethod
+    def rotate(angle_deg, axis):
+        a = np.asarray(axis, np.float64)
+        a = a / max(np.linalg.norm(a), 1e-12)
+        rad = np.deg2rad(angle_deg)
+        s, c = np.sin(rad), np.cos(rad)
+        x, y, z = a
+        r = np.array(
+            [
+                [x * x + (1 - x * x) * c, x * y * (1 - c) - z * s, x * z * (1 - c) + y * s],
+                [x * y * (1 - c) + z * s, y * y + (1 - y * y) * c, y * z * (1 - c) - x * s],
+                [x * z * (1 - c) - y * s, y * z * (1 - c) + x * s, z * z + (1 - z * z) * c],
+            ]
+        )
+        m = np.eye(4)
+        m[:3, :3] = r
+        return m
+
+    @staticmethod
+    def look_at(eye, look, up):
+        """pbrt's LookAt: the world-to-camera matrix (the inverse of the
+        camera-to-world frame)."""
+        eye = np.asarray(eye, np.float64)
+        look = np.asarray(look, np.float64)
+        up = np.asarray(up, np.float64)
+        d = look - eye
+        d = d / np.linalg.norm(d)
+        right = np.cross(up / np.linalg.norm(up), d)
+        right /= max(np.linalg.norm(right), 1e-12)
+        new_up = np.cross(d, right)
+        m = np.eye(4)
+        m[:3, 0] = right
+        m[:3, 1] = new_up
+        m[:3, 2] = d
+        m[:3, 3] = eye
+        return np.linalg.inv(m)
+
+
+@dataclasses.dataclass
+class _GraphicsState:
+    ctm: np.ndarray
+    reverse_orientation: bool = False
+    material: int = -1           # index into materials (-1: the default)
+    area_light: tuple | None = None  # (name, ParameterDictionary)
+    # Scoped `Attribute "target" ...` parameters: lower-priority defaults
+    # for every later entity of that target in this scope.
+    attributes: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class RenderJob:
+    scene: object
+    camera: object
+    film: object
+    sampler: object
+    integrator: str
+    max_depth: int
+    spp: int
+    filename: str
+    light_sampler: str = "uniform"
+
+
+# Options the port carries out, and the value each unported option must keep.
+_OPTIONS = {"seed", "rendercoordsys", "forcediffuse", "disabletexturefiltering"}
+_UNPORTED_OPTIONS = {"disablepixeljitter": False, "disablewavelengthjitter": False}
+
+
+def _unported(what: str, lacks: str = ""):
+    return NotImplementedError(f"{what} is not ported yet" + (f" ({lacks})" if lacks else ""))
+
+
+class SceneBuilder:
+    """Parser target: records the directives, builds the job in create()."""
+
+    def __init__(self, search_dir=None):
+        self.search_dir = search_dir
+        self.gs = _GraphicsState(ctm=_Mat4.identity())
+        self.state_stack: list[_GraphicsState] = []
+        self.named_coords: dict[str, np.ndarray] = {}
+        self.camera_spec = ("perspective", ParameterDictionary([]), _Mat4.identity())
+        self.film_spec = ("rgb", ParameterDictionary([]))
+        self.sampler_spec = ("zsobol", ParameterDictionary([]))
+        self.filter_spec = ("box", ParameterDictionary([]))
+        self.integrator_spec = ("path", ParameterDictionary([]))
+        self.accelerator_spec = ("bvh", ParameterDictionary([]))
+        self.colorspace = get_named_color_space("srgb")
+        self.shapes: list[dict] = []   # deferred shape records
+        self.lights: list[dict] = []   # lights other than area lights
+        self.materials: list[dict] = [{"kind_name": "diffuse", "pd": ParameterDictionary([])}]
+        self.named_materials: dict[str, int] = {}
+        self.options: dict = {}
+
+    # --- transforms ---
+
+    def look_at(self, eye, look, up, loc):
+        self.gs.ctm = self.gs.ctm @ _Mat4.look_at(eye, look, up)
+
+    def translate(self, d, loc):
+        self.gs.ctm = self.gs.ctm @ _Mat4.translate(d)
+
+    def scale(self, s, loc):
+        self.gs.ctm = self.gs.ctm @ _Mat4.scale(s)
+
+    def rotate(self, angle, axis, loc):
+        self.gs.ctm = self.gs.ctm @ _Mat4.rotate(angle, axis)
+
+    def transform(self, m16, loc):
+        # pbrt matrices are column-major.
+        self.gs.ctm = np.asarray(m16, np.float64).reshape(4, 4).T
+
+    def concat_transform(self, m16, loc):
+        self.gs.ctm = self.gs.ctm @ np.asarray(m16, np.float64).reshape(4, 4).T
+
+    def identity(self, loc):
+        self.gs.ctm = _Mat4.identity()
+
+    def coordinate_system(self, name, loc):
+        self.named_coords[name] = self.gs.ctm.copy()
+
+    def coord_sys_transform(self, name, loc):
+        if name in self.named_coords:
+            self.gs.ctm = self.named_coords[name].copy()
+        else:
+            warnings.warn(f"{loc}: unknown coordinate system {name!r}; the CTM is unchanged")
+
+    # --- options and the entities before WorldBegin ---
+
+    def _pd(self, params):
+        return ParameterDictionary(params, self.colorspace)
+
+    def color_space(self, name, loc):
+        self.colorspace = get_named_color_space(name)
+
+    def option(self, params, loc):
+        """In-scene ``Option``: seed, forcediffuse, rendercoordsys (the
+        default cameraworld only) and disabletexturefiltering (no effect:
+        textures raise); the jitter switches raise when set; any other
+        option warns and is ignored, as in the reference."""
+        for p in params:
+            v = p.values[0]
+            if p.type == "bool":
+                v = v in (True, "true")
+            if p.name in _UNPORTED_OPTIONS:
+                if v != _UNPORTED_OPTIONS[p.name]:
+                    raise _unported(f"{loc}: Option {p.name!r}",
+                                    "the wavefront has no jitter switches")
+                continue
+            if p.name == "rendercoordsys" and v != "cameraworld":
+                raise _unported(f"{loc}: Option rendercoordsys {v!r}",
+                                "the camera transform takes only cameraworld")
+            if p.name not in _OPTIONS:
+                warnings.warn(f"{loc}: unsupported Option {p.name!r} ignored")
+                continue
+            self.options[p.name] = v
+
+    def _merged_pd(self, target, params):
+        """Directive parameters over the scope's Attribute parameters for
+        ``target`` (the directive wins)."""
+        attrs = self.gs.attributes.get(target, [])
+        return ParameterDictionary(list(attrs) + list(params), self.colorspace)
+
+    def camera(self, name, params, loc):
+        self.camera_spec = (name, self._pd(params), self.gs.ctm.copy())
+        self.named_coords["camera"] = self.gs.ctm.copy()
+
+    def film(self, name, params, loc):
+        self.film_spec = (name, self._pd(params))
+
+    def sampler(self, name, params, loc):
+        self.sampler_spec = (name, self._pd(params))
+
+    def pixel_filter(self, name, params, loc):
+        self.filter_spec = (name, self._pd(params))
+
+    def integrator(self, name, params, loc):
+        self.integrator_spec = (name, self._pd(params))
+
+    def accelerator(self, name, params, loc):
+        """Recorded and ignored: the port always builds its BVH8, and the
+        choice of acceleration structure does not change the image."""
+        self.accelerator_spec = (name, self._pd(params))
+
+    def world_begin(self, loc):
+        self.gs.ctm = _Mat4.identity()
+        self.named_coords["world"] = self.gs.ctm.copy()
+
+    # --- attribute stack ---
+
+    def attribute_begin(self, loc, transform_only=False):
+        self.state_stack.append(dataclasses.replace(self.gs, ctm=self.gs.ctm.copy()))
+
+    def attribute_end(self, loc, transform_only=False):
+        self.gs = self.state_stack.pop()
+
+    def attribute(self, target, params, loc):
+        if target not in ("shape", "light", "material", "medium", "texture"):
+            raise ValueError(f"{loc}: unknown attribute target {target!r}")
+        # A fresh dict and lists: the pushed states share the old ones.
+        attrs = {k: list(v) for k, v in self.gs.attributes.items()}
+        attrs.setdefault(target, []).extend(params)
+        self.gs.attributes = attrs
+
+    def object_begin(self, name, loc):
+        raise _unported(f"{loc}: ObjectBegin", "object instancing")
+
+    def object_end(self, loc):
+        raise _unported(f"{loc}: ObjectEnd", "object instancing")
+
+    def object_instance(self, name, loc):
+        raise _unported(f"{loc}: ObjectInstance", "object instancing")
+
+    def reverse_orientation(self, loc):
+        self.gs.reverse_orientation = not self.gs.reverse_orientation
+
+    # --- materials ---
+
+    def material(self, name, params, loc):
+        if name in ("", "none", "interface"):
+            raise _unported(f"{loc}: the material-less {name or 'interface'!r} material",
+                            "participating media")
+        self.materials.append({"kind_name": name, "pd": self._merged_pd("material", params),
+                               "loc": str(loc)})
+        self.gs.material = len(self.materials) - 1
+
+    def make_named_material(self, name, params, loc):
+        pd = self._merged_pd("material", params)
+        kind = pd.get_one_string("type", "diffuse")
+        if kind in ("", "none", "interface"):
+            raise _unported(f"{loc}: the material-less {kind or 'interface'!r} material",
+                            "participating media")
+        self.materials.append({"kind_name": kind, "pd": pd, "loc": str(loc)})
+        self.named_materials[name] = len(self.materials) - 1
+
+    def named_material(self, name, loc):
+        if name not in self.named_materials:
+            raise ValueError(f"{loc}: unknown named material {name!r}")
+        self.gs.material = self.named_materials[name]
+
+    def texture(self, name, type_, class_, params, loc):
+        raise _unported(f"{loc}: Texture {name!r}", "textures")
+
+    # --- lights ---
+
+    def light_source(self, name, params, loc):
+        self.lights.append({"kind_name": name, "pd": self._merged_pd("light", params),
+                            "ctm": self.gs.ctm.copy(), "loc": str(loc)})
+
+    def area_light_source(self, name, params, loc):
+        if name != "diffuse":
+            raise _unported(f"{loc}: AreaLightSource {name!r}")
+        self.gs.area_light = (name, self._merged_pd("light", params))
+
+    # --- media ---
+
+    def make_named_medium(self, name, params, loc):
+        raise _unported(f"{loc}: MakeNamedMedium {name!r}", "participating media")
+
+    def medium_interface(self, inside, outside, loc):
+        raise _unported(f"{loc}: MediumInterface", "participating media")
+
+    # --- shapes ---
+
+    def shape(self, name, params, loc):
+        self.shapes.append({
+            "kind": name,
+            "pd": self._merged_pd("shape", params),
+            "ctm": self.gs.ctm.copy(),
+            "material": self.gs.material,
+            "area_light": self.gs.area_light,
+            "reverse_orientation": self.gs.reverse_orientation,
+            "loc": str(loc),
+        })
+
+    def end_of_files(self):
+        pass
+
+    # --- creation passes ---
+
+    def _path(self, name: str) -> Path:
+        path = Path(name)
+        if not path.is_absolute() and self.search_dir:
+            path = Path(self.search_dir) / path
+        return path
+
+    def create(self, device=None, traverse=None) -> RenderJob:
+        """Build the RenderJob with every table on ``device`` (default: the
+        CUDA card); ``traverse`` is the triangle table's TraverseConfig
+        (default ``TraverseConfig()``)."""
+        from shimmer_tpu_torch.cameras import CameraTransform, PerspectiveCamera
+        from shimmer_tpu_torch.config import resolve_device
+        from shimmer_tpu_torch.film.film import PixelSensor, RgbFilm
+        from shimmer_tpu_torch.film.filters import BoxFilter
+        from shimmer_tpu_torch.lights import lights as lt
+        from shimmer_tpu_torch.samplers import ZSobolSampler
+        from shimmer_tpu_torch.scene_builder import build_scene
+        from shimmer_tpu_torch.shapes.mesh import TriangleMesh, read_ply
+        from shimmer_tpu_torch.shapes.triangle import build_triangle_scene
+
+        device = resolve_device(device)
+        used = []  # (what, ParameterDictionary): every parameter must be read
+
+        # -- film, filter, sensor --
+        fname, fpd = self.film_spec
+        if fname != "rgb":
+            raise _unported(f"Film {fname!r}")
+        used.append(("Film", fpd))
+        xres = fpd.get_one_int("xresolution", 1280)
+        yres = fpd.get_one_int("yresolution", 720)
+        for key, default in (("iso", 100.0), ("whitebalance", 0.0)):
+            if fpd.get_one_float(key, default) != default:
+                raise _unported(f"Film parameter {key!r}", "the sensor has no exposure or "
+                                "white balance")
+        if fpd.get_one_string("sensor", "cie1931") != "cie1931":
+            raise _unported("Film parameter 'sensor'", "only the CIE 1931 sensor")
+        filt_name, filt_pd = self.filter_spec
+        if filt_name != "box":
+            raise _unported(f"PixelFilter {filt_name!r}")
+        used.append(("PixelFilter", filt_pd))
+        filt = BoxFilter(filt_pd.get_one_float("xradius", 0.5), filt_pd.get_one_float("yradius", 0.5))
+        film = RgbFilm((xres, yres), filt, PixelSensor(self.colorspace), self.colorspace,
+                       max_component_value=fpd.get_one_float("maxcomponentvalue", float("inf")))
+        filename = fpd.get_one_string("filename", "shimmer.pfm")
+
+        # -- camera --
+        cname, cpd, cam_ctm = self.camera_spec
+        if cname != "perspective":
+            raise _unported(f"Camera {cname!r}")
+        used.append(("Camera", cpd))
+        if len(cpd.get_float_array("screenwindow")):
+            raise _unported("Camera parameter 'screenwindow'", "only the default screen window")
+        if cpd.get_one_float("lensradius", 0.0) > 0.0:
+            raise _unported("Camera parameter 'lensradius'", "the pinhole camera only")
+        # Without a lens the focal distance does nothing, and without
+        # animated transforms (which raise) neither does the shutter.
+        for key in ("focaldistance", "shutteropen", "shutterclose"):
+            cpd.get_one_float(key, 0.0)
+        ct = CameraTransform(Transform.from_matrix(np.linalg.inv(cam_ctm)))
+        camera = PerspectiveCamera(ct, (xres, yres), fov=cpd.get_one_float("fov", 90.0))
+        r2w = ct.render_from_world()
+        r2w_np = np.asarray(r2w.m, np.float64)
+
+        # -- materials --
+        spectra_rows: list[np.ndarray] = []
+
+        def add_spectrum_row(spec) -> int:
+            spectra_rows.append(spec.to_dense())
+            return len(spectra_rows) - 1
+
+        force_diffuse = bool(self.options.get("forcediffuse", False))
+        mat_dicts = []
+        for m in self.materials:
+            kind_name = m["kind_name"]
+            if force_diffuse:
+                # Every material becomes a diffuse one with its reflectance;
+                # the parameters of its own kind are set aside on purpose.
+                kind_name = "diffuse"
+                for p in m["pd"].params.values():
+                    p.looked_up = p.type != "texture"
+            mat_dicts.append(self._convert_material(kind_name, m["pd"], add_spectrum_row,
+                                                    m.get("loc", "default material")))
+            used.append((f"{m.get('loc', 'default')}: Material {m['kind_name']!r}", m["pd"]))
+
+        # -- shapes and their area lights --
+        sphere_dicts, mesh_dicts, light_dicts = [], [], []
+        tri_count = 0
+        for rec in self.shapes:
+            pd, kind, loc = rec["pd"], rec["kind"], rec["loc"]
+            used.append((f"{loc}: Shape {kind!r}", pd))
+            o2r = r2w_np @ rec["ctm"]
+            mat = rec["material"]
+            mat_idx = mat if mat >= 0 else 0
+            if rec["area_light"] is not None:
+                used.append((f"{loc}: AreaLightSource", rec["area_light"][1]))
+            if kind == "sphere":
+                area_light_id = -1
+                if rec["area_light"] is not None:
+                    area_light_id = len(light_dicts)
+                    light_dicts.append(self._area_light_dict(rec["area_light"], lt.SPHERE_SHAPE,
+                                                             len(sphere_dicts)))
+                radius = pd.get_one_float("radius", 1.0)
+                sphere_dicts.append({
+                    "radius": radius,
+                    "z_min": pd.get_one_float("zmin", -radius),
+                    "z_max": pd.get_one_float("zmax", radius),
+                    "phi_max": pd.get_one_float("phimax", 360.0),
+                    "object_to_render": Transform.from_matrix(o2r),
+                    "reverse_orientation": rec["reverse_orientation"],
+                    "material_id": mat_idx,
+                    "area_light_id": area_light_id,
+                })
+            elif kind in ("trianglemesh", "plymesh"):
+                if kind == "plymesh":
+                    data = read_ply(self._path(pd.get_one_string("filename", "")))
+                    p, idx, nrm, uv = data["p"], data["indices"], data["n"], data["uv"]
+                else:
+                    p = pd.get_point3_array("P")
+                    idx = pd.get_int_array("indices").reshape(-1, 3)
+                    nrm = pd.get_point3_array("N")
+                    uv = pd.get_point2_array("uv")
+                    if uv is None:
+                        uv = pd.get_point2_array("st")
+                mesh = TriangleMesh(Transform.from_matrix(o2r), idx, p, n=nrm, uv=uv,
+                                    reverse_orientation=rec["reverse_orientation"])
+                n_tris = mesh.n_triangles
+                ali = -1
+                if rec["area_light"] is not None:
+                    # One light per triangle.
+                    ali = np.arange(len(light_dicts), len(light_dicts) + n_tris, dtype=np.int32)
+                    for k in range(n_tris):
+                        light_dicts.append(self._area_light_dict(
+                            rec["area_light"], lt.TRIANGLE_SHAPE, tri_count + k))
+                mesh_dicts.append(mesh.as_scene_dict(mat_idx, ali))
+                tri_count += n_tris
+            else:
+                raise _unported(f"{loc}: Shape {kind!r}")
+
+        # -- the other lights --
+        for ld in self.lights:
+            pd, kindn, loc = ld["pd"], ld["kind_name"], ld["loc"]
+            if kindn != "infinite":
+                raise _unported(f"{loc}: LightSource {kindn!r}")
+            used.append((f"{loc}: LightSource 'infinite'", pd))
+            if pd.get_one_string("filename", ""):
+                raise _unported(f"{loc}: the image infinite light", "environment maps")
+            light_dicts.append({
+                "kind": lt.UNIFORM_INFINITE,
+                "spectrum": pd.get_one_spectrum("L", self.colorspace.illuminant,
+                                                SpectrumType.ILLUMINANT),
+                "scale": pd.get_one_float("scale", 1.0),
+                "photometric": True,
+            })
+
+        # -- sampler and integrator --
+        sname, spd = self.sampler_spec
+        if sname != "zsobol":
+            raise _unported(f"Sampler {sname!r}", "only zsobol")
+        used.append(("Sampler", spd))
+        spp = spd.get_one_int("pixelsamples", 16)
+        sampler = ZSobolSampler(spp, (xres, yres),
+                                spd.get_one_int("seed", int(self.options.get("seed", 0))))
+        iname, ipd = self.integrator_spec
+        # Without media, volpath is the path estimator (the reference maps
+        # it so too).
+        if iname not in ("path", "volpath"):
+            raise _unported(f"Integrator {iname!r}", "only path")
+        used.append(("Integrator", ipd))
+        max_depth = ipd.get_one_int("maxdepth", 5)
+        light_sampler = ipd.get_one_string("lightsampler", "uniform")
+        if light_sampler == "bvh":
+            light_sampler = "power"
+        if light_sampler not in ("uniform", "power"):
+            raise _unported(f"Integrator parameter lightsampler {light_sampler!r}")
+
+        for what, pd in used:
+            unused = pd.report_unused()
+            if unused:
+                raise _unported(f"{what}: parameters {unused}", "nothing reads them")
+
+        tris = (build_triangle_scene(mesh_dicts, device=device, traverse=traverse)
+                if mesh_dicts else None)
+        scene = build_scene(
+            tris,
+            materials=mat_dicts,
+            lights=light_dicts,
+            colorspace=self.colorspace,
+            light_sampler=light_sampler,
+            spectra_table=np.stack(spectra_rows) if spectra_rows else None,
+            device=device,
+            spheres=sphere_dicts,
+            render_from_world=r2w,
+        )
+        return RenderJob(scene=scene, camera=camera, film=film, sampler=sampler,
+                         integrator="path", max_depth=max_depth, spp=spp, filename=filename,
+                         light_sampler=light_sampler)
+
+    def _area_light_dict(self, area_light, shape_kind, shape_idx):
+        from shimmer_tpu_torch.lights import lights as lt
+
+        _, al_pd = area_light
+        if al_pd.get_one_string("filename", ""):
+            raise _unported("an image area light", "textures")
+        return {
+            "kind": lt.AREA,
+            "spectrum": al_pd.get_one_spectrum("L", self.colorspace.illuminant,
+                                               SpectrumType.ILLUMINANT),
+            "scale": al_pd.get_one_float("scale", 1.0),
+            "photometric": True,
+            "shape_kind": shape_kind,
+            "shape_idx": shape_idx,
+            "two_sided": al_pd.get_one_bool("twosided", False),
+        }
+
+    def _convert_material(self, kind_name, pd, add_spectrum_row, loc):
+        from shimmer_tpu_torch.materials import material as mtl
+        from shimmer_tpu_torch.spectra.rgb2spec import _projection_matrix, fit_rgb_coeffs
+
+        textured = [p.name for p in pd.params.values() if p.type == "texture"]
+        if textured:
+            raise _unported(f"{loc}: textured material parameters {textured}", "textures")
+        out = {}
+        remap = pd.get_one_bool("remaproughness", True)
+        r = pd.get_one_float("roughness", 0.0)
+        u_r = pd.get_one_float("uroughness", r)
+        v_r = pd.get_one_float("vroughness", r)
+        if not remap:
+            u_r, v_r = u_r * u_r, v_r * v_r
+        out["uroughness"] = u_r
+        out["vroughness"] = v_r
+
+        def reflectance(param="reflectance", default=0.5):
+            spec = pd.get_one_spectrum(param, None, SpectrumType.ALBEDO)
+            if spec is not None and hasattr(spec, "coeffs"):
+                out["reflectance_coeffs"] = np.asarray(spec.coeffs)
+            elif spec is not None:
+                # A non-rgb spectrum: project to rgb, then fit.
+                rgb = _projection_matrix(self.colorspace) @ spec.get(np.arange(360.0, 831.0))
+                out["reflectance_coeffs"] = fit_rgb_coeffs(
+                    np.clip(rgb, 0, 1)[None], self.colorspace)[0]
+            else:
+                out["reflectance_coeffs"] = fit_rgb_coeffs(
+                    np.array([[default] * 3]), self.colorspace)[0]
+
+        def layer_params():
+            out["thickness"] = pd.get_one_float("thickness", 0.01)
+            out["g"] = pd.get_one_float("g", 0.0)
+            alb = pd.get_one_spectrum("albedo", None, SpectrumType.ALBEDO)
+            if alb is not None and hasattr(alb, "coeffs"):
+                out["albedo_coeffs"] = np.asarray(alb.coeffs)
+            out["eta_float"] = pd.get_one_float("interface.eta", pd.get_one_float("eta", 1.5))
+
+        def metal(eta_key, k_key):
+            eta = pd.get_one_spectrum(eta_key, None, SpectrumType.UNBOUNDED)
+            k = pd.get_one_spectrum(k_key, None, SpectrumType.UNBOUNDED)
+            if pd.get_one_spectrum("reflectance", None, SpectrumType.ALBEDO) is not None:
+                reflectance()
+                return
+            if eta is None:
+                eta = named_spectrum("metal-Cu-eta")
+                k = named_spectrum("metal-Cu-k")
+            out["eta_spec"] = add_spectrum_row(eta)
+            out["k_spec"] = add_spectrum_row(k)
+            out["reflectance_coeffs"] = np.zeros(3, np.float32)
+
+        if kind_name == "diffuse":
+            out["kind"] = mtl.DIFFUSE
+            reflectance()
+        elif kind_name == "coateddiffuse":
+            out["kind"] = mtl.COATED_DIFFUSE
+            reflectance()
+            layer_params()
+        elif kind_name == "coatedconductor":
+            out["kind"] = mtl.COATED_CONDUCTOR
+            layer_params()
+            # The interface's roughness on top, the conductor's below.
+            ir = pd.get_one_float("interface.roughness", 0.0)
+            out["uroughness"] = pd.get_one_float("interface.uroughness", ir)
+            out["vroughness"] = pd.get_one_float("interface.vroughness", ir)
+            cr = pd.get_one_float("conductor.roughness", 0.0)
+            out["bot_uroughness"] = pd.get_one_float("conductor.uroughness", cr)
+            out["bot_vroughness"] = pd.get_one_float("conductor.vroughness", cr)
+            metal("conductor.eta", "conductor.k")
+        elif kind_name == "conductor":
+            out["kind"] = mtl.CONDUCTOR
+            metal("eta", "k")
+        elif kind_name in ("dielectric", "thindielectric"):
+            out["kind"] = mtl.DIELECTRIC if kind_name == "dielectric" else mtl.THIN_DIELECTRIC
+            eta_f = pd.get_one_float("eta", 1.5)
+            eta_spec = pd.get_one_spectrum("eta", None, SpectrumType.UNBOUNDED)
+            if eta_spec is not None:
+                if isinstance(eta_spec, ConstantSpectrum):
+                    eta_f = eta_spec.c
+                else:
+                    out["eta_spec"] = add_spectrum_row(eta_spec)
+            out["eta_float"] = eta_f
+            out["reflectance_coeffs"] = np.zeros(3, np.float32)
+        elif kind_name == "mix":
+            out["kind"] = mtl.MIX
+            out["mix_amount"] = pd.get_one_float("amount", 0.5)
+            out["reflectance_coeffs"] = np.zeros(3, np.float32)
+            names = pd.params.get("materials")
+            if names is not None:
+                names.looked_up = True
+                for key, name in zip(("mix_m1", "mix_m2"), names.values[:2]):
+                    if name not in self.named_materials:
+                        raise ParameterError(f"mix of unknown material {name!r}", loc=loc)
+                    out[key] = self.named_materials[name]
+        else:
+            raise _unported(f"{loc}: material {kind_name!r}")
+        return out

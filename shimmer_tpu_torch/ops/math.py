@@ -1,8 +1,9 @@
 """Scalar math helpers, vectorized over tensors (port of
 ``shimmer_tpu/ops/math.py``: the pieces the forward render path uses).
 
-The reference's ``safe_sqrt`` carries a custom JVP for the
-differentiable renderer; the forward port needs only its value.
+The reference's ``safe_sqrt``, ``safe_asin`` and ``safe_acos`` carry
+custom JVPs for the differentiable renderer; the forward port needs only
+their values.
 """
 
 from __future__ import annotations
@@ -35,6 +36,16 @@ def safe_sqrt(x):
     return sqrt(torch.clamp(x, min=0.0))
 
 
+def safe_asin(x):
+    """asin clamped to [-1, 1]."""
+    return torch.asin(torch.clamp(x, -1.0, 1.0))
+
+
+def safe_acos(x):
+    """acos clamped to [-1, 1]."""
+    return torch.acos(torch.clamp(x, -1.0, 1.0))
+
+
 def safe_div(a, b):
     """a/b with 0 where b == 0."""
     nz = b != 0.0
@@ -58,6 +69,30 @@ def sum_of_products(a, b, c, d):
     s = a * b + cd
     err = c * d - cd
     return s + err
+
+
+def quadratic(a, b, c):
+    """Solve a*t^2 + b*t + c = 0 robustly: (has_solution, t0, t1) with
+    t0 <= t1, the discriminant by difference_of_products and the stable
+    q form; b == 0 takes the positive sign and a == 0 the linear root."""
+    disc = difference_of_products(b, b, 4.0 * a, c)
+    has = (disc >= 0.0) & (a != 0.0)
+    root = safe_sqrt(disc)
+    q = -0.5 * (b + torch.sign(b) * root)
+    q = torch.where(b == 0.0, -0.5 * root, q)
+    a_safe = torch.where(a != 0.0, a, torch.ones_like(a))
+    q_safe = torch.where(q != 0.0, q, torch.ones_like(q))
+    t0 = q / a_safe
+    t1 = torch.where(q != 0.0, c / q_safe, t0)
+    lo = torch.minimum(t0, t1)
+    hi = torch.maximum(t0, t1)
+    lin_ok = (a == 0.0) & (b != 0.0)
+    b_safe = torch.where(b != 0.0, b, torch.ones_like(b))
+    t_lin = -c / b_safe
+    has = has | lin_ok
+    lo = torch.where(lin_ok, t_lin, lo)
+    hi = torch.where(lin_ok, t_lin, hi)
+    return has, lo, hi
 
 
 def take_clamped(table, idx):

@@ -24,6 +24,18 @@ class Transform:
     m_inv: np.ndarray  # (4, 4) float32
 
     @staticmethod
+    def identity():
+        eye = np.eye(4, dtype=np.float32)
+        return Transform(m=eye, m_inv=eye)
+
+    @staticmethod
+    def from_matrix(m):
+        """A float64 matrix and its float64 inverse, each rounded once to
+        float32."""
+        m = np.asarray(m, np.float64)
+        return Transform(m=m.astype(np.float32), m_inv=np.linalg.inv(m).astype(np.float32))
+
+    @staticmethod
     def translate(delta):
         delta = _np3(delta)
         m = np.eye(4, dtype=np.float32)

@@ -8,7 +8,7 @@ import math
 
 import torch
 
-from shimmer_tpu_torch.ops.math import difference_of_products, safe_sqrt, sqr, sqrt
+from shimmer_tpu_torch.ops.math import difference_of_products, safe_acos, safe_sqrt, sqr, sqrt
 
 
 def vec(x, y, z):
@@ -89,6 +89,16 @@ def angle_between(a, b):
     small = torch.where(cond[..., None], a + b, b - a)
     half = 2.0 * torch.asin(torch.clamp(length(small) / 2.0, -1.0, 1.0))
     return torch.where(cond, math.pi - half, half)
+
+
+def spherical_theta(v):
+    return safe_acos(v[..., 2])
+
+
+def spherical_phi(v):
+    """atan2(y, x) in [0, 2 pi)."""
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + 2.0 * math.pi, p)
 
 
 def cos_theta(w):

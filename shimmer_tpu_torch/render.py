@@ -1,5 +1,6 @@
-"""Render orchestration (port of ``shimmer_tpu/render.py``: the wavefront
-branch of ``render``, ``make_wavefront_renderer`` and ``pixel_blocks``).
+"""Render orchestration (port of ``shimmer_tpu/render.py``: ``render`` with
+the reference's interface over its wavefront branch,
+``make_wavefront_renderer`` and ``pixel_blocks``).
 
 The image is split into fixed-size pixel blocks; each wave renders
 ``wave_spp`` sample indices of one block with the regenerating wavefront
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from shimmer_tpu_torch.config import resolve_device
-from shimmer_tpu_torch.film.film import RgbFilm
+from shimmer_tpu_torch.film.film import FilmState, RgbFilm
 from shimmer_tpu_torch.integrators.wavefront import render_wave_wavefront
 from shimmer_tpu_torch.scene import Scene
 
@@ -55,20 +56,54 @@ def pixel_blocks(film: RgbFilm, block: int, device=None):
     )
 
 
-def render(scene: Scene, camera, film: RgbFilm, sampler, integrator: str = "path",
-           spp: int | None = None, max_depth: int = 5, wave_spp: int = 4,
-           pixel_block: int = DEFAULT_PIXEL_BLOCK):
-    """Full render: wave x pixel-block loop on the host.
+def render(
+    scene: Scene,
+    camera,
+    film: RgbFilm,
+    sampler,
+    integrator: str = "path",
+    spp: int | None = None,
+    max_depth: int = 5,
+    wave_spp: int = 4,
+    regularize: bool = False,
+    integrator_options: dict | None = None,
+    film_state: FilmState | None = None,
+    progress=None,
+    pixel_block: int = DEFAULT_PIXEL_BLOCK,
+    disable_pixel_jitter: bool = False,
+    disable_wavelength_jitter: bool = False,
+    wavefront: bool | None = None,
+    collect_stats: bool = False,
+    checkpoint_path=None,
+    checkpoint_every: int = 1,
+):
+    """Full render: wave x pixel-block loop on the host, the reference's
+    interface (keyword names and order).
 
-    Returns the (H, W, 3) image, the final FilmState and a dict with the
-    traced ``rays`` and the loop ``iters`` summed over all waves.  Only
-    the wavefront path integrator is ported."""
-    if integrator != "path":
-        raise NotImplementedError(f"integrator {integrator!r} is not ported yet")
+    Returns the (H, W, 3) image and the final FilmState; with
+    ``collect_stats`` also a dict with the traced ``rays`` and the loop
+    ``iters`` summed over all waves.  Passing a FilmState as
+    ``film_state`` resumes from it; ``progress(done_spp, spp)`` is called
+    after every wave.  Only the wavefront path integrator is ported:
+    another integrator, ``wavefront=False``, ``integrator_options``,
+    ``regularize``, either jitter switch and ``checkpoint_path`` raise
+    NotImplementedError."""
+    unported = {
+        f"integrator {integrator!r}": integrator != "path",
+        "wavefront=False (the megakernel)": wavefront is False,
+        "integrator_options": bool(integrator_options),
+        "regularize=True": regularize,
+        "disable_pixel_jitter": disable_pixel_jitter,
+        "disable_wavelength_jitter": disable_wavelength_jitter,
+        "checkpoint_path (render checkpoints)": checkpoint_path is not None,
+    }
+    for what, asked in unported.items():
+        if asked:
+            raise NotImplementedError(f"render: {what} is not ported yet")
     dev = scene.device
     spp = spp if spp is not None else sampler.samples_per_pixel
     wave_fn = make_wavefront_renderer(scene, camera, film, sampler, max_depth=max_depth)
-    state = film.init_state(dev)
+    state = film_state if film_state is not None else film.init_state(dev)
     blocks, valids = pixel_blocks(film, pixel_block, dev)
     rays = torch.zeros((), device=dev)
     iters = torch.zeros((), device=dev)
@@ -81,4 +116,9 @@ def render(scene: Scene, camera, film: RgbFilm, sampler, integrator: str = "path
             rays = rays + st["rays"]
             iters = iters + st["iters"]
         start += n
-    return film.get_image(state), state, {"rays": float(rays), "iters": float(iters)}
+        if progress is not None:
+            progress(start, spp)
+    image = film.get_image(state)
+    if collect_stats:
+        return image, state, {"rays": float(rays), "iters": float(iters)}
+    return image, state

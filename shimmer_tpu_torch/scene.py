@@ -1,9 +1,11 @@
 """Device scene: flat tables plus the static census (port of
-``shimmer_tpu/scene.py``, triangles-only).
+``shimmer_tpu/scene.py``: analytic spheres and triangles).
 
 The census (which material, light and shape kinds exist) is plain Python
 attributes that pick code paths, as the reference's static fields do
-under jit.
+under jit.  A scene of triangles alone takes the merged trace's fast
+path; a scene with spheres traces every lane through the union
+(``scene_intersect``) and slices the result.
 """
 
 from __future__ import annotations
@@ -15,16 +17,19 @@ import torch
 from shimmer_tpu_torch.lights.lights import LightData
 from shimmer_tpu_torch.materials.material import MaterialTable
 from shimmer_tpu_torch.ops.sampling import sample_discrete
+from shimmer_tpu_torch.shapes.sphere import SphereData, sphere_intersect
 from shimmer_tpu_torch.shapes.triangle import (
     TriangleSceneData,
     _traverse_raw,
     triangle_interaction_from_raw,
+    triangle_scene_intersect,
+    triangle_scene_occluded,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class Scene:
-    triangles: TriangleSceneData
+    triangles: TriangleSceneData | None
     materials: MaterialTable
     lights: LightData
     light_sample_weights: torch.Tensor  # (L,) pmf weights
@@ -34,10 +39,13 @@ class Scene:
     light_kinds: tuple = ()
     n_lights: int = 0
     uniform_infinite_indices: tuple = ()
+    spheres: SphereData | None = None
+    has_spheres: bool = False
+    has_triangles: bool = False
 
     @property
     def device(self):
-        return self.triangles.rows8.device
+        return self.materials.kind.device
 
     def to(self, device) -> "Scene":
         """The same scene with every table on ``device``."""
@@ -55,18 +63,66 @@ def _tensors_to(obj, device):
     return dataclasses.replace(obj, **changes)
 
 
+def scene_intersect(scene: Scene, ray_o, ray_d, t_max, want_any=False):
+    """Closest hit over every shape of the scene: spheres first, then
+    triangles, so a sphere wins a tie at equal t.  Lanes flagged in
+    ``want_any`` stop the triangle leg at their first accepted hit (only
+    ``valid`` means anything there)."""
+    si = None
+    if scene.has_spheres:
+        si = sphere_intersect(scene.spheres, ray_o, ray_d, t_max)
+    if scene.has_triangles:
+        si_t = triangle_scene_intersect(scene.triangles, ray_o, ray_d, t_max,
+                                        want_any=want_any)
+        si = si_t if si is None else _closer(si, si_t)
+    if si is None:
+        raise ValueError("the scene has no geometry")
+    return si
+
+
 def scene_intersect_merged(scene: Scene, ray_o, ray_d, t_max, n_ext):
     """Wavefront merged trace: lanes [:n_ext] are extension rays
     (closest hit, full interaction), lanes [n_ext:] are shadow rays (any
-    hit, occlusion only).  One raw traversal over all lanes; interactions
-    are built for the extension slice only.  Returns (si_ext, occluded)."""
+    hit, occlusion only).  Returns (si_ext, occluded).
+
+    Triangles alone: one raw traversal over all lanes, interactions for
+    the extension slice only.  With spheres: the union over all lanes,
+    sliced; a shadow lane's triangle leg stops at its first hit, so only
+    its ``valid`` is read."""
     n_all = ray_o.shape[0]
     want_any = torch.arange(n_all, device=ray_o.device) >= n_ext
-    _, tri = _traverse_raw(scene.triangles, ray_o, ray_d, t_max, any_hit=want_any)
-    si = triangle_interaction_from_raw(
-        scene.triangles, ray_o[:n_ext], ray_d[:n_ext], tri[:n_ext]
-    )
-    return si, tri[n_ext:] >= 0
+    if scene.has_triangles and not scene.has_spheres:
+        _, tri = _traverse_raw(scene.triangles, ray_o, ray_d, t_max, any_hit=want_any)
+        si = triangle_interaction_from_raw(
+            scene.triangles, ray_o[:n_ext], ray_d[:n_ext], tri[:n_ext]
+        )
+        return si, tri[n_ext:] >= 0
+    si_all = scene_intersect(scene, ray_o, ray_d, t_max, want_any=want_any)
+    si = type(si_all)(**{f.name: getattr(si_all, f.name)[:n_ext]
+                         for f in dataclasses.fields(si_all)})
+    return si, si_all.valid[n_ext:]
+
+
+def _closer(a, b):
+    """Per lane, ``b`` where it hits strictly closer than ``a`` (or ``a``
+    misses), else ``a``."""
+    take_b = b.valid & (~a.valid | (b.t < a.t))
+    merged = {}
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        cond = take_b[..., None] if va.ndim > take_b.ndim else take_b
+        merged[f.name] = torch.where(cond, vb, va)
+    return type(a)(**merged)
+
+
+def scene_intersect_predicate(scene: Scene, ray_o, ray_d, t_max):
+    """Any-hit (shadow) test over every shape."""
+    hit = torch.zeros(ray_o.shape[:-1], dtype=torch.bool, device=ray_o.device)
+    if scene.has_spheres:
+        hit = hit | sphere_intersect(scene.spheres, ray_o, ray_d, t_max).valid
+    if scene.has_triangles:
+        hit = hit | triangle_scene_occluded(scene.triangles, ray_o, ray_d, t_max)
+    return hit
 
 
 def sample_light(scene: Scene, u):

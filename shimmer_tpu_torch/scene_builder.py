@@ -1,7 +1,7 @@
 """Host-side scene assembly (port of ``shimmer_tpu/scene_builder.py``:
-triangles, untextured materials of every ported kind with the dense
-spectra table their IORs index, triangle area lights and uniform infinite
-lights)."""
+analytic spheres and triangles, untextured materials of every ported kind
+with the dense spectra table their IORs index, area lights on spheres and
+triangles, and uniform infinite lights)."""
 
 from __future__ import annotations
 
@@ -9,34 +9,48 @@ import numpy as np
 import torch
 
 from shimmer_tpu_torch.color.colorspace import RgbColorSpace, get_named_color_space
-from shimmer_tpu_torch.config import f32, i32
+from shimmer_tpu_torch.config import f32, i32, resolve_device
 from shimmer_tpu_torch.lights import lights as lt
 from shimmer_tpu_torch.materials import material as mtl
 from shimmer_tpu_torch.materials.material import make_material_table
+from shimmer_tpu_torch.ops.transform import Transform
 from shimmer_tpu_torch.scene import Scene
+from shimmer_tpu_torch.shapes.sphere import make_sphere_data, sphere_area
 from shimmer_tpu_torch.spectra.rgb2spec import fit_rgb_coeffs
 from shimmer_tpu_torch.spectra.spectrum import Spectrum, spectrum_to_photometric
 
 
 def build_scene(
-    triangles,
+    triangles=None,
     materials: list[dict] | None = None,
     lights: list[dict] | None = None,
     colorspace: RgbColorSpace | None = None,
     light_sampler: str = "uniform",
     spectra_table=None,
     device=None,
+    spheres: list[dict] | None = None,
+    render_from_world: Transform | None = None,
 ) -> Scene:
-    """Assemble a device Scene from a TriangleSceneData and material /
-    light dicts, as the reference's ``build_scene`` does for a
-    triangle-only scene.  Material dicts carry ``kind`` plus the per-kind
-    parameters of ``materials.material.make_material_table``;
-    ``reflectance`` may be an RGB triple (fit to sigmoid coefficients
-    here).  ``spectra_table`` is the (K, 471) dense table that
-    ``eta_spec`` / ``k_spec`` index.  ``device`` defaults to the
-    triangles' device."""
-    device = triangles.rows8.device if device is None else device
+    """Assemble a device Scene from a TriangleSceneData (or None), sphere
+    dicts and material / light dicts, as the reference's ``build_scene``
+    does.  Sphere dicts carry ``radius``, ``z_min``, ``z_max``,
+    ``phi_max`` (degrees), ``reverse_orientation``, ``material_id``,
+    ``area_light_id`` and either ``object_to_render`` or
+    ``object_to_world`` (composed with ``render_from_world`` here).
+    Material dicts carry ``kind`` plus the per-kind parameters of
+    ``materials.material.make_material_table``; ``reflectance`` may be an
+    RGB triple (fit to sigmoid coefficients here).  ``spectra_table`` is
+    the (K, 471) dense table that ``eta_spec`` / ``k_spec`` index.
+    ``device`` defaults to the triangles' device, else the CUDA card."""
+    if device is None:
+        device = triangles.rows8.device if triangles is not None else resolve_device(None)
     cs = colorspace or get_named_color_space("srgb")
+    r_from_w = render_from_world or Transform.identity()
+    spheres = [dict(sp) for sp in (spheres or [])]
+    for sp in spheres:
+        o2w = sp.pop("object_to_world", None)
+        if "object_to_render" not in sp:
+            sp["object_to_render"] = r_from_w @ o2w if o2w is not None else r_from_w
     materials = materials or []
     lights = lights or []
 
@@ -51,12 +65,23 @@ def build_scene(
     mat_table = make_material_table(mat_dicts, device)
     material_kinds = tuple(sorted({int(m.get("kind", 0)) for m in mat_dicts})) or (mtl.DIFFUSE,)
 
-    lo = triangles.world_min.cpu().numpy()
-    hi = triangles.world_max.cpu().numpy()
-    scene_radius = max(
-        100.0,
-        float(np.linalg.norm(hi - lo) * 0.5 + np.linalg.norm((hi + lo) * 0.5)),
-    )
+    sphere_data = make_sphere_data(spheres, device) if spheres else None
+
+    # Scene bounds radius for the infinite lights: the spheres' extent (or
+    # 100 without spheres), then at least the triangles' bounding sphere.
+    if spheres:
+        centers = np.stack([np.asarray(s["object_to_render"].m)[0:3, 3] for s in spheres])
+        radii = np.array([s.get("radius", 1.0) for s in spheres])
+        scene_radius = float(np.max(np.linalg.norm(centers, axis=-1) + radii))
+    else:
+        scene_radius = 100.0
+    if triangles is not None:
+        lo = triangles.world_min.cpu().numpy()
+        hi = triangles.world_max.cpu().numpy()
+        scene_radius = max(
+            scene_radius,
+            float(np.linalg.norm(hi - lo) * 0.5 + np.linalg.norm((hi + lo) * 0.5)),
+        )
 
     n_l = len(lights)
     kind = np.zeros(n_l, np.int32)
@@ -66,12 +91,15 @@ def build_scene(
     shape_kind = np.zeros(n_l, np.int32)
     two_sided = np.zeros(n_l, bool)
     power = np.ones(n_l, np.float32)
-    tri_area = triangles.tri_area.cpu().numpy()
+    tri_area = triangles.tri_area.cpu().numpy() if triangles is not None else None
+    sph_area = sphere_area(sphere_data).cpu().numpy() if sphere_data is not None else None
     for i, ld in enumerate(lights):
         if ld["kind"] not in lt.PORTED_KINDS:
             raise NotImplementedError(f"light kind {ld['kind']} is not ported yet")
-        if ld["kind"] == lt.AREA and ld.get("shape_kind", 0) != lt.TRIANGLE_SHAPE:
-            raise NotImplementedError("only triangle area lights are ported")
+        if ld["kind"] == lt.AREA and ld.get("shape_kind", 0) not in (lt.SPHERE_SHAPE,
+                                                                       lt.TRIANGLE_SHAPE):
+            raise NotImplementedError(
+                f"area lights on shape kind {ld.get('shape_kind', 0)} are not ported yet")
         kind[i] = ld["kind"]
         spec: Spectrum = ld["spectrum"]
         spectrum[i] = spec.to_dense()
@@ -84,7 +112,12 @@ def build_scene(
         two_sided[i] = bool(ld.get("two_sided", False))
         lum = float(np.mean(spectrum[i])) * s
         if ld["kind"] == lt.AREA:
-            area = float(tri_area[ld["shape_idx"]])
+            if shape_kind[i] == lt.SPHERE_SHAPE and sph_area is not None:
+                area = float(sph_area[ld["shape_idx"]])
+            elif tri_area is not None:
+                area = float(tri_area[ld["shape_idx"]])
+            else:
+                area = 1.0
             power[i] = lum * area * np.pi * (2.0 if two_sided[i] else 1.0)
         else:
             power[i] = lum * 4.0 * np.pi * scene_radius**2
@@ -106,6 +139,9 @@ def build_scene(
         raise ValueError(f"unknown light sampler {light_sampler!r}")
     return Scene(
         triangles=triangles,
+        spheres=sphere_data,
+        has_spheres=sphere_data is not None,
+        has_triangles=triangles is not None,
         materials=mat_table,
         lights=light_data,
         light_sample_weights=f32(weights, device),

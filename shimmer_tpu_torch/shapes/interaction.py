@@ -29,6 +29,26 @@ class SurfaceInteraction:
     med_in: torch.Tensor       # (...,) int32
     med_out: torch.Tensor      # (...,) int32
 
+    @staticmethod
+    def make(valid, t, p, n, uv, wo, dpdu, dpdv, ns=None, dpdus=None, material_id=None,
+             area_light_id=None, med_in=None, med_out=None) -> "SurfaceInteraction":
+        """A record with the reference's defaults: shading frame = the
+        geometric one, ids -1, and medium ids -2 (no interface)."""
+        batch, dev = valid.shape, valid.device
+
+        def ids(v, fill):
+            return v if v is not None else torch.full(batch, fill, dtype=torch.int32, device=dev)
+
+        return SurfaceInteraction(
+            valid=valid, t=t, p=p, n=n, uv=uv, wo=wo, dpdu=dpdu, dpdv=dpdv,
+            ns=ns if ns is not None else n,
+            dpdus=dpdus if dpdus is not None else dpdu,
+            material_id=ids(material_id, -1),
+            area_light_id=ids(area_light_id, -1),
+            med_in=ids(med_in, -2),
+            med_out=ids(med_out, -2),
+        )
+
     def shading_frame(self) -> Frame:
         """Frame from the shading normal and tangent."""
         ns = self.ns

@@ -20,7 +20,7 @@ import torch
 
 from shimmer_tpu_torch.config import f32, i32, resolve_device
 from shimmer_tpu_torch.ops.bvh8 import pack_bvh8, pack_leaves_mt
-from shimmer_tpu_torch.ops.math import difference_of_products
+from shimmer_tpu_torch.ops.math import difference_of_products, take_clamped
 from shimmer_tpu_torch.ops.traverse import TraverseConfig, child_leaf_mask
 from shimmer_tpu_torch.ops.sampling import (
     sample_spherical_triangle,
@@ -321,6 +321,21 @@ def _traverse_raw(tris: TriangleSceneData, ray_o, ray_d, t_max, any_hit):
     return traverse_raw(tris, ray_o, ray_d, t_max, any_hit=any_hit)
 
 
+def triangle_scene_intersect(tris: TriangleSceneData, ray_o, ray_d, t_max,
+                             want_any=False) -> SurfaceInteraction:
+    """Closest hit and its interaction: the union's triangle leg.
+    ``want_any`` flags lanes that stop at their first accepted hit (only
+    ``valid`` means anything there)."""
+    _, tri = _traverse_raw(tris, ray_o, ray_d, t_max, any_hit=want_any)
+    return triangle_interaction_from_raw(tris, ray_o, ray_d, tri)
+
+
+def triangle_scene_occluded(tris: TriangleSceneData, ray_o, ray_d, t_max):
+    """Any-hit shadow query."""
+    _, tri = _traverse_raw(tris, ray_o, ray_d, t_max, any_hit=True)
+    return tri >= 0
+
+
 def triangle_interaction_from_raw(tris: TriangleSceneData, ray_o, ray_d, tri) -> SurfaceInteraction:
     """Interaction from a raw traversal result: re-intersect the winning
     triangle (identical watertight formulas, so the hit decision
@@ -417,7 +432,10 @@ def build_triangle_interaction(has_normals, ray_d, t, tri, b0, b1, b2, p0, p1, p
 
 
 def _orig_tri_verts(tris: TriangleSceneData, tri_idx):
-    row = tris.light_rows[tri_idx.long()]
+    """Vertices and reverse flag of original-order triangle ``tri_idx``
+    (ids clamped into the table, as the reference's gathers are: a lane
+    whose light is on another shape reads a row it then discards)."""
+    row = take_clamped(tris.light_rows, tri_idx)
     return row[..., 0:3], row[..., 3:6], row[..., 6:9], row[..., 9] > 0.5
 
 

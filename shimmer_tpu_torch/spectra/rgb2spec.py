@@ -1,5 +1,6 @@
 """RGB -> reflectance-spectrum uplifting with sigmoid polynomials (port of
-``shimmer_tpu/spectra/rgb2spec.py``: the fit and its device evaluation).
+``shimmer_tpu/spectra/rgb2spec.py``: the fit, its device evaluation and the
+host RGB spectrum classes the scene loader resolves "rgb" parameters to).
 
 The polynomial runs in the reference's normalized wavelength basis
 x = (lambda - 360) / 470, so coefficients are interchangeable between the
@@ -15,7 +16,7 @@ import torch
 
 from shimmer_tpu_torch.ops.math import sqrt
 from shimmer_tpu_torch.spectra.sampled import LAMBDA_MAX, LAMBDA_MIN
-from shimmer_tpu_torch.spectra.spectrum import cie_xyz_dense
+from shimmer_tpu_torch.spectra.spectrum import Spectrum, cie_xyz_dense
 
 
 def _sigmoid_np(t):
@@ -85,3 +86,51 @@ def fit_rgb_coeffs(rgb, cs, iters: int = 40) -> np.ndarray:
         jtj += lm[:, None, None] * np.eye(3)[None]
         c = c - np.linalg.solve(jtj, jtr[..., None])[..., 0]
     return c.astype(np.float32)
+
+
+def _sigmoid_poly_np(coeffs, lam):
+    x = _norm_lambda(np.asarray(lam, np.float64))
+    c0, c1, c2 = coeffs
+    return _sigmoid_np((c0 * x + c1) * x + c2)
+
+
+class RgbAlbedoSpectrum(Spectrum):
+    """Reflectance spectrum of an rgb in [0, 1]^3."""
+
+    def __init__(self, cs, rgb):
+        rgb = np.clip(np.asarray(rgb, np.float64), 0.0, 1.0)
+        self.coeffs = fit_rgb_coeffs(rgb[None], cs)[0]
+
+    def get(self, lam):
+        return _sigmoid_poly_np(self.coeffs, lam)
+
+
+class RgbUnboundedSpectrum(Spectrum):
+    """Scaled reflectance-shaped spectrum for an rgb beyond [0, 1]."""
+
+    def __init__(self, cs, rgb):
+        rgb = np.asarray(rgb, np.float64)
+        self.scale = 2.0 * float(np.max(rgb))
+        base = rgb / self.scale if self.scale != 0.0 else np.zeros(3)
+        self.coeffs = fit_rgb_coeffs(base[None], cs)[0]
+
+    def get(self, lam):
+        return self.scale * _sigmoid_poly_np(self.coeffs, lam)
+
+
+class RgbIlluminantSpectrum(Spectrum):
+    """Emission spectrum: a scaled sigmoid times the color space's
+    illuminant; photometric normalization measures the illuminant alone."""
+
+    def __init__(self, cs, rgb):
+        rgb = np.asarray(rgb, np.float64)
+        self.scale = 2.0 * float(np.max(rgb))
+        base = rgb / self.scale if self.scale != 0.0 else np.zeros(3)
+        self.coeffs = fit_rgb_coeffs(base[None], cs)[0]
+        self.illuminant = cs.illuminant
+
+    def photometric_base(self):
+        return self.illuminant
+
+    def get(self, lam):
+        return self.scale * _sigmoid_poly_np(self.coeffs, lam) * self.illuminant.get(lam)

@@ -120,6 +120,29 @@ class PiecewiseLinearSpectrum(Spectrum):
         return np.where(inside, v, 0.0)
 
 
+class BlackbodySpectrum(Spectrum):
+    """Planck spectrum normalized to a peak of 1."""
+
+    def __init__(self, t: float):
+        self.t = float(t)
+        lambda_max_m = 2.8977721e-3 / self.t  # Wien
+        self.normalization = 1.0 / _planck(lambda_max_m * 1e9, self.t)
+
+    def get(self, lam):
+        return _planck(np.asarray(lam, np.float64), self.t) * self.normalization
+
+
+def _planck(lam_nm, t):
+    """Blackbody emitted radiance at lambda (nm), temperature t (K)."""
+    if t < 0.0:
+        return np.zeros_like(np.asarray(lam_nm, np.float64))
+    c = 299792458.0
+    h = 6.62606957e-34
+    kb = 1.3806488e-23
+    l = np.asarray(lam_nm, np.float64) * 1e-9
+    return (2.0 * h * c * c) / (l**5 * (np.exp((h * c) / (l * kb * t)) - 1.0))
+
+
 @functools.cache
 def cie_x_spectrum() -> DenselySampledSpectrum:
     return DenselySampledSpectrum(_data()["cie_x"])

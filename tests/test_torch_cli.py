@@ -1,0 +1,115 @@
+"""The port's command-line renderer (shimmer_tpu_torch/cli.py) on the CPU:
+``main`` renders tests/scenes/diffuse_box.pbrt at 1 spp with
+``--device cpu`` to a PFM and a PNG; the PFM read back equals the image
+``render`` returns for the same job; the PNG is the 8-bit sRGB encoding;
+``python -m shimmer_tpu_torch.cli`` runs; every flag of an unported
+feature raises NotImplementedError, and ``--device cuda`` without a card
+raises instead of falling back to the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from shimmer_tpu_torch import cli
+from shimmer_tpu_torch.film.image import Image, linear_to_srgb
+from shimmer_tpu_torch.loading.parser import parse_file
+from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
+from shimmer_tpu_torch.render import render
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+SCENE = Path(__file__).parent / "scenes" / "diffuse_box.pbrt"
+
+
+@pytest.fixture(scope="module")
+def reference_image():
+    builder = SceneBuilder(search_dir=SCENE.parent)
+    parse_file(str(SCENE), builder)
+    job = builder.create(device="cpu")
+    image, _ = render(job.scene, job.camera, job.film, job.sampler, integrator="path", spp=1,
+                      max_depth=job.max_depth)
+    return image.numpy()
+
+
+def test_cli_writes_pfm_and_png(tmp_path, reference_image):
+    pfm, png = tmp_path / "out.pfm", tmp_path / "out.png"
+    assert cli.main([str(SCENE), "--spp", "1", "--device", "cpu", "-q", "-o", str(pfm)]) == 0
+    assert cli.main([str(SCENE), "--spp", "1", "--device", "cpu", "-q", "--outfile", str(png)]) == 0
+    img = Image.read(pfm)
+    assert img.resolution == (64, 64) and img.data.dtype == np.float32
+    np.testing.assert_array_equal(img.data, reference_image)
+    from PIL import Image as PILImage
+
+    enc = np.asarray(PILImage.open(png))
+    want = (np.clip(linear_to_srgb(reference_image.astype(np.float64)), 0, 1) * 255 + 0.5)
+    np.testing.assert_array_equal(enc, want.astype(np.uint8))
+    with pytest.raises(NotImplementedError):
+        Image(reference_image).write(tmp_path / "out.exr")
+
+
+def test_cli_as_module(tmp_path):
+    out = tmp_path / "mod.pfm"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "shimmer_tpu_torch.cli", str(SCENE), "--spp", "1", "--maxdepth",
+         "1", "--device", "cpu", "-o", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "wrote" in proc.stderr and np.isfinite(Image.read(out).data).all()
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--shard"], ["--megakernel"], ["--stats"], ["--checkpoint", "ck.npz"],
+     ["--integrator", "simplepath"], ["--integrator", "randomwalk"]],
+    ids=["shard", "megakernel", "stats", "checkpoint", "simplepath", "randomwalk"],
+)
+def test_unported_flags_raise(tmp_path, flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        cli.main([str(SCENE), "--device", "cpu", "-q", "-o", str(tmp_path / "x.pfm"), *flags])
+    assert not (tmp_path / "x.pfm").exists()
+
+
+def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cli.main([str(SCENE), "-q", "-o", str(tmp_path / "x.pfm")])
+
+
+def test_render_interface(reference_image):
+    """``render`` takes the reference's keywords in the reference's order,
+    returns (image, state), or (image, state, stats) with collect_stats;
+    film_state accumulates onto a given state and progress sees every
+    wave; the unported options raise."""
+    import inspect
+
+    from shimmer_tpu.render import render as jax_render
+
+    assert list(inspect.signature(render).parameters) == list(
+        inspect.signature(jax_render).parameters)
+    builder = SceneBuilder(search_dir=SCENE.parent)
+    parse_file(str(SCENE), builder)
+    job = builder.create(device="cpu")
+    args = (job.scene, job.camera, job.film, job.sampler)
+    seen = []
+    image, state, stats = render(*args, spp=2, max_depth=job.max_depth, wave_spp=1,
+                                 collect_stats=True, progress=lambda d, t: seen.append((d, t)))
+    assert seen == [(1, 2), (2, 2)] and stats["rays"] > 0 and stats["iters"] > 0
+    one, state1 = render(*args, spp=1, max_depth=job.max_depth)
+    np.testing.assert_array_equal(one.numpy(), reference_image)
+    _, state2 = render(*args, spp=1, max_depth=job.max_depth, film_state=state1)
+    assert (state2.weight_sum.numpy() == 2).all()
+    np.testing.assert_array_equal(state2.rgb_sum.numpy(), 2 * state1.rgb_sum.numpy())
+    for kwargs in ({"integrator": "simplepath"}, {"wavefront": False},
+                   {"integrator_options": {"x": 1}}, {"regularize": True},
+                   {"disable_pixel_jitter": True}, {"disable_wavelength_jitter": True},
+                   {"checkpoint_path": "ck.npz"}):
+        with pytest.raises(NotImplementedError):
+            render(*args, spp=1, **kwargs)

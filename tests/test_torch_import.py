@@ -71,6 +71,17 @@ if "shimmer_tpu_torch.materials.layered" in runs:
         img = render(scene, cam, film, ZSobolSampler(1, (8, 8)), spp=1, max_depth=3,
                      wave_spp=1, pixel_block=64)[0]
         assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+if "shimmer_tpu_torch.cli" in runs:
+    # The scene-file path runs, not only imports: a golden scene parsed,
+    # built and rendered through the CLI at a small size on the CPU.
+    import pathlib, tempfile
+    from shimmer_tpu_torch import cli
+    text = pathlib.Path("tests/scenes/dielectric.pbrt").read_text().replace("[64]", "[8]")
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = pathlib.Path(tmp) / "small.pbrt"
+        scene.write_text(text)
+        assert cli.main([str(scene), "--spp", "1", "--device", "cpu", "-q",
+                         "-o", str(pathlib.Path(tmp) / "small.pfm")]) == 0
 blocked = ("jax", "jaxlib", "shimmer_tpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -94,9 +105,13 @@ print(len(names))
          "shimmer_tpu_torch.materials.layered", "shimmer_tpu_torch.materials.material",
          "shimmer_tpu_torch.integrators.path", "shimmer_tpu_torch.convert",
          "shimmer_tpu_torch.bench_scene"],
+        ["shimmer_tpu_torch.shapes.sphere", "shimmer_tpu_torch.loading.parser",
+         "shimmer_tpu_torch.loading.scene_builder", "shimmer_tpu_torch.film.image",
+         "shimmer_tpu_torch.cli"],
     ],
     ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules",
-         "packet_step_modules", "kernel_ab_modules", "material_modules"],
+         "packet_step_modules", "kernel_ab_modules", "material_modules",
+         "scene_file_modules"],
 )
 def test_imports_without_jax(names):
     # One torch thread: the subprocess runs beside the other xdist workers.

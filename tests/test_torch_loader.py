@@ -1,0 +1,576 @@
+"""The port's pbrt-v4 loader (shimmer_tpu_torch/loading/, shapes/mesh.py
+read_ply) against the reference's, on the CPU.
+
+- The parse cases of tests/test_parser.py run against the port, on copies
+  of their scene texts (the JAX test module is not imported).  Cases whose
+  scenes use only ported features give the reference's result; cases that
+  use an unported feature (instancing, textures, bilinear meshes, the
+  image environment light, the jitter options, another sampler, the
+  camera render space) raise NotImplementedError.  Where a case's only
+  unported feature is incidental (its sampler, or the jitter option of its
+  header), a variant without it gives the reference's result.
+- For each golden scene (tests/scenes/*.pbrt) the port's
+  ``SceneBuilder.create()`` gives the reference's tables: ``rows8`` and the
+  other triangle tables byte-equal, the sphere table, materials, lights,
+  light weights and spectra equal, camera rays within 1e-6, and the same
+  film and sampler settings.
+- ``read_ply`` equals the reference's on ascii, binary little-endian and
+  binary big-endian files with normals, uvs, triangles and quads.
+- Every unported directive, parameter and option raises
+  NotImplementedError naming it.
+"""
+
+import struct
+import textwrap
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shimmer_tpu.loading.parser import parse_file as jax_parse_file
+from shimmer_tpu.loading.parser import parse_str as jax_parse
+from shimmer_tpu.loading.scene_builder import SceneBuilder as JaxBuilder
+from shimmer_tpu.shapes.mesh import read_ply as jax_read_ply
+from shimmer_tpu_torch.loading.errors import DirectiveError, ParameterError, SceneLoadError, TokenError
+from shimmer_tpu_torch.loading.parser import parse_file, parse_str
+from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
+from shimmer_tpu_torch.loading.tokenizer import tokenize
+from shimmer_tpu_torch.materials import material as mtl
+from shimmer_tpu_torch.shapes.mesh import read_ply
+from torch_parity import ensure_reference_sah, jax_scene_to_numpy
+
+torch.set_num_threads(1)
+
+SCENES_DIR = Path(__file__).parent / "scenes"
+GOLDEN = ["diffuse_box", "conductor_env", "dielectric"]
+
+# tests/test_parser.py's CORNELL scene.
+CORNELL = """
+Integrator "path" "integer maxdepth" [4]
+Sampler "independent" "integer pixelsamples" [8]
+Film "rgb" "integer xresolution" [32] "integer yresolution" [32]
+    "string filename" "cornell.pfm"
+PixelFilter "box"
+Camera "perspective" "float fov" [50]
+
+WorldBegin
+
+MakeNamedMaterial "white" "string type" "diffuse"
+    "rgb reflectance" [0.73 0.73 0.73]
+MakeNamedMaterial "red" "string type" "diffuse"
+    "rgb reflectance" [0.65 0.05 0.05]
+
+# floor quad
+NamedMaterial "white"
+Shape "trianglemesh"
+    "integer indices" [0 1 2 0 2 3]
+    "point3 P" [-1 0 -1  1 0 -1  1 0 1  -1 0 1]
+
+AttributeBegin
+  NamedMaterial "red"
+  Translate 0 1 0
+  Shape "sphere" "float radius" [0.4]
+AttributeEnd
+
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [10 10 10]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Shape "trianglemesh"
+    "integer indices" [0 1 2 0 2 3]
+    "point3 P" [-0.3 1.99 -0.3  0.3 1.99 -0.3  0.3 1.99 0.3  -0.3 1.99 0.3]
+AttributeEnd
+
+LightSource "infinite" "rgb L" [0.1 0.1 0.1]
+"""
+CORNELL_ZSOBOL = CORNELL.replace('Sampler "independent"', 'Sampler "zsobol"')
+
+# tests/test_parser.py TestOptionAttribute.BASE, and the same header
+# without its jitter option.
+OPTION_BASE = """
+Option "integer seed" [7] "bool disablepixeljitter" true
+Camera "perspective" "float fov" [45]
+Film "rgb" "integer xresolution" [8] "integer yresolution" [8]
+Sampler "independent" "integer pixelsamples" [2]
+Integrator "path"
+WorldBegin
+%s
+"""
+OPTION_BASE_PORTED = (OPTION_BASE.replace(' "bool disablepixeljitter" true', "")
+                      .replace('"independent"', '"zsobol"'))
+
+
+def both(text, search_dir=None):
+    """The reference's and the port's builders after parsing ``text``."""
+    jb, tb = JaxBuilder(search_dir=search_dir), SceneBuilder(search_dir=search_dir)
+    jax_parse(text, jb, search_dir=search_dir)
+    parse_str(text, tb, search_dir=search_dir)
+    return jb, tb
+
+
+# --- tokenizer ---
+
+
+def test_tokenizer_cases():
+    toks = [t for t, _ in tokenize('Shape "sphere" "float radius" [1.5] # c\nScale 1 2 3')]
+    assert toks == ["Shape", '"sphere"', '"float radius"', "[", "1.5", "]", "Scale", "1", "2", "3"]
+    assert [t for t, _ in tokenize('"string filename" "my file.png"')] == [
+        '"string filename"', '"my file.png"']
+    assert [loc.line for _, loc in tokenize("A\nB\nC")] == [1, 2, 3]
+
+
+@pytest.mark.parametrize("name", GOLDEN)
+def test_tokenizer_matches_reference_on_golden_files(name):
+    from shimmer_tpu.loading.tokenizer import tokenize as jax_tokenize
+
+    text = (SCENES_DIR / f"{name}.pbrt").read_text()
+    assert [(t, str(loc)) for t, loc in tokenize(text, name)] == [
+        (t, str(loc)) for t, loc in jax_tokenize(text, name)]
+
+
+# --- the parse cases of tests/test_parser.py ---
+
+
+def test_cornell_structure():
+    jb, b = both(CORNELL)
+    assert b.integrator_spec[0] == "path"
+    assert b.integrator_spec[1].get_one_int("maxdepth", 0) == 4
+    assert b.sampler_spec[1].get_one_int("pixelsamples", 0) == 8
+    assert len(b.shapes) == 3
+    assert b.shapes[1]["kind"] == "sphere"
+    assert b.shapes[2]["area_light"] is not None
+    assert len(b.lights) == 1
+    assert "white" in b.named_materials and "red" in b.named_materials
+    assert [s["kind"] for s in b.shapes] == [s["kind"] for s in jb.shapes]
+    for s, js in zip(b.shapes, jb.shapes):
+        np.testing.assert_array_equal(s["ctm"], js["ctm"])
+        assert s["material"] == js["material"]
+    assert b.named_materials == jb.named_materials
+
+
+def test_graphics_state_restored():
+    text = """
+        WorldBegin
+        Material "diffuse" "rgb reflectance" [1 0 0]
+        AttributeBegin
+          Material "diffuse" "rgb reflectance" [0 1 0]
+          Translate 5 0 0
+          Shape "sphere"
+        AttributeEnd
+        Shape "sphere"
+        """
+    jb, b = both(text)
+    s_inner, s_outer = b.shapes
+    assert s_inner["material"] != s_outer["material"]
+    assert np.isclose(s_inner["ctm"][0, 3], 5.0)
+    assert np.isclose(s_outer["ctm"][0, 3], 0.0)
+    assert [s["material"] for s in b.shapes] == [s["material"] for s in jb.shapes]
+
+
+def test_transform_directives():
+    jb, b = both("Translate 1 2 3\nScale 2 2 2\nRotate 90 0 0 1\nConcatTransform "
+                 "[1 0 0 0 0 1 0 0 0 0 1 0 1 1 1 1]\nCoordinateSystem \"mine\"\nWorldBegin\n"
+                 "CoordSysTransform \"mine\"\n")
+    np.testing.assert_array_equal(b.gs.ctm, jb.gs.ctm)
+    np.testing.assert_array_equal(b.named_coords["mine"], jb.named_coords["mine"])
+    b2 = SceneBuilder()
+    parse_str("Translate 1 2 3\nScale 2 2 2\nRotate 90 0 0 1\nWorldBegin\n", b2)
+    np.testing.assert_allclose(b2.gs.ctm, np.eye(4))
+
+
+def test_include(tmp_path):
+    (tmp_path / "inc.pbrt").write_text('Shape "sphere" "float radius" [2]\n')
+    (tmp_path / "imp.pbrt").write_text('Shape "sphere" "float radius" [3]\n')
+    b = SceneBuilder(search_dir=tmp_path)
+    parse_str('WorldBegin\nInclude "inc.pbrt"\nImport "imp.pbrt"\n', b, search_dir=tmp_path)
+    assert [s["pd"].get_one_float("radius", 0) for s in b.shapes] == [2.0, 3.0]
+
+
+def test_spectrum_params():
+    b = SceneBuilder()
+    parse_str('WorldBegin\nMaterial "conductor" "spectrum eta" "metal-Au-eta" '
+              '"spectrum k" "metal-Au-k"\nShape "sphere"\n', b)
+    assert b.materials[-1]["kind_name"] == "conductor"
+
+
+def test_cornell_with_zsobol_creates_the_reference_tables():
+    """The Cornell case with the port's sampler: the reference's tables
+    (its own test renders it; the golden tests below render here)."""
+    ensure_reference_sah()
+    jb, b = both(CORNELL_ZSOBOL)
+    job, jjob = b.create(device="cpu"), jb.create()
+    assert job.max_depth == 4 and job.film.resolution == (32, 32)
+    assert job.scene.n_lights == 3 and job.filename == "cornell.pfm"
+    assert_scene_tables_equal(job.scene, jjob.scene)
+
+
+def test_dielectric_material_conversion():
+    ensure_reference_sah()
+    text = 'WorldBegin\nMaterial "dielectric" "float eta" [1.33]\nShape "sphere"\nLightSource "infinite"\n'
+    jb, b = both(text)
+    job, jjob = b.create(device="cpu"), jb.create()
+    kinds = job.scene.materials.kind.numpy()
+    assert mtl.DIELECTRIC in kinds
+    eta = job.scene.materials.eta_float.numpy()
+    assert np.isclose(eta[kinds == mtl.DIELECTRIC][0], 1.33)
+    assert not job.scene.has_triangles
+    assert_scene_tables_equal(job.scene, jjob.scene)
+
+
+def test_attribute_scoped_defaults_and_priority():
+    b = SceneBuilder()
+    parse_str(OPTION_BASE_PORTED % 'AttributeBegin\nAttribute "shape" "float radius" [3.5]\n'
+              'Shape "sphere"\nAttributeEnd\nShape "sphere"\n', b)
+    assert [s["pd"].get_one_float("radius", 1.0) for s in b.shapes] == [3.5, 1.0]
+    b = SceneBuilder()
+    parse_str(OPTION_BASE_PORTED % 'Attribute "shape" "float radius" [3.5]\n'
+              'Shape "sphere" "float radius" [2.0]\n', b)
+    assert b.shapes[0]["pd"].get_one_float("radius", 1.0) == 2.0
+    job = b.create(device="cpu")
+    assert job.sampler.seed == 7
+
+
+def test_typed_errors():
+    with pytest.raises(DirectiveError) as ei:
+        parse_str("WorldBegin\nFrobnicate\n", SceneBuilder())
+    assert issubclass(DirectiveError, SceneLoadError) and "Frobnicate" in str(ei.value)
+    with pytest.raises(TokenError):
+        parse_str('Camera "persp\n', SceneBuilder())
+    with pytest.raises(ParameterError):
+        parse_str('WorldBegin\nShape "sphere" "floot radius" [1]\n', SceneBuilder())
+
+
+def test_option_forcediffuse():
+    b = SceneBuilder()
+    parse_str('Option "bool forcediffuse" true\nCamera "perspective"\n'
+              'Film "rgb" "integer xresolution" [8] "integer yresolution" [8]\n'
+              'Sampler "zsobol" "integer pixelsamples" [2]\nIntegrator "path"\nWorldBegin\n'
+              'Material "conductor"\nShape "sphere" "float radius" [1]\n', b)
+    assert tuple(b.create(device="cpu").scene.material_kinds) == (mtl.DIFFUSE,)
+
+
+_TEXTURE_SCENE = ('Camera "perspective"\nFilm "rgb" "integer xresolution" [4] '
+                  '"integer yresolution" [4]\nWorldBegin\n'
+                  'Texture "checker" "float" "constant" "float value" [0.25]\n'
+                  'Material "diffuse" "texture roughness" "checker"\nShape "sphere"\n')
+_BILINEAR_SCENE = textwrap.dedent("""
+    Film "rgb" "integer xresolution" [16] "integer yresolution" [16]
+    Sampler "zsobol" "integer pixelsamples" [2]
+    WorldBegin
+    Material "diffuse" "rgb reflectance" [0.5 0.5 0.5]
+    Shape "bilinearmesh" "integer indices" [0 1 2 3]
+        "point3 P" [-1 -1 2   1 -1 2   -1 1 2   1 1 2]
+    """)
+_ENV_SCENE = """
+LookAt 0 0 -5  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+Sampler "zsobol" "integer pixelsamples" [2]
+WorldBegin
+LightSource "infinite" "string filename" ["sky.pfm"]
+Shape "sphere"
+"""
+
+
+@pytest.mark.parametrize(
+    "text",
+    [
+        # test_parser.py:119 and :129, instancing.
+        'WorldBegin\nObjectBegin "tree"\nShape "sphere" "float radius" [0.5]\nObjectEnd\n'
+        'ObjectInstance "tree"\n',
+        # :201 and the texture directive cases, textures.
+        _TEXTURE_SCENE,
+        # :267, bilinear meshes.
+        _BILINEAR_SCENE,
+        # :347, the image environment light.
+        _ENV_SCENE,
+        # :403, the jitter option (every TestOptionAttribute header has it).
+        OPTION_BASE % 'Shape "sphere" "float radius" [1]',
+        # :459, the camera render space.
+        ('Option "string rendercoordsys" ["camera"]\n' + OPTION_BASE_PORTED)
+        % 'Shape "sphere" "float radius" [1]',
+        # TestCreate / the CLI case: the independent sampler.
+        CORNELL,
+    ],
+    ids=["instancing", "textures", "bilinearmesh", "image_env", "jitter_option", "rendercoordsys",
+         "independent_sampler"],
+)
+def test_parse_cases_with_unported_features_raise(text):
+    b = SceneBuilder()
+    with pytest.raises(NotImplementedError):
+        parse_str(text, b)
+        b.create(device="cpu")
+
+
+# --- the golden scenes' tables ---
+
+
+def assert_scene_tables_equal(scene, jscene):
+    """Every table of the port's scene equals the reference's."""
+    arrays, census = jax_scene_to_numpy(jscene)
+    assert scene.has_spheres == census["has_spheres"]
+    assert scene.has_triangles == census["has_triangles"]
+    for key in ("material_kinds", "light_kinds", "n_lights", "uniform_infinite_indices"):
+        assert tuple(np.atleast_1d(getattr(scene, key))) == tuple(np.atleast_1d(census[key])), key
+    groups = {"materials": scene.materials, "lights": scene.lights, "spheres": scene.spheres,
+              "triangles": scene.triangles}
+    compared = 0
+    for key, want in arrays.items():
+        group, _, field = key.partition(".")
+        if group in groups:
+            obj = groups[group]
+            if not hasattr(obj, field):
+                continue  # a reference-only column (lights.position, tiles8, ...)
+            got = getattr(obj, field)
+        elif hasattr(scene, key):
+            got = getattr(scene, key)
+        else:
+            continue
+        got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+        if key.startswith("triangles.") and key.endswith(("rows8", "attr_rows", "light_rows")):
+            assert got.tobytes() == np.ascontiguousarray(want, got.dtype).tobytes(), key
+        else:
+            np.testing.assert_array_equal(got, want.astype(got.dtype), err_msg=key)
+        compared += 1
+    assert compared >= 20
+
+
+@pytest.fixture(scope="module")
+def golden_jobs():
+    ensure_reference_sah()
+    out = {}
+    for name in GOLDEN:
+        jb, b = JaxBuilder(search_dir=SCENES_DIR), SceneBuilder(search_dir=SCENES_DIR)
+        jax_parse_file(str(SCENES_DIR / f"{name}.pbrt"), jb)
+        parse_file(str(SCENES_DIR / f"{name}.pbrt"), b)
+        out[name] = (b.create(device="cpu"), jb.create())
+    return out
+
+
+def _tensors(obj, prefix=""):
+    import dataclasses
+
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            yield prefix + f.name, v
+        elif dataclasses.is_dataclass(v):
+            yield from _tensors(v, prefix + f.name + ".")
+
+
+@pytest.mark.parametrize("name", GOLDEN)
+def test_golden_scene_has_no_64_bit_tensor(golden_jobs, name):
+    """numpy's float64 and int64 never reach the device."""
+    dtypes = {k: v.dtype for k, v in _tensors(golden_jobs[name][0].scene)}
+    assert len(dtypes) > 30
+    assert not {k: d for k, d in dtypes.items() if d in (torch.float64, torch.int64)}
+
+
+@pytest.mark.parametrize("name", GOLDEN)
+def test_golden_scene_tables_match_reference(golden_jobs, name):
+    job, jjob = golden_jobs[name]
+    assert job.scene.has_spheres and job.scene.has_triangles
+    assert_scene_tables_equal(job.scene, jjob.scene)
+    assert (job.spp, job.max_depth, job.integrator) == (jjob.spp, jjob.max_depth, jjob.integrator)
+    assert job.film.resolution == jjob.film.resolution
+    assert job.film.filter.radius == tuple(jjob.film.filter.radius)
+    assert job.film.filter_integral == jjob.film.filter_integral
+    np.testing.assert_array_equal(job.film.output_rgb_from_sensor_rgb,
+                                  jjob.film.output_rgb_from_sensor_rgb)
+    s, js = job.sampler, jjob.sampler
+    assert (s.samples_per_pixel, s.seed, s.log2_spp, s.n_base4_digits) == (
+        js.samples_per_pixel, js.seed, js.log2_spp, js.n_base4_digits)
+    w, h = job.film.resolution
+    rng = np.random.default_rng(3)
+    p_film = (rng.random((256, 2)) * [w, h]).astype(np.float32)
+    u = rng.random((256, 2)).astype(np.float32)
+    ray = job.camera.generate_ray(torch.from_numpy(p_film), torch.from_numpy(u))
+    jray = jjob.camera.generate_ray(jnp.asarray(p_film), jnp.asarray(u))
+    np.testing.assert_allclose(ray.o.numpy(), np.asarray(jray.o), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ray.d.numpy(), np.asarray(jray.d), rtol=0, atol=1e-6)
+
+
+# --- PLY ---
+
+
+def _ply_vertices(n_quads=3):
+    rng = np.random.default_rng(9)
+    nv = 4 * n_quads + 3
+    p = rng.normal(size=(nv, 3)).astype(np.float32)
+    nrm = rng.normal(size=(nv, 3)).astype(np.float32)
+    uv = rng.random((nv, 2)).astype(np.float32)
+    faces = [list(range(4 * k, 4 * k + 4)) for k in range(n_quads)] + [[nv - 3, nv - 2, nv - 1]]
+    return p, nrm, uv, faces
+
+
+def _write_ply(path: Path, fmt: str):
+    p, nrm, uv, faces = _ply_vertices()
+    header = (f"ply\nformat {fmt} 1.0\ncomment seeded test mesh\nelement vertex {len(p)}\n"
+              + "".join(f"property float {c}\n" for c in ("x", "y", "z", "nx", "ny", "nz", "u", "v"))
+              + f"element face {len(faces)}\nproperty list uchar int vertex_indices\nend_header\n")
+    verts = np.concatenate([p, nrm, uv], axis=1)
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        if fmt == "ascii":
+            for row in verts:
+                f.write((" ".join(repr(float(x)) for x in row) + "\n").encode())
+            for face in faces:
+                f.write((" ".join(str(x) for x in [len(face), *face]) + "\n").encode())
+        else:
+            e = "<" if fmt == "binary_little_endian" else ">"
+            f.write(verts.astype(e + "f4").tobytes())
+            for face in faces:
+                f.write(struct.pack(e + "B" + "i" * len(face), len(face), *face))
+
+
+@pytest.mark.parametrize("fmt", ["ascii", "binary_little_endian", "binary_big_endian"])
+def test_read_ply_matches_reference(tmp_path, fmt):
+    path = tmp_path / f"mesh_{fmt}.ply"
+    _write_ply(path, fmt)
+    got, want = read_ply(path), jax_read_ply(path)
+    p, nrm, uv, faces = _ply_vertices()
+    # Three quads split in two and one triangle.
+    assert got["indices"].shape == (7, 3) and got["indices"].dtype == np.int32
+    np.testing.assert_array_equal(got["indices"][:2], [[0, 1, 2], [0, 2, 3]])
+    for key in ("p", "indices", "n", "uv"):
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    np.testing.assert_array_equal(got["p"], p)
+
+
+# --- unported directives, parameters and options ---
+
+_BASE = """
+Film "rgb" "integer xresolution" [8] "integer yresolution" [8]
+Sampler "zsobol" "integer pixelsamples" [1]
+%s
+WorldBegin
+LightSource "infinite" "rgb L" [1 1 1]
+%s
+Shape "sphere"
+"""
+UNPORTED = {
+    "texture": ("", 'Texture "t" "float" "constant" "float value" [0.5]'),
+    "textured_param": ("", 'Material "diffuse" "texture reflectance" "t"'),
+    "named_medium": ("", 'MakeNamedMedium "fog" "string type" "homogeneous"'),
+    "medium_interface": ("", 'MediumInterface "" ""'),
+    "interface_material": ("", 'Material "interface"'),
+    "object_instance": ("", 'ObjectBegin "o"\nObjectEnd'),
+    "bilinearmesh": ("", 'Shape "bilinearmesh" "point3 P" [0 0 0 1 0 0 0 1 0 1 1 0]'),
+    "disk": ("", 'Shape "disk"'),
+    "point_light": ("", 'LightSource "point" "rgb I" [1 1 1]'),
+    "spot_light": ("", 'LightSource "spot" "rgb I" [1 1 1]'),
+    "distant_light": ("", 'LightSource "distant" "rgb L" [1 1 1]'),
+    "image_infinite": ("", 'LightSource "infinite" "string filename" "sky.exr"'),
+    "goniometric_area": ("", 'AreaLightSource "goniometric"'),
+    "measured_material": ("", 'Material "measured"'),
+    "diffusetransmission": ("", 'Material "diffusetransmission"'),
+    "shape_alpha": ("", 'Shape "sphere" "float alpha" [0.5]'),
+    "orthographic": ('Camera "orthographic"', ""),
+    "spherical": ('Camera "spherical"', ""),
+    "lensradius": ('Camera "perspective" "float lensradius" [0.1]', ""),
+    "screenwindow": ('Camera "perspective" "float screenwindow" [-1 1 -1 1]', ""),
+    "gaussian_filter": ('PixelFilter "gaussian"', ""),
+    "independent_sampler": ('Sampler "independent"', ""),
+    "stratified_sampler": ('Sampler "stratified"', ""),
+    "simplepath": ('Integrator "simplepath"', ""),
+    "bdpt": ('Integrator "bdpt"', ""),
+    "gbuffer_film": ('Film "gbuffer"', ""),
+    "film_iso": ('Film "rgb" "float iso" [400]', ""),
+    "rendercoordsys_world": ('Option "string rendercoordsys" "world"', ""),
+    "disablepixeljitter": ('Option "bool disablepixeljitter" true', ""),
+    "disablewavelengthjitter": ('Option "bool disablewavelengthjitter" true', ""),
+    "active_transform": ("ActiveTransform StartTime", ""),
+    "transform_times": ("TransformTimes 0 2", ""),
+    "color_space": ('ColorSpace "aces2065-1"', ""),
+}
+
+
+@pytest.mark.parametrize("case", list(UNPORTED))
+def test_unported_feature_raises(case):
+    before, world = UNPORTED[case]
+    b = SceneBuilder()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        parse_str(_BASE % (before, world), b)
+        b.create(device="cpu")
+
+
+def test_base_scene_of_the_raise_cases_creates():
+    b = SceneBuilder()
+    parse_str(_BASE % ("", ""), b)
+    job = b.create(device="cpu")
+    assert job.scene.has_spheres and not job.scene.has_triangles
+
+
+FEATURES_SCENE = """
+LookAt 0.5 1 -4  0 0.2 0  0 1 0
+Camera "perspective" "float fov" [38] "float shutteropen" [0] "float shutterclose" [1]
+Film "rgb" "integer xresolution" [20] "integer yresolution" [14] "string filename" "f.pfm"
+    "float maxcomponentvalue" [20]
+Sampler "zsobol" "integer pixelsamples" [4] "integer seed" [3]
+Integrator "volpath" "integer maxdepth" [7] "string lightsampler" "bvh"
+PixelFilter "box" "float xradius" [0.5] "float yradius" [0.5]
+Accelerator "bvh"
+WorldBegin
+CoordinateSystem "origin"
+LightSource "infinite" "blackbody L" [5500] "float scale" [0.4]
+MakeNamedMaterial "paint" "string type" "coateddiffuse" "rgb reflectance" [0.3 0.5 0.2]
+    "float roughness" [0.1] "float thickness" [0.02] "rgb albedo" [0.1 0.1 0.1] "float g" [0.2]
+MakeNamedMaterial "copper" "string type" "coatedconductor" "float interface.roughness" [0.05]
+    "float conductor.roughness" [0.2] "spectrum conductor.eta" "metal-Cu-eta"
+    "spectrum conductor.k" "metal-Cu-k"
+MakeNamedMaterial "thin" "string type" "thindielectric" "float eta" [1.4]
+MakeNamedMaterial "glass" "string type" "dielectric" "spectrum eta" "glass-BK7"
+    "bool remaproughness" false "float uroughness" [0.2] "float vroughness" [0.1]
+MakeNamedMaterial "blend" "string type" "mix" "string materials" ["paint" "copper"]
+    "float amount" [0.3]
+NamedMaterial "paint"
+Shape "plymesh" "string filename" "quads.ply"
+AttributeBegin
+  ReverseOrientation
+  NamedMaterial "copper"
+  Translate 0 0.1 0
+  Rotate 30 0 1 0
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+      "point3 P" [-2 0 -2  2 0 -2  2 0 2  -2 0 2]
+      "normal N" [0 1 0  0 1 0  0 1 0  0 1 0] "point2 uv" [0 0 1 0 1 1 0 1]
+AttributeEnd
+AttributeBegin
+  NamedMaterial "blend"
+  ConcatTransform [1 0 0 0  0 1.2 0 0  0 0 1 0  0.4 0.5 0.3 1]
+  Attribute "shape" "float radius" [0.35]
+  Shape "sphere" "float zmin" [-0.2] "float phimax" [290]
+  NamedMaterial "glass"
+  Translate -0.9 0 0
+  Shape "sphere"
+AttributeEnd
+AttributeBegin
+  CoordSysTransform "origin"
+  NamedMaterial "thin"
+  Translate 0 2 0
+  AreaLightSource "diffuse" "rgb L" [6 5 4] "bool twosided" true "float scale" [2]
+  Shape "sphere" "float radius" [0.2]
+  Shape "trianglemesh" "integer indices" [0 1 2] "point3 P" [-0.3 0.3 0  0.3 0.3 0  0 0.6 0]
+AttributeEnd
+"""
+
+
+def test_feature_scene_tables_match_reference(tmp_path):
+    """One scene of every ported feature: a binary PLY with normals, uvs
+    and quads; ReverseOrientation, Rotate, ConcatTransform, named
+    coordinate systems, a scoped Attribute; every ported material kind
+    (named, a spectral and a non-remapped rough dielectric, a coated
+    conductor, a mix); a two-sided area light on a sphere and on a
+    triangle; a blackbody infinite light; the power light sampler; the
+    film, filter, camera and sampler parameters; volpath as path."""
+    ensure_reference_sah()
+    _write_ply(tmp_path / "quads.ply", "binary_little_endian")
+    jb, b = both(FEATURES_SCENE, search_dir=tmp_path)
+    job, jjob = b.create(device="cpu"), jb.create()
+    assert set(job.scene.material_kinds) == {0, 1, 2, 3, 4, 5, 6} - {1}
+    assert job.light_sampler == "power" and job.integrator == "path" and job.max_depth == 7
+    assert (job.spp, job.sampler.seed, job.filename) == (4, 3, "f.pfm")
+    assert job.film.max_component_value == jjob.film.max_component_value == 20.0
+    assert_scene_tables_equal(job.scene, jjob.scene)
+    np.testing.assert_array_equal(job.scene.light_sample_weights.numpy(),
+                                  np.asarray(jjob.scene.light_sample_weights))

@@ -167,13 +167,15 @@ def test_scene_from_numpy_mt_leaves(jax_scene, torch_scene):
 
 @pytest.mark.parametrize(
     "change",
-    [{"has_spheres": True}, {"material_kinds": (0, 1), "materials.tex_reflectance": 0},
+    [{"has_patches": True}, {"has_instanced": True},
+     {"material_kinds": (0, 1), "materials.tex_reflectance": 0},
      {"light_kinds": (0, 3)}, {"image_infinite_indices": (1,)}, {"camera_medium": 0}],
-    ids=["spheres", "conductor", "point_light", "image_light", "medium"],
+    ids=["patches", "instanced", "conductor", "point_light", "image_light", "medium"],
 )
 def test_scene_from_numpy_refuses_unported(jax_scene, change):
     """Each case asks for something still unported; a conductor converts
-    since materials were ported, a textured one does not."""
+    since materials were ported, a textured one does not.  Spheres convert
+    since they were ported (tests/test_torch_scene_union.py)."""
     arrays, census = jax_scene_to_numpy(jax_scene)
     for key, value in change.items():
         if key in arrays:

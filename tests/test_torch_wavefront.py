@@ -115,7 +115,8 @@ def test_render_two_pixel_blocks_with_padding(scenes):
     ref, _ = jax_render(jscene, jcam, jfilm, JaxZSobol(SPP, RES), spp=SPP, max_depth=DEPTH,
                         wave_spp=SPP, pixel_block=block)
     img, state, stats = torch_render(tscene, tcam, tfilm, TorchZSobol(SPP, RES), spp=SPP,
-                                     max_depth=DEPTH, wave_spp=SPP, pixel_block=block)
+                                     max_depth=DEPTH, wave_spp=SPP, pixel_block=block,
+                                     collect_stats=True)
     assert (state.weight_sum.numpy() == SPP).all()  # every pixel got SPP samples
     assert stats["rays"] > 0
     assert_images_agree(img.numpy(), np.asarray(ref))
