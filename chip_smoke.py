@@ -53,7 +53,8 @@ Phases, each printing its own numbers:
      bench geometry with a mix of rough gold and dispersive BK7 glass on the
      sphere and a coated diffuse floor): a small render (64x48, 4 spp) on
      the card and on the CPU, compared, then the full render under v1
-     through shimmer_tpu_torch.render.render;
+     through shimmer_tpu_torch.render.render at 1280x720 and MATERIAL_SPP
+     (4) samples per pixel;
  11. scene files through the port's pbrt-v4 loader: (a) the three
      committed golden scenes (tests/scenes/*.pbrt, analytic spheres beside
      triangles) rendered on the card under v1 at their in-file settings
@@ -64,7 +65,17 @@ Phases, each printing its own numbers:
      gold, and a small sphere area light) in a .pbrt file, rendered at
      1280x720, 16 spp, depth 5 through shimmer_tpu_torch.cli.main to a
      PFM that must equal the image render returned, then the same file
-     at 64x48, 4 spp on the card and on the CPU, compared.
+     at 64x48, 4 spp on the card and on the CPU, compared;
+ 12. textures and the image environment light: phase 11's scene with a
+     2048^2 checker image on the floor (trilinear), a coated diffuse mesh
+     with a cylindrical-mapped texture and a bump map, a gold sphere with
+     a 1024^2 EWA roughness map through a scale texture, a mix sphere
+     with a textured amount over a direction-mix diffuse, and a 2048x1024
+     lat-long PFM environment light, written in code and rendered at
+     1280x720, 16 spp, depth 5 through shimmer_tpu_torch.cli.main with the
+     load split into image reads, pyramids and fits, the env bake, the PLY
+     read, the BVH build and the rest; then the same file at 64x48, 4 spp
+     on the card twice (film states torch.equal) and on the CPU, compared.
 Launch counters are set to 0 just before each render path and each
 micro-benchmark entry point, and read just after it.  No phase catches its
 own failure.  The last lines are the kernel table as JSON, the card's name
@@ -132,6 +143,9 @@ MAX_DEPTH = 5
 SMALL_RES = (64, 48)
 SMALL_SPP = 4
 LARGE_BLOCK_WAVES = 3
+# Phase 10's full render runs at 4 spp, not the bench's 16: the layered
+# walks' host dispatch made it ~220 s, and phase 12 needs the time.
+MATERIAL_SPP = 4
 # Image agreement between two renders of the same seeds (the CPU tests use
 # the same criteria against the JAX reference): at least 99% of pixels
 # within rtol 1e-3 / atol 1e-4 and image means within 1e-3 relative.  The
@@ -453,17 +467,17 @@ def phase4(scene_cpu, scene_gpu) -> dict:
     return out
 
 
-def full_render(scene_gpu, name: str, phase: str) -> tuple[dict, np.ndarray]:
-    """The full bench render under configuration ``name``; its launches
-    are counted from 0."""
+def full_render(scene_gpu, name: str, phase: str, spp: int = SPP) -> tuple[dict, np.ndarray]:
+    """The full bench render under configuration ``name`` at ``spp``; its
+    launches are counted from 0."""
     cam, film = bench_camera_film(BENCH_RESOLUTION)
-    sampler = ZSobolSampler(SPP, BENCH_RESOLUTION)
+    sampler = ZSobolSampler(spp, BENCH_RESOLUTION)
     n_blocks = -(-BENCH_RESOLUTION[0] * BENCH_RESOLUTION[1] // BLOCK)
     scene = with_config(scene_gpu, name)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    img, _, stats = render(scene, cam, film, sampler, spp=SPP, max_depth=MAX_DEPTH,
+    img, _, stats = render(scene, cam, film, sampler, spp=spp, max_depth=MAX_DEPTH,
                            wave_spp=WAVE_SPP, pixel_block=BLOCK, collect_stats=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -471,7 +485,7 @@ def full_render(scene_gpu, name: str, phase: str) -> tuple[dict, np.ndarray]:
     img = img.cpu().numpy()
     check(np.isfinite(img).all(), f"{phase} {name}: non-finite image")
     check(img.mean() > 0, f"{phase} {name}: black image")
-    waves = -(-SPP // WAVE_SPP)
+    waves = -(-spp // WAVE_SPP)
     res = {
         "kernel": name,
         "seconds": seconds,
@@ -873,10 +887,10 @@ def phase10(dev) -> dict:
     agree = check_agreement("phase 10 small render", images["gpu"], images["cpu"])
     log(f"phase 10 small render {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP}: "
         f"seconds {json.dumps(seconds)} {json.dumps(agree)}")
-    res, _ = full_render(scene_gpu, "v1", "phase 10")
+    res, _ = full_render(scene_gpu, "v1", "phase 10", spp=MATERIAL_SPP)
     res["small_render"] = agree
     res["card"] = nvidia_smi_line()
-    log(f"phase 10 full render {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {SPP}: "
+    log(f"phase 10 full render {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {MATERIAL_SPP}: "
         f"{json.dumps(res)}")
     return res
 
@@ -968,6 +982,61 @@ def render_job(job):
     return img, time.perf_counter() - t0
 
 
+def render_through_cli(scene_file: Path, pfm: Path, timers: dict | None = None):
+    """``cli.main`` on a scene file at the bench's wave and block sizes,
+    with its own render call watched (its returned image and the stats the
+    CLI does not ask for) and, for each name -> (owner, attribute) in
+    ``timers``, the seconds spent in that function summed (and, for a name
+    ending in ``_fits``, the colors fitted: its first argument's rows).  The
+    launch counts are set to 0 just before.  Returns (seen, cli seconds, rc)."""
+    real_render, seen = render_module.render, {"timers": {}, "colors_fitted": {}}
+
+    def watched_render(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image, state, stats = real_render(*args, **kwargs, collect_stats=True)
+        torch.cuda.synchronize()
+        seen.update(image=image.cpu().numpy(), stats=stats, scene=args[0],
+                    seconds=time.perf_counter() - t0)
+        return image, state
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            if name.endswith("_fits"):
+                fitted = seen["colors_fitted"]
+                fitted[name] = fitted.get(name, 0) + len(args[0])
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seen["timers"][name] = seen["timers"].get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    patches = [(render_module, "render", watched_render)]
+    for name, (owner, attr) in (timers or {}).items():
+        fn = owner.__dict__[attr]
+        wrapped = timed(name, fn.__func__ if isinstance(fn, staticmethod) else fn)
+        patches.append((owner, attr, staticmethod(wrapped) if isinstance(fn, staticmethod)
+                        else wrapped))
+    saved = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in patches]
+    for owner, attr, value in patches:
+        setattr(owner, attr, value)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main([str(scene_file), "--outfile", str(pfm), "--wave-spp", str(WAVE_SPP),
+                       "--pixel-block", str(BLOCK), "--quiet", "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+    seen["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return seen, seconds, rc
+
+
 def phase11(dev) -> dict:
     out = {"golden": {}}
     # (a) the golden scenes, parsed by the port's loader.
@@ -996,31 +1065,7 @@ def phase11(dev) -> dict:
     scene_file = LOADED_DIR / "loaded_bench.pbrt"
     scene_file.write_text(loaded_scene_text(BENCH_RESOLUTION, SPP))
     pfm = LOADED_DIR / "loaded_bench.pfm"
-    # The CLI's own render call, watched: its returned image and its
-    # counters, with the stats the CLI does not ask for.
-    real_render, seen = render_module.render, {}
-
-    def watched_render(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        image, state, stats = real_render(*args, **kwargs, collect_stats=True)
-        torch.cuda.synchronize()
-        seen.update(image=image.cpu().numpy(), stats=stats, scene=args[0],
-                    seconds=time.perf_counter() - t0)
-        return image, state
-
-    render_module.render = watched_render
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts()
-        t0 = time.perf_counter()
-        rc = cli.main([str(scene_file), "--outfile", str(pfm), "--wave-spp", str(WAVE_SPP),
-                       "--pixel-block", str(BLOCK), "--quiet", "--device", str(dev)])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    finally:
-        render_module.render = real_render
+    seen, seconds, rc = render_through_cli(scene_file, pfm)
     launches = read_counts("phase 11 loaded scene", "v1")
     check(rc == 0, f"phase 11: the CLI returned {rc}")
     img = seen["image"]
@@ -1039,7 +1084,7 @@ def phase11(dev) -> dict:
         "mrays_per_s": stats["rays"] / seen["seconds"] / 1e6,
         "iters": stats["iters"],
         "kernel_launches": launches,
-        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "peak_device_bytes": seen["peak_device_bytes"],
         "image_mean": float(img.mean()),
         "card": nvidia_smi_line(),
     }
@@ -1068,6 +1113,231 @@ def phase11(dev) -> dict:
     agree = check_agreement("phase 11 small loaded render", images["gpu"], images["cpu"])
     log(f"phase 11 small loaded render {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP}: "
         f"seconds {json.dumps(seconds)} {json.dumps(agree)}")
+    out["small"] = agree
+    return out
+
+
+# Phase 12: textures and the image environment light, through the loader
+# and the CLI, at the bench configuration.  The images are written as PFM
+# (the card's machine has no PIL) with few colors at every MIP level, so
+# the host's RGB fit (one fit per unique color) stays short: a checker
+# with power-of-two cells (two colors, then their average), a gray sky
+# (every gray texel fits as one color, whatever its brightness) with a
+# warm sun, and two-color stripes.
+TEXTURED_DIR = Path("chiprun_out") / "phase12"
+# The images and the PLY, removed after the phase: chiprun_out/ must stay
+# small enough to come back from the card's machine.
+TEXTURE_FILES = ("checker.pfm", "rough.pfm", "stripes.pfm", "bumps.pfm", "amount.pfm",
+                 "sky.pfm", LOADED_PLY)
+CHECKER_RES, ROUGH_RES, SKY_SHAPE = 2048, 1024, (1024, 2048)
+SKY_LEVELS = 200
+
+
+def write_texture_files(d: Path):
+    """The phase's images: checker.pfm (2048^2 RGB), rough.pfm (1024^2
+    float), stripes.pfm (256x64 RGB), bumps.pfm (512^2 float), amount.pfm
+    (256^2 float) and sky.pfm (2048x1024 lat-long, at most SKY_LEVELS + 1
+    colors).  Returns the sky's count of distinct colors."""
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(12)
+    yy, xx = np.mgrid[0:CHECKER_RES, 0:CHECKER_RES]
+    cell = ((xx // 64 + yy // 64) % 2).astype(bool)
+    checker = np.where(cell[..., None], np.float32([0.8, 0.75, 0.7]),
+                       np.float32([0.15, 0.2, 0.3])).astype(np.float32)
+    Image(checker).write(d / "checker.pfm")
+    yy, xx = np.mgrid[0:ROUGH_RES, 0:ROUGH_RES] / ROUGH_RES
+    rough = 0.05 + 0.2 * (1.0 + np.sin(40.0 * xx) * np.cos(23.0 * yy))
+    Image(rough.astype(np.float32)).write(d / "rough.pfm")
+    stripes = np.where((np.arange(256) // 16 % 2).astype(bool)[None, :, None],
+                       np.float32([0.7, 0.2, 0.1]), np.float32([0.1, 0.3, 0.6]))
+    Image(np.broadcast_to(stripes, (64, 256, 3)).astype(np.float32)).write(d / "stripes.pfm")
+    Image(rng.uniform(0.0, 1.0, (512, 512)).astype(np.float32)).write(d / "bumps.pfm")
+    Image(rng.uniform(0.0, 1.0, (256, 256)).astype(np.float32)).write(d / "amount.pfm")
+    h, w = SKY_SHAPE
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    level = np.round((0.15 + 0.85 * np.sin(theta) ** 4) * SKY_LEVELS) / SKY_LEVELS
+    sky = np.repeat(np.repeat(level[:, None, None], w, 1), 3, 2).astype(np.float32) * 0.8
+    yy, xx = np.mgrid[0:h, 0:w]
+    sun = (yy - 0.3 * h) ** 2 + (xx - 0.6 * w) ** 2 < (0.015 * h) ** 2
+    sky[sun] = [40.0, 32.0, 22.0]
+    Image(sky).write(d / "sky.pfm")
+    return int(np.unique(sky.reshape(-1, 3), axis=0).shape[0])
+
+
+def textured_scene_text(res, spp: int) -> str:
+    """Phase 11's scene file with textures and an image environment light
+    in place of the uniform one: the floor a 2048^2 checker (trilinear,
+    uv), the mesh a coated diffuse with cylindrical stripes and a bump
+    map, the gold sphere's roughness a 1024^2 EWA map through a scale
+    texture, the glass sphere a mix of that gold and a direction-mix
+    diffuse with a textured amount."""
+    return f"""# Phase 11's scene with textures and an image environment light.
+LookAt 0 0.6 -3.2  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+Film "rgb" "integer xresolution" [{res[0]}] "integer yresolution" [{res[1]}]
+Sampler "zsobol" "integer pixelsamples" [{spp}]
+Integrator "path" "integer maxdepth" [{MAX_DEPTH}]
+PixelFilter "box"
+WorldBegin
+AttributeBegin
+  Rotate -90 1 0 0
+  LightSource "infinite" "string filename" "sky.pfm" "float scale" [0.6]
+AttributeEnd
+Texture "checks" "spectrum" "imagemap" "string filename" "checker.pfm"
+    "string filter" "trilinear" "float uscale" [4] "float vscale" [4]
+Texture "rough" "float" "imagemap" "string filename" "rough.pfm" "string filter" "ewa"
+Texture "half" "float" "constant" "float value" [0.5]
+Texture "gold_rough" "float" "scale" "texture tex" "rough" "texture scale" "half"
+Texture "stripes" "spectrum" "imagemap" "string filename" "stripes.pfm"
+    "string mapping" "cylindrical" "string filter" "bilinear"
+Texture "bumps" "float" "imagemap" "string filename" "bumps.pfm" "float scale" [0.002]
+Texture "amount" "float" "imagemap" "string filename" "amount.pfm" "string filter" "bilinear"
+Texture "tint" "spectrum" "directionmix" "rgb tex1" [0.7 0.2 0.2] "rgb tex2" [0.2 0.3 0.8]
+    "vector3 dir" [0 1 0]
+MakeNamedMaterial "gold" "string type" "conductor" "spectrum eta" "metal-Au-eta"
+    "spectrum k" "metal-Au-k" "texture roughness" "gold_rough"
+MakeNamedMaterial "tinted" "string type" "diffuse" "texture reflectance" "tint"
+Material "coateddiffuse" "texture reflectance" "stripes" "texture displacement" "bumps"
+    "float roughness" [0.05]
+Shape "plymesh" "string filename" "{LOADED_PLY}"
+Material "diffuse" "texture reflectance" "checks"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point3 P" [-8 -1.3 -8  8 -1.3 -8  8 -1.3 8  -8 -1.3 8] "point2 uv" [0 0 1 0 1 1 0 1]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [15 15 15]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+      "point3 P" [-1 4 -1  1 4 -1  1 4 1  -1 4 1]
+AttributeEnd
+AttributeBegin
+  Material "mix" "string materials" ["gold" "tinted"] "texture amount" "amount"
+  Translate -1.55 -0.8 -0.9
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+AttributeBegin
+  NamedMaterial "gold"
+  Translate 1.55 -0.8 -0.9
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [40 36 30]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Translate 0.6 1.5 -1.4
+  Shape "sphere" "float radius" [0.12]
+AttributeEnd
+"""
+
+
+def phase12(dev) -> dict:
+    try:
+        return _phase12(dev)
+    finally:
+        for name in TEXTURE_FILES:
+            (TEXTURED_DIR / name).unlink(missing_ok=True)
+
+
+def _phase12(dev) -> dict:
+    from shimmer_tpu_torch.lights import env as env_module
+    from shimmer_tpu_torch.shapes import mesh as mesh_module
+    from shimmer_tpu_torch.shapes import triangle as triangle_module
+    from shimmer_tpu_torch.textures import textures as textures_module
+    from shimmer_tpu_torch.textures.textures import TextureBuilder
+
+    out = {}
+    t0 = time.perf_counter()
+    sky_colors = write_texture_files(TEXTURED_DIR)
+    verts, faces = make_displaced_sphere(BENCH_TRIS)
+    write_ply(TEXTURED_DIR / LOADED_PLY, verts, faces)
+    log(f"phase 12 files: {time.perf_counter() - t0:.1f}s; sky {SKY_SHAPE[1]}x{SKY_SHAPE[0]} "
+        f"with {sky_colors} colors")
+    scene_file = TEXTURED_DIR / "textured_bench.pbrt"
+    scene_file.write_text(textured_scene_text(BENCH_RESOLUTION, SPP))
+    pfm = TEXTURED_DIR / "textured_bench.pfm"
+    timers = {
+        "image_read": (Image, "read"),
+        "texture_add_image": (TextureBuilder, "add_image"),
+        "texture_pyramids": (Image, "generate_pyramid"),
+        "texture_fits": (textures_module, "fit_rgb_coeffs"),
+        "texture_upload": (TextureBuilder, "build"),
+        "env_bake": (env_module, "build_env_light"),
+        "env_fits": (env_module, "fit_rgb_coeffs"),
+        "ply_read": (mesh_module, "read_ply"),
+        "bvh_build": (triangle_module, "build_triangle_scene"),
+    }
+    # Timers that run inside another timer: name -> the one that holds it.
+    nested = {"texture_pyramids": "texture_add_image", "texture_fits": "texture_add_image",
+              "env_fits": "env_bake"}
+    seen, seconds, rc = render_through_cli(scene_file, pfm, timers)
+    launches = read_counts("phase 12 textured scene", "v1")
+    check(rc == 0, f"phase 12: the CLI returned {rc}")
+    img = seen["image"]
+    check(np.array_equal(Image.read(pfm).data, img), "phase 12: the PFM differs from the image")
+    check(np.isfinite(img).all() and img.mean() > 0, "phase 12: bad textured-scene image")
+    scene = seen["scene"]
+    stats = seen["stats"]
+    spent = seen["timers"]
+    load = {k: round(v, 3) for k, v in spent.items()}
+    # What each holding timer spent outside the timers it holds: add_image's
+    # np.unique of the colors and its atlas packing; the env bake's resample,
+    # np.unique and distribution build.
+    for outer in set(nested.values()):
+        inner = sum(spent.get(k, 0.0) for k, o in nested.items() if o == outer)
+        load[f"{outer}_rest"] = round(spent.get(outer, 0.0) - inner, 3)
+    # The rest of the CLI's time: the parse, the scene tables, the PFM write.
+    top = sum(v for k, v in spent.items() if k not in nested)
+    load["parse_and_the_rest"] = round(seconds - seen["seconds"] - top, 3)
+    res = {
+        "triangles": int(scene.triangles.orig_indices.shape[0]),
+        "spheres": int(scene.spheres.radius.shape[0]),
+        "lights": scene.n_lights,
+        "textures": int(scene.textures.kind.shape[0]),
+        "atlas_texels": int(scene.textures.atlas.shape[0]),
+        "env_res": list(scene.env.texel_scale.shape),
+        "load_seconds": load,
+        "colors_fitted": seen["colors_fitted"],
+        "render_seconds": seen["seconds"],
+        "cli_seconds": seconds,
+        "rays": stats["rays"],
+        "mrays_per_s": stats["rays"] / seen["seconds"] / 1e6,
+        "iters": stats["iters"],
+        "kernel_launches": launches,
+        "peak_device_bytes": seen["peak_device_bytes"],
+        "image_mean": float(img.mean()),
+        "card": nvidia_smi_line(),
+    }
+    check(res["spheres"] == 3 and res["triangles"] == faces.shape[0] + 4
+          and scene.image_infinite_indices and scene.has_bump_maps,
+          "phase 12: the textured scene lacks shapes, its env light or its bump map")
+    log(f"phase 12 textured scene {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {SPP} "
+        f"(cli.main): {json.dumps(res)}")
+    out["textured"] = res
+
+    # The same file small: the card against the CPU, and the card twice.
+    small = TEXTURED_DIR / "textured_small.pbrt"
+    small.write_text(textured_scene_text(SMALL_RES, SMALL_SPP))
+    builder = SceneBuilder(search_dir=TEXTURED_DIR)
+    parse_file(str(small), builder)
+    job = builder.create(device="cpu", traverse=CONFIGS["v1"])
+    scene_gpu = job.scene.to(dev)
+    images, seconds, states = {}, {}, []
+    for dev_name, sc in (("gpu", scene_gpu), ("gpu_again", scene_gpu), ("cpu", job.scene)):
+        t0 = time.perf_counter()
+        img, state = render(sc, job.camera, job.film, job.sampler, spp=job.spp,
+                            max_depth=job.max_depth, wave_spp=SMALL_SPP, pixel_block=BLOCK)
+        images[dev_name] = img.cpu().numpy()
+        seconds[dev_name] = time.perf_counter() - t0
+        states.append(state)
+        check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
+              f"phase 12: bad {dev_name} small image")
+    agree = check_agreement("phase 12 small textured render", images["gpu"], images["cpu"])
+    # The film accumulates on the card by scatter-add: two renders must give
+    # the same film state, bit for bit.
+    film_equal = all(torch.equal(getattr(states[0], f), getattr(states[1], f))
+                     for f in ("rgb_sum", "weight_sum", "rgb_splat"))
+    check(film_equal, "phase 12: two card renders gave different film states")
+    log(f"phase 12 small textured render {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP}: "
+        f"seconds {json.dumps(seconds)} {json.dumps(agree)}; two card renders: film states "
+        f"torch.equal")
     out["small"] = agree
     return out
 
@@ -1170,6 +1440,9 @@ def main():
     torch.cuda.empty_cache()
     # 11. scene files through the loader: the goldens, a loaded bench scene
     phase11(dev)
+    torch.cuda.empty_cache()
+    # 12. textures and the image environment light through the loader
+    phase12(dev)
 
     print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets)}),
           flush=True)

@@ -48,6 +48,8 @@ class PerspectiveCamera:
         raster_from_ndc = Transform.scale(resolution[0], -resolution[1], 1.0)
         raster_from_screen = raster_from_ndc @ ndc_from_screen
         self.camera_from_raster = screen_from_camera.inverse() @ raster_from_screen.inverse()
+        # Angular size of one pixel, for the approximate texture footprints.
+        self.pixel_spread = float(2.0 * np.tan(np.deg2rad(fov) / 2.0) / resolution[1])
 
     def generate_ray(self, p_film, u_lens):
         """p_film: (..., 2) raster coordinates -> Ray in render space

@@ -5,9 +5,10 @@
 ``materials.reflectance``, ``lights.spectrum``, ``spectra_table``, ...)
 plus its static census keyed the same way (``triangles.stack_depth``,
 ``material_kinds``, ...), so both packages can render from identical
-tables.  Only the ported slice converts (spheres, triangles, untextured
-materials, area and uniform infinite lights); anything else raises
-NotImplementedError.
+tables.  Only the ported slice converts (spheres, triangles, materials,
+textures, area, uniform and image infinite lights); anything else raises
+NotImplementedError, and texture ids or an image light without their
+tables raise ValueError.
 """
 
 from __future__ import annotations
@@ -17,33 +18,70 @@ import torch
 
 from shimmer_tpu_torch.config import f32, i32, resolve_device
 from shimmer_tpu_torch.lights import lights as lt
+from shimmer_tpu_torch.lights.env import EnvLightData
 from shimmer_tpu_torch.materials import material as mtl
 from shimmer_tpu_torch.materials.material import MaterialTable
+from shimmer_tpu_torch.ops.sampling import PiecewiseConstant2D
 from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.scene import Scene
 from shimmer_tpu_torch.shapes.sphere import SphereData
 from shimmer_tpu_torch.shapes.triangle import TriangleSceneData
+from shimmer_tpu_torch.textures import textures as tx
 
 # Census entries the slice cannot render, with the value it requires.
 _UNPORTED_CENSUS = {
     "has_patches": False,
     "has_instanced": False,
     "has_interface_media": False,
-    "has_normal_maps": False,
-    "has_bump_maps": False,
     "camera_medium": -1,
-    "image_infinite_indices": (),
     "triangles.has_iface_media": False,
     "triangles.differentiable_hits": False,
 }
 # Array groups whose presence means an unported feature.
-_UNPORTED_GROUPS = ("patches", "instanced", "media", "env", "textures")
+_UNPORTED_GROUPS = ("patches", "instanced", "media")
 _SPHERE_F32 = ("radius", "z_min", "z_max", "theta_z_min", "theta_z_max", "phi_max",
                "object_to_render", "render_to_object")
 # MaterialTable columns by type (every column of the reference's table).
 _MATERIAL_F32 = ("reflectance", "eta_float", "uroughness", "vroughness", "mix_amount",
                  "thickness", "hg_g", "albedo", "bot_uroughness", "bot_vroughness")
 _MATERIAL_I32 = ("kind", "eta_spec", "k_spec", "mix_m1", "mix_m2") + mtl.TEXTURE_COLUMNS
+# TextureTable columns by type.
+_TEXTURE_I32 = ("kind", "tex_a", "tex_b", "tex_c", "level0_offset", "level0_w", "level0_h",
+                "n_levels", "wrap", "filter_kind", "mapping", "level_offsets", "level_sizes")
+_TEXTURE_F32 = ("const_value", "mix_amount", "mix_dir", "scale", "uv_scale", "uv_delta",
+                "world_to_tex", "planar_vs", "atlas")
+_DIST_F32 = ("func", "cond_cdf", "cond_int", "marg_cdf", "marg_func", "marg_int")
+_ENV_F32 = ("coeffs", "texel_scale", "illum_dense", "scale", "render_from_light",
+            "light_from_render", "scene_radius")
+
+
+def _texture_table(arrays: dict, census: dict, device) -> tx.TextureTable:
+    def a(c):
+        return np.asarray(arrays[f"textures.{c}"])
+
+    return tx.TextureTable(
+        **{c: i32(a(c), device) for c in _TEXTURE_I32},
+        **{c: f32(a(c), device) for c in _TEXTURE_F32},
+        invert=torch.from_numpy(a("invert").astype(bool)).to(device),
+        kinds_present=tuple(int(k) for k in census["textures.kinds_present"]),
+        has_amount_tex=bool(census["textures.has_amount_tex"]),
+        **tx.census_of(a("kind"), a("mapping"), a("filter_kind")),
+    )
+
+
+def _env_light(arrays: dict, census: dict, device) -> EnvLightData:
+    """The env tables; the reference's ``env.compensated.*`` table is left
+    behind, since no estimator of either package samples from it."""
+    def dist(name):
+        return PiecewiseConstant2D(
+            **{c: f32(arrays[f"env.{name}.{c}"], device) for c in _DIST_F32},
+            domain=tuple(map(tuple, census[f"env.{name}.domain"])),
+        )
+
+    return EnvLightData(
+        **{c: f32(arrays[f"env.{c}"], device) for c in _ENV_F32},
+        distribution=dist("distribution"),
+    )
 
 
 def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
@@ -61,8 +99,14 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         if key.split(".")[0] in _UNPORTED_GROUPS:
             raise NotImplementedError(f"scene field {key} is not ported yet")
     mtl.check_kinds(tuple(census["material_kinds"]))
-    mtl.check_untextured({c: arrays[f"materials.{c}"] for c in mtl.TEXTURE_COLUMNS})
     lt.check_kinds(tuple(census["light_kinds"]))
+    has_textures = "textures.kind" in arrays
+    tex_cols = {c: np.asarray(arrays[f"materials.{c}"]) for c in mtl.TEXTURE_COLUMNS}
+    if not has_textures and any(np.any(v >= 0) for v in tex_cols.values()):
+        raise ValueError("the materials carry texture ids but the scene has no texture table")
+    has_env = "env.coeffs" in arrays
+    if tuple(census.get("image_infinite_indices", ())) and not has_env:
+        raise ValueError("the scene has an image infinite light but no env table")
 
     device = resolve_device(device)
 
@@ -104,6 +148,7 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         has_textured_mix=bool(census["materials.has_textured_mix"]),
         layer_medium=bool(census["materials.layer_medium"]),
         has_dispersion=bool(census["materials.has_dispersion"]),
+        textured_params=tx.textured_params(tex_cols),
     )
     lights = lt.LightData(
         kind=i32(a("lights.kind"), device),
@@ -117,8 +162,12 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
     return Scene(
         triangles=tris,
         spheres=spheres,
+        env=_env_light(arrays, census, device) if has_env else None,
+        textures=_texture_table(arrays, census, device) if has_textures else None,
         has_spheres=has_spheres,
         has_triangles=has_triangles,
+        has_normal_maps=bool(census.get("has_normal_maps", False)),
+        has_bump_maps=bool(census.get("has_bump_maps", False)),
         materials=materials,
         lights=lights,
         light_sample_weights=f32(a("light_sample_weights"), device),
@@ -127,4 +176,5 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         light_kinds=tuple(int(k) for k in census["light_kinds"]),
         n_lights=int(census["n_lights"]),
         uniform_infinite_indices=tuple(int(i) for i in census["uniform_infinite_indices"]),
+        image_infinite_indices=tuple(int(i) for i in census.get("image_infinite_indices", ())),
     )

@@ -2,9 +2,11 @@
 helpers ``shimmer_tpu/integrators/wavefront.py`` imports from
 ``shimmer_tpu/integrators/path.py``).
 
-The hit-preparation hook keeps its no-op form until textures are ported
-(its footprints and normal / bump mapping feed textures only); a scene
-with textures is refused when its tables are built (materials/material.py).
+For a scene with textures, the hit-preparation hook sets the texture
+footprints from the camera's pixel spread and applies normal and bump
+maps; the BSDF context carries the per-lane texture-driven parameters.
+A scene without textures skips both, as the footprints feed textures
+only.
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ import dataclasses
 import torch
 
 from shimmer_tpu_torch.lights import lights as lt
+from shimmer_tpu_torch.lights.env import env_le, env_pdf_li
 from shimmer_tpu_torch.materials import material as mtl
 from shimmer_tpu_torch.materials.material import bsdf_f, bsdf_pdf
 from shimmer_tpu_torch.ops import rng as srng
+from shimmer_tpu_torch.ops.math import take_clamped
 from shimmer_tpu_torch.ops.ray import offset_ray_origin
 from shimmer_tpu_torch.ops.sampling import UNIFORM_SPHERE_PDF, power_heuristic
 from shimmer_tpu_torch.ops.vecmath import abs_dot, normalize
@@ -24,6 +28,8 @@ from shimmer_tpu_torch.scene import Scene, light_pmf, sample_light
 from shimmer_tpu_torch.shapes.triangle import triangle_light_pdf, triangle_light_sample
 from shimmer_tpu_torch.spectra.sampled import N_SPECTRUM_SAMPLES, ss_is_black
 from shimmer_tpu_torch.spectra.spectrum import dense_sample
+from shimmer_tpu_torch.textures.normal_bump import apply_normal_bump
+from shimmer_tpu_torch.textures.textures import eval_float_texture, evaluate_material_textures
 
 INF = float("inf")
 
@@ -51,19 +57,26 @@ def _area_le_with_mis(scene, si, swl, beta, p_b, specular, prev_p, prev_ns, l, a
     le = lt.area_light_l(scene.lights, lid, si.n, si.wo, swl)
     pdf_l = light_pmf(scene, lid) * lt.pdf_li(
         scene.lights, lid, prev_p, prev_ns, normalize(si.p - prev_p), si.p, si.n,
-        scene.spheres, scene.light_kinds, tri_pdf=_tri_pdf(scene),
+        scene.spheres, scene.light_kinds, tri_pdf=_tri_pdf(scene), env=scene.env,
     )
     w = torch.where(specular, 1.0, power_heuristic(1.0, p_b, 1.0, pdf_l))
     return l + torch.where(has_light[..., None], beta * w[..., None] * le, 0.0)
 
 
 def _infinite_le_with_mis(scene, ray_d, swl, beta, p_b, specular, prev_p, prev_ns, l, miss):
-    """Escaped rays picking up the uniform infinite lights."""
+    """Escaped rays picking up the infinite lights, MIS-weighted."""
+
+    def pmf(i):
+        return light_pmf(scene, torch.full(p_b.shape, i, dtype=torch.int32, device=p_b.device))
+
     for i in scene.uniform_infinite_indices:
         le = dense_sample(scene.lights.spectrum[i], swl.lam) * scene.lights.scale[i]
-        pdf_l = light_pmf(
-            scene, torch.full(p_b.shape, i, dtype=torch.int32, device=p_b.device)
-        ) * UNIFORM_SPHERE_PDF
+        pdf_l = pmf(i) * UNIFORM_SPHERE_PDF
+        w = torch.where(specular, 1.0, power_heuristic(1.0, p_b, 1.0, pdf_l))
+        l = l + torch.where(miss[..., None], beta * w[..., None] * le, 0.0)
+    for i in scene.image_infinite_indices:
+        le = env_le(scene.env, ray_d, swl)
+        pdf_l = pmf(i) * env_pdf_li(scene.env, ray_d)
         w = torch.where(specular, 1.0, power_heuristic(1.0, p_b, 1.0, pdf_l))
         l = l + torch.where(miss[..., None], beta * w[..., None] * le, 0.0)
     return l
@@ -80,7 +93,7 @@ def sample_ld_prepare(scene: Scene, si, frame, swl, sampler, s_state, bsdf_ctx):
     light_idx, pmf, _ = sample_light(scene, uc)
     ls = lt.sample_li(
         scene.lights, light_idx, si.p, si.ns, u2, swl, scene.spheres, scene.light_kinds,
-        tri_sampler=_tri_sampler(scene),
+        tri_sampler=_tri_sampler(scene), env=scene.env,
     )
     f = bsdf_f(
         scene.materials, scene.material_kinds, si.material_id, frame, si.ns,
@@ -115,19 +128,31 @@ def _has_proportional_pdfs(scene) -> bool:
     return any(k in (mtl.COATED_DIFFUSE, mtl.COATED_CONDUCTOR) for k in scene.material_kinds)
 
 
-def _prepare_hit(scene, si, ray_d):
-    """Per-hit preparation.  Its texture footprints and normal / bump
-    mapping feed textures only, which are not ported: the no-op form."""
-    return si
+def _prepare_hit(scene, si, ray_d, pixel_spread: float = 0.0):
+    """Per-hit preparation for a scene with textures: the texture
+    footprints from the pixel spread, then normal and bump mapping."""
+    if scene.textures is None:
+        return si
+    if pixel_spread > 0.0:
+        si = si.with_camera_differentials(ray_d, pixel_spread)
+    return apply_normal_bump(scene, si)
 
 
 def _resolve_mix(scene, si, sampler, s_state):
     """Resolve mix materials stochastically at the hit; draws one sampler
-    dimension only when the scene has a mix material."""
+    dimension only when the scene has a mix material.  A textured amount
+    is evaluated at the hit."""
     if mtl.MIX not in scene.material_kinds:
         return si, s_state
     u_mix, s_state = sampler.get_1d(s_state)
-    mat_id = mtl.resolve_mix(scene.materials, scene.material_kinds, si.material_id, u_mix)
+    amt = None
+    if scene.materials.has_textured_mix and scene.textures is not None:
+        mats = scene.materials
+        tid = take_clamped(mats.tex_mix_amount, si.material_id)
+        val = eval_float_texture(scene.textures, torch.clamp(tid, min=0), si)
+        amt = torch.where(tid >= 0, val, take_clamped(mats.mix_amount, si.material_id))
+    mat_id = mtl.resolve_mix(scene.materials, scene.material_kinds, si.material_id, u_mix,
+                             amt_override=amt)
     return dataclasses.replace(si, material_id=mat_id), s_state
 
 
@@ -166,5 +191,9 @@ def _with_rng_key(scene, bsdf_ctx, s_state):
 
 
 def _bsdf_ctx(scene, si, swl):
-    """Per-hit BSDF context: the scene's dense spectra table; no textures."""
-    return {"spectra_table": scene.spectra_table, "tex": None}
+    """Per-hit BSDF context: the scene's dense spectra table and the
+    texture-resolved material parameters."""
+    tex = None
+    if scene.textures is not None:
+        tex = evaluate_material_textures(scene.textures, scene.materials, si, swl)
+    return {"spectra_table": scene.spectra_table, "tex": tex}

@@ -98,10 +98,12 @@ def render_wave_wavefront(
     pixel_xy,
     pixel_valid,
     max_depth: int = 5,
+    pixel_spread: float = 0.0,
 ):
     """Render every (pixel in block) x (sample index) pair with a
     regenerating wavefront.  Returns the updated FilmState and a stats
-    dict with the traced ``rays`` and the loop ``iters``."""
+    dict with the traced ``rays`` and the loop ``iters``.  ``pixel_spread``
+    is the angular pixel footprint that sizes texture filtering."""
     dev = scene.device
     n = pixel_xy.shape[0]
     n_samples = int(sample_indices.shape[0])
@@ -204,7 +206,7 @@ def render_wave_wavefront(
         will_shade = alive & (st.depth < max_depth)
         surf_shade = will_shade
 
-        si = _prepare_hit(scene, si, st.ray_d)
+        si = _prepare_hit(scene, si, st.ray_d, pixel_spread)
         si, s_state = _resolve_mix(scene, si, sampler, s_state)
         beta0, lam_term = _apply_dispersion(scene, si, surf_shade, st.beta, st.lam_term)
         frame = si.shading_frame()
@@ -331,8 +333,13 @@ def render_wave_wavefront(
         st = body(st)
 
     # One dense per-pixel reduction over the sample axis, then one n-lane
-    # scatter-add into the film (item = s_idx * n + p_idx).  On CUDA the
-    # accumulation uses atomics, so its order varies from run to run.
+    # scatter-add into the film (item = s_idx * n + p_idx).  Within a wave
+    # each pixel index comes once; only the padding lanes of the last block
+    # repeat pixel (0, 0), and they add zero weight and zero color.  So the
+    # order of the scatter's adds cannot change a bit of the film, and two
+    # renders give equal film states (chip_smoke phase 12 checks this with
+    # torch.equal).  Keep it so: a wave that sent one pixel twice with
+    # nonzero values would make the film's sums depend on the add order.
     per_px_rgb = st.out_rgb.reshape(n_samples, n, 3).sum(0)
     per_px_w = st.out_w.reshape(n_samples, n).sum(0)
     px = pixel_xy[..., 0].long()

@@ -1,5 +1,6 @@
 """Light sources as a flat SoA table (port of ``shimmer_tpu/lights/lights.py``:
-area lights on spheres and triangles, and the uniform infinite light).
+area lights on spheres and triangles, the uniform infinite light and the
+image infinite light, whose tables live in ``lights/env.py``).
 
 The light kinds of a scene are host metadata; a scene with a kind the port
 has not brought over yet raises NotImplementedError.
@@ -11,6 +12,7 @@ import dataclasses
 
 import torch
 
+from shimmer_tpu_torch.lights.env import env_pdf_li, env_sample_li
 from shimmer_tpu_torch.ops.math import take_clamped
 from shimmer_tpu_torch.ops.sampling import UNIFORM_SPHERE_PDF, sample_uniform_sphere
 from shimmer_tpu_torch.ops.vecmath import distance_squared, dot, normalize
@@ -22,8 +24,9 @@ DISTANT = 1
 SPOT = 2
 AREA = 3
 UNIFORM_INFINITE = 4
+IMAGE_INFINITE = 5
 
-PORTED_KINDS = (AREA, UNIFORM_INFINITE)
+PORTED_KINDS = (AREA, UNIFORM_INFINITE, IMAGE_INFINITE)
 # Area-light shape kinds (the reference's shape_kind column).
 SPHERE_SHAPE = 0
 TRIANGLE_SHAPE = 1
@@ -68,9 +71,10 @@ def _spectrum_of(lights, light_idx, swl):
 
 
 def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl, spheres,
-              kinds_present: tuple, tri_sampler=None) -> LightLiSample:
+              kinds_present: tuple, tri_sampler=None, env=None) -> LightLiSample:
     """Sample an incident direction from light ``light_idx`` per lane;
-    ``spheres`` is the scene's SphereData or None."""
+    ``spheres`` is the scene's SphereData or None, ``env`` its
+    EnvLightData or None."""
     check_kinds(kinds_present)
     dev = ref_p.device
     kind = take_clamped(lights.kind, light_idx)
@@ -122,11 +126,15 @@ def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl, spheres,
         p = ref_p + wi * (2.0 * lights.scene_radius)
         pdf = torch.full(batch, UNIFORM_SPHERE_PDF, dtype=torch.float32, device=dev)
         out = sel(m, spec, wi, pdf, p, wi, torch.ones(batch, dtype=torch.bool, device=dev), out)
+
+    if IMAGE_INFINITE in kinds_present and env is not None:
+        l, wi, pdf, p = env_sample_li(env, ref_p, u, swl)
+        out = sel(kind == IMAGE_INFINITE, l, wi, pdf, p, wi, pdf > 0.0, out)
     return out
 
 
 def pdf_li(lights: LightData, light_idx, ref_p, ref_ns, wi, si_p, si_n, spheres,
-           kinds_present: tuple, tri_pdf=None):
+           kinds_present: tuple, tri_pdf=None, env=None):
     """Solid-angle pdf that sample_li would have produced direction wi;
     for area lights, si_p / si_n is the point reached on the light."""
     check_kinds(kinds_present)
@@ -142,6 +150,8 @@ def pdf_li(lights: LightData, light_idx, ref_p, ref_ns, wi, si_p, si_n, spheres,
         pdf = torch.where((kind == AREA) & (shape_kind == TRIANGLE_SHAPE), p, pdf)
     if UNIFORM_INFINITE in kinds_present:
         pdf = torch.where(kind == UNIFORM_INFINITE, UNIFORM_SPHERE_PDF, pdf)
+    if IMAGE_INFINITE in kinds_present and env is not None:
+        pdf = torch.where(kind == IMAGE_INFINITE, env_pdf_li(env, wi), pdf)
     return pdf
 
 

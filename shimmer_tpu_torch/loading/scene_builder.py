@@ -13,12 +13,16 @@ every array reaches the device through ``config.f32`` / ``config.i32``.
 The port's slice of pbrt-v4: ``trianglemesh``, ``plymesh`` and
 ``sphere`` shapes; materials ``diffuse``, ``conductor``, ``dielectric``,
 ``thindielectric``, ``coateddiffuse``, ``coatedconductor`` and ``mix``
-with constant parameters (named through ``MakeNamedMaterial`` /
-``NamedMaterial`` or not); ``diffuse`` area lights on triangles and
-spheres; the ``infinite`` light with a constant ``L``; the
-``perspective`` camera with the default screen window and no lens; the
-``rgb`` film with the CIE 1931 sensor; the ``box`` filter; the
-``zsobol`` sampler; the ``path`` integrator.  Everything else raises
+(named through ``MakeNamedMaterial`` / ``NamedMaterial`` or not), with
+``"texture ..."`` parameters where the reference reads them (reflectance,
+roughness, a mix's amount, displacement); the ``Texture`` classes
+``constant``, ``imagemap``, ``scale``, ``mix`` and ``directionmix``;
+``diffuse`` area lights on triangles and spheres; the ``infinite`` light
+with a constant ``L`` or an image ``filename``; the ``perspective`` camera
+with the default screen window and no lens; the ``rgb`` film with the CIE
+1931 sensor; the ``box`` filter; the ``zsobol`` sampler; the ``path``
+integrator.  Images are read by ``film.image.Image.read`` (PFM, and the
+8-bit formats through PIL; not EXR).  Everything else raises
 NotImplementedError naming what it lacks, and so does any parameter that
 nothing looked up when the job was created: no directive or parameter is
 dropped silently.
@@ -35,8 +39,12 @@ import numpy as np
 from shimmer_tpu_torch.color.colorspace import get_named_color_space
 from shimmer_tpu_torch.loading.errors import ParameterError
 from shimmer_tpu_torch.loading.paramdict import ParameterDictionary, SpectrumType
+from shimmer_tpu_torch.film.image import Image
 from shimmer_tpu_torch.ops.transform import Transform
+from shimmer_tpu_torch.spectra.rgb2spec import fit_rgb_coeffs
 from shimmer_tpu_torch.spectra.spectrum import ConstantSpectrum, named_spectrum
+from shimmer_tpu_torch.textures import textures as tx
+from shimmer_tpu_torch.textures.textures import TextureBuilder
 
 
 class _Mat4:
@@ -147,6 +155,10 @@ class SceneBuilder:
         self.materials: list[dict] = [{"kind_name": "diffuse", "pd": ParameterDictionary([])}]
         self.named_materials: dict[str, int] = {}
         self.options: dict = {}
+        self.float_textures: dict[str, int] = {}
+        self.spectrum_textures: dict[str, int] = {}
+        self.tex_builder = TextureBuilder()
+        self.texture_pds: list[tuple] = []  # (what, ParameterDictionary) to check at create
 
     # --- transforms ---
 
@@ -191,9 +203,10 @@ class SceneBuilder:
 
     def option(self, params, loc):
         """In-scene ``Option``: seed, forcediffuse, rendercoordsys (the
-        default cameraworld only) and disabletexturefiltering (no effect:
-        textures raise); the jitter switches raise when set; any other
-        option warns and is ignored, as in the reference."""
+        default cameraworld only) and disabletexturefiltering (recorded
+        with no effect, as in the reference: textures filter as their
+        ``filter`` parameter says); the jitter switches raise when set;
+        any other option warns and is ignored, as in the reference."""
         for p in params:
             v = p.values[0]
             if p.type == "bool":
@@ -295,7 +308,84 @@ class SceneBuilder:
         self.gs.material = self.named_materials[name]
 
     def texture(self, name, type_, class_, params, loc):
-        raise _unported(f"{loc}: Texture {name!r}", "textures")
+        pd = self._merged_pd("texture", params)
+        self.texture_pds.append((f"{loc}: Texture {name!r}", pd))
+        is_spectrum = type_ == "spectrum"
+        if class_ == "constant":
+            if is_spectrum:
+                spec = pd.get_one_spectrum("value", None, SpectrumType.ALBEDO)
+                coeffs = getattr(spec, "coeffs", None)
+                if coeffs is None:
+                    coeffs = fit_rgb_coeffs(np.array([[0.5, 0.5, 0.5]]), self.colorspace)[0]
+                tid = self.tex_builder.add_constant_spectrum_coeffs(
+                    coeffs, getattr(spec, "scale", 1.0))
+            else:
+                tid = self.tex_builder.add_constant_float(pd.get_one_float("value", 1.0))
+        elif class_ in ("imagemap", "image"):
+            img = Image.read(self._path(pd.get_one_string("filename", "")))
+            data = img.data[..., :3] if is_spectrum else img.data[..., 0]
+            filt = {"point": tx.FILTER_POINT, "bilinear": tx.FILTER_BILINEAR,
+                    "trilinear": tx.FILTER_TRILINEAR, "ewa": tx.FILTER_EWA,
+                    }.get(pd.get_one_string("filter", "trilinear"), tx.FILTER_TRILINEAR)
+            wrap = {"repeat": tx.WRAP_REPEAT, "clamp": tx.WRAP_CLAMP, "black": tx.WRAP_BLACK,
+                    }.get(pd.get_one_string("wrap", "repeat"), tx.WRAP_REPEAT)
+            mapping = {"uv": tx.MAP_UV, "spherical": tx.MAP_SPHERICAL,
+                       "cylindrical": tx.MAP_CYLINDRICAL, "planar": tx.MAP_PLANAR,
+                       }.get(pd.get_one_string("mapping", "uv"), tx.MAP_UV)
+            planar_vs = np.asarray([pd.get_one_vector3("v1", (1.0, 0.0, 0.0)),
+                                    pd.get_one_vector3("v2", (0.0, 1.0, 0.0))], np.float32)
+            tid = self.tex_builder.add_image(
+                data,
+                is_spectrum=is_spectrum,
+                colorspace=self.colorspace,
+                wrap=wrap,
+                filter_kind=filt,
+                scale=pd.get_one_float("scale", 1.0),
+                invert=pd.get_one_bool("invert", False),
+                mapping=mapping,
+                uv_scale=(pd.get_one_float("uscale", 1.0), pd.get_one_float("vscale", 1.0)),
+                uv_delta=(pd.get_one_float("udelta", 0.0), pd.get_one_float("vdelta", 0.0)),
+                # The inverse of the CTM at the declaration, as the
+                # reference takes it (it is applied to render-space points).
+                world_to_tex=np.linalg.inv(self.gs.ctm),
+                planar_vs=planar_vs,
+            )
+        elif class_ == "scale":
+            base = self._resolve_texture_param(pd, "tex", is_spectrum, default=1.0)
+            sc = self._resolve_texture_param(pd, "scale", False, default=1.0)
+            tid = self.tex_builder.add_scaled(base, sc)
+        elif class_ == "mix":
+            t1 = self._resolve_texture_param(pd, "tex1", is_spectrum, default=0.0)
+            t2 = self._resolve_texture_param(pd, "tex2", is_spectrum, default=1.0)
+            amt_tn = pd.get_texture_name("amount")
+            if amt_tn is not None and amt_tn in self.float_textures:
+                tid = self.tex_builder.add_mix(t1, t2, amount_tex=self.float_textures[amt_tn])
+            else:
+                tid = self.tex_builder.add_mix(t1, t2, pd.get_one_float("amount", 0.5))
+        elif class_ == "directionmix":
+            t1 = self._resolve_texture_param(pd, "tex1", is_spectrum, default=0.0)
+            t2 = self._resolve_texture_param(pd, "tex2", is_spectrum, default=1.0)
+            tid = self.tex_builder.add_direction_mix(
+                t1, t2, pd.get_one_vector3("dir", (0.0, 1.0, 0.0)))
+        else:
+            raise ValueError(f"{loc}: unknown texture class {class_!r}")
+        (self.spectrum_textures if is_spectrum else self.float_textures)[name] = tid
+
+    def _resolve_texture_param(self, pd, name, is_spectrum, default):
+        """A texture operand: a named texture of the matching type, else a
+        constant texture made from the parameter's value (or ``default``)."""
+        tn = pd.get_texture_name(name)
+        if tn is not None:
+            pool = self.spectrum_textures if is_spectrum else self.float_textures
+            if tn in pool:
+                return pool[tn]
+        if is_spectrum:
+            spec = pd.get_one_spectrum(name, None, SpectrumType.ALBEDO)
+            coeffs = getattr(spec, "coeffs", None)
+            if coeffs is None:
+                coeffs = fit_rgb_coeffs(np.array([[default] * 3]), self.colorspace)[0]
+            return self.tex_builder.add_constant_spectrum_coeffs(coeffs)
+        return self.tex_builder.add_constant_float(pd.get_one_float(name, default))
 
     # --- lights ---
 
@@ -413,7 +503,7 @@ class SceneBuilder:
                 # the parameters of its own kind are set aside on purpose.
                 kind_name = "diffuse"
                 for p in m["pd"].params.values():
-                    p.looked_up = p.type != "texture"
+                    p.looked_up = True
             mat_dicts.append(self._convert_material(kind_name, m["pd"], add_spectrum_row,
                                                     m.get("loc", "default material")))
             used.append((f"{m.get('loc', 'default')}: Material {m['kind_name']!r}", m["pd"]))
@@ -473,13 +563,23 @@ class SceneBuilder:
                 raise _unported(f"{loc}: Shape {kind!r}")
 
         # -- the other lights --
+        env_spec = None
         for ld in self.lights:
             pd, kindn, loc = ld["pd"], ld["kind_name"], ld["loc"]
             if kindn != "infinite":
                 raise _unported(f"{loc}: LightSource {kindn!r}")
             used.append((f"{loc}: LightSource 'infinite'", pd))
-            if pd.get_one_string("filename", ""):
-                raise _unported(f"{loc}: the image infinite light", "environment maps")
+            fname = pd.get_one_string("filename", "")
+            if fname:
+                # Baked in build_scene, with the scene's radius.
+                env_spec = {
+                    "image": Image.read(self._path(fname)).data[..., :3],
+                    "scale": pd.get_one_float("scale", 1.0),
+                    "render_from_light": Transform.from_matrix(r2w_np @ ld["ctm"]),
+                }
+                light_dicts.append({"kind": lt.IMAGE_INFINITE,
+                                    "spectrum": self.colorspace.illuminant, "scale": 1.0})
+                continue
             light_dicts.append({
                 "kind": lt.UNIFORM_INFINITE,
                 "spectrum": pd.get_one_spectrum("L", self.colorspace.illuminant,
@@ -509,7 +609,7 @@ class SceneBuilder:
         if light_sampler not in ("uniform", "power"):
             raise _unported(f"Integrator parameter lightsampler {light_sampler!r}")
 
-        for what, pd in used:
+        for what, pd in used + self.texture_pds:
             unused = pd.report_unused()
             if unused:
                 raise _unported(f"{what}: parameters {unused}", "nothing reads them")
@@ -526,6 +626,8 @@ class SceneBuilder:
             device=device,
             spheres=sphere_dicts,
             render_from_world=r2w,
+            textures=self.tex_builder.build(device) if self.tex_builder.rows else None,
+            env_spec=env_spec,
         )
         return RenderJob(scene=scene, camera=camera, film=film, sampler=sampler,
                          integrator="path", max_depth=max_depth, spp=spp, filename=filename,
@@ -536,7 +638,7 @@ class SceneBuilder:
 
         _, al_pd = area_light
         if al_pd.get_one_string("filename", ""):
-            raise _unported("an image area light", "textures")
+            raise _unported("an image area light", "the reference does not read its image")
         return {
             "kind": lt.AREA,
             "spectrum": al_pd.get_one_spectrum("L", self.colorspace.illuminant,
@@ -550,11 +652,8 @@ class SceneBuilder:
 
     def _convert_material(self, kind_name, pd, add_spectrum_row, loc):
         from shimmer_tpu_torch.materials import material as mtl
-        from shimmer_tpu_torch.spectra.rgb2spec import _projection_matrix, fit_rgb_coeffs
+        from shimmer_tpu_torch.spectra.rgb2spec import _projection_matrix
 
-        textured = [p.name for p in pd.params.values() if p.type == "texture"]
-        if textured:
-            raise _unported(f"{loc}: textured material parameters {textured}", "textures")
         out = {}
         remap = pd.get_one_bool("remaproughness", True)
         r = pd.get_one_float("roughness", 0.0)
@@ -564,8 +663,26 @@ class SceneBuilder:
             u_r, v_r = u_r * u_r, v_r * v_r
         out["uroughness"] = u_r
         out["vroughness"] = v_r
+        # Roughness and displacement textures (read for every kind, as the
+        # reference does).
+        for key, cols in (("roughness", ("tex_uroughness", "tex_vroughness")),
+                          ("uroughness", ("tex_uroughness",)),
+                          ("vroughness", ("tex_vroughness",))):
+            tn = pd.get_texture_name(key)
+            if tn is not None and tn in self.float_textures:
+                for c in cols:
+                    out[c] = self.float_textures[tn]
+        tn = pd.get_texture_name("displacement")
+        if tn is not None and tn in self.float_textures:
+            out["displacement_tex"] = self.float_textures[tn]
 
         def reflectance(param="reflectance", default=0.5):
+            tn = pd.get_texture_name(param)
+            if tn is not None and tn in self.spectrum_textures:
+                out["tex_reflectance"] = self.spectrum_textures[tn]
+                out["reflectance_coeffs"] = fit_rgb_coeffs(
+                    np.array([[default] * 3]), self.colorspace)[0]
+                return
             spec = pd.get_one_spectrum(param, None, SpectrumType.ALBEDO)
             if spec is not None and hasattr(spec, "coeffs"):
                 out["reflectance_coeffs"] = np.asarray(spec.coeffs)
@@ -633,7 +750,11 @@ class SceneBuilder:
             out["reflectance_coeffs"] = np.zeros(3, np.float32)
         elif kind_name == "mix":
             out["kind"] = mtl.MIX
-            out["mix_amount"] = pd.get_one_float("amount", 0.5)
+            amt_tn = pd.get_texture_name("amount")
+            if amt_tn is not None and amt_tn in self.float_textures:
+                out["tex_mix_amount"] = self.float_textures[amt_tn]
+            else:
+                out["mix_amount"] = pd.get_one_float("amount", 0.5)
             out["reflectance_coeffs"] = np.zeros(3, np.float32)
             names = pd.params.get("materials")
             if names is not None:

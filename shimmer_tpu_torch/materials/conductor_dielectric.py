@@ -47,14 +47,23 @@ def _mirror(wo):
     return torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
 
 
-def _material_alphas(materials, mat_id):
-    ax = sc.roughness_to_alpha(take_clamped(materials.uroughness, mat_id))
-    ay = sc.roughness_to_alpha(take_clamped(materials.vroughness, mat_id))
+def _tex(tex, name):
+    """A texture-resolved parameter from the BSDF context, or None."""
+    return tex.get(name) if tex else None
+
+
+def _material_alphas(materials, mat_id, tex=None):
+    """(alpha_x, alpha_y): the roughness columns, or their textures."""
+    ax = _tex(tex, "uroughness")
+    ay = _tex(tex, "vroughness")
+    ax = sc.roughness_to_alpha(take_clamped(materials.uroughness, mat_id) if ax is None else ax)
+    ay = sc.roughness_to_alpha(take_clamped(materials.vroughness, mat_id) if ay is None else ay)
     return sc.clamp_alpha(ax, ay)
 
 
-def _conductor_eta_k(materials, mat_id, swl, spectra_table):
-    """Per-wavelength (eta, k): dense-spectrum rows or reflectance mode."""
+def _conductor_eta_k(materials, mat_id, swl, spectra_table, tex=None):
+    """Per-wavelength (eta, k): dense-spectrum rows or reflectance mode (the
+    reflectance column, or its texture)."""
     eta_idx = take_clamped(materials.eta_spec, mat_id)
     k_idx = take_clamped(materials.k_spec, mat_id)
     use_spec = (eta_idx >= 0)[..., None]
@@ -64,7 +73,9 @@ def _conductor_eta_k(materials, mat_id, swl, spectra_table):
     else:
         eta_s = torch.ones_like(swl.lam)
         k_s = torch.ones_like(swl.lam)
-    refl = sigmoid_poly_sample(take_clamped(materials.reflectance, mat_id), swl.lam)
+    refl = _tex(tex, "reflectance")
+    if refl is None:
+        refl = sigmoid_poly_sample(take_clamped(materials.reflectance, mat_id), swl.lam)
     refl = torch.clamp(refl, 0.0, 0.9999)
     k_r = 2.0 * sqrt(refl) / safe_sqrt(1.0 - refl)
     return torch.where(use_spec, eta_s, 1.0), torch.where(use_spec, k_s, k_r)
@@ -343,27 +354,28 @@ def thin_dielectric_sample(eta, wo, uc, sample_flags=bx.SAMPLE_ALL):
 # --- dispatch glue used by materials.material ---
 
 
-def rough_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f, spectra_table=None):
+def rough_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f, tex=None,
+            spectra_table=None):
     if CONDUCTOR in kinds_present:
-        ax, ay = _material_alphas(materials, mat_id)
-        eta, k = _conductor_eta_k(materials, mat_id, swl, spectra_table)
+        ax, ay = _material_alphas(materials, mat_id, tex)
+        eta, k = _conductor_eta_k(materials, mat_id, swl, spectra_table, tex)
         f = torch.where((kind == CONDUCTOR)[..., None], conductor_f(eta, k, wo, wi, ax, ay), f)
     if DIELECTRIC in kinds_present:
-        ax, ay = _material_alphas(materials, mat_id)
+        ax, ay = _material_alphas(materials, mat_id, tex)
         eta = _dielectric_eta(materials, mat_id, swl, spectra_table)
         f = torch.where((kind == DIELECTRIC)[..., None], dielectric_f(eta, wo, wi, ax, ay), f)
     # THIN_DIELECTRIC is purely specular: f() == 0.
     return f
 
 
-def rough_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out,
+def rough_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out, tex=None,
                  spectra_table=None):
     if CONDUCTOR in kinds_present:
-        ax, ay = _material_alphas(materials, mat_id)
-        eta, k = _conductor_eta_k(materials, mat_id, swl, spectra_table)
+        ax, ay = _material_alphas(materials, mat_id, tex)
+        eta, k = _conductor_eta_k(materials, mat_id, swl, spectra_table, tex)
         out = select_sample(kind == CONDUCTOR, conductor_sample(eta, k, wo, u2, ax, ay), out)
     if DIELECTRIC in kinds_present:
-        ax, ay = _material_alphas(materials, mat_id)
+        ax, ay = _material_alphas(materials, mat_id, tex)
         eta = _dielectric_eta(materials, mat_id, swl, spectra_table)
         out = select_sample(kind == DIELECTRIC, dielectric_sample(eta, wo, u2, uc, ax, ay), out)
     if THIN_DIELECTRIC in kinds_present:
@@ -372,12 +384,13 @@ def rough_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out,
     return out
 
 
-def rough_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf, spectra_table=None):
+def rough_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf, tex=None,
+              spectra_table=None):
     if CONDUCTOR in kinds_present:
-        ax, ay = _material_alphas(materials, mat_id)
+        ax, ay = _material_alphas(materials, mat_id, tex)
         pdf = torch.where(kind == CONDUCTOR, conductor_pdf(wo, wi, ax, ay), pdf)
     if DIELECTRIC in kinds_present:
-        ax, ay = _material_alphas(materials, mat_id)
+        ax, ay = _material_alphas(materials, mat_id, tex)
         eta = _dielectric_eta(materials, mat_id, swl, spectra_table)
         pdf = torch.where(kind == DIELECTRIC, dielectric_pdf(eta, wo, wi, ax, ay), pdf)
     # thin dielectric: specular only, pdf 0

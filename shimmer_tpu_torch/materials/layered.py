@@ -380,20 +380,23 @@ def layered_pdf(top: _TopInterface, bottom, wo, wi, rng_key, n_samples: int = LA
 # --- material-table dispatch glue (called from materials.material) ---
 
 
-def _interfaces(materials, mat_id, swl, spectra_table):
-    """Top interface and both bottoms from material-table rows."""
+def _interfaces(materials, mat_id, swl, spectra_table, tex=None):
+    """Top interface and both bottoms from material-table rows.  A
+    textured reflectance (in ``tex``) drives the diffuse bottom and the
+    conductor's reflectance mode; the roughnesses stay the columns'."""
     ax = sc.roughness_to_alpha(take_clamped(materials.uroughness, mat_id))
     ay = sc.roughness_to_alpha(take_clamped(materials.vroughness, mat_id))
     ax, ay = sc.clamp_alpha(ax, ay)
     # The coat's eta is always the constant column.
     top = _TopInterface(_dielectric_eta(materials, mat_id, swl, None), ax, ay)
-    bot_d = _DiffuseBottom(
-        sigmoid_poly_sample(take_clamped(materials.reflectance, mat_id), swl.lam)
-    )
+    refl = tex.get("reflectance") if tex else None
+    if refl is None:
+        refl = sigmoid_poly_sample(take_clamped(materials.reflectance, mat_id), swl.lam)
+    bot_d = _DiffuseBottom(refl)
     bax = sc.roughness_to_alpha(take_clamped(materials.bot_uroughness, mat_id))
     bay = sc.roughness_to_alpha(take_clamped(materials.bot_vroughness, mat_id))
     bax, bay = sc.clamp_alpha(bax, bay)
-    c_eta, c_k = _conductor_eta_k(materials, mat_id, swl, spectra_table)
+    c_eta, c_k = _conductor_eta_k(materials, mat_id, swl, spectra_table, tex)
     return top, bot_d, _ConductorBottom(c_eta, c_k, bax, bay)
 
 
@@ -404,21 +407,21 @@ def _layer_params(materials, mat_id, swl):
     return thickness, g, albedo
 
 
-def _coats(materials, kinds_present, mat_id, kind, swl, spectra_table):
+def _coats(materials, kinds_present, mat_id, kind, swl, spectra_table, tex):
     """(kind, top, bottom) for each coated kind in the scene that a lane
     has.  A walk costs thousands of small kernels, so a kind no lane has
     is skipped: its lanes would all be deselected, and each lane's stream
     is its own, so no other lane's draws change."""
     for mk, is_cond in ((COATED_DIFFUSE, False), (COATED_CONDUCTOR, True)):
         if mk in kinds_present and bool(torch.any(kind == mk)):
-            top, bot_d, bot_c = _interfaces(materials, mat_id, swl, spectra_table)
+            top, bot_d, bot_c = _interfaces(materials, mat_id, swl, spectra_table, tex)
             yield mk, top, bot_c if is_cond else bot_d
 
 
 def coated_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f, rng_key,
-             spectra_table=None):
+             tex=None, spectra_table=None):
     thickness, g, albedo = _layer_params(materials, mat_id, swl)
-    for mk, top, bot in _coats(materials, kinds_present, mat_id, kind, swl, spectra_table):
+    for mk, top, bot in _coats(materials, kinds_present, mat_id, kind, swl, spectra_table, tex):
         key = srng.hash_combine(rng_key, mk)
         val = layered_f(top, bot, wo, wi, key, thickness, albedo, g, materials.layer_medium)
         f = torch.where((kind == mk)[..., None], val, f)
@@ -426,9 +429,9 @@ def coated_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f, rng_key,
 
 
 def coated_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out, rng_key,
-                  spectra_table=None):
+                  tex=None, spectra_table=None):
     thickness, g, albedo = _layer_params(materials, mat_id, swl)
-    for mk, top, bot in _coats(materials, kinds_present, mat_id, kind, swl, spectra_table):
+    for mk, top, bot in _coats(materials, kinds_present, mat_id, kind, swl, spectra_table, tex):
         key = srng.hash_combine(rng_key, 16 + mk)
         s = layered_sample(top, bot, wo, uc, u2, key, thickness, albedo, g,
                            materials.layer_medium)
@@ -437,8 +440,8 @@ def coated_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out, 
 
 
 def coated_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf, rng_key,
-               spectra_table=None):
-    for mk, top, bot in _coats(materials, kinds_present, mat_id, kind, swl, spectra_table):
+               tex=None, spectra_table=None):
+    for mk, top, bot in _coats(materials, kinds_present, mat_id, kind, swl, spectra_table, tex):
         key = srng.hash_combine(rng_key, 32 + mk)
         pdf = torch.where(kind == mk, layered_pdf(top, bot, wo, wi, key), pdf)
     return pdf

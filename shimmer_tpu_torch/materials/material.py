@@ -4,9 +4,12 @@
 The set of material kinds in a scene is host metadata: only the BxDF
 families present are evaluated, each for all lanes, and selected by kind.
 Kinds 0-6 (diffuse, conductor, dielectric, thin dielectric, coated diffuse,
-coated conductor, mix) are ported with constant parameters.  Kind 7
-(diffuse transmission) has no BxDF in the reference's dispatch either; it,
-textured parameters and normal or bump maps raise NotImplementedError.
+coated conductor, mix) are ported.  Their parameters are the constant
+columns, or per-lane values that ``textures.evaluate_material_textures``
+resolved from the ``tex_*`` columns (passed as ``tex``); ``normal_tex`` and
+``displacement_tex`` drive ``textures.normal_bump``.  Kind 7 (diffuse
+transmission) has no BxDF in the reference's dispatch either: it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from shimmer_tpu_torch.materials.bxdf import BSDFSample, select_sample
 from shimmer_tpu_torch.ops.math import take_clamped
 from shimmer_tpu_torch.ops.sampling import UNIFORM_HEMISPHERE_PDF, sample_uniform_hemisphere
 from shimmer_tpu_torch.spectra.rgb2spec import sigmoid_poly_sample
+from shimmer_tpu_torch.textures.textures import textured_params
 
 DIFFUSE = 0
 CONDUCTOR = cd.CONDUCTOR
@@ -36,7 +40,7 @@ DIFFUSE_TRANSMISSION = 7
 
 PORTED_KINDS = (DIFFUSE, CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC, COATED_DIFFUSE,
                 COATED_CONDUCTOR, MIX)
-# Texture columns: -1 (no texture) is the only value ported.
+# Texture-id columns (-1: no texture).
 TEXTURE_COLUMNS = ("tex_mix_amount", "tex_reflectance", "tex_uroughness", "tex_vroughness",
                    "normal_tex", "displacement_tex")
 
@@ -55,12 +59,12 @@ class MaterialTable:
     mix_amount: torch.Tensor       # (M,)
     mix_m1: torch.Tensor           # (M,) int32
     mix_m2: torch.Tensor           # (M,) int32
-    tex_mix_amount: torch.Tensor   # (M,) int32, -1 only
-    tex_reflectance: torch.Tensor  # (M,) int32, -1 only
-    tex_uroughness: torch.Tensor   # (M,) int32, -1 only
-    tex_vroughness: torch.Tensor   # (M,) int32, -1 only
-    normal_tex: torch.Tensor       # (M,) int32, -1 only
-    displacement_tex: torch.Tensor  # (M,) int32, -1 only
+    tex_mix_amount: torch.Tensor   # (M,) int32 texture id, -1 = none
+    tex_reflectance: torch.Tensor  # (M,) int32 texture id, -1 = none
+    tex_uroughness: torch.Tensor   # (M,) int32 texture id, -1 = none
+    tex_vroughness: torch.Tensor   # (M,) int32 texture id, -1 = none
+    normal_tex: torch.Tensor       # (M,) int32 texture id, -1 = none
+    displacement_tex: torch.Tensor  # (M,) int32 texture id, -1 = none
     thickness: torch.Tensor        # (M,) coat layer optical thickness
     hg_g: torch.Tensor             # (M,) HG asymmetry of the layer medium
     albedo: torch.Tensor           # (M, 3) sigmoid coefficients of the medium albedo
@@ -71,19 +75,15 @@ class MaterialTable:
     has_textured_mix: bool = False
     layer_medium: bool = False     # a coat's layer has a scattering medium
     has_dispersion: bool = False   # a dispersive dielectric exists
+    # Parameters some material takes from a texture ("reflectance",
+    # "uroughness", "vroughness").
+    textured_params: tuple = ()
 
 
 def check_kinds(kinds_present: tuple):
     bad = [k for k in kinds_present if k not in PORTED_KINDS]
     if bad:
         raise NotImplementedError(f"material kinds {bad} are not ported yet")
-
-
-def check_untextured(columns: dict):
-    """Raise on any texture column other than -1."""
-    for name in TEXTURE_COLUMNS:
-        if np.any(np.asarray(columns[name]) != -1):
-            raise NotImplementedError(f"material column {name} (textures) is not ported yet")
 
 
 def make_material_table(mats: list[dict], device=None) -> MaterialTable:
@@ -103,7 +103,6 @@ def make_material_table(mats: list[dict], device=None) -> MaterialTable:
 
     kind = col("kind", DIFFUSE, np.int32)
     textures = {name: col(name, -1, np.int32) for name in TEXTURE_COLUMNS}
-    check_untextured(textures)
     refl = coeffs("reflectance_coeffs")
     albedo = coeffs("albedo_coeffs")
     eta_spec = col("eta_spec", -1, np.int32)
@@ -129,20 +128,25 @@ def make_material_table(mats: list[dict], device=None) -> MaterialTable:
         bot_uroughness=f32(col("bot_uroughness", 0.0, np.float32), device),
         bot_vroughness=f32(col("bot_vroughness", 0.0, np.float32), device),
         dispersive=torch.from_numpy(dispersive).to(device),
-        has_textured_mix=False,
+        has_textured_mix=bool(np.any(textures["tex_mix_amount"] >= 0)),
         layer_medium=bool(np.any(np.abs(albedo[is_coated]) > 0.0)),
         has_dispersion=bool(np.any(dispersive)),
+        textured_params=textured_params(textures),
     )
 
 
-def resolve_mix(materials: MaterialTable, kinds_present: tuple, mat_id, u):
+def resolve_mix(materials: MaterialTable, kinds_present: tuple, mat_id, u, amt_override=None):
     """Resolve mix materials to a concrete material id: m1 with
-    probability ``amount``.  Two rounds resolve a mix of mixes."""
+    probability ``amount``.  Two rounds resolve a mix of mixes.
+    ``amt_override`` is a per-lane amount (a float texture evaluated at the
+    hit) for the first round; a nested mix uses its constant column."""
     if MIX not in kinds_present:
         return mat_id
-    for _ in range(2):
+    for round_i in range(2):
         is_mix = take_clamped(materials.kind, mat_id) == MIX
         amt = take_clamped(materials.mix_amount, mat_id)
+        if round_i == 0 and amt_override is not None:
+            amt = amt_override
         chosen = torch.where(u < amt, take_clamped(materials.mix_m1, mat_id),
                              take_clamped(materials.mix_m2, mat_id))
         mat_id = torch.where(is_mix, chosen, mat_id)
@@ -154,13 +158,9 @@ def resolved_kinds(kinds_present: tuple) -> tuple:
     return tuple(k for k in kinds_present if k != MIX)
 
 
-def _check_ctx(kinds_present, tex):
-    check_kinds(kinds_present)
-    if tex is not None:
-        raise NotImplementedError("textured material parameters are not ported yet")
-
-
-def _diffuse_reflectance(materials, mat_id, swl):
+def _diffuse_reflectance(materials, mat_id, swl, tex=None):
+    if tex and tex.get("reflectance") is not None:
+        return tex["reflectance"]
     return sigmoid_poly_sample(take_clamped(materials.reflectance, mat_id), swl.lam)
 
 
@@ -176,39 +176,40 @@ def _any(kinds_present, *kinds):
 def bsdf_f(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, swl,
            tex=None, spectra_table=None, rng_key=None):
     """Render-space BSDF value over lanes."""
-    _check_ctx(kinds_present, tex)
+    check_kinds(kinds_present)
     wo = frame.to_local(wo_render)
     wi = frame.to_local(wi_render)
     kind = take_clamped(materials.kind, mat_id)
     f = torch.zeros(wo.shape[:-1] + (4,), device=wo.device)
     if DIFFUSE in kinds_present:
-        refl = _diffuse_reflectance(materials, mat_id, swl)
+        refl = _diffuse_reflectance(materials, mat_id, swl, tex)
         f = torch.where((kind == DIFFUSE)[..., None], bx.diffuse_f(refl, wo, wi), f)
     if _any(kinds_present, CONDUCTOR, DIELECTRIC):
         f = cd.rough_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f,
-                       spectra_table=spectra_table)
+                       tex=tex, spectra_table=spectra_table)
     if _any(kinds_present, COATED_DIFFUSE, COATED_CONDUCTOR):
         f = layered.coated_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f,
-                             _rng_key(rng_key, wo), spectra_table=spectra_table)
+                             _rng_key(rng_key, wo), tex=tex, spectra_table=spectra_table)
     return torch.where((torch.abs(wo[..., 2]) < 1e-9)[..., None], 0.0, f)
 
 
 def bsdf_sample(materials, kinds_present, mat_id, frame, ns, wo_render, u2, uc, swl,
                 tex=None, spectra_table=None, rng_key=None) -> BSDFSample:
     """Render-space BSDF sampling; ``wi`` comes back in render space."""
-    _check_ctx(kinds_present, tex)
+    check_kinds(kinds_present)
     wo = frame.to_local(wo_render)
     kind = take_clamped(materials.kind, mat_id)
     out = BSDFSample.invalid(wo.shape[:-1], wo.device)
     if DIFFUSE in kinds_present:
-        refl = _diffuse_reflectance(materials, mat_id, swl)
+        refl = _diffuse_reflectance(materials, mat_id, swl, tex)
         out = select_sample(kind == DIFFUSE, bx.diffuse_sample_f(refl, wo, u2, uc), out)
     if _any(kinds_present, CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC):
         out = cd.rough_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out,
-                              spectra_table=spectra_table)
+                              tex=tex, spectra_table=spectra_table)
     if _any(kinds_present, COATED_DIFFUSE, COATED_CONDUCTOR):
         out = layered.coated_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl,
-                                    out, _rng_key(rng_key, wo), spectra_table=spectra_table)
+                                    out, _rng_key(rng_key, wo), tex=tex,
+                                    spectra_table=spectra_table)
     degenerate = torch.abs(wo[..., 2]) < 1e-9
     return dataclasses.replace(
         out, wi=frame.from_local(out.wi), valid=out.valid & ~degenerate & (out.pdf > 0.0)
@@ -218,7 +219,7 @@ def bsdf_sample(materials, kinds_present, mat_id, frame, ns, wo_render, u2, uc, 
 def bsdf_pdf(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, swl,
              tex=None, spectra_table=None, rng_key=None):
     """Render-space BSDF pdf."""
-    _check_ctx(kinds_present, tex)
+    check_kinds(kinds_present)
     wo = frame.to_local(wo_render)
     wi = frame.to_local(wi_render)
     kind = take_clamped(materials.kind, mat_id)
@@ -227,10 +228,10 @@ def bsdf_pdf(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, 
         pdf = torch.where(kind == DIFFUSE, bx.diffuse_pdf(wo, wi), pdf)
     if _any(kinds_present, CONDUCTOR, DIELECTRIC):
         pdf = cd.rough_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf,
-                           spectra_table=spectra_table)
+                           tex=tex, spectra_table=spectra_table)
     if _any(kinds_present, COATED_DIFFUSE, COATED_CONDUCTOR):
         pdf = layered.coated_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf,
-                                 _rng_key(rng_key, wo), spectra_table=spectra_table)
+                                 _rng_key(rng_key, wo), tex=tex, spectra_table=spectra_table)
     return torch.where(torch.abs(wo[..., 2]) < 1e-9, 0.0, pdf)
 
 

@@ -95,9 +95,52 @@ def quadratic(a, b, c):
     return has, lo, hi
 
 
+def fma(a, b, c):
+    """a * b + c rounded once to float32 (the product of two float32 is
+    exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def dot_lanes(terms):
+    """sum of a_k * b_k over (a, b) pairs as the reference's CPU
+    contraction adds a batched or broadcast matrix-vector product: the
+    first product rounded, then one fused multiply-add per term."""
+    (a0, b0), *rest = terms
+    acc = a0 * b0
+    for a, b in rest:
+        acc = fma(a, b, acc)
+    return acc
+
+
+def to_i32(x):
+    """float -> int32 as the reference converts: toward zero, saturating
+    at the int32 range, NaN -> 0 (a plain ``.to(torch.int32)`` is
+    undefined out of range)."""
+    x = torch.where(torch.isnan(x), 0.0, x)
+    x = torch.clamp(x, -2147483648.0, 2147483648.0).to(torch.int64)
+    return torch.clamp(x, -2147483648, 2147483647).to(torch.int32)
+
+
+def find_interval(xs, x):
+    """Index i with xs[i] <= x < xs[i+1], clamped to [0, n-2], for a sorted
+    1-D knot array ``xs`` and ``x`` of any shape."""
+    n = xs.shape[-1]
+    idx = torch.searchsorted(xs, x.contiguous(), right=True) - 1
+    return torch.clamp(idx, 0, n - 2)
+
+
 def take_clamped(table, idx):
     """``table[idx]`` with out-of-range ids clamped into the table, the
     gather semantics of the reference's ``small_gather`` (miss lanes carry
     id -1 and read row 0)."""
     k = table.shape[0]
     return table[torch.clamp(idx.long(), 0, k - 1)]
+
+
+def take_wrapped(table, idx):
+    """``table[idx]`` with the reference's plain indexing: a negative id
+    counts from the end, then ids are clamped into the table (a lane that
+    reads a row it then discards never faults)."""
+    k = table.shape[0]
+    idx = idx.long()
+    return table[torch.clamp(torch.where(idx < 0, idx + k, idx), 0, k - 1)]

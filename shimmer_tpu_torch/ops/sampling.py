@@ -1,20 +1,34 @@
-"""Monte Carlo warps (port of ``shimmer_tpu/ops/sampling.py``: the warps
-the forward render path and its materials use).  Expressions keep the
-reference's operand order so that float32 rounding matches it."""
+"""Monte Carlo warps and piecewise-constant distributions (port of
+``shimmer_tpu/ops/sampling.py``: the warps the forward render path and its
+materials use, and the 1-D / 2-D tables the image environment light
+samples).  Expressions keep the reference's operand order so that float32
+rounding matches it.
+
+The distributions' CDFs are built on the host with :func:`xla_cumsum`,
+which adds in the order the reference's cumsum adds on the CPU, so the
+tables are bit-equal.  A 2-D sample finds its column by a binary search
+over the chosen row (log2 W gathers per lane) instead of gathering the
+whole row per lane as the reference does; each row is nondecreasing, so
+the index is the same.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
+from shimmer_tpu_torch.config import resolve_device
 from shimmer_tpu_torch.ops.math import (
     difference_of_products,
+    find_interval,
     lerp,
     safe_sqrt,
     sqr,
     sqrt,
     sum_of_products,
+    to_i32,
 )
 from shimmer_tpu_torch.ops.vecmath import (
     angle_between,
@@ -211,3 +225,221 @@ def visible_wavelengths_pdf(lam):
     x = torch.cosh(0.0072 * (lam - 538.0))
     pdf = 0.0039398042 / sqr(x)
     return torch.where((lam >= 360.0) & (lam <= 830.0), pdf, 0.0)
+
+
+# --- piecewise-constant distributions ---
+
+# Block length of the reference's cumsum on the CPU: the scan runs in
+# blocks of 16 from a zero start, and the blocks' totals are scanned the
+# same way, recursively, then added to every block.
+_SCAN_BLOCK = 16
+
+
+def _sequential_cumsum(x):
+    out = torch.empty_like(x)
+    acc = torch.zeros_like(x[..., 0])
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+        out[..., k] = acc
+    return out
+
+
+def xla_cumsum(x):
+    """Inclusive float32 cumsum along the last axis in the order the
+    reference's cumsum adds on the CPU (``torch.cumsum`` accumulates in
+    float64 there and differs by a few ulps)."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return _sequential_cumsum(x)
+    m = -(-n // _SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, m * _SCAN_BLOCK - n))
+    within = _sequential_cumsum(xp.reshape(x.shape[:-1] + (m, _SCAN_BLOCK)))
+    before = torch.nn.functional.pad(xla_cumsum(within[..., -1])[..., :-1], (1, 0))
+    return (within + before[..., None]).reshape(x.shape[:-1] + (m * _SCAN_BLOCK,))[..., :n]
+
+
+def _first_above(flat, start, width: int, u):
+    """Per lane, the count of k in [1, width] with flat[start + k] <= u, for
+    nondecreasing rows: a binary search with log2(width + 1) gathers."""
+    lo = torch.ones_like(start)
+    hi = torch.full_like(start, width + 1)
+    for _ in range(max(1, math.ceil(math.log2(width + 1)))):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        above = flat[start + torch.clamp(mid, max=width)] > u
+        hi = torch.where(active & above, mid, hi)
+        lo = torch.where(active & ~above, mid + 1, lo)
+    return lo - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class PiecewiseConstant1D:
+    """Tabulated 1-D distribution over [domain_min, domain_max]: func
+    (..., N) >= 0, cdf (..., N + 1), func_int (...,)."""
+
+    func: torch.Tensor
+    cdf: torch.Tensor
+    func_int: torch.Tensor
+    domain_min: float = 0.0
+    domain_max: float = 1.0
+
+    @property
+    def size(self):
+        return self.func.shape[-1]
+
+    def sample(self, u):
+        """Returns (x, pdf, offset)."""
+        n = self.size
+        if self.cdf.ndim == 1:
+            o = find_interval(self.cdf, u)
+            cdf_o = self.cdf[o]
+            cdf_o1 = self.cdf[o + 1]
+            f_o = self.func[o]
+        else:
+            o = torch.searchsorted(self.cdf[..., 1:].contiguous(), u[..., None].contiguous(),
+                                   right=True)
+            o = torch.clamp(o, 0, n - 1)
+            cdf_o = torch.gather(self.cdf, -1, o)[..., 0]
+            cdf_o1 = torch.gather(self.cdf, -1, o + 1)[..., 0]
+            f_o = torch.gather(self.func, -1, o)[..., 0]
+            o = o[..., 0]
+        integral = self.func_int
+        du = u - cdf_o
+        width = cdf_o1 - cdf_o
+        du = torch.where(width > 0.0, du / torch.where(width > 0.0, width, 1.0), du)
+        pos = integral > 0.0
+        pdf = torch.where(pos, f_o / torch.where(pos, integral, 1.0), 0.0)
+        x = lerp((o.to(torch.float32) + du) / n, self.domain_min, self.domain_max)
+        return x, pdf, o
+
+    def pdf_at(self, x):
+        n = self.size
+        t = (x - self.domain_min) / (self.domain_max - self.domain_min)
+        i = torch.clamp(to_i32(t * n), 0, n - 1).long()
+        if self.func.ndim == 1:
+            f = self.func[i]
+        else:
+            f = torch.gather(self.func, -1, i[..., None])[..., 0]
+        pos = self.func_int > 0.0
+        return torch.where(pos, f / torch.where(pos, self.func_int, 1.0), 0.0)
+
+
+def build_piecewise_constant_1d(func, domain_min=0.0, domain_max=1.0, device=None):
+    """A PiecewiseConstant1D from (..., N) values, built on the host and
+    placed on ``device`` (default: the CUDA card); a row of zeros becomes
+    uniform."""
+    device = resolve_device(device)
+    func = torch.abs(torch.as_tensor(func, dtype=torch.float32, device="cpu"))
+    n = func.shape[-1]
+    step = (domain_max - domain_min) / n
+    cdf = xla_cumsum(func * step)
+    func_int = cdf[..., -1]
+    zero = func_int == 0.0
+    ramp = torch.arange(1, n + 1, dtype=torch.float32) / n
+    norm_cdf = torch.where(zero[..., None], ramp,
+                           cdf / torch.where(zero[..., None], 1.0, func_int[..., None]))
+    cdf_full = torch.cat([torch.zeros_like(norm_cdf[..., :1]), norm_cdf], dim=-1)
+    return PiecewiseConstant1D(
+        func=torch.where(zero[..., None], torch.ones_like(func), func).to(device),
+        cdf=cdf_full.to(device),
+        func_int=torch.where(zero, step * n, func_int).to(device),
+        domain_min=float(domain_min),
+        domain_max=float(domain_max),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class PiecewiseConstant2D:
+    """2-D distribution: a marginal over rows and a conditional per row;
+    func is (H, W)."""
+
+    func: torch.Tensor        # (H, W)
+    cond_cdf: torch.Tensor    # (H, W + 1) conditional CDFs p(u | v)
+    cond_int: torch.Tensor    # (H,) row integrals
+    marg_cdf: torch.Tensor    # (H + 1,)
+    marg_func: torch.Tensor   # (H,)
+    marg_int: torch.Tensor    # ()
+    domain: tuple = ((0.0, 0.0), (1.0, 1.0))
+
+    def sample(self, u):
+        """u (..., 2) -> (point (..., 2), pdf)."""
+        (x0, y0), (x1, y1) = self.domain
+        h, w = self.func.shape
+        # The marginal over rows (v).
+        uv = u[..., 1]
+        ov = torch.clamp(torch.searchsorted(self.marg_cdf, uv.contiguous(), right=True) - 1,
+                         0, h - 1)
+        c0 = self.marg_cdf[ov]
+        c1 = self.marg_cdf[ov + 1]
+        rising = c1 > c0
+        dv = torch.where(rising, (uv - c0) / torch.where(rising, c1 - c0, 1.0), 0.0)
+        pdf_v = torch.where(self.marg_int > 0.0, self.marg_func[ov] / self.marg_int, 0.0)
+        v = (ov.to(torch.float32) + dv) / h
+        # The conditional over columns (u) of the chosen row.
+        uu = u[..., 0]
+        flat = self.cond_cdf.reshape(-1)
+        start = ov * (w + 1)
+        ou = torch.clamp(_first_above(flat, start, w, uu), 0, w - 1)
+        c0u = flat[start + ou]
+        c1u = flat[start + ou + 1]
+        rising = c1u > c0u
+        du = torch.where(rising, (uu - c0u) / torch.where(rising, c1u - c0u, 1.0), 0.0)
+        row_int = self.cond_int[ov]
+        f = self.func[ov, ou]
+        pos = row_int > 0.0
+        pdf_u = torch.where(pos, f / torch.where(pos, row_int, 1.0), 0.0)
+        x = lerp((ou.to(torch.float32) + du) / w, x0, x1)
+        y = lerp(v, y0, y1)
+        pdf = pdf_u * pdf_v / ((x1 - x0) * (y1 - y0))
+        return vec2(x, y), pdf
+
+    def pdf_at(self, p):
+        (x0, y0), (x1, y1) = self.domain
+        h, w = self.func.shape
+        tx = (p[..., 0] - x0) / (x1 - x0)
+        ty = (p[..., 1] - y0) / (y1 - y0)
+        ix = torch.clamp(to_i32(tx * w), 0, w - 1).long()
+        iy = torch.clamp(to_i32(ty * h), 0, h - 1).long()
+        f = self.func[iy, ix]
+        pos = self.marg_int > 0.0
+        return torch.where(pos, f / torch.where(pos, self.marg_int, 1.0), 0.0) / (
+            (x1 - x0) * (y1 - y0)
+        )
+
+    @property
+    def integral(self):
+        return self.marg_int
+
+
+def build_piecewise_constant_2d(func, domain=((0.0, 0.0), (1.0, 1.0)), device=None):
+    """A PiecewiseConstant2D from (H, W) values, built on the host and
+    placed on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
+    func = torch.abs(torch.as_tensor(func, dtype=torch.float32, device="cpu"))
+    h, w = func.shape
+    (x0, y0), (x1, y1) = domain
+    du = (x1 - x0) / w
+    dv = (y1 - y0) / h
+    cond_cdf = xla_cumsum(func * du)
+    cond_int = cond_cdf[:, -1]
+    zero_row = cond_int == 0.0
+    ramp = torch.broadcast_to(torch.arange(1, w + 1, dtype=torch.float32) / w, (h, w))
+    cond_norm = torch.where(zero_row[:, None], ramp,
+                            cond_cdf / torch.where(zero_row[:, None], 1.0, cond_int[:, None]))
+    cond_full = torch.cat([torch.zeros((h, 1), dtype=torch.float32), cond_norm], dim=-1)
+    marg_func = cond_int
+    marg_cdf = xla_cumsum(marg_func * dv)
+    marg_int = marg_cdf[-1]
+    zero = marg_int == 0.0
+    marg_ramp = torch.arange(1, h + 1, dtype=torch.float32) / h
+    marg_norm = torch.where(zero, marg_ramp, marg_cdf / torch.where(zero, 1.0, marg_int))
+    marg_full = torch.cat([torch.zeros(1, dtype=torch.float32), marg_norm])
+    return PiecewiseConstant2D(
+        func=func.to(device),
+        cond_cdf=cond_full.to(device),
+        cond_int=torch.where(zero_row, du * w, cond_int).to(device),
+        marg_cdf=marg_full.to(device),
+        marg_func=torch.where(zero, torch.ones_like(marg_func) * dv * w, marg_func).to(device),
+        marg_int=torch.where(zero, dv * h * du * w, marg_int).to(device),
+        domain=tuple(map(tuple, domain)),
+    )

@@ -158,6 +158,63 @@ def spherical_triangle_area(a, b, c):
     )
 
 
+# --- equal-area octahedral maps (Clarberg 2008) ---
+
+
+def equal_area_square_to_sphere(p):
+    """[0, 1]^2 -> the unit sphere, equal-area octahedral."""
+    u = 2.0 * p[..., 0] - 1.0
+    v = 2.0 * p[..., 1] - 1.0
+    up = torch.abs(u)
+    vp = torch.abs(v)
+    sd = 1.0 - (up + vp)
+    d = torch.abs(sd)
+    r = 1.0 - d
+    r_zero = r == 0.0
+    phi = torch.where(r_zero, 1.0, (vp - up) / torch.where(r_zero, 1.0, r) + 1.0) * (
+        math.pi / 4.0
+    )
+    z = torch.copysign(1.0 - sqr(r), sd)
+    cos_p = torch.copysign(torch.cos(phi), u)
+    sin_p = torch.copysign(torch.sin(phi), v)
+    scale = r * safe_sqrt(2.0 - sqr(r))
+    return vec(cos_p * scale, sin_p * scale, z)
+
+
+def equal_area_sphere_to_square(d):
+    """Inverse of :func:`equal_area_square_to_sphere`."""
+    x = torch.abs(d[..., 0])
+    y = torch.abs(d[..., 1])
+    z = torch.abs(d[..., 2])
+    r = safe_sqrt(1.0 - z)
+    a = torch.maximum(x, y)
+    b = torch.minimum(x, y)
+    a_zero = a == 0.0
+    b = torch.where(a_zero, 0.0, b / torch.where(a_zero, 1.0, a))
+    phi = torch.atan(b) * (2.0 / math.pi)
+    phi = torch.where(x < y, 1.0 - phi, phi)
+    v = phi * r
+    u = r - v
+    # Southern hemisphere: fold.
+    south = d[..., 2] < 0.0
+    u, v = torch.where(south, 1.0 - v, u), torch.where(south, 1.0 - u, v)
+    u = torch.copysign(u, d[..., 0])
+    v = torch.copysign(v, d[..., 1])
+    return vec2(0.5 * (u + 1.0), 0.5 * (v + 1.0))
+
+
+def wrap_equal_area_square(uv):
+    """Fold out-of-bounds equal-area square coordinates back in."""
+    u, v = uv[..., 0], uv[..., 1]
+    u_lt, u_gt = u < 0.0, u > 1.0
+    v_lt, v_gt = v < 0.0, v > 1.0
+    u2 = torch.where(u_lt, -u, torch.where(u_gt, 2.0 - u, u))
+    v2 = torch.where(u_lt | u_gt, 1.0 - v, v)
+    v3 = torch.where(v_lt, -v2, torch.where(v_gt, 2.0 - v2, v2))
+    u3 = torch.where(v_lt | v_gt, 1.0 - u2, u2)
+    return vec2(u3, v3)
+
+
 @dataclasses.dataclass(frozen=True)
 class Frame:
     """Orthonormal basis, batched over the leading dims of x/y/z."""

@@ -24,12 +24,16 @@ def make_wavefront_renderer(scene: Scene, camera, film: RgbFilm, sampler,
                             max_depth: int = 5):
     """Wave function (film_state, sample_indices, pixel_xy, pixel_valid)
     -> (film_state, stats); stats['rays'] is the exact traced ray count of
-    the wave and stats['iters'] its loop iterations."""
+    the wave and stats['iters'] its loop iterations.  The camera's pixel
+    spread, shrunk with the sample count, sizes the texture footprints."""
+    spread = getattr(camera, "pixel_spread", 0.0)
+    if spread:
+        spread = spread * max(0.125, 1.0 / np.sqrt(max(sampler.samples_per_pixel, 1)))
 
     def render_samples(film_state, sample_indices, pixel_xy, pixel_valid):
         return render_wave_wavefront(
             scene, camera, film, sampler, film_state, sample_indices,
-            pixel_xy, pixel_valid, max_depth=max_depth,
+            pixel_xy, pixel_valid, max_depth=max_depth, pixel_spread=spread,
         )
 
     return render_samples

@@ -1,5 +1,6 @@
 """Device scene: flat tables plus the static census (port of
-``shimmer_tpu/scene.py``: analytic spheres and triangles).
+``shimmer_tpu/scene.py``: analytic spheres and triangles, textures and the
+image environment light).
 
 The census (which material, light and shape kinds exist) is plain Python
 attributes that pick code paths, as the reference's static fields do
@@ -40,8 +41,13 @@ class Scene:
     n_lights: int = 0
     uniform_infinite_indices: tuple = ()
     spheres: SphereData | None = None
+    env: object | None = None        # EnvLightData (lights/env.py)
+    textures: object | None = None   # TextureTable (textures/textures.py)
+    image_infinite_indices: tuple = ()
     has_spheres: bool = False
     has_triangles: bool = False
+    has_normal_maps: bool = False
+    has_bump_maps: bool = False
 
     @property
     def device(self):
@@ -99,7 +105,8 @@ def scene_intersect_merged(scene: Scene, ray_o, ray_d, t_max, n_ext):
         return si, tri[n_ext:] >= 0
     si_all = scene_intersect(scene, ray_o, ray_d, t_max, want_any=want_any)
     si = type(si_all)(**{f.name: getattr(si_all, f.name)[:n_ext]
-                         for f in dataclasses.fields(si_all)})
+                         for f in dataclasses.fields(si_all)
+                         if getattr(si_all, f.name) is not None})
     return si, si_all.valid[n_ext:]
 
 
@@ -110,6 +117,9 @@ def _closer(a, b):
     merged = {}
     for f in dataclasses.fields(a):
         va, vb = getattr(a, f.name), getattr(b, f.name)
+        if va is None:  # a footprint: set only after the trace
+            merged[f.name] = None
+            continue
         cond = take_b[..., None] if va.ndim > take_b.ndim else take_b
         merged[f.name] = torch.where(cond, vb, va)
     return type(a)(**merged)

@@ -1,7 +1,8 @@
 """Host-side scene assembly (port of ``shimmer_tpu/scene_builder.py``:
-analytic spheres and triangles, untextured materials of every ported kind
-with the dense spectra table their IORs index, area lights on spheres and
-triangles, and uniform infinite lights)."""
+analytic spheres and triangles, materials of every ported kind with the
+dense spectra table their IORs index and the texture table their texture
+columns index, area lights on spheres and triangles, uniform infinite
+lights and the image environment light)."""
 
 from __future__ import annotations
 
@@ -30,6 +31,9 @@ def build_scene(
     device=None,
     spheres: list[dict] | None = None,
     render_from_world: Transform | None = None,
+    textures=None,
+    env=None,
+    env_spec: dict | None = None,
 ) -> Scene:
     """Assemble a device Scene from a TriangleSceneData (or None), sphere
     dicts and material / light dicts, as the reference's ``build_scene``
@@ -40,8 +44,12 @@ def build_scene(
     Material dicts carry ``kind`` plus the per-kind parameters of
     ``materials.material.make_material_table``; ``reflectance`` may be an
     RGB triple (fit to sigmoid coefficients here).  ``spectra_table`` is
-    the (K, 471) dense table that ``eta_spec`` / ``k_spec`` index.
-    ``device`` defaults to the triangles' device, else the CUDA card."""
+    the (K, 471) dense table that ``eta_spec`` / ``k_spec`` index, and
+    ``textures`` the TextureTable the ``tex_*``, ``normal_tex`` and
+    ``displacement_tex`` columns index.  An image infinite light reads
+    ``env`` (an EnvLightData), or is baked here from ``env_spec`` (``image``,
+    ``scale``, ``render_from_light``) with the scene's radius.  ``device``
+    defaults to the triangles' device, else the CUDA card."""
     if device is None:
         device = triangles.rows8.device if triangles is not None else resolve_device(None)
     cs = colorspace or get_named_color_space("srgb")
@@ -82,6 +90,14 @@ def build_scene(
             scene_radius,
             float(np.linalg.norm(hi - lo) * 0.5 + np.linalg.norm((hi + lo) * 0.5)),
         )
+
+    # The deferred env bake sees the computed scene radius.
+    if env is None and env_spec is not None:
+        from shimmer_tpu_torch.lights.env import build_env_light
+
+        env = build_env_light(env_spec["image"], cs, scale=float(env_spec.get("scale", 1.0)),
+                              render_from_light=env_spec.get("render_from_light"),
+                              scene_radius=scene_radius, device=device)
 
     n_l = len(lights)
     kind = np.zeros(n_l, np.int32)
@@ -140,8 +156,12 @@ def build_scene(
     return Scene(
         triangles=triangles,
         spheres=sphere_data,
+        env=env,
+        textures=textures,
         has_spheres=sphere_data is not None,
         has_triangles=triangles is not None,
+        has_normal_maps=any(m.get("normal_tex", -1) >= 0 for m in mat_dicts),
+        has_bump_maps=any(m.get("displacement_tex", -1) >= 0 for m in mat_dicts),
         materials=mat_table,
         lights=light_data,
         light_sample_weights=f32(weights, device),
@@ -152,4 +172,5 @@ def build_scene(
         uniform_infinite_indices=tuple(
             int(i) for i in np.nonzero(kind == lt.UNIFORM_INFINITE)[0]
         ),
+        image_infinite_indices=tuple(int(i) for i in np.nonzero(kind == lt.IMAGE_INFINITE)[0]),
     )

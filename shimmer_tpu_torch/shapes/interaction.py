@@ -1,7 +1,9 @@
 """Surface interaction records, batched SoA (port of
 ``shimmer_tpu/shapes/interaction.py``).  Dead lanes carry finite values
-and are masked by ``valid``.  The texture-footprint fields (dudx ...) wait
-for the texture slice: nothing in the port reads them yet."""
+and are masked by ``valid``.  The texture-filtering footprint (dudx, dvdx,
+dudy, dvdy) is None until :meth:`SurfaceInteraction.with_camera_differentials`
+sets it, which the path does only for a scene with textures; None reads
+as zero (:meth:`SurfaceInteraction.footprint`)."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import dataclasses
 
 import torch
 
-from shimmer_tpu_torch.ops.vecmath import Frame, gram_schmidt, normalize
+from shimmer_tpu_torch.ops.vecmath import Frame, coordinate_system, dot, gram_schmidt, normalize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +30,11 @@ class SurfaceInteraction:
     area_light_id: torch.Tensor  # (...,) int32, -1 = none
     med_in: torch.Tensor       # (...,) int32
     med_out: torch.Tensor      # (...,) int32
+    # Texture-filtering footprint from ray differentials (None: zero).
+    dudx: torch.Tensor | None = None
+    dvdx: torch.Tensor | None = None
+    dudy: torch.Tensor | None = None
+    dvdy: torch.Tensor | None = None
 
     @staticmethod
     def make(valid, t, p, n, uv, wo, dpdu, dpdv, ns=None, dpdus=None, material_id=None,
@@ -48,6 +55,41 @@ class SurfaceInteraction:
             med_in=ids(med_in, -2),
             med_out=ids(med_out, -2),
         )
+
+    def footprint(self):
+        """(dudx, dvdx, dudy, dvdy), zeros where no footprint was set."""
+        if self.dudx is None:
+            z = torch.zeros_like(self.t)
+            return z, z, z, z
+        return self.dudx, self.dvdx, self.dudy, self.dvdy
+
+    def with_camera_differentials(self, ray_d, spread: float) -> "SurfaceInteraction":
+        """Screen-space uv derivatives from an angular pixel footprint:
+        dp/dx ~ t * spread along two axes perpendicular to the ray, then
+        the least-squares projection onto (dpdu, dpdv)."""
+        d = normalize(ray_d)
+        ex, ey = coordinate_system(d)
+        r = (self.t * spread)[..., None]
+        r = torch.where(torch.isfinite(r), r, 0.0)
+        dpdx = ex * r
+        dpdy = ey * r
+        ata00 = dot(self.dpdu, self.dpdu)
+        ata01 = dot(self.dpdu, self.dpdv)
+        ata11 = dot(self.dpdv, self.dpdv)
+        det = ata00 * ata11 - ata01 * ata01
+        inv = torch.where(torch.abs(det) > 1e-18, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+
+        def solve(dp):
+            b0 = dot(self.dpdu, dp)
+            b1 = dot(self.dpdv, dp)
+            du = (ata11 * b0 - ata01 * b1) * inv
+            dv = (ata00 * b1 - ata01 * b0) * inv
+            ok = torch.isfinite(du) & torch.isfinite(dv)
+            return torch.where(ok, du, 0.0), torch.where(ok, dv, 0.0)
+
+        dudx, dvdx = solve(dpdx)
+        dudy, dvdy = solve(dpdy)
+        return dataclasses.replace(self, dudx=dudx, dvdx=dvdx, dudy=dudy, dvdy=dvdy)
 
     def shading_frame(self) -> Frame:
         """Frame from the shading normal and tangent."""

@@ -27,7 +27,15 @@ import numpy as np
 import torch
 
 from shimmer_tpu_torch.config import f32, i32, resolve_device
-from shimmer_tpu_torch.ops.math import quadratic, safe_acos, safe_sqrt, sqr, sqrt
+from shimmer_tpu_torch.ops.math import (
+    dot_lanes,
+    quadratic,
+    safe_acos,
+    safe_sqrt,
+    sqr,
+    sqrt,
+    take_wrapped,
+)
 from shimmer_tpu_torch.ops.sampling import sample_uniform_sphere
 from shimmer_tpu_torch.ops.transform import Transform
 from shimmer_tpu_torch.ops.vecmath import (
@@ -106,27 +114,11 @@ def _apply_m(m, p, w: float):
     )
 
 
-def _fma(a, b, c):
-    """a * b + c rounded once to float32 (the product of two float32 is
-    exact in float64)."""
-    return (a.double() * b.double() + c.double()).float()
-
-
-def _dot_lanes(terms):
-    """sum of a_k * b_k over (a, b) pairs, as a batched product adds it:
-    the first product rounded, then one fused multiply-add per term."""
-    (a0, b0), *rest = terms
-    acc = a0 * b0
-    for a, b in rest:
-        acc = _fma(a, b, acc)
-    return acc
-
-
 def _apply_m_lanes(m, p, w: float):
     """First three rows of per-lane (..., 4, 4) matrices times [p, w]."""
     wt = torch.full_like(p[..., 0], w)
     return torch.stack(
-        [_dot_lanes([(m[..., i, 0], p[..., 0]), (m[..., i, 1], p[..., 1]),
+        [dot_lanes([(m[..., i, 0], p[..., 0]), (m[..., i, 1], p[..., 1]),
                      (m[..., i, 2], p[..., 2]), (m[..., i, 3], wt)]) for i in range(3)],
         dim=-1,
     )
@@ -136,18 +128,9 @@ def _apply_normal(r2o, n):
     """Normal transform by per-lane matrices: the inverse transpose of
     object_to_render, i.e. the transpose of render_to_object's 3x3."""
     return torch.stack(
-        [_dot_lanes([(r2o[..., j, i], n[..., j]) for j in range(3)]) for i in range(3)],
+        [dot_lanes([(r2o[..., j, i], n[..., j]) for j in range(3)]) for i in range(3)],
         dim=-1,
     )
-
-
-def _take(table, idx):
-    """``table[idx]`` with the reference's indexing: a negative id counts
-    from the end, then ids are clamped into the table (a lane whose light
-    is another shape reads a row it then discards)."""
-    k = table.shape[0]
-    idx = idx.long()
-    return table[torch.clamp(torch.where(idx < 0, idx + k, idx), 0, k - 1)]
 
 
 def sphere_intersect(data: SphereData, ray_o, ray_d, t_max) -> SurfaceInteraction:
@@ -244,14 +227,14 @@ def sphere_area(data: SphereData):
 
 def sphere_sample(data: SphereData, idx, u):
     """Uniform area sample of sphere ``idx`` per lane: (p, n, pdf_area)."""
-    radius = _take(data.radius, idx)
-    o2r = _take(data.object_to_render, idx)
-    r2o = _take(data.render_to_object, idx)
+    radius = take_wrapped(data.radius, idx)
+    o2r = take_wrapped(data.object_to_render, idx)
+    r2o = take_wrapped(data.render_to_object, idx)
     p_obj = radius[..., None] * sample_uniform_sphere(u)
     p = _apply_m_lanes(o2r, p_obj, 1.0)
     n = normalize(_apply_normal(r2o, p_obj))
-    n = torch.where(_take(data.reverse_orientation, idx)[..., None], -n, n)
-    pdf = 1.0 / _take(sphere_area(data), idx)
+    n = torch.where(take_wrapped(data.reverse_orientation, idx)[..., None], -n, n)
+    pdf = 1.0 / take_wrapped(sphere_area(data), idx)
     return p, n, pdf
 
 
@@ -259,8 +242,8 @@ def sphere_sample_with_context(data: SphereData, idx, ref_p, ref_ns, u):
     """Solid-angle sample toward sphere ``idx`` from ref_p: the subtended
     cone from outside, uniform area (converted to solid angle) from
     inside.  Returns (p, n, pdf_solid_angle)."""
-    radius = _take(data.radius, idx)
-    o2r = _take(data.object_to_render, idx)
+    radius = take_wrapped(data.radius, idx)
+    o2r = take_wrapped(data.object_to_render, idx)
     center = _apply_m_lanes(o2r, torch.zeros_like(ref_p), 1.0)
     dc2 = distance_squared(ref_p, center)
     outside = dc2 > sqr(radius) * (1.0 + 1e-4)
@@ -297,7 +280,7 @@ def sphere_sample_with_context(data: SphereData, idx, ref_p, ref_ns, u):
     pdf_in = pdf_area * dist2 / torch.clamp(cos_surf, min=1e-9)
     pdf_in = torch.where(cos_surf <= 1e-9, 0.0, pdf_in)
 
-    rev = _take(data.reverse_orientation, idx)
+    rev = take_wrapped(data.reverse_orientation, idx)
     n_out = torch.where(rev[..., None], -n_out, n_out)
     p = torch.where(outside[..., None], p_out, p_in)
     n = torch.where(outside[..., None], n_out, n_in)
@@ -307,8 +290,8 @@ def sphere_sample_with_context(data: SphereData, idx, ref_p, ref_ns, u):
 
 def sphere_pdf_with_context(data: SphereData, idx, ref_p, wi, si_p, si_n):
     """Solid-angle pdf of sampling direction wi toward sphere ``idx``."""
-    radius = _take(data.radius, idx)
-    o2r = _take(data.object_to_render, idx)
+    radius = take_wrapped(data.radius, idx)
+    o2r = take_wrapped(data.object_to_render, idx)
     center = _apply_m_lanes(o2r, torch.zeros_like(ref_p), 1.0)
     dc2 = distance_squared(ref_p, center)
     outside = dc2 > sqr(radius) * (1.0 + 1e-4)
@@ -320,7 +303,7 @@ def sphere_pdf_with_context(data: SphereData, idx, ref_p, wi, si_p, si_n):
     # Inside: the area pdf at the given hit point, in solid angle.
     dist2 = distance_squared(ref_p, si_p)
     cos_surf = torch.abs(dot(si_n, -normalize(si_p - ref_p)))
-    pdf_area = 1.0 / _take(sphere_area(data), idx)
+    pdf_area = 1.0 / take_wrapped(sphere_area(data), idx)
     pdf_in = torch.where(
         cos_surf > 1e-9, pdf_area * dist2 / torch.clamp(cos_surf, min=1e-9), 0.0
     )

@@ -82,6 +82,40 @@ if "shimmer_tpu_torch.cli" in runs:
         scene.write_text(text)
         assert cli.main([str(scene), "--spp", "1", "--device", "cpu", "-q",
                          "-o", str(pathlib.Path(tmp) / "small.pfm")]) == 0
+if "shimmer_tpu_torch.textures.normal_bump" in runs:
+    # The texture slice runs, not only imports: a scene with an image
+    # texture (EWA), a bump map, a textured mix amount and an image
+    # environment light, written as PFM files and a pbrt text, loaded and
+    # rendered at a small size on the CPU.
+    import pathlib, tempfile
+    import numpy as np
+    import torch
+    from shimmer_tpu_torch.film.image import Image
+    from shimmer_tpu_torch.loading.parser import parse_str
+    from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
+    from shimmer_tpu_torch.render import render
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        Image(rng.uniform(0, 1, (8, 8, 3)).astype(np.float32)).write(d / "albedo.pfm")
+        Image(rng.uniform(0, 1, (8, 8)).astype(np.float32)).write(d / "gray.pfm")
+        Image(rng.uniform(0.1, 2, (8, 16, 3)).astype(np.float32)).write(d / "sky.pfm")
+        text = (
+            'LookAt 0 2 -4  0 0 0  0 1 0\\nCamera "perspective"\\n'
+            'Film "rgb" "integer xresolution" [8] "integer yresolution" [8]\\n'
+            'Sampler "zsobol" "integer pixelsamples" [1]\\nWorldBegin\\n'
+            'LightSource "infinite" "string filename" "sky.pfm"\\n'
+            'Texture "a" "spectrum" "imagemap" "string filename" "albedo.pfm" "string filter" "ewa"\\n'
+            'Texture "g" "float" "imagemap" "string filename" "gray.pfm"\\n'
+            'MakeNamedMaterial "m1" "string type" "diffuse" "texture reflectance" "a"\\n'
+            'MakeNamedMaterial "m2" "string type" "coateddiffuse" "texture displacement" "g"\\n'
+            'Material "mix" "string materials" ["m1" "m2"] "texture amount" "g"\\n'
+            'Shape "sphere" "float radius" [1]\\n')
+        b = SceneBuilder(search_dir=d)
+        parse_str(text, b, search_dir=d)
+        job = b.create(device="cpu")
+        img = render(job.scene, job.camera, job.film, job.sampler, spp=1, max_depth=3)[0]
+        assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
 blocked = ("jax", "jaxlib", "shimmer_tpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -108,10 +142,12 @@ print(len(names))
         ["shimmer_tpu_torch.shapes.sphere", "shimmer_tpu_torch.loading.parser",
          "shimmer_tpu_torch.loading.scene_builder", "shimmer_tpu_torch.film.image",
          "shimmer_tpu_torch.cli"],
+        ["shimmer_tpu_torch.ops.sampling", "shimmer_tpu_torch.textures.textures",
+         "shimmer_tpu_torch.textures.normal_bump", "shimmer_tpu_torch.lights.env"],
     ],
     ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules",
          "packet_step_modules", "kernel_ab_modules", "material_modules",
-         "scene_file_modules"],
+         "scene_file_modules", "texture_modules"],
 )
 def test_imports_without_jax(names):
     # One torch thread: the subprocess runs beside the other xdist workers.

@@ -3,12 +3,15 @@ read_ply) against the reference's, on the CPU.
 
 - The parse cases of tests/test_parser.py run against the port, on copies
   of their scene texts (the JAX test module is not imported).  Cases whose
-  scenes use only ported features give the reference's result; cases that
-  use an unported feature (instancing, textures, bilinear meshes, the
-  image environment light, the jitter options, another sampler, the
-  camera render space) raise NotImplementedError.  Where a case's only
-  unported feature is incidental (its sampler, or the jitter option of its
-  header), a variant without it gives the reference's result.
+  scenes use only ported features give the reference's result: since the
+  texture slice, the texture and image environment light cases too (their
+  image files written here, as PNG and as PFM), with texture and env
+  tables equal to the reference loader's.  Cases that use an unported
+  feature (instancing, bilinear meshes, the jitter options, another
+  sampler, the camera render space) raise NotImplementedError.  Where a
+  case's only unported feature is incidental (its sampler, or the jitter
+  option of its header), a variant without it gives the reference's
+  result.
 - For each golden scene (tests/scenes/*.pbrt) the port's
   ``SceneBuilder.create()`` gives the reference's tables: ``rows8`` and the
   other triangle tables byte-equal, the sphere table, materials, lights,
@@ -33,6 +36,7 @@ from shimmer_tpu.loading.parser import parse_file as jax_parse_file
 from shimmer_tpu.loading.parser import parse_str as jax_parse
 from shimmer_tpu.loading.scene_builder import SceneBuilder as JaxBuilder
 from shimmer_tpu.shapes.mesh import read_ply as jax_read_ply
+from shimmer_tpu_torch.film.image import Image as TImage
 from shimmer_tpu_torch.loading.errors import DirectiveError, ParameterError, SceneLoadError, TokenError
 from shimmer_tpu_torch.loading.parser import parse_file, parse_str
 from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
@@ -278,12 +282,8 @@ Shape "sphere"
         # test_parser.py:119 and :129, instancing.
         'WorldBegin\nObjectBegin "tree"\nShape "sphere" "float radius" [0.5]\nObjectEnd\n'
         'ObjectInstance "tree"\n',
-        # :201 and the texture directive cases, textures.
-        _TEXTURE_SCENE,
         # :267, bilinear meshes.
         _BILINEAR_SCENE,
-        # :347, the image environment light.
-        _ENV_SCENE,
         # :403, the jitter option (every TestOptionAttribute header has it).
         OPTION_BASE % 'Shape "sphere" "float radius" [1]',
         # :459, the camera render space.
@@ -292,8 +292,7 @@ Shape "sphere"
         # TestCreate / the CLI case: the independent sampler.
         CORNELL,
     ],
-    ids=["instancing", "textures", "bilinearmesh", "image_env", "jitter_option", "rendercoordsys",
-         "independent_sampler"],
+    ids=["instancing", "bilinearmesh", "jitter_option", "rendercoordsys", "independent_sampler"],
 )
 def test_parse_cases_with_unported_features_raise(text):
     b = SceneBuilder()
@@ -302,30 +301,265 @@ def test_parse_cases_with_unported_features_raise(text):
         b.create(device="cpu")
 
 
+@pytest.mark.parametrize("case", ["textures", "image_env"])
+def test_parse_cases_with_textures_match_reference(tmp_path, case):
+    """The two parse cases that raised before the texture slice: :201's
+    texture directive (a float texture as a diffuse roughness, which the
+    reference reads into the roughness texture columns) and :347's image
+    environment light, its sky written here as PFM."""
+    ensure_reference_sah()
+    if case == "image_env":
+        TImage(np.full((16, 32, 3), 0.5, np.float32)).write(tmp_path / "sky.pfm")
+    jb, b = both(_TEXTURE_SCENE if case == "textures" else _ENV_SCENE, search_dir=tmp_path)
+    job = b.create(device="cpu")
+    assert_scene_tables_equal(job.scene, jb.create().scene)
+    if case == "textures":
+        assert "checker" in b.float_textures
+        assert job.scene.materials.tex_uroughness.tolist() == [-1, 0]
+    else:
+        assert job.scene.image_infinite_indices == (0,)
+
+
+# test_parser.py's TestEnvScene text (:315), with the zsobol sampler.
+def _env_scene_text(pfm_name, span):
+    return f"""
+LookAt 0 0 -5  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+Film "rgb" "integer xresolution" [16] "integer yresolution" [16]
+Sampler "zsobol" "integer pixelsamples" [2]
+Integrator "path" "integer maxdepth" [3]
+WorldBegin
+LightSource "infinite" "string filename" ["{pfm_name}"]
+AttributeBegin
+Material "diffuse" "rgb reflectance" [0.5 0.5 0.5]
+Shape "trianglemesh"
+  "point3 P" [-{span} -1 -{span}  {span} -1 -{span}  {span} -1 {span}  -{span} -1 {span}]
+  "integer indices" [0 1 2 0 2 3]
+AttributeEnd
+"""
+
+
+def test_env_scene_radius_from_bounds(tmp_path):
+    """test_parser.py's test_scene_radius_from_bounds: a lat-long map,
+    converted, with the light's radius from the geometry."""
+    ensure_reference_sah()
+    TImage(np.full((32, 64, 3), 0.5, np.float32)).write(tmp_path / "sky.pfm")
+    jb, b = both(_env_scene_text("sky.pfm", 800.0), search_dir=tmp_path)
+    job = b.create(device="cpu")
+    assert float(job.scene.env.scene_radius) > 800.0
+    assert float(job.scene.lights.scene_radius) > 800.0
+    assert_scene_tables_equal(job.scene, jb.create().scene)
+
+
+def test_equirect_env_renders(tmp_path):
+    """test_parser.py's test_equirect_env_renders on the port: a bright
+    horizon band; the image is finite and lit."""
+    from shimmer_tpu_torch.render import render
+
+    img = np.zeros((32, 64, 3), np.float32)
+    img[12:20] = 2.0
+    TImage(img).write(tmp_path / "sky.pfm")
+    b = SceneBuilder(search_dir=tmp_path)
+    parse_str(_env_scene_text("sky.pfm", 4.0), b, search_dir=tmp_path)
+    job = b.create(device="cpu")
+    out, _ = render(job.scene, job.camera, job.film, job.sampler, spp=job.spp,
+                    max_depth=job.max_depth)
+    assert np.isfinite(out.numpy()).all() and float(out.mean()) > 0.0
+
+
+def test_directionmix_texture_parses():
+    """test_parser.py's test_directionmix_texture_parses."""
+    from shimmer_tpu_torch.textures import textures as tx
+
+    b = SceneBuilder()
+    parse_str('Camera "perspective"\n'
+              'Film "rgb" "integer xresolution" [4] "integer yresolution" [4]\n'
+              'Sampler "zsobol" "integer pixelsamples" [1]\nWorldBegin\n'
+              'Texture "dm" "spectrum" "directionmix"\n  "rgb tex1" [1 0 0] "rgb tex2" [0 0 1]\n'
+              '  "vector3 dir" [0 0 1]\n'
+              'Material "diffuse" "texture reflectance" "dm"\n'
+              'Shape "sphere" "float radius" [1]\n', b)
+    table = b.create(device="cpu").scene.textures
+    assert tx.DIRECTION_MIX in table.kinds_present
+    row = int(np.nonzero(table.kind.numpy() == tx.DIRECTION_MIX)[0][0])
+    np.testing.assert_allclose(table.mix_dir.numpy()[row], [0.0, 0.0, 1.0])
+
+
+def test_mix_material_textured_amount():
+    """test_parser.py's test_mix_material_textured_amount."""
+    b = SceneBuilder()
+    parse_str('Camera "perspective"\n'
+              'Film "rgb" "integer xresolution" [4] "integer yresolution" [4]\n'
+              'Sampler "zsobol" "integer pixelsamples" [1]\nWorldBegin\n'
+              'Texture "amt" "float" "constant" "float value" [0.25]\n'
+              'MakeNamedMaterial "ma" "string type" "diffuse"\n  "rgb reflectance" [0.8 0 0]\n'
+              'MakeNamedMaterial "mb" "string type" "diffuse"\n  "rgb reflectance" [0 0 0.8]\n'
+              'Material "mix" "string materials" ["ma" "mb"]\n  "texture amount" "amt"\n'
+              'Shape "sphere" "float radius" [1]\n', b)
+    mats = b.create(device="cpu").scene.materials
+    assert mats.has_textured_mix
+    assert int(mats.tex_mix_amount.max()) >= 0
+
+
+def test_imagemap_mapping_param(tmp_path):
+    """test_parser.py's test_imagemap_mapping_param (an absolute path)."""
+    from shimmer_tpu_torch.textures import textures as tx
+
+    path = tmp_path / "t.pfm"
+    TImage(np.ones((4, 4, 3), np.float32) * 0.5).write(path)
+    b = SceneBuilder()
+    parse_str('Camera "perspective"\n'
+              'Film "rgb" "integer xresolution" [4] "integer yresolution" [4]\nWorldBegin\n'
+              f'Texture "cyl" "float" "imagemap" "string filename" "{path}"\n'
+              '  "string mapping" "cylindrical"\n'
+              'Material "diffuse"\nShape "sphere" "float radius" [1]\n', b)
+    table = b.tex_builder.build(device="cpu")
+    assert int(table.mapping.max()) == tx.MAP_CYLINDRICAL
+
+
+TEXTURED_SCENE = """
+LookAt 0 2 -4  0 0 0  0 1 0
+Camera "perspective" "float fov" [45]
+Film "rgb" "integer xresolution" [12] "integer yresolution" [8]
+Sampler "zsobol" "integer pixelsamples" [2]
+Integrator "path" "integer maxdepth" [4]
+Option "bool disabletexturefiltering" true
+WorldBegin
+AttributeBegin
+  Rotate 30 0 1 0
+  LightSource "infinite" "string filename" "sky.png" "float scale" [1.5]
+AttributeEnd
+Texture "checks" "spectrum" "imagemap" "string filename" "checker.png"
+    "string filter" "trilinear" "float uscale" [4] "float vscale" [4] "string wrap" "clamp"
+Texture "rough" "float" "imagemap" "string filename" "rough.pfm" "string filter" "ewa"
+Texture "bumps" "float" "imagemap" "string filename" "rough.pfm" "string filter" "bilinear"
+    "bool invert" true "float scale" [0.05]
+Texture "amt" "float" "imagemap" "string filename" "rough.pfm" "string filter" "point"
+    "string wrap" "black"
+Texture "half" "float" "constant" "float value" [0.5]
+Texture "sc" "float" "scale" "texture tex" "rough" "texture scale" "half"
+Texture "blend" "spectrum" "mix" "texture tex1" "checks" "rgb tex2" [0.2 0.3 0.4]
+    "texture amount" "amt"
+Texture "dm" "spectrum" "directionmix" "rgb tex1" [0.8 0.1 0.1] "rgb tex2" [0.1 0.1 0.8]
+    "vector3 dir" [0 1 0]
+AttributeBegin
+  Translate 0.5 0 0
+  Texture "cyl" "spectrum" "imagemap" "string filename" "checker.png"
+      "string mapping" "cylindrical"
+  Texture "pl" "float" "imagemap" "string filename" "rough.pfm" "string mapping" "planar"
+      "vector3 v1" [1 0 0] "vector3 v2" [0 0 1] "float udelta" [0.25]
+  Texture "sph" "spectrum" "imagemap" "string filename" "sky.png" "string mapping" "spherical"
+AttributeEnd
+MakeNamedMaterial "a" "string type" "diffuse" "texture reflectance" "dm"
+MakeNamedMaterial "b" "string type" "conductor" "texture roughness" "sc"
+Material "diffuse" "texture reflectance" "blend"
+Shape "trianglemesh" "point3 P" [-3 0 -3 3 0 -3 3 0 3 -3 0 3] "integer indices" [0 1 2 0 2 3]
+    "point2 uv" [0 0 1 0 1 1 0 1]
+AttributeBegin
+  Translate -1 0.6 0
+  Material "conductor" "texture uroughness" "rough" "texture vroughness" "pl"
+  Shape "sphere" "float radius" [0.6]
+AttributeEnd
+AttributeBegin
+  Translate 1 0.6 0
+  Material "coateddiffuse" "texture reflectance" "cyl" "texture displacement" "bumps"
+  Shape "sphere" "float radius" [0.6]
+AttributeEnd
+AttributeBegin
+  Translate 0 0.5 1.2
+  Material "mix" "string materials" ["a" "b"] "texture amount" "amt"
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+AttributeBegin
+  Material "dielectric" "texture roughness" "pl"
+  Translate 0 1.5 0
+  Shape "sphere" "float radius" [0.3]
+AttributeEnd
+"""
+
+
+def _write_texture_files(d):
+    from PIL import Image as PILImage
+
+    rng = np.random.default_rng(12)
+    yy, xx = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    c = ((xx // 2 + yy // 2) % 2).astype(np.uint8) * 200
+    PILImage.fromarray(np.stack([c, 0 * c + 40, 255 - c], -1)).save(d / "checker.png")
+    TImage(rng.uniform(0.05, 0.5, (8, 12)).astype(np.float32)).write(d / "rough.pfm")
+    sky = np.full((8, 16, 3), 60, np.uint8)
+    sky[1:3, 2:5] = 250
+    PILImage.fromarray(sky).save(d / "sky.png")
+
+
+def test_textured_scene_tables_match_reference(tmp_path):
+    """One scene of every texture feature: PNG and PFM images, every
+    mapping, filter and wrap mode, invert and scale, the scale, mix (a
+    textured amount) and direction-mix classes, textured reflectance,
+    roughness (u and v apart), displacement and mix amounts, and a rotated
+    image environment light from a PNG, against the reference loader's
+    tables; then a small render on the CPU."""
+    from shimmer_tpu_torch.render import render
+
+    ensure_reference_sah()
+    _write_texture_files(tmp_path)
+    jb, b = both(TEXTURED_SCENE, search_dir=tmp_path)
+    job = b.create(device="cpu")
+    assert_scene_tables_equal(job.scene, jb.create().scene)
+    assert job.scene.has_bump_maps and not job.scene.has_normal_maps
+    assert job.scene.materials.textured_params == ("reflectance", "uroughness", "vroughness")
+    img, _ = render(job.scene, job.camera, job.film, job.sampler, spp=job.spp,
+                    max_depth=job.max_depth)
+    assert np.isfinite(img.numpy()).all() and float(img.mean()) > 0.0
+
+
+@pytest.mark.parametrize(
+    "world, error",
+    [
+        ('Texture "t" "float" "imagemap" "string filename" "rough.pfm" "float maxanisotropy" [8]',
+         "maxanisotropy"),
+        ('Texture "t" "float" "checkerboard"', "unknown texture class"),
+        ('Material "diffuse" "texture normalmap" "t"', "normalmap"),
+        ('AreaLightSource "diffuse" "string filename" "sky.png"', "image area light"),
+    ],
+    ids=["unread_texture_parameter", "unknown_class", "normalmap", "image_area_light"],
+)
+def test_texture_refusals(tmp_path, world, error):
+    """What the port still refuses around textures: a texture parameter
+    nothing reads, a texture class the reference does not know either,
+    normal maps from a file and image area lights (the reference reads
+    neither)."""
+    _write_texture_files(tmp_path)
+    b = SceneBuilder(search_dir=tmp_path)
+    with pytest.raises((NotImplementedError, ValueError), match=error):
+        parse_str(_BASE % ("", world), b, search_dir=tmp_path)
+        b.create(device="cpu")
+
+
 # --- the golden scenes' tables ---
 
 
 def assert_scene_tables_equal(scene, jscene):
-    """Every table of the port's scene equals the reference's."""
+    """Every table of the port's scene equals the reference's (textures and
+    the env light's nested tables included)."""
     arrays, census = jax_scene_to_numpy(jscene)
-    assert scene.has_spheres == census["has_spheres"]
-    assert scene.has_triangles == census["has_triangles"]
-    for key in ("material_kinds", "light_kinds", "n_lights", "uniform_infinite_indices"):
+    for key in ("has_spheres", "has_triangles", "has_normal_maps", "has_bump_maps"):
+        assert getattr(scene, key) == census[key], key
+    for key in ("material_kinds", "light_kinds", "n_lights", "uniform_infinite_indices",
+                "image_infinite_indices"):
         assert tuple(np.atleast_1d(getattr(scene, key))) == tuple(np.atleast_1d(census[key])), key
-    groups = {"materials": scene.materials, "lights": scene.lights, "spheres": scene.spheres,
-              "triangles": scene.triangles}
+    assert (scene.textures is None) == ("textures.kind" not in arrays)
+    assert (scene.env is None) == ("env.coeffs" not in arrays)
+    if scene.textures is not None:
+        for key in ("kinds_present", "has_amount_tex"):
+            assert (tuple(np.atleast_1d(getattr(scene.textures, key)))
+                    == tuple(np.atleast_1d(census[f"textures.{key}"]))), key
     compared = 0
     for key, want in arrays.items():
-        group, _, field = key.partition(".")
-        if group in groups:
-            obj = groups[group]
-            if not hasattr(obj, field):
-                continue  # a reference-only column (lights.position, tiles8, ...)
-            got = getattr(obj, field)
-        elif hasattr(scene, key):
-            got = getattr(scene, key)
-        else:
-            continue
+        got = scene
+        for part in key.split("."):
+            got = getattr(got, part, None)
+        if got is None:
+            continue  # a reference-only column (lights.position, tiles8, ...)
         got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
         if key.startswith("triangles.") and key.endswith(("rows8", "attr_rows", "light_rows")):
             assert got.tobytes() == np.ascontiguousarray(want, got.dtype).tobytes(), key
@@ -450,8 +684,6 @@ LightSource "infinite" "rgb L" [1 1 1]
 Shape "sphere"
 """
 UNPORTED = {
-    "texture": ("", 'Texture "t" "float" "constant" "float value" [0.5]'),
-    "textured_param": ("", 'Material "diffuse" "texture reflectance" "t"'),
     "named_medium": ("", 'MakeNamedMedium "fog" "string type" "homogeneous"'),
     "medium_interface": ("", 'MediumInterface "" ""'),
     "interface_material": ("", 'Material "interface"'),
@@ -461,7 +693,6 @@ UNPORTED = {
     "point_light": ("", 'LightSource "point" "rgb I" [1 1 1]'),
     "spot_light": ("", 'LightSource "spot" "rgb I" [1 1 1]'),
     "distant_light": ("", 'LightSource "distant" "rgb L" [1 1 1]'),
-    "image_infinite": ("", 'LightSource "infinite" "string filename" "sky.exr"'),
     "goniometric_area": ("", 'AreaLightSource "goniometric"'),
     "measured_material": ("", 'Material "measured"'),
     "diffusetransmission": ("", 'Material "diffusetransmission"'),
@@ -493,6 +724,40 @@ def test_unported_feature_raises(case):
     with pytest.raises(NotImplementedError, match="not ported"):
         parse_str(_BASE % (before, world), b)
         b.create(device="cpu")
+
+
+# The texture and image-light cases that raised before the texture slice,
+# with what they give now: tables equal to the reference loader's, or the
+# error both loaders raise.
+TEXTURE_CASES = {
+    "texture": ("", 'Texture "t" "float" "constant" "float value" [0.5]', None),
+    # "t" names no texture: both loaders read the parameter as a spectrum.
+    "textured_param": ("", 'Material "diffuse" "texture reflectance" "t"',
+                       (ParameterError, "not a spectrum")),
+    # EXR needs imageio, which neither machine has; the port says so.
+    "image_infinite": ("", 'LightSource "infinite" "string filename" "sky.exr"',
+                       (NotImplementedError, "imageio")),
+}
+
+
+@pytest.mark.parametrize("case", list(TEXTURE_CASES))
+def test_texture_feature_cases(case):
+    ensure_reference_sah()
+    before, world, error = TEXTURE_CASES[case]
+    text = _BASE % (before, world)
+    if error is not None:
+        b = SceneBuilder()
+        with pytest.raises(error[0], match=error[1]):
+            parse_str(text, b)
+            b.create(device="cpu")
+        if error[0] is ParameterError:
+            with pytest.raises(Exception, match=error[1]):
+                jb = JaxBuilder()
+                jax_parse(text, jb)
+                jb.create()
+        return
+    jb, b = both(text)
+    assert_scene_tables_equal(b.create(device="cpu").scene, jb.create().scene)
 
 
 def test_base_scene_of_the_raise_cases_creates():

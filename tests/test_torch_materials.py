@@ -269,7 +269,16 @@ def _all_kinds_materials():
     ]
 
 
-def _dispatch(P, d, what, mats=None, grazing=False):
+def _texture_ctx(P):
+    """Per-lane texture-resolved parameters, as evaluate_material_textures
+    hands them to the BSDFs: a reflectance spectrum and both roughnesses."""
+    rng = np.random.default_rng(13)
+    return {"reflectance": P.arr(rng.uniform(0.05, 0.95, (N, 4)).astype(np.float32)),
+            "uroughness": P.arr(rng.uniform(0.0, 0.6, N).astype(np.float32)),
+            "vroughness": P.arr(rng.uniform(0.0, 0.6, N).astype(np.float32))}
+
+
+def _dispatch(P, d, what, mats=None, grazing=False, tex=False):
     mats = mats or _all_kinds_materials()
     table = P.table([dict(m) for m in mats])
     kinds = tuple(sorted({m["kind"] for m in mats}))
@@ -285,6 +294,8 @@ def _dispatch(P, d, what, mats=None, grazing=False):
     key = np.arange(N, dtype=np.uint64) * 2654435761 % (1 << 32)
     key = P.arr(key.astype(np.int64 if P is T else np.uint32))
     ctx = {"spectra_table": spectra, "rng_key": key}
+    if tex:
+        ctx["tex"] = _texture_ctx(P)
     if what == "f":
         return P.mtl.bsdf_f(table, kinds, mat_id, frame, ns, wo, wi, swl, **ctx)
     if what == "sample":
@@ -338,27 +349,54 @@ def test_material_table_matches_reference():
 
 @pytest.mark.parametrize(
     "mat",
-    [{"kind": tmtl.DIFFUSE_TRANSMISSION}, {"kind": tmtl.CONDUCTOR, "tex_reflectance": 0},
-     {"kind": tmtl.DIFFUSE, "normal_tex": 1}, {"kind": tmtl.MIX, "tex_mix_amount": 2},
-     {"kind": tmtl.DIELECTRIC, "displacement_tex": 0}, {"kind": tmtl.COATED_DIFFUSE, "tex_uroughness": 0}],
-    ids=["diffuse_transmission", "textured_reflectance", "normal_map", "textured_mix", "bump_map",
-         "textured_roughness"],
+    [{"kind": tmtl.DIFFUSE_TRANSMISSION}],
+    ids=["diffuse_transmission"],
 )
 def test_unported_material_raises(mat):
     with pytest.raises(NotImplementedError):
         tmtl.make_material_table([mat], device="cpu")
 
 
-def test_dispatch_refuses_kind_7_and_textures():
+@pytest.mark.parametrize(
+    "mat",
+    [{"kind": tmtl.CONDUCTOR, "tex_reflectance": 0}, {"kind": tmtl.DIFFUSE, "normal_tex": 1},
+     {"kind": tmtl.MIX, "tex_mix_amount": 2}, {"kind": tmtl.DIELECTRIC, "displacement_tex": 0},
+     {"kind": tmtl.COATED_DIFFUSE, "tex_uroughness": 0}],
+    ids=["textured_reflectance", "normal_map", "textured_mix", "bump_map", "textured_roughness"],
+)
+def test_textured_material_table_matches_reference(mat):
+    """The texture columns the port refused before the texture slice: the
+    table equals the reference's, census included, beside an untextured
+    row."""
+    mats = [{"kind": tmtl.DIFFUSE}, mat]
+    jt = jmtl.make_material_table([dict(m) for m in mats])
+    tt = tmtl.make_material_table([dict(m) for m in mats], device="cpu")
+    for f in dataclasses.fields(jt):
+        a, b = getattr(jt, f.name), getattr(tt, f.name)
+        if isinstance(a, bool):
+            assert a == b, f.name
+        else:
+            assert_same(np.asarray(a), b.numpy(), f.name)
+    textured = {"tex_reflectance": "reflectance", "tex_uroughness": "uroughness"}
+    assert tt.textured_params == tuple(v for k, v in textured.items() if k in mat)
+
+
+def test_dispatch_refuses_kind_7():
     table = tmtl.make_material_table([{"kind": 0}], device="cpu")
     z = torch.tensor([[0.0, 0.0, 1.0]])
     frame = tvm.Frame.from_z(z)
     swl = TSwl(lam=torch.full((1, 4), 550.0), pdf=torch.ones(1, 4))
     with pytest.raises(NotImplementedError):
         tmtl.bsdf_f(table, (0, 7), torch.zeros(1, dtype=torch.int32), frame, z, z, z, swl)
-    with pytest.raises(NotImplementedError):
-        tmtl.bsdf_pdf(table, (0,), torch.zeros(1, dtype=torch.int32), frame, z, z, z, swl,
-                      tex={"reflectance": torch.ones(1, 4)})
+
+
+@pytest.mark.parametrize("what", ["f", "sample", "pdf"])
+def test_dispatch_with_textured_parameters_matches_reference(what):
+    """Every kind with texture-resolved parameters in the BSDF context (a
+    reflectance for diffuse, reflectance-mode conductors and both coats'
+    bottoms; roughnesses for conductors and dielectrics): the texture half
+    of what the dispatch refused before the texture slice."""
+    check(lambda P, d: _dispatch(P, d, what, tex=True))
 
 
 @pytest.mark.parametrize("name", sorted(jspec._NAMED_SPECS))

@@ -166,15 +166,21 @@ def test_scene_from_numpy_mt_leaves(jax_scene, torch_scene):
 
 
 @pytest.mark.parametrize(
-    "change",
-    [{"has_patches": True}, {"has_instanced": True},
-     {"material_kinds": (0, 1), "materials.tex_reflectance": 0},
-     {"light_kinds": (0, 3)}, {"image_infinite_indices": (1,)}, {"camera_medium": 0}],
+    "change, error",
+    [({"has_patches": True}, (NotImplementedError, "not ported")),
+     ({"has_instanced": True}, (NotImplementedError, "not ported")),
+     ({"material_kinds": (0, 1), "materials.tex_reflectance": 0},
+      (ValueError, "no texture table")),
+     ({"light_kinds": (0, 3)}, (NotImplementedError, "not ported")),
+     ({"image_infinite_indices": (1,)}, (ValueError, "no env table")),
+     ({"camera_medium": 0}, (NotImplementedError, "not ported"))],
     ids=["patches", "instanced", "conductor", "point_light", "image_light", "medium"],
 )
-def test_scene_from_numpy_refuses_unported(jax_scene, change):
-    """Each case asks for something still unported; a conductor converts
-    since materials were ported, a textured one does not.  Spheres convert
+def test_scene_from_numpy_refuses_unported(jax_scene, change, error):
+    """Each case asks for something still unported, or for textures or an
+    image light without their tables: since the texture slice a textured
+    conductor and an image light convert (tests/test_torch_env.py renders
+    one), so their cases here lack the tables they index.  Spheres convert
     since they were ported (tests/test_torch_scene_union.py)."""
     arrays, census = jax_scene_to_numpy(jax_scene)
     for key, value in change.items():
@@ -182,13 +188,16 @@ def test_scene_from_numpy_refuses_unported(jax_scene, change):
             arrays[key] = np.full_like(arrays[key], value)
         else:
             census[key] = value
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error[0], match=error[1]):
         scene_from_numpy(arrays, census, device="cpu")
 
 
 def test_builders_refuse_unported():
+    # A textured conductor builds since the texture slice
+    # (test_torch_materials.py::test_textured_material_table_matches_reference);
+    # diffuse transmission has no BxDF in either package.
     with pytest.raises(NotImplementedError):
-        tmtl.make_material_table([{"kind": tmtl.CONDUCTOR, "tex_reflectance": 0}], device="cpu")
+        tmtl.make_material_table([{"kind": tmtl.DIFFUSE_TRANSMISSION}], device="cpu")
     cam, _ = bench_scene.bench_camera_film((8, 8))
     tris = build_triangle_scene(bench_scene.bench_meshes(20, cam.camera_transform.render_from_world()),
                                 device="cpu")
@@ -220,6 +229,9 @@ def test_material_tables_match_reference(jax_scene, variant):
     kinds = tuple(sorted({m["kind"] for m in bench_scene.material_bench_materials(variant)}))
     assert conv.material_kinds == own.material_kinds == kinds
     for field in dataclasses.fields(tmtl.MaterialTable):
+        if field.name == "textured_params":  # the port's census: nothing textured here
+            assert conv.materials.textured_params == own.materials.textured_params == ()
+            continue
         ref = getattr(jm.materials, field.name)
         for port in (conv.materials, own.materials):
             got = getattr(port, field.name)
