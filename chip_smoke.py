@@ -75,7 +75,20 @@ Phases, each printing its own numbers:
      1280x720, 16 spp, depth 5 through shimmer_tpu_torch.cli.main with the
      load split into image reads, pyramids and fits, the env bake, the PLY
      read, the BVH build and the rest; then the same file at 64x48, 4 spp
-     on the card twice (film states torch.equal) and on the CPU, compared.
+     on the card twice (film states torch.equal) and on the CPU, compared;
+ 13. delta lights and homogeneous media: phase 11's scene in an exterior
+     fog (the camera's medium, MediumInterface "" "fog" before Camera;
+     its camera-to-floor transmittance 0.3-0.7, checked), a 12-triangle
+     box of interface material turned 45 degrees about y holding a denser
+     smoke (g 0.6) around the bench sphere, and a point, a spot (3000 K
+     blackbody, cone 25 with 5 of falloff) and a distant light, written in
+     code and rendered at 1280x720, 16 spp, depth 5 through
+     shimmer_tpu_torch.cli.main to a PFM that must equal the returned
+     image, with v1 launches exactly 4 an iteration (the merged trace and
+     three shadow-march rounds) and the media's RGB fits timed apart;
+     then at 64x48, 4 spp on the card and on the CPU, compared, for that
+     scene, for the fog without the box (one launch an iteration) and
+     for the delta lights without media (one launch an iteration).
 Launch counters are set to 0 just before each render path and each
 micro-benchmark entry point, and read just after it.  No phase catches its
 own failure.  The last lines are the kernel table as JSON, the card's name
@@ -1342,6 +1355,214 @@ def _phase12(dev) -> dict:
     return out
 
 
+# Phase 13: delta lights and homogeneous media, through the loader and the
+# CLI, at the bench configuration: phase 11's scene in an exterior fog
+# (the camera's medium), with a box of interface material holding a
+# denser smoke around the bench sphere, and a point, a spot and a distant
+# light.  The interface scene traces four times an iteration (the merged
+# trace, then three shadow-march rounds); the exterior-only variant once.
+MEDIA_DIR = Path("chiprun_out") / "phase13"
+# Removed after the phase, as phase 12's: the PLY and the images.
+MEDIA_FILES = (LOADED_PLY, "fog_bench.pfm")
+FOG_SIGMA_A, FOG_SIGMA_S = 0.03, 0.12
+# The box (half-width 1.15, turned 45 degrees about y, so that the glass
+# and gold spheres stay outside it) and its faces, outward.
+BOX_LO, BOX_HI = (-1.15, -1.25, -1.15), (1.15, 1.2, 1.15)
+_BOX_FACES = [(0, 2, 3, 1), (4, 5, 7, 6), (0, 1, 5, 4), (2, 6, 7, 3), (0, 4, 6, 2), (1, 3, 7, 5)]
+MEDIA_VARIANTS = ("interface", "exterior", "delta")
+
+
+def box_mesh_text(lo, hi) -> str:
+    """A 12-triangle box with outward normals as a trianglemesh."""
+    lo, hi = np.asarray(lo, float), np.asarray(hi, float)
+    p = np.array([[hi[0] if i & 1 else lo[0], hi[1] if i & 2 else lo[1],
+                   hi[2] if i & 4 else lo[2]] for i in range(8)])
+    idx = []
+    for a, b, c, d in _BOX_FACES:
+        for tri in ((a, b, c), (a, c, d)):
+            n = np.cross(p[tri[1]] - p[tri[0]], p[tri[2]] - p[tri[0]])
+            outward = n @ (p[list(tri)].mean(0) - (lo + hi) / 2) > 0
+            idx.extend(tri if outward else tri[::-1])
+    pts = " ".join(f"{x:g}" for x in p.ravel())
+    return (f'Shape "trianglemesh" "integer indices" [{" ".join(map(str, idx))}]\n'
+            f'      "point3 P" [{pts}]')
+
+
+def fog_transmittance_to_floor() -> float:
+    """The fog's transmittance from the camera to the floor along the ray
+    through the bottom centre of the image (fov 40 on the image's height,
+    camera at (0, 0.6, -3.2) looking at the origin, floor at y = -1.3)."""
+    below = np.arctan2(0.6, 3.2) + np.deg2rad(20.0)
+    return float(np.exp(-(FOG_SIGMA_A + FOG_SIGMA_S) * (0.6 + 1.3) / np.sin(below)))
+
+
+def media_scene_text(res, spp: int, variant: str = "interface") -> str:
+    """Phase 11's scene with a point, a spot and a distant light; the
+    ``interface`` variant in an exterior fog with the smoke box around the
+    bench sphere, ``exterior`` in the fog alone, ``delta`` without media."""
+    fog = variant in ("interface", "exterior")
+    media = f"""MakeNamedMedium "fog" "string type" "homogeneous"
+    "rgb sigma_a" [{FOG_SIGMA_A} {FOG_SIGMA_A} {FOG_SIGMA_A}]
+    "rgb sigma_s" [{FOG_SIGMA_S} {FOG_SIGMA_S} {FOG_SIGMA_S}] "float g" [0.2]
+MakeNamedMedium "smoke" "string type" "homogeneous" "rgb sigma_a" [0.15 0.2 0.3]
+    "rgb sigma_s" [0.9 0.9 0.9] "float g" [0.6]
+MediumInterface "" "fog"
+""" if fog else ""
+    box = f"""AttributeBegin
+  Rotate 45 0 1 0
+  MediumInterface "smoke" "fog"
+  Material "interface"
+  {box_mesh_text(BOX_LO, BOX_HI)}
+AttributeEnd
+""" if variant == "interface" else ""
+    return f"""# Phase 11's scene with delta lights ({variant}).
+{media}LookAt 0 0.6 -3.2  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+Film "rgb" "integer xresolution" [{res[0]}] "integer yresolution" [{res[1]}]
+Sampler "zsobol" "integer pixelsamples" [{spp}]
+Integrator "volpath" "integer maxdepth" [{MAX_DEPTH}]
+PixelFilter "box"
+WorldBegin
+{'MediumInterface "" ""' if fog else ""}
+LightSource "infinite" "float scale" [0.3]
+LightSource "point" "point3 from" [-2 2.5 -2] "rgb I" [10 10 10]
+LightSource "spot" "point3 from" [2.5 3.5 -2.5] "point3 to" [0 0 0] "blackbody I" [3000]
+    "float coneangle" [25] "float conedeltaangle" [5] "float scale" [30]
+LightSource "distant" "point3 from" [0 1 0] "point3 to" [-0.3 0 0.2] "rgb L" [1.5 1.4 1.2]
+Material "diffuse" "rgb reflectance" [0.55 0.45 0.35]
+Shape "plymesh" "string filename" "{LOADED_PLY}"
+Material "diffuse" "rgb reflectance" [0.4 0.4 0.42]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point3 P" [-8 -1.3 -8  8 -1.3 -8  8 -1.3 8  -8 -1.3 8]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [15 15 15]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+      "point3 P" [-1 4 -1  1 4 -1  1 4 1  -1 4 1]
+AttributeEnd
+{box}AttributeBegin
+  Material "dielectric" "float eta" [1.5]
+  Translate -1.55 -0.8 -0.9
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+AttributeBegin
+  Material "conductor" "spectrum eta" "metal-Au-eta" "spectrum k" "metal-Au-k"
+      "float roughness" [0.08]
+  Translate 1.55 -0.8 -0.9
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [40 36 30]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Translate 0.6 1.5 -1.4
+  Shape "sphere" "float radius" [0.12]
+AttributeEnd
+"""
+
+
+def phase13(dev) -> dict:
+    try:
+        return _phase13(dev)
+    finally:
+        for name in MEDIA_FILES:
+            (MEDIA_DIR / name).unlink(missing_ok=True)
+
+
+def _phase13(dev) -> dict:
+    from shimmer_tpu_torch import media as media_module
+    from shimmer_tpu_torch.shapes import mesh as mesh_module
+    from shimmer_tpu_torch.shapes import triangle as triangle_module
+
+    out = {}
+    MEDIA_DIR.mkdir(parents=True, exist_ok=True)
+    verts, faces = make_displaced_sphere(BENCH_TRIS)
+    write_ply(MEDIA_DIR / LOADED_PLY, verts, faces)
+    fog_tr = fog_transmittance_to_floor()
+    check(0.3 <= fog_tr <= 0.7, f"phase 13: the fog's camera-to-floor transmittance is {fog_tr}")
+    # (a) the interface scene at full width, through the CLI.
+    scene_file = MEDIA_DIR / "fog_bench.pbrt"
+    scene_file.write_text(media_scene_text(BENCH_RESOLUTION, SPP))
+    pfm = MEDIA_DIR / "fog_bench.pfm"
+    timers = {"media_fits": (media_module, "fit_rgb_coeffs"),
+              "ply_read": (mesh_module, "read_ply"),
+              "bvh_build": (triangle_module, "build_triangle_scene")}
+    seen, seconds, rc = render_through_cli(scene_file, pfm, timers)
+    launches = read_counts("phase 13 fogged scene", "v1")
+    check(rc == 0, f"phase 13: the CLI returned {rc}")
+    img = seen["image"]
+    check(np.array_equal(Image.read(pfm).data, img), "phase 13: the PFM differs from the image")
+    check(np.isfinite(img).all() and img.mean() > 0, "phase 13: bad fogged-scene image")
+    scene, stats = seen["scene"], seen["stats"]
+    check(scene.has_interface_media and scene.camera_medium >= 0
+          and set(scene.light_kinds) == {0, 1, 2, 3, 4},
+          "phase 13: the scene lacks its media or its delta lights")
+    iters = int(stats["iters"])
+    check(launches == 4 * iters,
+          f"phase 13: {launches} v1 launches in {iters} iterations, not 4 an iteration")
+    load = {k: round(v, 3) for k, v in seen["timers"].items()}
+    load["parse_and_the_rest"] = round(seconds - seen["seconds"] - sum(seen["timers"].values()),
+                                       3)
+    res = {
+        "triangles": int(scene.triangles.orig_indices.shape[0]),
+        "spheres": int(scene.spheres.radius.shape[0]),
+        "lights": scene.n_lights,
+        "media": int(scene.media.g.shape[0]),
+        "fog_transmittance_to_floor": fog_tr,
+        "load_seconds": load,
+        "colors_fitted": seen["colors_fitted"],
+        "render_seconds": seen["seconds"],
+        "cli_seconds": seconds,
+        "rays": stats["rays"],
+        "mrays_per_s": stats["rays"] / seen["seconds"] / 1e6,
+        "iters": stats["iters"],
+        "ms_per_iter": 1e3 * seen["seconds"] / max(iters, 1),
+        "kernel_launches": launches,
+        "launches_per_iter": launches / max(iters, 1),
+        "peak_device_bytes": seen["peak_device_bytes"],
+        "image_mean": float(img.mean()),
+        "card": nvidia_smi_line(),
+    }
+    check(res["spheres"] == 3 and res["triangles"] == faces.shape[0] + 4 + 12,
+          "phase 13: the fogged scene lacks shapes")
+    log(f"phase 13 fogged scene {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {SPP} "
+        f"(cli.main): {json.dumps(res)}")
+    out["fogged"] = res
+
+    # (b) each variant small: the card against the CPU.
+    for variant in MEDIA_VARIANTS:
+        small = MEDIA_DIR / f"{variant}_small.pbrt"
+        small.write_text(media_scene_text(SMALL_RES, SMALL_SPP, variant))
+        builder = SceneBuilder(search_dir=MEDIA_DIR)
+        parse_file(str(small), builder)
+        job = builder.create(device="cpu", traverse=CONFIGS["v1"])
+        check(job.scene.has_interface_media == (variant == "interface")
+              and (job.scene.media is None) == (variant == "delta"),
+              f"phase 13 {variant}: the scene's media census is wrong")
+        images, secs, card = {}, {}, {}
+        for dev_name, sc in (("gpu", job.scene.to(dev)), ("cpu", job.scene)):
+            reset_counts()
+            t0 = time.perf_counter()
+            img, _, st = render(sc, job.camera, job.film, job.sampler, spp=job.spp,
+                                max_depth=job.max_depth, wave_spp=SMALL_SPP, pixel_block=BLOCK,
+                                collect_stats=True)
+            images[dev_name] = img.cpu().numpy()
+            secs[dev_name] = time.perf_counter() - t0
+            if dev_name == "gpu":
+                n = read_counts(f"phase 13 small {variant}", "v1")
+                # The merged trace, and three march rounds with interface media.
+                per_iter = 4 if variant == "interface" else 1
+                check(n == per_iter * int(st["iters"]),
+                      f"phase 13 small {variant}: {n} v1 launches in {st['iters']} iterations")
+                card = {"iters": st["iters"], "rays": st["rays"], "kernel_launches": n}
+            check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
+                  f"phase 13: bad {dev_name} small {variant} image")
+        agree = check_agreement(f"phase 13 small {variant} render", images["gpu"], images["cpu"])
+        log(f"phase 13 small {variant} render {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP}: "
+            f"seconds {json.dumps(secs)} card {json.dumps(card)} {json.dumps(agree)}")
+        out[variant] = agree
+    return out
+
+
 def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
                 packets: dict) -> list[dict]:
     rows = []
@@ -1443,6 +1664,9 @@ def main():
     torch.cuda.empty_cache()
     # 12. textures and the image environment light through the loader
     phase12(dev)
+    torch.cuda.empty_cache()
+    # 13. delta lights and media through the loader
+    phase13(dev)
 
     print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets)}),
           flush=True)

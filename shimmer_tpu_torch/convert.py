@@ -6,9 +6,9 @@
 plus its static census keyed the same way (``triangles.stack_depth``,
 ``material_kinds``, ...), so both packages can render from identical
 tables.  Only the ported slice converts (spheres, triangles, materials,
-textures, area, uniform and image infinite lights); anything else raises
-NotImplementedError, and texture ids or an image light without their
-tables raise ValueError.
+textures, every light kind, homogeneous media); anything else raises
+NotImplementedError, and texture ids, an image light or media without
+their tables raise ValueError.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from shimmer_tpu_torch.lights import lights as lt
 from shimmer_tpu_torch.lights.env import EnvLightData
 from shimmer_tpu_torch.materials import material as mtl
 from shimmer_tpu_torch.materials.material import MaterialTable
+from shimmer_tpu_torch.media import MediumData
 from shimmer_tpu_torch.ops.sampling import PiecewiseConstant2D
 from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.scene import Scene
@@ -32,13 +33,10 @@ from shimmer_tpu_torch.textures import textures as tx
 _UNPORTED_CENSUS = {
     "has_patches": False,
     "has_instanced": False,
-    "has_interface_media": False,
-    "camera_medium": -1,
-    "triangles.has_iface_media": False,
     "triangles.differentiable_hits": False,
 }
 # Array groups whose presence means an unported feature.
-_UNPORTED_GROUPS = ("patches", "instanced", "media")
+_UNPORTED_GROUPS = ("patches", "instanced")
 _SPHERE_F32 = ("radius", "z_min", "z_max", "theta_z_min", "theta_z_max", "phi_max",
                "object_to_render", "render_to_object")
 # MaterialTable columns by type (every column of the reference's table).
@@ -50,6 +48,8 @@ _TEXTURE_I32 = ("kind", "tex_a", "tex_b", "tex_c", "level0_offset", "level0_w", 
                 "n_levels", "wrap", "filter_kind", "mapping", "level_offsets", "level_sizes")
 _TEXTURE_F32 = ("const_value", "mix_amount", "mix_dir", "scale", "uv_scale", "uv_delta",
                 "world_to_tex", "planar_vs", "atlas")
+_LIGHT_F32 = ("spectrum", "scale", "position", "direction", "cos_falloff_start",
+              "cos_falloff_end")
 _DIST_F32 = ("func", "cond_cdf", "cond_int", "marg_cdf", "marg_func", "marg_int")
 _ENV_F32 = ("coeffs", "texel_scale", "illum_dense", "scale", "render_from_light",
             "light_from_render", "scene_radius")
@@ -107,6 +107,11 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
     has_env = "env.coeffs" in arrays
     if tuple(census.get("image_infinite_indices", ())) and not has_env:
         raise ValueError("the scene has an image infinite light but no env table")
+    has_media = "media.g" in arrays
+    wants_media = (int(census.get("camera_medium", -1)) >= 0
+                   or bool(census.get("has_interface_media", False)))
+    if wants_media and not has_media:
+        raise ValueError("the scene census names media but the scene has no media table")
 
     device = resolve_device(device)
 
@@ -132,6 +137,7 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         stack_depth=int(census["triangles.stack_depth"]),
         has_normals=bool(census["triangles.has_normals"]),
         has_uv=bool(census["triangles.has_uv"]),
+        has_iface_media=bool(census.get("triangles.has_iface_media", False)),
         traverse=TraverseConfig(leaf="watertight"),
     )
     spheres = None if not has_spheres else SphereData(
@@ -152,8 +158,7 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
     )
     lights = lt.LightData(
         kind=i32(a("lights.kind"), device),
-        spectrum=f32(a("lights.spectrum"), device),
-        scale=f32(a("lights.scale"), device),
+        **{c: f32(a(f"lights.{c}"), device) for c in _LIGHT_F32},
         shape_idx=i32(a("lights.shape_idx"), device),
         shape_kind=i32(a("lights.shape_kind"), device),
         two_sided=torch.from_numpy(a("lights.two_sided").astype(bool)).to(device),
@@ -164,6 +169,10 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         spheres=spheres,
         env=_env_light(arrays, census, device) if has_env else None,
         textures=_texture_table(arrays, census, device) if has_textures else None,
+        media=MediumData(**{c: f32(a(f"media.{c}"), device) for c in ("sigma_a", "sigma_s", "g")})
+        if has_media else None,
+        camera_medium=int(census.get("camera_medium", -1)),
+        has_interface_media=bool(census.get("has_interface_media", False)),
         has_spheres=has_spheres,
         has_triangles=has_triangles,
         has_normal_maps=bool(census.get("has_normal_maps", False)),

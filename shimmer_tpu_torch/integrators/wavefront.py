@@ -12,6 +12,17 @@ A fixed pool of N lanes is kept full.  Each iteration
 4. regenerates free lanes with camera rays for the next (pixel, sample)
    items of the pool.
 
+In a scene with media each lane carries its current medium: the traced
+segment samples a free-flight distance first, and a lane that scatters
+shades a medium vertex (NEE through the HG phase function, then a phase
+sample) in place of the surface.  With interface media the merged trace
+gives the shadow half full interactions, the shadow march crosses
+material-less boundaries in three more traversals, a material-less hit
+passes the extension ray through, and a declared boundary switches the
+lane's medium; an exterior medium alone attenuates a medium vertex's NEE
+by exp(-sigma_t |d|).  Every lane draws the medium's sampler dimensions
+in every iteration, in the reference's order.
+
 The reference's ``lax.while_loop`` becomes a Python loop here.  Its stop
 test ``busy.any()`` and the done-lane write (which indexes the done lanes)
 each cost one device-to-host sync per iteration; at the bench size that is
@@ -35,13 +46,17 @@ from shimmer_tpu_torch.integrators.path import (
     _prepare_hit,
     _resolve_mix,
     _with_rng_key,
+    _medium_segment,
+    sample_ld_medium_prepare,
     sample_ld_prepare,
+    shadow_march_interfaces,
 )
 from shimmer_tpu_torch.materials.material import bsdf_pdf, bsdf_sample
+from shimmer_tpu_torch.materials.scattering import sample_henyey_greenstein
 from shimmer_tpu_torch.ops.ray import offset_ray_origin
-from shimmer_tpu_torch.ops.vecmath import abs_dot
+from shimmer_tpu_torch.ops.vecmath import abs_dot, dot, length
 from shimmer_tpu_torch.samplers import SamplerState
-from shimmer_tpu_torch.scene import Scene, scene_intersect_merged
+from shimmer_tpu_torch.scene import Scene, scene_intersect_merged, scene_intersect_merged_full
 from shimmer_tpu_torch.spectra.sampled import SampledWavelengths, ss_is_black
 
 
@@ -74,6 +89,8 @@ class _WaveState:
     pixel_xy: torch.Tensor   # (N, 2) int32
     weight: torch.Tensor     # (N,) filter weight
     item: torch.Tensor       # (N,) int64: pool item of the lane
+    cur_med: torch.Tensor    # (N,) int32: the lane's current medium (-1: vacuum)
+    sh_med: torch.Tensor     # (N,) int32: the medium at the shadow origin
     pool_next: torch.Tensor  # () int64
     out_rgb: torch.Tensor    # (pool, 3): one slot per (sample, pixel) item
     out_w: torch.Tensor      # (pool,)
@@ -115,6 +132,10 @@ def render_wave_wavefront(
         if pixel_valid is None
         else pixel_valid.to(dev)
     )
+
+    cam_med = torch.full((n,), scene.camera_medium, dtype=torch.int32, device=dev)
+    iface_med = scene.media is not None and scene.has_interface_media
+    has_med = scene.media is not None and (scene.camera_medium >= 0 or iface_med)
 
     def regen(st: _WaveState) -> _WaveState:
         free = ~st.busy
@@ -167,6 +188,8 @@ def render_wave_wavefront(
             pixel_xy=m(px.to(torch.int32), st.pixel_xy),
             weight=m(torch.where(valid, w, 0.0), st.weight),
             item=m(item, st.item),
+            cur_med=m(cam_med, st.cur_med),
+            sh_med=m(cam_med, st.sh_med),
             pool_next=st.pool_next + torch.clamp(torch.sum(free.to(torch.int64)), max=navail),
         )
 
@@ -187,28 +210,46 @@ def render_wave_wavefront(
             ],
             dim=0,
         )
-        si, occluded = scene_intersect_merged(scene, mo, md, mt, n)
-        shadow_add = torch.where((st.pend_sh & ~occluded)[..., None], st.ld, 0.0)
+        if iface_med:
+            # Closest hits on both halves: the march crosses material-less
+            # boundaries, three more traversals of the shadow lanes.
+            si, si_sh = scene_intersect_merged_full(scene, mo, md, mt, n)
+            visible, tr_sh = shadow_march_interfaces(
+                scene, swl, st.sh_o, st.sh_d, st.sh_tmax, st.pend_sh, st.sh_med, si0=si_sh)
+            shadow_add = torch.where(visible[..., None], st.ld * tr_sh, 0.0)
+        else:
+            si, occluded = scene_intersect_merged(scene, mo, md, mt, n)
+            shadow_add = torch.where((st.pend_sh & ~occluded)[..., None], st.ld, 0.0)
 
         # --- 2. shadow resolution + emission + shading ---
         l = st.l + shadow_add
         alive = st.alive
-        miss = alive & ~si.valid
+        beta_st = st.beta
+        scattered = None
+        if has_med:
+            # Free-flight sampling over the traced segment, before any
+            # surface draw.
+            mid = st.cur_med if iface_med else cam_med
+            s_state, beta_st, scattered, (sig_t, g_m, t_m) = _medium_segment(
+                scene, sampler, swl, s_state, mid, si, alive, beta_st)
+        reach = alive if scattered is None else alive & ~scattered
+        miss = reach & ~si.valid
         l = _infinite_le_with_mis(
-            scene, st.ray_d, swl, st.beta, st.p_b, st.specular,
+            scene, st.ray_d, swl, beta_st, st.p_b, st.specular,
             st.prev_p, st.prev_ns, l, miss,
         )
         l = _area_le_with_mis(
-            scene, si, swl, st.beta, st.p_b, st.specular,
-            st.prev_p, st.prev_ns, l, alive,
+            scene, si, swl, beta_st, st.p_b, st.specular,
+            st.prev_p, st.prev_ns, l, reach,
         )
-        alive = alive & si.valid
+        alive = alive & (si.valid if scattered is None else si.valid | scattered)
         will_shade = alive & (st.depth < max_depth)
-        surf_shade = will_shade
+        surf_shade = will_shade if scattered is None else will_shade & si.valid & ~scattered
+        med_shade = None if scattered is None else will_shade & scattered
 
         si = _prepare_hit(scene, si, st.ray_d, pixel_spread)
         si, s_state = _resolve_mix(scene, si, sampler, s_state)
-        beta0, lam_term = _apply_dispersion(scene, si, surf_shade, st.beta, st.lam_term)
+        beta0, lam_term = _apply_dispersion(scene, si, surf_shade, beta_st, st.lam_term)
         frame = si.shading_frame()
         bsdf_ctx = _with_rng_key(scene, _bsdf_ctx(scene, si, swl), s_state)
 
@@ -254,6 +295,58 @@ def render_wave_wavefront(
         ray_d = _where_merge(surf_shade, bs.wi, st.ray_d)
         alive = surf_shade & bs.valid & ~ss_is_black(beta)
 
+        if has_med:
+            # --- medium-vertex shading ---
+            p_med = st.ray_o + t_m[..., None] * st.ray_d
+            wo_m = -st.ray_d
+            ld_med, (sh_o_m, sh_d_m, sh_tmax_m, usable_m), s_state = sample_ld_medium_prepare(
+                scene, p_med, wo_m, g_m, swl, sampler, s_state)
+            u2_m, s_state = sampler.get_2d(s_state)
+            wi_m, pdf_ph = sample_henyey_greenstein(wo_m, g_m, u2_m)
+            scat3 = med_shade[..., None]
+            ld_new = torch.where(scat3, ld_med, ld_new)
+            sh_o = torch.where(scat3, sh_o_m, sh_o)
+            sh_d = torch.where(scat3, sh_d_m, sh_d)
+            sh_tmax = torch.where(med_shade, sh_tmax_m, sh_tmax)
+            pend_sh = pend_sh | (med_shade & usable_m)
+            if not iface_med:
+                # Exact for one exterior medium; an interface scene takes
+                # the march's transmittance instead.
+                ld_new = ld_new * torch.exp(-sig_t * length(sh_d)[..., None])
+            p_b = torch.where(med_shade, pdf_ph, p_b)
+            specular = torch.where(med_shade, False, specular)
+            any_ns = any_ns | med_shade
+            prev_p = _where_merge(med_shade, p_med, prev_p)
+            prev_ns = torch.where(scat3, 0.0, prev_ns)
+            ray_o = _where_merge(med_shade, p_med, ray_o)
+            ray_d = _where_merge(med_shade, wi_m, ray_d)
+            alive = alive | (med_shade & (pdf_ph > 0.0) & ~ss_is_black(beta))
+
+        cur_med = st.cur_med
+        sh_med = st.sh_med
+        if iface_med:
+            # --- interface crossing and material-less pass-through ---
+            declared = si.med_in > -2
+            pass_thru = surf_shade & (si.material_id < 0)
+            dirn = -si.wo
+            pt3 = pass_thru[..., None]
+            ray_o = torch.where(pt3, offset_ray_origin(si.p, si.n, dirn), ray_o)
+            ray_d = torch.where(pt3, dirn, ray_d)
+            beta = torch.where(pt3, beta_nee, beta)
+            p_b = torch.where(pass_thru, st.p_b, p_b)
+            specular = torch.where(pass_thru, st.specular, specular)
+            prev_p = torch.where(pt3, st.prev_p, prev_p)
+            prev_ns = torch.where(pt3, st.prev_ns, prev_ns)
+            pend_sh = pend_sh & ~pass_thru
+            alive = alive | pass_thru
+            # The medium at the new shadow ray's origin.
+            sh_side = torch.where(dot(sh_d, si.n) < 0.0, si.med_in, si.med_out)
+            sh_med = torch.where(surf_shade & declared, torch.clamp(sh_side, min=-1), cur_med)
+            crossed = surf_shade & declared & alive
+            entering = dot(ray_d, si.n) < 0.0
+            new_med = torch.where(entering, si.med_in, si.med_out)
+            cur_med = torch.where(crossed, torch.clamp(new_med, min=-1), cur_med)
+
         # Russian roulette on beta * eta_scale past the first bounce.
         u_rr, s_state = sampler.get_1d(s_state)
         past_first = will_shade & (st.depth > 0)
@@ -290,6 +383,7 @@ def render_wave_wavefront(
             ld=_where_merge(pend_sh, beta_nee * ld_new, st.ld),
             l=l, beta=beta, p_b=p_b, eta_scale=eta_scale,
             specular=specular, any_ns=any_ns, lam_term=lam_term,
+            cur_med=cur_med, sh_med=torch.where(pend_sh, sh_med, st.sh_med),
             prev_p=prev_p, prev_ns=prev_ns,
             s_ph=s_state.pixel_hash, s_si=s_state.sample_index, s_dim=s_state.dim,
             out_rgb=out_rgb, out_w=out_w, rays=rays, iters=st.iters + 1.0,
@@ -322,6 +416,7 @@ def render_wave_wavefront(
         pixel_xy=torch.zeros((n, 2), dtype=torch.int32, device=dev),
         weight=torch.zeros(n, device=dev),
         item=zero_u,
+        cur_med=cam_med, sh_med=cam_med,
         pool_next=torch.zeros((), dtype=torch.int64, device=dev),
         out_rgb=torch.zeros((pool_total, 3), device=dev),
         out_w=torch.zeros(pool_total, device=dev),

@@ -1,9 +1,10 @@
 """Light sources as a flat SoA table (port of ``shimmer_tpu/lights/lights.py``:
-area lights on spheres and triangles, the uniform infinite light and the
-image infinite light, whose tables live in ``lights/env.py``).
+point, spot and distant lights, area lights on spheres and triangles, the
+uniform infinite light and the image infinite light, whose tables live in
+``lights/env.py``).
 
-The light kinds of a scene are host metadata; a scene with a kind the port
-has not brought over yet raises NotImplementedError.
+The light kinds of a scene are host metadata; a kind outside the table
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import dataclasses
 import torch
 
 from shimmer_tpu_torch.lights.env import env_pdf_li, env_sample_li
-from shimmer_tpu_torch.ops.math import take_clamped
+from shimmer_tpu_torch.ops.math import smooth_step, take_clamped
 from shimmer_tpu_torch.ops.sampling import UNIFORM_SPHERE_PDF, sample_uniform_sphere
 from shimmer_tpu_torch.ops.vecmath import distance_squared, dot, normalize
 from shimmer_tpu_torch.shapes.sphere import sphere_pdf_with_context, sphere_sample_with_context
@@ -26,7 +27,7 @@ AREA = 3
 UNIFORM_INFINITE = 4
 IMAGE_INFINITE = 5
 
-PORTED_KINDS = (AREA, UNIFORM_INFINITE, IMAGE_INFINITE)
+PORTED_KINDS = (POINT, DISTANT, SPOT, AREA, UNIFORM_INFINITE, IMAGE_INFINITE)
 # Area-light shape kinds (the reference's shape_kind column).
 SPHERE_SHAPE = 0
 TRIANGLE_SHAPE = 1
@@ -41,6 +42,10 @@ class LightData:
     kind: torch.Tensor          # (L,) int32
     spectrum: torch.Tensor      # (L, 471) dense emission spectrum
     scale: torch.Tensor         # (L,)
+    position: torch.Tensor      # (L, 3) point / spot position (render space)
+    direction: torch.Tensor     # (L, 3) spot / distant direction (render space)
+    cos_falloff_start: torch.Tensor  # (L,) spot: cosine where the falloff starts
+    cos_falloff_end: torch.Tensor    # (L,) spot: cosine of the cone's edge
     shape_idx: torch.Tensor     # (L,) int32 area light: sphere / triangle index
     shape_kind: torch.Tensor    # (L,) int32 (0 = sphere, 1 = triangle)
     two_sided: torch.Tensor     # (L,) bool
@@ -104,6 +109,32 @@ def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl, spheres,
             is_delta=cur.is_delta,
         )
 
+    ones = torch.ones(batch, device=dev)
+    if POINT in kinds_present:
+        # I / r^2.
+        p = take_clamped(lights.position, light_idx)
+        d2 = distance_squared(p, ref_p)
+        wi = normalize(p - ref_p)
+        l = spec / torch.clamp(d2, min=1e-12)[..., None]
+        out = sel(kind == POINT, l, wi, ones, p, -wi, d2 > 0.0, out)
+
+    if SPOT in kinds_present:
+        # I / r^2 with a smooth falloff between the two cone angles.
+        p = take_clamped(lights.position, light_idx)
+        d2 = distance_squared(p, ref_p)
+        wi = normalize(p - ref_p)
+        cos_theta = dot(take_clamped(lights.direction, light_idx), -wi)
+        falloff = smooth_step(cos_theta, take_clamped(lights.cos_falloff_end, light_idx),
+                              take_clamped(lights.cos_falloff_start, light_idx))
+        l = spec * falloff[..., None] / torch.clamp(d2, min=1e-12)[..., None]
+        out = sel(kind == SPOT, l, wi, ones, p, -wi, (d2 > 0.0) & (falloff > 0.0), out)
+
+    if DISTANT in kinds_present:
+        wi = -take_clamped(lights.direction, light_idx)
+        p = ref_p + wi * (2.0 * lights.scene_radius)
+        out = sel(kind == DISTANT, spec, wi, ones, p, -wi,
+                  torch.ones(batch, dtype=torch.bool, device=dev), out)
+
     def area(shape_kind, p, n, pdf, cur):
         m = (kind == AREA) & (take_clamped(lights.shape_kind, light_idx) == shape_kind)
         wi = normalize(p - ref_p)
@@ -136,7 +167,8 @@ def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl, spheres,
 def pdf_li(lights: LightData, light_idx, ref_p, ref_ns, wi, si_p, si_n, spheres,
            kinds_present: tuple, tri_pdf=None, env=None):
     """Solid-angle pdf that sample_li would have produced direction wi;
-    for area lights, si_p / si_n is the point reached on the light."""
+    for area lights, si_p / si_n is the point reached on the light.  A
+    delta light's pdf is 0 (no direction reaches it by chance)."""
     check_kinds(kinds_present)
     kind = take_clamped(lights.kind, light_idx)
     pdf = torch.zeros(light_idx.shape, device=ref_p.device)

@@ -15,10 +15,14 @@ The port's slice of pbrt-v4: ``trianglemesh``, ``plymesh`` and
 ``thindielectric``, ``coateddiffuse``, ``coatedconductor`` and ``mix``
 (named through ``MakeNamedMaterial`` / ``NamedMaterial`` or not), with
 ``"texture ..."`` parameters where the reference reads them (reflectance,
-roughness, a mix's amount, displacement); the ``Texture`` classes
-``constant``, ``imagemap``, ``scale``, ``mix`` and ``directionmix``;
-``diffuse`` area lights on triangles and spheres; the ``infinite`` light
-with a constant ``L`` or an image ``filename``; the ``perspective`` camera
+roughness, a mix's amount, displacement), and the material-less
+``interface`` (``""``, ``"none"``); the ``Texture`` classes ``constant``,
+``imagemap``, ``scale``, ``mix`` and ``directionmix``; ``diffuse`` area
+lights on triangles and spheres; ``point``, ``spot`` and ``distant``
+lights; the ``infinite`` light with a constant ``L`` or an image
+``filename``; ``homogeneous`` media through ``MakeNamedMedium`` and
+``MediumInterface`` (the camera sits in the outside medium current at
+``Camera``; triangle meshes carry the interface); the ``perspective`` camera
 with the default screen window and no lens; the ``rgb`` film with the CIE
 1931 sensor; the ``box`` filter; the ``zsobol`` sampler; the ``path``
 integrator.  Images are read by ``film.image.Image.read`` (PFM, and the
@@ -106,8 +110,12 @@ class _Mat4:
 class _GraphicsState:
     ctm: np.ndarray
     reverse_orientation: bool = False
-    material: int = -1           # index into materials (-1: the default)
+    # Index into materials (-1: the default), or NO_MATERIAL.
+    material: int | str = -1
     area_light: tuple | None = None  # (name, ParameterDictionary)
+    # MediumInterface names (None: not declared / vacuum).
+    medium_inside: str | None = None
+    medium_outside: str | None = None
     # Scoped `Attribute "target" ...` parameters: lower-priority defaults
     # for every later entity of that target in this scope.
     attributes: dict = dataclasses.field(default_factory=dict)
@@ -129,6 +137,12 @@ class RenderJob:
 # Options the port carries out, and the value each unported option must keep.
 _OPTIONS = {"seed", "rendercoordsys", "forcediffuse", "disabletexturefiltering"}
 _UNPORTED_OPTIONS = {"disablepixeljitter": False, "disablewavelengthjitter": False}
+
+
+# The graphics state's material after ``Material "interface"`` (or "" or
+# "none"): shapes get material id -1 and rays pass through them.
+NO_MATERIAL = "none"
+MATERIAL_LESS = ("", "none", "interface")
 
 
 def _unported(what: str, lacks: str = ""):
@@ -159,6 +173,9 @@ class SceneBuilder:
         self.spectrum_textures: dict[str, int] = {}
         self.tex_builder = TextureBuilder()
         self.texture_pds: list[tuple] = []  # (what, ParameterDictionary) to check at create
+        self.named_media: dict[str, dict] = {}
+        self.medium_pds: list[tuple] = []  # (what, ParameterDictionary) to check at create
+        self.camera_medium_name: str | None = None
 
     # --- transforms ---
 
@@ -233,6 +250,8 @@ class SceneBuilder:
     def camera(self, name, params, loc):
         self.camera_spec = (name, self._pd(params), self.gs.ctm.copy())
         self.named_coords["camera"] = self.gs.ctm.copy()
+        # The camera sits in the current outside medium.
+        self.camera_medium_name = self.gs.medium_outside
 
     def film(self, name, params, loc):
         self.film_spec = (name, self._pd(params))
@@ -286,9 +305,10 @@ class SceneBuilder:
     # --- materials ---
 
     def material(self, name, params, loc):
-        if name in ("", "none", "interface"):
-            raise _unported(f"{loc}: the material-less {name or 'interface'!r} material",
-                            "participating media")
+        if name in MATERIAL_LESS:
+            # Rays pass straight through; only a MediumInterface acts.
+            self.gs.material = NO_MATERIAL
+            return
         self.materials.append({"kind_name": name, "pd": self._merged_pd("material", params),
                                "loc": str(loc)})
         self.gs.material = len(self.materials) - 1
@@ -296,9 +316,9 @@ class SceneBuilder:
     def make_named_material(self, name, params, loc):
         pd = self._merged_pd("material", params)
         kind = pd.get_one_string("type", "diffuse")
-        if kind in ("", "none", "interface"):
-            raise _unported(f"{loc}: the material-less {kind or 'interface'!r} material",
-                            "participating media")
+        # A named material-less material becomes a black diffuse row, as in
+        # the reference (only the Material directive makes a shape
+        # material-less).
         self.materials.append({"kind_name": kind, "pd": pd, "loc": str(loc)})
         self.named_materials[name] = len(self.materials) - 1
 
@@ -401,10 +421,28 @@ class SceneBuilder:
     # --- media ---
 
     def make_named_medium(self, name, params, loc):
-        raise _unported(f"{loc}: MakeNamedMedium {name!r}", "participating media")
+        pd = self._merged_pd("medium", params)
+        kind = pd.get_one_string("type", "homogeneous")
+        if kind != "homogeneous":
+            # The reference warns and treats it as homogeneous.
+            raise _unported(f"{loc}: MakeNamedMedium {name!r} of type {kind!r}",
+                            "homogeneous media only")
+        self.medium_pds.append((f"{loc}: MakeNamedMedium {name!r}", pd))
+        self.named_media[name] = {
+            "sigma_a": pd.get_one_rgb("sigma_a", (1.0, 1.0, 1.0)),
+            "sigma_s": pd.get_one_rgb("sigma_s", (1.0, 1.0, 1.0)),
+            "scale": pd.get_one_float("scale", 1.0),
+            "g": pd.get_one_float("g", 0.0),
+        }
 
     def medium_interface(self, inside, outside, loc):
-        raise _unported(f"{loc}: MediumInterface", "participating media")
+        """A name must be a medium made earlier; "" is vacuum."""
+        for nm in (inside, outside):
+            if nm and nm not in self.named_media:
+                raise ParameterError(f"MediumInterface references undefined medium {nm!r}",
+                                     loc=loc)
+        self.gs.medium_inside = inside or None
+        self.gs.medium_outside = outside or None
 
     # --- shapes ---
 
@@ -416,6 +454,8 @@ class SceneBuilder:
             "material": self.gs.material,
             "area_light": self.gs.area_light,
             "reverse_orientation": self.gs.reverse_orientation,
+            "medium_inside": self.gs.medium_inside,
+            "medium_outside": self.gs.medium_outside,
             "loc": str(loc),
         })
 
@@ -509,6 +549,11 @@ class SceneBuilder:
             used.append((f"{m.get('loc', 'default')}: Material {m['kind_name']!r}", m["pd"]))
 
         # -- shapes and their area lights --
+        media_order = sorted(self.named_media)
+
+        def media_id(name):
+            return media_order.index(name) if name in media_order else -1
+
         sphere_dicts, mesh_dicts, light_dicts = [], [], []
         tri_count = 0
         for rec in self.shapes:
@@ -516,7 +561,7 @@ class SceneBuilder:
             used.append((f"{loc}: Shape {kind!r}", pd))
             o2r = r2w_np @ rec["ctm"]
             mat = rec["material"]
-            mat_idx = mat if mat >= 0 else 0
+            mat_idx = -1 if mat == NO_MATERIAL else max(mat, 0)
             if rec["area_light"] is not None:
                 used.append((f"{loc}: AreaLightSource", rec["area_light"][1]))
             if kind == "sphere":
@@ -557,7 +602,13 @@ class SceneBuilder:
                     for k in range(n_tris):
                         light_dicts.append(self._area_light_dict(
                             rec["area_light"], lt.TRIANGLE_SHAPE, tri_count + k))
-                mesh_dicts.append(mesh.as_scene_dict(mat_idx, ali))
+                md = mesh.as_scene_dict(mat_idx, ali)
+                if rec["medium_inside"] is not None or rec["medium_outside"] is not None:
+                    # Media-table ids in the sorted order of the names (-1:
+                    # vacuum); a mesh without an interface stays -2.
+                    md["medium_inside"] = media_id(rec["medium_inside"])
+                    md["medium_outside"] = media_id(rec["medium_outside"])
+                mesh_dicts.append(md)
                 tri_count += n_tris
             else:
                 raise _unported(f"{loc}: Shape {kind!r}")
@@ -565,7 +616,11 @@ class SceneBuilder:
         # -- the other lights --
         env_spec = None
         for ld in self.lights:
-            pd, kindn, loc = ld["pd"], ld["kind_name"], ld["loc"]
+            pd, kindn, loc, l2w = ld["pd"], ld["kind_name"], ld["loc"], ld["ctm"]
+            if kindn in ("point", "spot", "distant"):
+                used.append((f"{loc}: LightSource {kindn!r}", pd))
+                light_dicts.append(self._delta_light_dict(kindn, pd, l2w))
+                continue
             if kindn != "infinite":
                 raise _unported(f"{loc}: LightSource {kindn!r}")
             used.append((f"{loc}: LightSource 'infinite'", pd))
@@ -597,8 +652,8 @@ class SceneBuilder:
         sampler = ZSobolSampler(spp, (xres, yres),
                                 spd.get_one_int("seed", int(self.options.get("seed", 0))))
         iname, ipd = self.integrator_spec
-        # Without media, volpath is the path estimator (the reference maps
-        # it so too).
+        # volpath is the path estimator, which carries the media (the
+        # reference maps it so too).
         if iname not in ("path", "volpath"):
             raise _unported(f"Integrator {iname!r}", "only path")
         used.append(("Integrator", ipd))
@@ -609,7 +664,7 @@ class SceneBuilder:
         if light_sampler not in ("uniform", "power"):
             raise _unported(f"Integrator parameter lightsampler {light_sampler!r}")
 
-        for what, pd in used + self.texture_pds:
+        for what, pd in used + self.texture_pds + self.medium_pds:
             unused = pd.report_unused()
             if unused:
                 raise _unported(f"{what}: parameters {unused}", "nothing reads them")
@@ -628,10 +683,36 @@ class SceneBuilder:
             render_from_world=r2w,
             textures=self.tex_builder.build(device) if self.tex_builder.rows else None,
             env_spec=env_spec,
+            media=[self.named_media[k] for k in media_order] or None,
+            camera_medium=media_id(self.camera_medium_name),
         )
         return RenderJob(scene=scene, camera=camera, film=film, sampler=sampler,
                          integrator="path", max_depth=max_depth, spp=spp, filename=filename,
                          light_sampler=light_sampler)
+
+    def _delta_light_dict(self, kindn, pd, l2w):
+        """A point, spot or distant light: ``from`` / ``to`` through the
+        light's CTM in float64, its spectrum photometrically scaled."""
+        from shimmer_tpu_torch.lights import lights as lt
+
+        frm = pd.get_one_point3("from", (0, 0, 0))
+        key = "L" if kindn == "distant" else "I"
+        out = {
+            "kind": {"point": lt.POINT, "spot": lt.SPOT, "distant": lt.DISTANT}[kindn],
+            "spectrum": pd.get_one_spectrum(key, self.colorspace.illuminant,
+                                            SpectrumType.ILLUMINANT),
+            "scale": pd.get_one_float("scale", 1.0),
+            "photometric": True,
+        }
+        if kindn != "distant":
+            out["position"] = (l2w @ np.append(frm, 1.0))[:3]
+        if kindn != "point":
+            to = pd.get_one_point3("to", (0, 0, 1))
+            out["direction"] = (l2w @ np.append(to - frm, 0.0))[:3]
+        if kindn == "spot":
+            out["cone_angle"] = pd.get_one_float("coneangle", 30.0)
+            out["cone_delta"] = pd.get_one_float("conedeltaangle", 5.0)
+        return out
 
     def _area_light_dict(self, area_light, shape_kind, shape_idx):
         from shimmer_tpu_torch.lights import lights as lt
@@ -763,6 +844,9 @@ class SceneBuilder:
                     if name not in self.named_materials:
                         raise ParameterError(f"mix of unknown material {name!r}", loc=loc)
                     out[key] = self.named_materials[name]
+        elif kind_name in MATERIAL_LESS:
+            out["kind"] = mtl.DIFFUSE
+            out["reflectance_coeffs"] = np.zeros(3, np.float32)
         else:
             raise _unported(f"{loc}: material {kind_name!r}")
         return out

@@ -17,7 +17,7 @@ import torch
 from shimmer_tpu_torch.materials import bxdf as bx
 from shimmer_tpu_torch.materials import scattering as sc
 from shimmer_tpu_torch.materials.bxdf import BSDFSample, select_sample
-from shimmer_tpu_torch.ops.math import safe_div, safe_sqrt, sqr, sqrt, take_clamped
+from shimmer_tpu_torch.ops.math import safe_div, safe_sqrt, sqr, sqrt, small_gather
 from shimmer_tpu_torch.ops.vecmath import (
     abs_cos_theta,
     abs_dot,
@@ -56,16 +56,16 @@ def _material_alphas(materials, mat_id, tex=None):
     """(alpha_x, alpha_y): the roughness columns, or their textures."""
     ax = _tex(tex, "uroughness")
     ay = _tex(tex, "vroughness")
-    ax = sc.roughness_to_alpha(take_clamped(materials.uroughness, mat_id) if ax is None else ax)
-    ay = sc.roughness_to_alpha(take_clamped(materials.vroughness, mat_id) if ay is None else ay)
+    ax = sc.roughness_to_alpha(small_gather(materials.uroughness, mat_id) if ax is None else ax)
+    ay = sc.roughness_to_alpha(small_gather(materials.vroughness, mat_id) if ay is None else ay)
     return sc.clamp_alpha(ax, ay)
 
 
 def _conductor_eta_k(materials, mat_id, swl, spectra_table, tex=None):
     """Per-wavelength (eta, k): dense-spectrum rows or reflectance mode (the
     reflectance column, or its texture)."""
-    eta_idx = take_clamped(materials.eta_spec, mat_id)
-    k_idx = take_clamped(materials.k_spec, mat_id)
+    eta_idx = small_gather(materials.eta_spec, mat_id)
+    k_idx = small_gather(materials.k_spec, mat_id)
     use_spec = (eta_idx >= 0)[..., None]
     if spectra_table is not None:
         eta_s = dense_sample_rows(spectra_table, torch.clamp(eta_idx, min=0), swl.lam)
@@ -75,7 +75,7 @@ def _conductor_eta_k(materials, mat_id, swl, spectra_table, tex=None):
         k_s = torch.ones_like(swl.lam)
     refl = _tex(tex, "reflectance")
     if refl is None:
-        refl = sigmoid_poly_sample(take_clamped(materials.reflectance, mat_id), swl.lam)
+        refl = sigmoid_poly_sample(small_gather(materials.reflectance, mat_id), swl.lam)
     refl = torch.clamp(refl, 0.0, 0.9999)
     k_r = 2.0 * sqrt(refl) / safe_sqrt(1.0 - refl)
     return torch.where(use_spec, eta_s, 1.0), torch.where(use_spec, k_s, k_r)
@@ -83,8 +83,8 @@ def _conductor_eta_k(materials, mat_id, swl, spectra_table, tex=None):
 
 def _dielectric_eta(materials, mat_id, swl, spectra_table):
     """Relative IOR per lane; a spectral eta at the hero wavelength."""
-    eta_idx = take_clamped(materials.eta_spec, mat_id)
-    eta_f = take_clamped(materials.eta_float, mat_id)
+    eta_idx = small_gather(materials.eta_spec, mat_id)
+    eta_f = small_gather(materials.eta_float, mat_id)
     if spectra_table is None:
         return eta_f
     eta_s = dense_sample_rows(spectra_table, torch.clamp(eta_idx, min=0), swl.lam)[..., 0]

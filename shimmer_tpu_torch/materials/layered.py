@@ -34,7 +34,7 @@ from shimmer_tpu_torch.materials.conductor_dielectric import (
     dielectric_sample,
 )
 from shimmer_tpu_torch.ops import rng as srng
-from shimmer_tpu_torch.ops.math import take_clamped
+from shimmer_tpu_torch.ops.math import small_gather
 from shimmer_tpu_torch.ops.sampling import power_heuristic, sample_exponential
 from shimmer_tpu_torch.ops.vecmath import abs_cos_theta, same_hemisphere
 from shimmer_tpu_torch.spectra.rgb2spec import sigmoid_poly_sample
@@ -384,26 +384,26 @@ def _interfaces(materials, mat_id, swl, spectra_table, tex=None):
     """Top interface and both bottoms from material-table rows.  A
     textured reflectance (in ``tex``) drives the diffuse bottom and the
     conductor's reflectance mode; the roughnesses stay the columns'."""
-    ax = sc.roughness_to_alpha(take_clamped(materials.uroughness, mat_id))
-    ay = sc.roughness_to_alpha(take_clamped(materials.vroughness, mat_id))
+    ax = sc.roughness_to_alpha(small_gather(materials.uroughness, mat_id))
+    ay = sc.roughness_to_alpha(small_gather(materials.vroughness, mat_id))
     ax, ay = sc.clamp_alpha(ax, ay)
     # The coat's eta is always the constant column.
     top = _TopInterface(_dielectric_eta(materials, mat_id, swl, None), ax, ay)
     refl = tex.get("reflectance") if tex else None
     if refl is None:
-        refl = sigmoid_poly_sample(take_clamped(materials.reflectance, mat_id), swl.lam)
+        refl = sigmoid_poly_sample(small_gather(materials.reflectance, mat_id), swl.lam)
     bot_d = _DiffuseBottom(refl)
-    bax = sc.roughness_to_alpha(take_clamped(materials.bot_uroughness, mat_id))
-    bay = sc.roughness_to_alpha(take_clamped(materials.bot_vroughness, mat_id))
+    bax = sc.roughness_to_alpha(small_gather(materials.bot_uroughness, mat_id))
+    bay = sc.roughness_to_alpha(small_gather(materials.bot_vroughness, mat_id))
     bax, bay = sc.clamp_alpha(bax, bay)
     c_eta, c_k = _conductor_eta_k(materials, mat_id, swl, spectra_table, tex)
     return top, bot_d, _ConductorBottom(c_eta, c_k, bax, bay)
 
 
 def _layer_params(materials, mat_id, swl):
-    thickness = take_clamped(materials.thickness, mat_id)
-    g = take_clamped(materials.hg_g, mat_id)
-    albedo = sigmoid_poly_sample(take_clamped(materials.albedo, mat_id), swl.lam)
+    thickness = small_gather(materials.thickness, mat_id)
+    g = small_gather(materials.hg_g, mat_id)
+    albedo = sigmoid_poly_sample(small_gather(materials.albedo, mat_id), swl.lam)
     return thickness, g, albedo
 
 

@@ -24,7 +24,7 @@ from shimmer_tpu_torch.materials import bxdf as bx
 from shimmer_tpu_torch.materials import conductor_dielectric as cd
 from shimmer_tpu_torch.materials import layered
 from shimmer_tpu_torch.materials.bxdf import BSDFSample, select_sample
-from shimmer_tpu_torch.ops.math import take_clamped
+from shimmer_tpu_torch.ops.math import small_gather
 from shimmer_tpu_torch.ops.sampling import UNIFORM_HEMISPHERE_PDF, sample_uniform_hemisphere
 from shimmer_tpu_torch.spectra.rgb2spec import sigmoid_poly_sample
 from shimmer_tpu_torch.textures.textures import textured_params
@@ -143,12 +143,12 @@ def resolve_mix(materials: MaterialTable, kinds_present: tuple, mat_id, u, amt_o
     if MIX not in kinds_present:
         return mat_id
     for round_i in range(2):
-        is_mix = take_clamped(materials.kind, mat_id) == MIX
-        amt = take_clamped(materials.mix_amount, mat_id)
+        is_mix = small_gather(materials.kind, mat_id) == MIX
+        amt = small_gather(materials.mix_amount, mat_id)
         if round_i == 0 and amt_override is not None:
             amt = amt_override
-        chosen = torch.where(u < amt, take_clamped(materials.mix_m1, mat_id),
-                             take_clamped(materials.mix_m2, mat_id))
+        chosen = torch.where(u < amt, small_gather(materials.mix_m1, mat_id),
+                             small_gather(materials.mix_m2, mat_id))
         mat_id = torch.where(is_mix, chosen, mat_id)
     return mat_id
 
@@ -161,7 +161,7 @@ def resolved_kinds(kinds_present: tuple) -> tuple:
 def _diffuse_reflectance(materials, mat_id, swl, tex=None):
     if tex and tex.get("reflectance") is not None:
         return tex["reflectance"]
-    return sigmoid_poly_sample(take_clamped(materials.reflectance, mat_id), swl.lam)
+    return sigmoid_poly_sample(small_gather(materials.reflectance, mat_id), swl.lam)
 
 
 def _rng_key(rng_key, like):
@@ -179,7 +179,7 @@ def bsdf_f(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, sw
     check_kinds(kinds_present)
     wo = frame.to_local(wo_render)
     wi = frame.to_local(wi_render)
-    kind = take_clamped(materials.kind, mat_id)
+    kind = small_gather(materials.kind, mat_id)
     f = torch.zeros(wo.shape[:-1] + (4,), device=wo.device)
     if DIFFUSE in kinds_present:
         refl = _diffuse_reflectance(materials, mat_id, swl, tex)
@@ -198,7 +198,7 @@ def bsdf_sample(materials, kinds_present, mat_id, frame, ns, wo_render, u2, uc, 
     """Render-space BSDF sampling; ``wi`` comes back in render space."""
     check_kinds(kinds_present)
     wo = frame.to_local(wo_render)
-    kind = take_clamped(materials.kind, mat_id)
+    kind = small_gather(materials.kind, mat_id)
     out = BSDFSample.invalid(wo.shape[:-1], wo.device)
     if DIFFUSE in kinds_present:
         refl = _diffuse_reflectance(materials, mat_id, swl, tex)
@@ -222,7 +222,7 @@ def bsdf_pdf(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, 
     check_kinds(kinds_present)
     wo = frame.to_local(wo_render)
     wi = frame.to_local(wi_render)
-    kind = take_clamped(materials.kind, mat_id)
+    kind = small_gather(materials.kind, mat_id)
     pdf = torch.zeros(wo.shape[:-1], device=wo.device)
     if DIFFUSE in kinds_present:
         pdf = torch.where(kind == DIFFUSE, bx.diffuse_pdf(wo, wi), pdf)

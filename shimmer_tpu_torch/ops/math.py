@@ -129,10 +129,16 @@ def find_interval(xs, x):
     return torch.clamp(idx, 0, n - 2)
 
 
+def smooth_step(x, a, b):
+    """Hermite smoothstep of x on [a, b]."""
+    t = torch.clamp(safe_div(x - a, b - a), 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
 def take_clamped(table, idx):
-    """``table[idx]`` with out-of-range ids clamped into the table, the
-    gather semantics of the reference's ``small_gather`` (miss lanes carry
-    id -1 and read row 0)."""
+    """``table[idx]`` with out-of-range ids clamped into the table: a plain
+    gather for ids that are valid or whose lanes are masked.  Material-id
+    gathers that must read the reference's row use ``small_gather``."""
     k = table.shape[0]
     return table[torch.clamp(idx.long(), 0, k - 1)]
 
@@ -144,3 +150,19 @@ def take_wrapped(table, idx):
     k = table.shape[0]
     idx = idx.long()
     return table[torch.clamp(torch.where(idx < 0, idx + k, idx), 0, k - 1)]
+
+
+# The reference's ``small_gather`` clamps ids into tables of up to this
+# many rows and indexes plainly beyond (shimmer_tpu/ops/math.py:222-244).
+SMALL_GATHER_ROWS = 32
+
+
+def small_gather(table, idx):
+    """``table[idx]`` with the reference's ``small_gather`` semantics: a
+    table of at most SMALL_GATHER_ROWS rows clamps the ids into it, a larger
+    one indexes plainly (a negative id counts from the end).  Material-less
+    lanes carry id -1 and read a row they then discard; which row depends
+    on the table's size, as in the reference."""
+    if table.shape[0] > SMALL_GATHER_ROWS:
+        return take_wrapped(table, idx)
+    return take_clamped(table, idx)

@@ -1,6 +1,6 @@
 """Device scene: flat tables plus the static census (port of
-``shimmer_tpu/scene.py``: analytic spheres and triangles, textures and the
-image environment light).
+``shimmer_tpu/scene.py``: analytic spheres and triangles, textures, the
+image environment light and homogeneous media).
 
 The census (which material, light and shape kinds exist) is plain Python
 attributes that pick code paths, as the reference's static fields do
@@ -43,6 +43,12 @@ class Scene:
     spheres: SphereData | None = None
     env: object | None = None        # EnvLightData (lights/env.py)
     textures: object | None = None   # TextureTable (textures/textures.py)
+    media: object | None = None      # MediumData (media.py)
+    # The medium the camera sits in (index into media; -1: vacuum).
+    camera_medium: int = -1
+    # Some triangle declares a MediumInterface: per-lane medium tracking,
+    # interface crossing and the shadow march.
+    has_interface_media: bool = False
     image_infinite_indices: tuple = ()
     has_spheres: bool = False
     has_triangles: bool = False
@@ -104,10 +110,22 @@ def scene_intersect_merged(scene: Scene, ray_o, ray_d, t_max, n_ext):
         )
         return si, tri[n_ext:] >= 0
     si_all = scene_intersect(scene, ray_o, ray_d, t_max, want_any=want_any)
-    si = type(si_all)(**{f.name: getattr(si_all, f.name)[:n_ext]
-                         for f in dataclasses.fields(si_all)
-                         if getattr(si_all, f.name) is not None})
-    return si, si_all.valid[n_ext:]
+    return _slice_si(si_all, 0, n_ext), si_all.valid[n_ext:]
+
+
+def _slice_si(si, lo, hi):
+    return type(si)(**{f.name: getattr(si, f.name)[lo:hi] for f in dataclasses.fields(si)
+                       if getattr(si, f.name) is not None})
+
+
+def scene_intersect_merged_full(scene: Scene, ray_o, ray_d, t_max, n_ext):
+    """Merged trace where both halves need closest-hit interactions (a
+    scene with interface media: the shadow march goes on past
+    material-less boundaries, so a shadow lane needs its hit's material,
+    media and normal, not an occlusion bit).  One traversal over all
+    lanes, no any-hit lanes.  Returns (si_ext, si_shadow)."""
+    si_all = scene_intersect(scene, ray_o, ray_d, t_max)
+    return _slice_si(si_all, 0, n_ext), _slice_si(si_all, n_ext, ray_o.shape[0])
 
 
 def _closer(a, b):

@@ -1,8 +1,9 @@
 """Host-side scene assembly (port of ``shimmer_tpu/scene_builder.py``:
 analytic spheres and triangles, materials of every ported kind with the
 dense spectra table their IORs index and the texture table their texture
-columns index, area lights on spheres and triangles, uniform infinite
-lights and the image environment light)."""
+columns index, point, spot and distant lights, area lights on spheres and
+triangles, uniform infinite lights, the image environment light and
+homogeneous media)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from shimmer_tpu_torch.config import f32, i32, resolve_device
 from shimmer_tpu_torch.lights import lights as lt
 from shimmer_tpu_torch.materials import material as mtl
 from shimmer_tpu_torch.materials.material import make_material_table
+from shimmer_tpu_torch.media import make_media_table
 from shimmer_tpu_torch.ops.transform import Transform
 from shimmer_tpu_torch.scene import Scene
 from shimmer_tpu_torch.shapes.sphere import make_sphere_data, sphere_area
@@ -34,6 +36,8 @@ def build_scene(
     textures=None,
     env=None,
     env_spec: dict | None = None,
+    media: list[dict] | None = None,
+    camera_medium: int = -1,
 ) -> Scene:
     """Assemble a device Scene from a TriangleSceneData (or None), sphere
     dicts and material / light dicts, as the reference's ``build_scene``
@@ -48,8 +52,13 @@ def build_scene(
     ``textures`` the TextureTable the ``tex_*``, ``normal_tex`` and
     ``displacement_tex`` columns index.  An image infinite light reads
     ``env`` (an EnvLightData), or is baked here from ``env_spec`` (``image``,
-    ``scale``, ``render_from_light``) with the scene's radius.  ``device``
-    defaults to the triangles' device, else the CUDA card."""
+    ``scale``, ``render_from_light``) with the scene's radius.  Point and
+    spot lights carry a world-space ``position``, spot and distant lights a
+    ``direction`` (spot: ``cone_angle`` and ``cone_delta`` in degrees).
+    ``media`` are the medium dicts of ``media.make_media_table`` and
+    ``camera_medium`` the index of the medium the camera sits in (-1:
+    vacuum).  ``device`` defaults to the triangles' device, else the CUDA
+    card."""
     if device is None:
         device = triangles.rows8.device if triangles is not None else resolve_device(None)
     cs = colorspace or get_named_color_space("srgb")
@@ -103,6 +112,10 @@ def build_scene(
     kind = np.zeros(n_l, np.int32)
     spectrum = np.zeros((n_l, 471), np.float32)
     scale = np.ones(n_l, np.float32)
+    position = np.zeros((n_l, 3), np.float32)
+    direction = np.tile(np.array([0.0, 0.0, 1.0], np.float32), (n_l, 1))
+    cf_start = np.ones(n_l, np.float32)
+    cf_end = np.ones(n_l, np.float32)
     shape_idx = np.full(n_l, -1, np.int32)
     shape_kind = np.zeros(n_l, np.int32)
     two_sided = np.zeros(n_l, bool)
@@ -123,6 +136,14 @@ def build_scene(
         if ld.get("photometric", False):
             s /= spectrum_to_photometric(spec)
         scale[i] = s
+        # To render space in float32, as the reference does.
+        pos_w = torch.from_numpy(np.asarray(ld.get("position", (0, 0, 0)), np.float32))
+        position[i] = r_from_w.apply_point(pos_w).numpy()
+        d_w = torch.from_numpy(np.asarray(ld.get("direction", (0, 0, 1)), np.float32))
+        d = r_from_w.apply_vector(d_w).numpy()
+        direction[i] = d / max(np.linalg.norm(d), 1e-12)
+        cf_start[i] = np.cos(np.deg2rad(ld.get("cone_angle", 30.0) - ld.get("cone_delta", 5.0)))
+        cf_end[i] = np.cos(np.deg2rad(ld.get("cone_angle", 30.0)))
         shape_idx[i] = ld.get("shape_idx", -1)
         shape_kind[i] = ld.get("shape_kind", 0)
         two_sided[i] = bool(ld.get("two_sided", False))
@@ -135,13 +156,19 @@ def build_scene(
             else:
                 area = 1.0
             power[i] = lum * area * np.pi * (2.0 if two_sided[i] else 1.0)
-        else:
+        elif ld["kind"] in (lt.UNIFORM_INFINITE, lt.IMAGE_INFINITE, lt.DISTANT):
             power[i] = lum * 4.0 * np.pi * scene_radius**2
+        else:
+            power[i] = lum * 4.0 * np.pi
 
     light_data = lt.LightData(
         kind=i32(kind, device),
         spectrum=f32(spectrum, device),
         scale=f32(scale, device),
+        position=f32(position, device),
+        direction=f32(direction, device),
+        cos_falloff_start=f32(cf_start, device),
+        cos_falloff_end=f32(cf_end, device),
         shape_idx=i32(shape_idx, device),
         shape_kind=i32(shape_kind, device),
         two_sided=torch.from_numpy(two_sided).to(device),
@@ -153,11 +180,18 @@ def build_scene(
         weights = np.ones(n_l, np.float32)
     else:
         raise ValueError(f"unknown light sampler {light_sampler!r}")
+    media_table = make_media_table(media, cs, device) if media else None
+    if media_table is None:
+        camera_medium = -1
     return Scene(
         triangles=triangles,
         spheres=sphere_data,
         env=env,
         textures=textures,
+        media=media_table,
+        camera_medium=int(camera_medium),
+        has_interface_media=media_table is not None and triangles is not None
+        and triangles.has_iface_media,
         has_spheres=sphere_data is not None,
         has_triangles=triangles is not None,
         has_normal_maps=any(m.get("normal_tex", -1) >= 0 for m in mat_dicts),

@@ -74,6 +74,7 @@ class TriangleSceneData:
     stack_depth: int = 16
     has_normals: bool = False
     has_uv: bool = False
+    # Any mesh declares a MediumInterface (the _A_MI / _A_MO columns).
     has_iface_media: bool = False
     # Which traversal kernel runs and how leaf rows are packed.
     traverse: TraverseConfig = dataclasses.field(default_factory=TraverseConfig)
@@ -170,14 +171,13 @@ def build_triangle_scene(meshes: list[dict], device=None,
     """Host: concatenate meshes, build the BVH8, pack the tables, and move
     them to ``device`` (default: the CUDA card).  Mesh dicts as in the
     reference (``p``, ``indices``, optional ``n``, ``uv``, ``material_id``,
-    ``area_light_id``, ``reverse_orientation``).  ``traverse`` defaults to
+    ``area_light_id``, ``reverse_orientation``, ``medium_inside`` and
+    ``medium_outside``: media-table ids, -1 vacuum, -2 undeclared).  ``traverse`` defaults to
     ``TraverseConfig()`` (the reference's environment flags); ``leaf="mt"``
     packs the leaf rows as ``(p0, e1, e2)``."""
     device = resolve_device(device)
     traverse = TraverseConfig() if traverse is None else traverse
     cat = _concat_meshes(meshes)
-    if (cat["medium_in"] > -2).any() or (cat["medium_out"] > -2).any():
-        raise NotImplementedError("medium interfaces are not ported yet")
     indices, rev, tri_p = cat["indices"], cat["rev"], cat["tri_p"]
     lo, hi = cat["lo"], cat["hi"]
     bvh8 = pack_bvh8(lo, hi, tri_p)
@@ -207,6 +207,7 @@ def build_triangle_scene(meshes: list[dict], device=None,
         stack_depth=int(bvh8.max_depth),
         has_normals=bool(cat["has_normals"]),
         has_uv=bool(cat["has_uv"]),
+        has_iface_media=bool((cat["medium_in"] > -2).any() or (cat["medium_out"] > -2).any()),
         traverse=traverse,
     )
 

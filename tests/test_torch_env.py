@@ -224,7 +224,8 @@ def test_image_light_in_the_light_table_matches_reference():
         scene_radius=jnp.float32(12.0))
     t_lights = tlt.LightData(
         kind=t(np.int32([4, 5])), spectrum=t(spec), scale=torch.ones(2),
-        shape_idx=t(np.int32([-1, -1])), shape_kind=t(np.int32([0, 0])),
+        position=torch.zeros((2, 3)), direction=torch.zeros((2, 3)),
+        cos_falloff_start=torch.ones(2), cos_falloff_end=torch.ones(2), shape_idx=t(np.int32([-1, -1])), shape_kind=t(np.int32([0, 0])),
         two_sided=torch.zeros(2, dtype=torch.bool), scene_radius=torch.tensor(12.0))
     idx = (np.arange(n) % 2).astype(np.int32)
     p = rng.normal(size=(n, 3)).astype(np.float32)

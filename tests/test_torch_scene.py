@@ -171,17 +171,18 @@ def test_scene_from_numpy_mt_leaves(jax_scene, torch_scene):
      ({"has_instanced": True}, (NotImplementedError, "not ported")),
      ({"material_kinds": (0, 1), "materials.tex_reflectance": 0},
       (ValueError, "no texture table")),
-     ({"light_kinds": (0, 3)}, (NotImplementedError, "not ported")),
      ({"image_infinite_indices": (1,)}, (ValueError, "no env table")),
-     ({"camera_medium": 0}, (NotImplementedError, "not ported"))],
-    ids=["patches", "instanced", "conductor", "point_light", "image_light", "medium"],
+     ({"camera_medium": 0}, (ValueError, "no media table"))],
+    ids=["patches", "instanced", "conductor", "image_light", "medium"],
 )
 def test_scene_from_numpy_refuses_unported(jax_scene, change, error):
-    """Each case asks for something still unported, or for textures or an
-    image light without their tables: since the texture slice a textured
-    conductor and an image light convert (tests/test_torch_env.py renders
-    one), so their cases here lack the tables they index.  Spheres convert
-    since they were ported (tests/test_torch_scene_union.py)."""
+    """Each case asks for something still unported, or for textures, an
+    image light or media without their tables: since the texture slice a
+    textured conductor and an image light convert (tests/test_torch_env.py
+    renders one), and since the media slice media and delta lights do
+    (test_scene_from_numpy_converts_delta_lights_and_media), so their
+    cases here lack the tables they index.  Spheres convert since they
+    were ported (tests/test_torch_scene_union.py)."""
     arrays, census = jax_scene_to_numpy(jax_scene)
     for key, value in change.items():
         if key in arrays:
@@ -190,6 +191,39 @@ def test_scene_from_numpy_refuses_unported(jax_scene, change, error):
             census[key] = value
     with pytest.raises(error[0], match=error[1]):
         scene_from_numpy(arrays, census, device="cpu")
+
+
+@pytest.mark.parametrize("camera_medium", [-1, 0], ids=["interface", "camera_medium"])
+def test_scene_from_numpy_converts_delta_lights_and_media(jax_scene, camera_medium):
+    """A point, a spot and a distant light beside the bench lights, and two
+    media (the camera's, or interface media on the bench triangles),
+    carried across: every light column, the media tables and the census."""
+    from shimmer_tpu.spectra.spectrum import ConstantSpectrum as JaxConstant
+    from shimmer_tpu.shapes.triangle import build_triangle_scene as jax_build_tris
+
+    mesh = {**bench_scene.bench_meshes(20, bench_scene.bench_camera_film((8, 8))[0]
+                                       .camera_transform.render_from_world())[0],
+            "medium_inside": 1, "medium_outside": camera_medium}
+    lights = [
+        {"kind": jlt.POINT, "spectrum": JaxConstant(2.0), "position": (0.0, 2.0, 0.0)},
+        {"kind": jlt.SPOT, "spectrum": JaxConstant(3.0), "position": (1.0, 2.0, 0.0),
+         "direction": (0.0, -1.0, 0.2), "cone_angle": 20.0, "cone_delta": 4.0},
+        {"kind": jlt.DISTANT, "spectrum": JaxConstant(1.0), "direction": (0.2, -1.0, 0.1)},
+    ]
+    media = [{"sigma_a": (0.1, 0.2, 0.3), "sigma_s": 0.5, "g": 0.4}, {"sigma_a": 0.0}]
+    jsc = jax_build_scene(triangles=jax_build_tris([mesh]), materials=[{"kind": 0}],
+                          lights=lights, light_sampler="power", media=media,
+                          camera_medium=camera_medium)
+    arrays, census = jax_scene_to_numpy(jsc)
+    conv = scene_from_numpy(arrays, census, device="cpu")
+    assert conv.light_kinds == (jlt.POINT, jlt.DISTANT, jlt.SPOT)
+    assert (conv.camera_medium, conv.has_interface_media) == (camera_medium, True)
+    assert conv.triangles.has_iface_media
+    for group, obj in (("lights", conv.lights), ("media", conv.media)):
+        for f in dataclasses.fields(obj):
+            key = f"{group}.{f.name}"
+            got = getattr(obj, f.name).numpy()
+            assert got.tobytes() == np.ascontiguousarray(arrays[key], got.dtype).tobytes(), key
 
 
 def test_builders_refuse_unported():
@@ -201,9 +235,12 @@ def test_builders_refuse_unported():
     cam, _ = bench_scene.bench_camera_film((8, 8))
     tris = build_triangle_scene(bench_scene.bench_meshes(20, cam.camera_transform.render_from_world()),
                                 device="cpu")
+    # Every light kind builds since the media slice; an area light on a
+    # bilinear patch (shape kind 2) does not.
     with pytest.raises(NotImplementedError):
         torch_build_scene(tris, materials=[{"kind": 0}],
-                          lights=[{"kind": tlt.POINT, "spectrum": ConstantSpectrum(1.0)}])
+                          lights=[{"kind": tlt.AREA, "spectrum": ConstantSpectrum(1.0),
+                                   "shape_kind": 2, "shape_idx": 0}])
 
 
 @pytest.mark.parametrize("variant", list(bench_scene.MATERIAL_VARIANTS))
