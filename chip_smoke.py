@@ -88,7 +88,23 @@ Phases, each printing its own numbers:
      three shadow-march rounds) and the media's RGB fits timed apart;
      then at 64x48, 4 spp on the card and on the CPU, compared, for that
      scene, for the fog without the box (one launch an iteration) and
-     for the delta lights without media (one launch an iteration).
+     for the delta lights without media (one launch an iteration);
+ 14. bilinear patches and two-level instancing: phase 11's camera,
+     infinite light and bench sphere (world triangles, so v1 keeps its
+     bench-size table), 24 instances (scales 0.15-0.35, turned about y)
+     of an object holding the same PLY and a small glass sphere (7,864,320
+     instanced triangles over one object BVH, 24 copied spheres), a planar
+     patch floor, a 4x4 twisted patch wall with uvs under a conductor and
+     a patch quad light beside the triangle quad light, under the power
+     light sampler, written in code and rendered at 1280x720, INSTANCED_SPP
+     (4) spp, depth 5 through shimmer_tpu_torch.cli.main to a PFM that
+     must equal the returned image, with v1 launches exactly one an
+     iteration, the instanced loop's steps and CUDA-event ms a trace, the
+     patch leg's ms a trace, the load split (PLY reads, object BVH, top
+     build, world BVH, patch table, the rest) and the instanced table's
+     bytes beside 24 flattened copies'; then at 64x48, 4 spp on the card
+     and on the CPU, compared, and tests/test_parser.py's instanced and
+     bilinear scenes (zsobol for their independent sampler) likewise.
 Launch counters are set to 0 just before each render path and each
 micro-benchmark entry point, and read just after it.  No phase catches its
 own failure.  The last lines are the kernel table as JSON, the card's name
@@ -1563,6 +1579,322 @@ def _phase13(dev) -> dict:
     return out
 
 
+# Phase 14: bilinear patches and two-level instancing, through the loader
+# and the CLI, at the bench configuration.
+INSTANCED_DIR = Path("chiprun_out") / "phase14"
+# Removed after the phase, as phase 13's: the PLY and the image.
+INSTANCED_FILES = (LOADED_PLY, "instanced_bench.pfm")
+# Phase 14's full render runs at 4 spp, not the bench's 16: the instanced
+# leg's plain tensor loop made it 241 s at 16 (~0.63 s a trace), which
+# would take the whole run past ~1,000 s.
+INSTANCED_SPP = 4
+N_INSTANCES = 24
+WALL_GRID = 4   # the back wall's patches a side
+# tests/test_parser.py::TestCreate::test_instanced_scene_renders and
+# ::TestBilinearMesh::test_bilinearmesh_parses_to_patches at their in-file
+# sizes, with the zsobol sampler in place of the independent one (the port
+# has no other sampler yet).
+PARSER_SCENES = {
+    "test_instanced_scene_renders": """
+Film "rgb" "integer xresolution" [12] "integer yresolution" [12]
+Sampler "zsobol" "integer pixelsamples" [2]
+Integrator "path" "integer maxdepth" [2]
+Camera "perspective" "float fov" [50]
+WorldBegin
+Material "diffuse" "rgb reflectance" [0.6 0.6 0.6]
+ObjectBegin "blade"
+  Shape "trianglemesh"
+    "integer indices" [0 1 2  0 2 3]
+    "point3 P" [-0.4 0 2  0.4 0 2  0.4 0.8 2  -0.4 0.8 2]
+ObjectEnd
+ObjectInstance "blade"
+Translate 1 0 0
+ObjectInstance "blade"
+Translate -2 0 0
+ObjectInstance "blade"
+LightSource "infinite" "rgb L" [0.5 0.5 0.5]
+""",
+    "test_bilinearmesh_parses_to_patches": """
+Film "rgb" "integer xresolution" [16] "integer yresolution" [16]
+Sampler "zsobol" "integer pixelsamples" [2]
+Integrator "path" "integer maxdepth" [2]
+Camera "perspective" "float fov" [45]
+WorldBegin
+Material "diffuse" "rgb reflectance" [0.5 0.5 0.5]
+Shape "bilinearmesh"
+    "integer indices" [0 1 2 3]
+    "point3 P" [-1 -1 2   1 -1 2   -1 1 2   1 1 2]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [5 5 5]
+  Shape "bilinearmesh"
+      "integer indices" [0 1 2 3]
+      "point3 P" [-0.5 2 -0.5  0.5 2 -0.5  -0.5 2 0.5  0.5 2 0.5]
+AttributeEnd
+LightSource "infinite" "rgb L" [0.2 0.2 0.2]
+""",
+}
+
+
+def instance_placements() -> list[tuple[float, float, float, float]]:
+    """(x, z, scale, degrees about y) of the 24 balls: two rings around
+    the bench sphere, on an arc that leaves the camera's side open."""
+    out = []
+    for i in range(N_INSTANCES):
+        r = 1.9 if i % 2 == 0 else 2.8
+        theta = np.deg2rad(-130.0 + i * 260.0 / (N_INSTANCES - 1))
+        scale = 0.15 + 0.2 * ((7 * i) % N_INSTANCES) / (N_INSTANCES - 1)
+        out.append((r * np.sin(theta), r * np.cos(theta), scale, 15.0 * i))
+    return out
+
+
+def wall_patch_text() -> str:
+    """The back wall: a WALL_GRID x WALL_GRID bilinearmesh whose vertices
+    alternate 0.3 in front of and behind z = 3.2, so every patch is
+    twisted, with uvs over the grid."""
+    k = WALL_GRID + 1
+    pts, uvs, idx = [], [], []
+    for j in range(k):
+        for i in range(k):
+            pts.append((-4.5 + 9.0 * i / WALL_GRID, -1.3 + 4.5 * j / WALL_GRID,
+                        3.2 + 0.3 * (-1) ** (i + j)))
+            uvs.append((i / WALL_GRID, j / WALL_GRID))
+    for j in range(WALL_GRID):
+        for i in range(WALL_GRID):
+            v = j * k + i
+            idx.extend((v, v + 1, v + k, v + k + 1))
+    return (f'Shape "bilinearmesh" "integer indices" [{" ".join(map(str, idx))}]\n'
+            f'      "point3 P" [{" ".join(f"{x:g}" for p in pts for x in p)}]\n'
+            f'      "point2 uv" [{" ".join(f"{x:g}" for p in uvs for x in p)}]')
+
+
+def instanced_scene_text(res, spp: int) -> str:
+    """Phase 11's camera, infinite light and bench sphere (world
+    triangles), 24 instances of an object holding the same PLY and a
+    small glass sphere, a planar patch floor, a twisted patch wall under a
+    conductor, and a patch quad light beside the triangle quad light."""
+    instances = "\n".join(
+        f"AttributeBegin\n  Translate {x:.4f} {-1.3 + s:.4f} {z:.4f}\n  Rotate {a:g} 0 1 0\n"
+        f"  Scale {s:.4f} {s:.4f} {s:.4f}\n  ObjectInstance \"ball\"\nAttributeEnd"
+        for x, z, s, a in instance_placements())
+    return f"""# Phase 11's scene with instances, patches and a patch light.
+LookAt 0 0.6 -3.2  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+Film "rgb" "integer xresolution" [{res[0]}] "integer yresolution" [{res[1]}]
+Sampler "zsobol" "integer pixelsamples" [{spp}]
+Integrator "path" "integer maxdepth" [{MAX_DEPTH}] "string lightsampler" "power"
+PixelFilter "box"
+WorldBegin
+LightSource "infinite" "float scale" [0.3]
+Material "diffuse" "rgb reflectance" [0.55 0.45 0.35]
+Shape "plymesh" "string filename" "{LOADED_PLY}"
+ObjectBegin "ball"
+  Material "diffuse" "rgb reflectance" [0.3 0.5 0.6]
+  Shape "plymesh" "string filename" "{LOADED_PLY}"
+  AttributeBegin
+    Material "dielectric" "float eta" [1.5]
+    Translate 0 1.45 0
+    Shape "sphere" "float radius" [0.3]
+  AttributeEnd
+ObjectEnd
+{instances}
+Material "diffuse" "rgb reflectance" [0.4 0.4 0.42]
+Shape "bilinearmesh" "integer indices" [0 1 2 3]
+    "point3 P" [-8 -1.3 -8  8 -1.3 -8  -8 -1.3 8  8 -1.3 8]
+AttributeBegin
+  Material "conductor" "spectrum eta" "metal-Cu-eta" "spectrum k" "metal-Cu-k"
+      "float roughness" [0.1]
+  {wall_patch_text()}
+AttributeEnd
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [15 15 15]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+      "point3 P" [-1 4 -1  1 4 -1  1 4 1  -1 4 1]
+AttributeEnd
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [20 18 15]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Shape "bilinearmesh" "integer indices" [0 1 2 3]
+      "point3 P" [-2.2 3 -0.6  -1.2 3 -0.6  -2.2 3 0.4  -1.2 3 0.4]
+AttributeEnd
+"""
+
+
+def card_events(owner, attr: str, events: list):
+    """Replace ``owner.attr`` by a wrapper that records a CUDA event pair
+    around each call (no host sync); returns the original."""
+    fn = getattr(owner, attr)
+
+    def wrapped(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    setattr(owner, attr, wrapped)
+    return fn
+
+
+def phase14(dev) -> dict:
+    try:
+        return _phase14(dev)
+    finally:
+        for name in INSTANCED_FILES:
+            (INSTANCED_DIR / name).unlink(missing_ok=True)
+
+
+def _phase14(dev) -> dict:
+    from shimmer_tpu_torch import scene as scene_module
+    from shimmer_tpu_torch import scene_builder as scene_builder_module
+    from shimmer_tpu_torch.shapes import instanced as instanced_module
+    from shimmer_tpu_torch.shapes import mesh as mesh_module
+    from shimmer_tpu_torch.shapes import triangle as triangle_module
+
+    out = {}
+    INSTANCED_DIR.mkdir(parents=True, exist_ok=True)
+    verts, faces = make_displaced_sphere(BENCH_TRIS)
+    write_ply(INSTANCED_DIR / LOADED_PLY, verts, faces)
+    # (a) the instanced, patch-lit scene at full width, through the CLI,
+    # with the instanced and patch legs timed by CUDA events and the
+    # instanced loop's steps recorded per trace.
+    scene_file = INSTANCED_DIR / "instanced_bench.pbrt"
+    scene_file.write_text(instanced_scene_text(BENCH_RESOLUTION, INSTANCED_SPP))
+    pfm = INSTANCED_DIR / "instanced_bench.pfm"
+    timers = {"ply_read": (mesh_module, "read_ply"),
+              "object_bvh": (instanced_module, "_pack_object"),
+              "instanced_build": (instanced_module, "build_instanced"),
+              "world_bvh": (triangle_module, "build_triangle_scene"),
+              "patch_table": (scene_builder_module, "make_bilinear_data")}
+    inst_events, patch_events = [], []
+    real_inst = card_events(scene_module, "instanced_intersect", inst_events)
+    real_patch = card_events(scene_module, "bilinear_intersect", patch_events)
+    instanced_module._traverse_inst.steps = []
+    try:
+        seen, seconds, rc = render_through_cli(scene_file, pfm, timers)
+        steps = list(instanced_module._traverse_inst.steps)
+    finally:
+        scene_module.instanced_intersect = real_inst
+        scene_module.bilinear_intersect = real_patch
+        instanced_module._traverse_inst.steps = None
+    launches = read_counts("phase 14 instanced scene", "v1")
+    check(rc == 0, f"phase 14: the CLI returned {rc}")
+    img = seen["image"]
+    check(np.array_equal(Image.read(pfm).data, img), "phase 14: the PFM differs from the image")
+    check(np.isfinite(img).all() and img.mean() > 0, "phase 14: bad instanced-scene image")
+    scene, stats = seen["scene"], seen["stats"]
+    iters = int(stats["iters"])
+    check(launches == iters,
+          f"phase 14: {launches} v1 launches in {iters} iterations, not one an iteration")
+    inst = scene.instanced
+    n_obj_tris = int(inst.attr_rows.shape[0])
+    check(scene.has_patches and scene.has_instanced and scene.has_triangles
+          and int(inst.inst_fwd.shape[0]) == N_INSTANCES and n_obj_tris == faces.shape[0]
+          and int(scene.patches.p00.shape[0]) == WALL_GRID ** 2 + 2
+          and int(scene.spheres.radius.shape[0]) == N_INSTANCES
+          and int(scene.triangles.orig_indices.shape[0]) == faces.shape[0] + 2
+          and int((scene.lights.shape_kind == 2).sum()) == 1,
+          "phase 14: the scene lacks its instances, patches or lights")
+    check(len(steps) == iters and len(inst_events) == iters and len(patch_events) == iters,
+          f"phase 14: {len(steps)} instanced traces and {len(patch_events)} patch traces "
+          f"in {iters} iterations")
+    torch.cuda.synchronize()
+    inst_ms = np.array([a.elapsed_time(b) for a, b in inst_events])
+    patch_ms = np.array([a.elapsed_time(b) for a, b in patch_events])
+    timers_s = seen["timers"]
+    load = {
+        "ply_read": timers_s["ply_read"],
+        "object_bvh": timers_s["object_bvh"],
+        "top_build": timers_s["instanced_build"] - timers_s["object_bvh"],
+        "world_bvh": timers_s["world_bvh"],
+        "patch_table": timers_s["patch_table"],
+    }
+    load["the_rest"] = (seconds - seen["seconds"] - timers_s["ply_read"]
+                        - timers_s["instanced_build"] - timers_s["world_bvh"]
+                        - timers_s["patch_table"])
+    # The object's block of the combined table: the rows from its root (an
+    # instance-entry row's col 48) on.  Flattened, each instance would carry
+    # a copy of that block and of the object's attribute rows.
+    rows = inst.rows8.cpu()
+    obj_rows = rows.shape[0] - int(rows[rows[:, 80] == 9][0, 48])
+    instanced_bytes = sum(int(t.numel()) * t.element_size()
+                          for t in (inst.rows8, inst.attr_rows, inst.inst_inv, inst.inst_fwd))
+    flat_bytes = N_INSTANCES * (obj_rows * 128 * 4 + int(inst.attr_rows.numel()) * 4)
+    res = {
+        "world_triangles": int(scene.triangles.orig_indices.shape[0]),
+        "instances": N_INSTANCES,
+        "instanced_triangles": N_INSTANCES * n_obj_tris,
+        "instanced_rows": int(inst.rows8.shape[0]),
+        "object_rows": obj_rows,
+        "stack_depth": inst.stack_depth,
+        "patches": int(scene.patches.p00.shape[0]),
+        "spheres": int(scene.spheres.radius.shape[0]),
+        "lights": scene.n_lights,
+        "spp": INSTANCED_SPP,
+        "load_seconds": load,
+        "render_seconds": seen["seconds"],
+        "cli_seconds": seconds,
+        "rays": stats["rays"],
+        "mrays_per_s": stats["rays"] / seen["seconds"] / 1e6,
+        "iters": stats["iters"],
+        "ms_per_iter": 1e3 * seen["seconds"] / max(iters, 1),
+        "kernel_launches": launches,
+        "instanced_steps_per_trace": {"min": int(min(steps)), "median": float(np.median(steps)),
+                                      "max": int(max(steps))},
+        "instanced_ms_per_trace": {"min": float(inst_ms.min()),
+                                   "median": float(np.median(inst_ms)),
+                                   "max": float(inst_ms.max()), "sum": float(inst_ms.sum())},
+        "instanced_ms_per_step": float(inst_ms.sum() / max(sum(steps), 1)),
+        "patch_ms_per_trace": {"min": float(patch_ms.min()), "median": float(np.median(patch_ms)),
+                               "max": float(patch_ms.max()), "sum": float(patch_ms.sum())},
+        "peak_device_bytes": seen["peak_device_bytes"],
+        "instanced_table_bytes": instanced_bytes,
+        "flattened_rows_and_attrs_bytes": flat_bytes,
+        "image_mean": float(img.mean()),
+        "card": nvidia_smi_line(),
+    }
+    log(f"phase 14 instanced scene {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp "
+        f"{INSTANCED_SPP} (cli.main): {json.dumps(res)}")
+    out["instanced"] = res
+
+    # (b) the same file small, and (c) the reference's parser scenes: the
+    # card against the CPU.
+    small = INSTANCED_DIR / "instanced_small.pbrt"
+    small.write_text(instanced_scene_text(SMALL_RES, SMALL_SPP))
+    cases = {"instanced_small": small}
+    for name, text in PARSER_SCENES.items():
+        cases[name] = INSTANCED_DIR / f"{name}.pbrt"
+        cases[name].write_text(text)
+    for name, path in cases.items():
+        builder = SceneBuilder(search_dir=INSTANCED_DIR)
+        parse_file(str(path), builder)
+        job = builder.create(device="cpu", traverse=CONFIGS["v1"])
+        images, secs, card = {}, {}, {}
+        for dev_name, sc in (("gpu", job.scene.to(dev)), ("cpu", job.scene)):
+            reset_counts()
+            t0 = time.perf_counter()
+            img, _, st = render(sc, job.camera, job.film, job.sampler, spp=job.spp,
+                                max_depth=job.max_depth, wave_spp=SMALL_SPP, pixel_block=BLOCK,
+                                collect_stats=True)
+            images[dev_name] = img.cpu().numpy()
+            secs[dev_name] = time.perf_counter() - t0
+            if dev_name == "gpu":
+                card = {"iters": st["iters"], "rays": st["rays"]}
+                if sc.has_triangles:
+                    n = read_counts(f"phase 14 {name}", "v1")
+                    check(n == int(st["iters"]),
+                          f"phase 14 {name}: {n} v1 launches in {st['iters']} iterations")
+                    card["kernel_launches"] = n
+            check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
+                  f"phase 14: bad {dev_name} {name} image")
+        agree = check_agreement(f"phase 14 {name} render", images["gpu"], images["cpu"])
+        log(f"phase 14 {name} render {job.film.resolution[0]}x{job.film.resolution[1]} spp "
+            f"{job.spp}: seconds {json.dumps(secs)} card {json.dumps(card)} {json.dumps(agree)}")
+        out[name] = agree
+    return out
+
+
 def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
                 packets: dict) -> list[dict]:
     rows = []
@@ -1667,6 +1999,9 @@ def main():
     torch.cuda.empty_cache()
     # 13. delta lights and media through the loader
     phase13(dev)
+    torch.cuda.empty_cache()
+    # 14. bilinear patches and instancing through the loader
+    phase14(dev)
 
     print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets)}),
           flush=True)

@@ -5,10 +5,11 @@
 ``materials.reflectance``, ``lights.spectrum``, ``spectra_table``, ...)
 plus its static census keyed the same way (``triangles.stack_depth``,
 ``material_kinds``, ...), so both packages can render from identical
-tables.  Only the ported slice converts (spheres, triangles, materials,
-textures, every light kind, homogeneous media); anything else raises
-NotImplementedError, and texture ids, an image light or media without
-their tables raise ValueError.
+tables.  Only the ported slice converts (spheres, triangles, bilinear
+patches, instanced triangles, materials, textures, every light kind,
+homogeneous media); anything else raises NotImplementedError, and texture
+ids, an image light, media, patches or instances without their tables
+raise ValueError.
 """
 
 from __future__ import annotations
@@ -25,18 +26,16 @@ from shimmer_tpu_torch.media import MediumData
 from shimmer_tpu_torch.ops.sampling import PiecewiseConstant2D
 from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.scene import Scene
+from shimmer_tpu_torch.shapes.bilinear import BilinearPatchData
+from shimmer_tpu_torch.shapes.instanced import InstancedTriangles
 from shimmer_tpu_torch.shapes.sphere import SphereData
 from shimmer_tpu_torch.shapes.triangle import TriangleSceneData
 from shimmer_tpu_torch.textures import textures as tx
 
 # Census entries the slice cannot render, with the value it requires.
-_UNPORTED_CENSUS = {
-    "has_patches": False,
-    "has_instanced": False,
-    "triangles.differentiable_hits": False,
-}
-# Array groups whose presence means an unported feature.
-_UNPORTED_GROUPS = ("patches", "instanced")
+_UNPORTED_CENSUS = {"triangles.differentiable_hits": False}
+_PATCH_F32 = ("p00", "p10", "p01", "p11", "uv", "area")
+_INSTANCED_F32 = ("rows8", "attr_rows", "inst_inv", "inst_fwd", "world_min", "world_max")
 _SPHERE_F32 = ("radius", "z_min", "z_max", "theta_z_min", "theta_z_max", "phi_max",
                "object_to_render", "render_to_object")
 # MaterialTable columns by type (every column of the reference's table).
@@ -95,9 +94,6 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         got = census.get(key, want)
         if (tuple(got) if isinstance(want, tuple) else got) != want:
             raise NotImplementedError(f"scene census {key}={got!r} is not ported yet")
-    for key in arrays:
-        if key.split(".")[0] in _UNPORTED_GROUPS:
-            raise NotImplementedError(f"scene field {key} is not ported yet")
     mtl.check_kinds(tuple(census["material_kinds"]))
     lt.check_kinds(tuple(census["light_kinds"]))
     has_textures = "textures.kind" in arrays
@@ -112,6 +108,12 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
                    or bool(census.get("has_interface_media", False)))
     if wants_media and not has_media:
         raise ValueError("the scene census names media but the scene has no media table")
+    has_patches = bool(census.get("has_patches", False))
+    has_instanced = bool(census.get("has_instanced", False))
+    if has_patches and "patches.p00" not in arrays:
+        raise ValueError("the scene census names patches but the scene has no patch table")
+    if has_instanced and "instanced.rows8" not in arrays:
+        raise ValueError("the scene census names instances but the scene has no instance table")
 
     device = resolve_device(device)
 
@@ -147,6 +149,19 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         material_id=i32(a("spheres.material_id"), device),
         area_light_id=i32(a("spheres.area_light_id"), device),
     )
+    patches = None if not has_patches else BilinearPatchData(
+        **{c: f32(a(f"patches.{c}"), device) for c in _PATCH_F32},
+        material_id=i32(a("patches.material_id"), device),
+        area_light_id=i32(a("patches.area_light_id"), device),
+        reverse=torch.from_numpy(a("patches.reverse").astype(bool)).to(device),
+        has_uv=bool(census["patches.has_uv"]),
+    )
+    instanced = None if not has_instanced else InstancedTriangles(
+        **{c: f32(a(f"instanced.{c}"), device) for c in _INSTANCED_F32},
+        stack_depth=int(census["instanced.stack_depth"]),
+        has_normals=bool(census["instanced.has_normals"]),
+        has_uv=bool(census["instanced.has_uv"]),
+    )
     materials = MaterialTable(
         **{c: f32(a(f"materials.{c}"), device) for c in _MATERIAL_F32},
         **{c: i32(a(f"materials.{c}"), device) for c in _MATERIAL_I32},
@@ -167,6 +182,8 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
     return Scene(
         triangles=tris,
         spheres=spheres,
+        patches=patches,
+        instanced=instanced,
         env=_env_light(arrays, census, device) if has_env else None,
         textures=_texture_table(arrays, census, device) if has_textures else None,
         media=MediumData(**{c: f32(a(f"media.{c}"), device) for c in ("sigma_a", "sigma_s", "g")})
@@ -175,6 +192,8 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         has_interface_media=bool(census.get("has_interface_media", False)),
         has_spheres=has_spheres,
         has_triangles=has_triangles,
+        has_patches=has_patches,
+        has_instanced=has_instanced,
         has_normal_maps=bool(census.get("has_normal_maps", False)),
         has_bump_maps=bool(census.get("has_bump_maps", False)),
         materials=materials,

@@ -32,6 +32,7 @@ from shimmer_tpu_torch.materials.scattering import henyey_greenstein
 from shimmer_tpu_torch.media import medium_sigma
 from shimmer_tpu_torch.ops.vecmath import abs_dot, dot, length, normalize
 from shimmer_tpu_torch.scene import Scene, light_pmf, sample_light, scene_intersect
+from shimmer_tpu_torch.shapes.bilinear import bilinear_light_pdf, bilinear_light_sample
 from shimmer_tpu_torch.shapes.triangle import triangle_light_pdf, triangle_light_sample
 from shimmer_tpu_torch.spectra.sampled import N_SPECTRUM_SAMPLES, ss_is_black
 from shimmer_tpu_torch.spectra.spectrum import dense_sample
@@ -57,6 +58,22 @@ def _tri_pdf(scene):
     )
 
 
+def _patch_sampler(scene):
+    if not scene.has_patches:
+        return None
+    return lambda sidx, ref_p, ref_ns, u: bilinear_light_sample(
+        scene.patches, sidx, ref_p, ref_ns, u
+    )
+
+
+def _patch_pdf(scene):
+    if not scene.has_patches:
+        return None
+    return lambda sidx, ref_p, ref_ns, wi, si_p, si_n: bilinear_light_pdf(
+        scene.patches, sidx, ref_p, ref_ns, wi, si_p, si_n
+    )
+
+
 def _area_le_with_mis(scene, si, swl, beta, p_b, specular, prev_p, prev_ns, l, alive):
     """Emission from an emissive hit, MIS-weighted against NEE."""
     has_light = alive & si.valid & (si.area_light_id >= 0)
@@ -65,6 +82,7 @@ def _area_le_with_mis(scene, si, swl, beta, p_b, specular, prev_p, prev_ns, l, a
     pdf_l = light_pmf(scene, lid) * lt.pdf_li(
         scene.lights, lid, prev_p, prev_ns, normalize(si.p - prev_p), si.p, si.n,
         scene.spheres, scene.light_kinds, tri_pdf=_tri_pdf(scene), env=scene.env,
+        patch_pdf=_patch_pdf(scene),
     )
     w = torch.where(specular, 1.0, power_heuristic(1.0, p_b, 1.0, pdf_l))
     return l + torch.where(has_light[..., None], beta * w[..., None] * le, 0.0)
@@ -100,7 +118,7 @@ def sample_ld_prepare(scene: Scene, si, frame, swl, sampler, s_state, bsdf_ctx):
     light_idx, pmf, _ = sample_light(scene, uc)
     ls = lt.sample_li(
         scene.lights, light_idx, si.p, si.ns, u2, swl, scene.spheres, scene.light_kinds,
-        tri_sampler=_tri_sampler(scene), env=scene.env,
+        tri_sampler=_tri_sampler(scene), env=scene.env, patch_sampler=_patch_sampler(scene),
     )
     f = bsdf_f(
         scene.materials, scene.material_kinds, si.material_id, frame, si.ns,
@@ -140,6 +158,7 @@ def sample_ld_medium_prepare(scene: Scene, p_m, wo, g, swl, sampler, s_state):
     ls = lt.sample_li(
         scene.lights, light_idx, p_m, torch.zeros_like(p_m), u2, swl, scene.spheres,
         scene.light_kinds, tri_sampler=_tri_sampler(scene), env=scene.env,
+        patch_sampler=_patch_sampler(scene),
     )
     ph = henyey_greenstein(dot(wo, ls.wi), g)
     usable = ls.valid & (ls.pdf > 0.0) & (ph > 0.0)

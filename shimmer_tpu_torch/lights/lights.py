@@ -1,7 +1,7 @@
 """Light sources as a flat SoA table (port of ``shimmer_tpu/lights/lights.py``:
-point, spot and distant lights, area lights on spheres and triangles, the
-uniform infinite light and the image infinite light, whose tables live in
-``lights/env.py``).
+point, spot and distant lights, area lights on spheres, triangles and
+bilinear patches, the uniform infinite light and the image infinite light,
+whose tables live in ``lights/env.py``).
 
 The light kinds of a scene are host metadata; a kind outside the table
 raises NotImplementedError.
@@ -31,6 +31,7 @@ PORTED_KINDS = (POINT, DISTANT, SPOT, AREA, UNIFORM_INFINITE, IMAGE_INFINITE)
 # Area-light shape kinds (the reference's shape_kind column).
 SPHERE_SHAPE = 0
 TRIANGLE_SHAPE = 1
+PATCH_SHAPE = 2
 
 
 def is_delta_light(kind):
@@ -46,8 +47,8 @@ class LightData:
     direction: torch.Tensor     # (L, 3) spot / distant direction (render space)
     cos_falloff_start: torch.Tensor  # (L,) spot: cosine where the falloff starts
     cos_falloff_end: torch.Tensor    # (L,) spot: cosine of the cone's edge
-    shape_idx: torch.Tensor     # (L,) int32 area light: sphere / triangle index
-    shape_kind: torch.Tensor    # (L,) int32 (0 = sphere, 1 = triangle)
+    shape_idx: torch.Tensor     # (L,) int32 area light: sphere / triangle / patch index
+    shape_kind: torch.Tensor    # (L,) int32 (0 = sphere, 1 = triangle, 2 = patch)
     two_sided: torch.Tensor     # (L,) bool
     scene_radius: torch.Tensor  # ()
 
@@ -76,7 +77,8 @@ def _spectrum_of(lights, light_idx, swl):
 
 
 def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl, spheres,
-              kinds_present: tuple, tri_sampler=None, env=None) -> LightLiSample:
+              kinds_present: tuple, tri_sampler=None, env=None,
+              patch_sampler=None) -> LightLiSample:
     """Sample an incident direction from light ``light_idx`` per lane;
     ``spheres`` is the scene's SphereData or None, ``env`` its
     EnvLightData or None."""
@@ -150,6 +152,8 @@ def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl, spheres,
                        out)
         if tri_sampler is not None:
             out = area(TRIANGLE_SHAPE, *tri_sampler(sidx, ref_p, ref_ns, u), out)
+        if patch_sampler is not None:
+            out = area(PATCH_SHAPE, *patch_sampler(sidx, ref_p, ref_ns, u), out)
 
     if UNIFORM_INFINITE in kinds_present:
         m = kind == UNIFORM_INFINITE
@@ -165,7 +169,7 @@ def sample_li(lights: LightData, light_idx, ref_p, ref_ns, u, swl, spheres,
 
 
 def pdf_li(lights: LightData, light_idx, ref_p, ref_ns, wi, si_p, si_n, spheres,
-           kinds_present: tuple, tri_pdf=None, env=None):
+           kinds_present: tuple, tri_pdf=None, env=None, patch_pdf=None):
     """Solid-angle pdf that sample_li would have produced direction wi;
     for area lights, si_p / si_n is the point reached on the light.  A
     delta light's pdf is 0 (no direction reaches it by chance)."""
@@ -180,6 +184,9 @@ def pdf_li(lights: LightData, light_idx, ref_p, ref_ns, wi, si_p, si_n, spheres,
     if AREA in kinds_present and tri_pdf is not None:
         p = tri_pdf(sidx, ref_p, ref_ns, wi, si_p, si_n)
         pdf = torch.where((kind == AREA) & (shape_kind == TRIANGLE_SHAPE), p, pdf)
+    if AREA in kinds_present and patch_pdf is not None:
+        p = patch_pdf(sidx, ref_p, ref_ns, wi, si_p, si_n)
+        pdf = torch.where((kind == AREA) & (shape_kind == PATCH_SHAPE), p, pdf)
     if UNIFORM_INFINITE in kinds_present:
         pdf = torch.where(kind == UNIFORM_INFINITE, UNIFORM_SPHERE_PDF, pdf)
     if IMAGE_INFINITE in kinds_present and env is not None:

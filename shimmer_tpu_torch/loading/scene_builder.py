@@ -5,21 +5,25 @@ The graphics state (CTM, reverse orientation, material, area light,
 scoped ``Attribute`` parameters), named coordinate systems and the
 attribute stack follow the reference; ``create()`` runs its creation
 passes in its order (film and filter, camera, materials, shapes with
-their area lights, the other lights, the triangle BVH, the scene) and
-returns a ``RenderJob``.  Transforms are kept in float64 while parsing;
-each matrix and its float64 inverse are rounded once to float32, and
-every array reaches the device through ``config.f32`` / ``config.i32``.
+their area lights, the other lights, the triangle BVH, the instanced
+objects' two-level BVH, the scene) and returns a ``RenderJob``.
+Transforms are kept in float64 while parsing; each matrix and its float64
+inverse are rounded once to float32, and every array reaches the device
+through ``config.f32`` / ``config.i32``.
 
-The port's slice of pbrt-v4: ``trianglemesh``, ``plymesh`` and
-``sphere`` shapes; materials ``diffuse``, ``conductor``, ``dielectric``,
+The port's slice of pbrt-v4: ``trianglemesh``, ``plymesh``, ``sphere``
+and ``bilinearmesh`` shapes; ``ObjectBegin`` / ``ObjectEnd`` /
+``ObjectInstance`` (an object's triangle meshes shared through the
+two-level BVH, its other shapes copied per instance; an area light inside
+an object raises); materials ``diffuse``, ``conductor``, ``dielectric``,
 ``thindielectric``, ``coateddiffuse``, ``coatedconductor`` and ``mix``
 (named through ``MakeNamedMaterial`` / ``NamedMaterial`` or not), with
 ``"texture ..."`` parameters where the reference reads them (reflectance,
 roughness, a mix's amount, displacement), and the material-less
 ``interface`` (``""``, ``"none"``); the ``Texture`` classes ``constant``,
 ``imagemap``, ``scale``, ``mix`` and ``directionmix``; ``diffuse`` area
-lights on triangles and spheres; ``point``, ``spot`` and ``distant``
-lights; the ``infinite`` light with a constant ``L`` or an image
+lights on triangles, spheres and bilinear patches; ``point``, ``spot``
+and ``distant`` lights; the ``infinite`` light with a constant ``L`` or an image
 ``filename``; ``homogeneous`` media through ``MakeNamedMedium`` and
 ``MediumInterface`` (the camera sits in the outside medium current at
 ``Camera``; triangle meshes carry the interface); the ``perspective`` camera
@@ -176,6 +180,9 @@ class SceneBuilder:
         self.named_media: dict[str, dict] = {}
         self.medium_pds: list[tuple] = []  # (what, ParameterDictionary) to check at create
         self.camera_medium_name: str | None = None
+        self.objects: dict[str, list[dict]] = {}  # ObjectBegin name -> shape records
+        self.instances: list[tuple[str, np.ndarray]] = []  # (object name, CTM)
+        self.current_object: str | None = None
 
     # --- transforms ---
 
@@ -291,13 +298,27 @@ class SceneBuilder:
         self.gs.attributes = attrs
 
     def object_begin(self, name, loc):
-        raise _unported(f"{loc}: ObjectBegin", "object instancing")
+        self.attribute_begin(loc)
+        self.current_object = name
+        self.objects[name] = []
 
     def object_end(self, loc):
-        raise _unported(f"{loc}: ObjectEnd", "object instancing")
+        self.current_object = None
+        self.attribute_end(loc)
 
     def object_instance(self, name, loc):
-        raise _unported(f"{loc}: ObjectInstance", "object instancing")
+        """An instance of an object: its triangle meshes stay shared (the
+        two-level BVH of ``shapes/instanced.py``); its other shapes are
+        copied into the world with the instance's CTM, one copy each."""
+        if name not in self.objects:
+            raise ValueError(f"{loc}: unknown object {name!r}")
+        self.instances.append((name, self.gs.ctm.copy()))
+        flat = [rec for rec in self.objects[name] if rec["kind"] not in ("trianglemesh", "plymesh")]
+        if flat and sum(1 for nm, _ in self.instances if nm == name) == 8:
+            warnings.warn(f"{loc}: object {name!r} holds {len(flat)} non-triangle shape(s); "
+                          "each ObjectInstance flattens its own copy (8 instances so far)")
+        for rec in flat:
+            self.shapes.append(dict(rec, ctm=self.gs.ctm @ rec["ctm_relative"]))
 
     def reverse_orientation(self, loc):
         self.gs.reverse_orientation = not self.gs.reverse_orientation
@@ -447,10 +468,17 @@ class SceneBuilder:
     # --- shapes ---
 
     def shape(self, name, params, loc):
-        self.shapes.append({
+        in_object = self.current_object is not None
+        if in_object and self.gs.area_light is not None:
+            raise _unported(f"{loc}: an area light inside object {self.current_object!r}",
+                            "the reference's two-level BVH has none")
+        (self.objects[self.current_object] if in_object else self.shapes).append({
             "kind": name,
             "pd": self._merged_pd("shape", params),
             "ctm": self.gs.ctm.copy(),
+            # Inside an object: the CTM relative to the innermost pushed one.
+            "ctm_relative": (np.linalg.inv(self.state_stack[-1].ctm) @ self.gs.ctm
+                             if in_object else self.gs.ctm.copy()),
             "material": self.gs.material,
             "area_light": self.gs.area_light,
             "reverse_orientation": self.gs.reverse_orientation,
@@ -554,7 +582,7 @@ class SceneBuilder:
         def media_id(name):
             return media_order.index(name) if name in media_order else -1
 
-        sphere_dicts, mesh_dicts, light_dicts = [], [], []
+        sphere_dicts, mesh_dicts, patch_dicts, light_dicts = [], [], [], []
         tri_count = 0
         for rec in self.shapes:
             pd, kind, loc = rec["pd"], rec["kind"], rec["loc"]
@@ -610,6 +638,37 @@ class SceneBuilder:
                     md["medium_outside"] = media_id(rec["medium_outside"])
                 mesh_dicts.append(md)
                 tri_count += n_tris
+            elif kind == "bilinearmesh":
+                # One patch per four indices, in pbrt-v4's corner order
+                # p00 p10 p01 p11, and one area light per patch.  Without
+                # indices the vertices are taken in order (the reference
+                # means to, but its test for a missing array never fires:
+                # its getter returns an empty one, so it loads no patch).
+                p = pd.get_point3_array("P")
+                q = pd.get_int_array("indices")
+                if q.size == 0:
+                    q = np.arange(len(p), dtype=np.int32)
+                q = q.reshape(-1, 4)
+                uvp = pd.get_point2_array("uv")
+                if uvp is None:
+                    uvp = pd.get_point2_array("st")
+                for pi in range(q.shape[0]):
+                    area_light_id = -1
+                    if rec["area_light"] is not None:
+                        area_light_id = len(light_dicts)
+                        light_dicts.append(self._area_light_dict(rec["area_light"],
+                                                                 lt.PATCH_SHAPE, len(patch_dicts)))
+                    patch_dicts.append({
+                        "p00": p[q[pi, 0]],
+                        "p10": p[q[pi, 1]],
+                        "p01": p[q[pi, 2]],
+                        "p11": p[q[pi, 3]],
+                        "uv": uvp[q[pi]] if uvp is not None else None,
+                        "object_to_world": Transform.from_matrix(rec["ctm"]),
+                        "reverse": rec["reverse_orientation"],
+                        "material_id": mat_idx,
+                        "area_light_id": area_light_id,
+                    })
             else:
                 raise _unported(f"{loc}: Shape {kind!r}")
 
@@ -664,6 +723,7 @@ class SceneBuilder:
         if light_sampler not in ("uniform", "power"):
             raise _unported(f"Integrator parameter lightsampler {light_sampler!r}")
 
+        instanced = self._build_instanced(r2w_np, used, device)
         for what, pd in used + self.texture_pds + self.medium_pds:
             unused = pd.report_unused()
             if unused:
@@ -685,10 +745,52 @@ class SceneBuilder:
             env_spec=env_spec,
             media=[self.named_media[k] for k in media_order] or None,
             camera_medium=media_id(self.camera_medium_name),
+            patches=patch_dicts or None,
+            instanced=instanced,
         )
         return RenderJob(scene=scene, camera=camera, film=film, sampler=sampler,
                          integrator="path", max_depth=max_depth, spp=spp, filename=filename,
                          light_sampler=light_sampler)
+
+    def _build_instanced(self, r2w_np, used, device):
+        """The two-level BVH over the instanced objects' triangle meshes:
+        objects in the order of their first instance, meshes in object
+        space (material "none" or the default reads as material 0 and no
+        MediumInterface applies, as in the reference), instances at
+        render-from-world times their CTM.  An object without a triangle
+        mesh has no entry (its other shapes are copied per instance)."""
+        from shimmer_tpu_torch.shapes.instanced import build_instanced
+        from shimmer_tpu_torch.shapes.mesh import TriangleMesh, read_ply
+
+        obj_id, obj_meshes = {}, []
+        for name, _ in self.instances:
+            if name in obj_id:
+                continue
+            meshes = []
+            for rec in self.objects[name]:
+                if rec["kind"] not in ("trianglemesh", "plymesh"):
+                    continue
+                pd = rec["pd"]
+                used.append((f"{rec['loc']}: Shape {rec['kind']!r} in object {name!r}", pd))
+                if rec["kind"] == "plymesh":
+                    data = read_ply(self._path(pd.get_one_string("filename", "")))
+                    p, idx, nrm, uv = data["p"], data["indices"], data["n"], data["uv"]
+                else:
+                    p = pd.get_point3_array("P")
+                    idx = pd.get_int_array("indices").reshape(-1, 3)
+                    nrm = pd.get_point3_array("N")
+                    uv = pd.get_point2_array("uv")
+                    if uv is None:
+                        uv = pd.get_point2_array("st")
+                mat = rec["material"]
+                mesh = TriangleMesh(Transform.from_matrix(rec["ctm_relative"]), idx, p, n=nrm,
+                                    uv=uv, reverse_orientation=rec["reverse_orientation"])
+                meshes.append(mesh.as_scene_dict(mat if isinstance(mat, int) and mat >= 0 else 0))
+            obj_id[name] = len(obj_meshes) if meshes else -1
+            if meshes:
+                obj_meshes.append(meshes)
+        pairs = [(obj_id[name], r2w_np @ ctm) for name, ctm in self.instances if obj_id[name] >= 0]
+        return build_instanced(obj_meshes, pairs, device=device) if pairs else None
 
     def _delta_light_dict(self, kindn, pd, l2w):
         """A point, spot or distant light: ``from`` / ``to`` through the

@@ -1,8 +1,8 @@
 """Monte Carlo warps and piecewise-constant distributions (port of
-``shimmer_tpu/ops/sampling.py``: the warps the forward render path and its
-materials use, and the 1-D / 2-D tables the image environment light
-samples).  Expressions keep the reference's operand order so that float32
-rounding matches it.
+``shimmer_tpu/ops/sampling.py``: the warps the forward render path, its
+materials and the bilinear patches use, and the 1-D / 2-D tables the image
+environment light samples).  Expressions keep the reference's operand
+order so that float32 rounding matches it.
 
 The distributions' CDFs are built on the host with :func:`xla_cumsum`,
 which adds in the order the reference's cumsum adds on the CPU, so the
@@ -149,6 +149,51 @@ def sample_uniform_triangle(u):
     b0 = torch.where(flip, u0 / 2.0, u0 - u1 / 2.0)
     b1 = torch.where(flip, u1 - b0, u1 / 2.0)
     return torch.stack([b0, b1, 1.0 - b0 - b1], dim=-1)
+
+
+def sample_linear(u, a, b):
+    """x in [0, 1) with density proportional to lerp(x, a, b)."""
+    zero = (a == 0.0) & (b == 0.0)
+    denom = a + sqrt(lerp(u, sqr(a), sqr(b)))
+    x = u * (a + b) / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    x = torch.where(zero, u, x)
+    return torch.minimum(x, torch.tensor(1.0 - 1e-7, dtype=x.dtype, device=x.device))
+
+
+def linear_pdf(x, a, b):
+    inside = (x >= 0.0) & (x <= 1.0)
+    return torch.where(inside, 2.0 * lerp(x, a, b) / (a + b), 0.0)
+
+
+def invert_linear_sample(x, a, b):
+    return x * (a * (2.0 - x) + b * x) / (a + b)
+
+
+def sample_bilinear(u, w):
+    """(u, v) with density proportional to the bilinear interpolation of
+    the corner weights ``w`` (..., 4), laid out [w00, w10, w01, w11]."""
+    w00, w10, w01, w11 = w[..., 0], w[..., 1], w[..., 2], w[..., 3]
+    v = sample_linear(u[..., 1], w00 + w10, w01 + w11)
+    uo = sample_linear(u[..., 0], lerp(v, w00, w01), lerp(v, w10, w11))
+    return vec2(uo, v)
+
+
+def bilinear_pdf(p, w):
+    w00, w10, w01, w11 = w[..., 0], w[..., 1], w[..., 2], w[..., 3]
+    total = w00 + w10 + w01 + w11
+    u, v = p[..., 0], p[..., 1]
+    inside = (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
+    f = (1 - u) * (1 - v) * w00 + u * (1 - v) * w10 + (1 - u) * v * w01 + u * v * w11
+    flat = total <= 0.0
+    pdf = torch.where(flat, 1.0, 4.0 * f / torch.where(flat, torch.ones_like(total), total))
+    return torch.where(inside, pdf, 0.0)
+
+
+def invert_bilinear_sample(p, w):
+    w00, w10, w01, w11 = w[..., 0], w[..., 1], w[..., 2], w[..., 3]
+    v = invert_linear_sample(p[..., 1], w00 + w10, w01 + w11)
+    u = invert_linear_sample(p[..., 0], lerp(v, w00, w01), lerp(v, w10, w11))
+    return vec2(u, v)
 
 
 def sample_spherical_triangle(v0, v1, v2, p, u):

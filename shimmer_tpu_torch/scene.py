@@ -1,12 +1,13 @@
 """Device scene: flat tables plus the static census (port of
-``shimmer_tpu/scene.py``: analytic spheres and triangles, textures, the
-image environment light and homogeneous media).
+``shimmer_tpu/scene.py``: analytic spheres, triangles, bilinear patches
+and instanced triangles, textures, the image environment light and
+homogeneous media).
 
 The census (which material, light and shape kinds exist) is plain Python
 attributes that pick code paths, as the reference's static fields do
-under jit.  A scene of triangles alone takes the merged trace's fast
-path; a scene with spheres traces every lane through the union
-(``scene_intersect``) and slices the result.
+under jit.  A scene of world triangles alone takes the merged trace's fast
+path; a scene with spheres, patches or instances traces every lane through
+the union (``scene_intersect``) and slices the result.
 """
 
 from __future__ import annotations
@@ -18,6 +19,12 @@ import torch
 from shimmer_tpu_torch.lights.lights import LightData
 from shimmer_tpu_torch.materials.material import MaterialTable
 from shimmer_tpu_torch.ops.sampling import sample_discrete
+from shimmer_tpu_torch.shapes.bilinear import BilinearPatchData, bilinear_intersect, bilinear_occluded
+from shimmer_tpu_torch.shapes.instanced import (
+    InstancedTriangles,
+    instanced_intersect,
+    instanced_occluded,
+)
 from shimmer_tpu_torch.shapes.sphere import SphereData, sphere_intersect
 from shimmer_tpu_torch.shapes.triangle import (
     TriangleSceneData,
@@ -44,6 +51,8 @@ class Scene:
     env: object | None = None        # EnvLightData (lights/env.py)
     textures: object | None = None   # TextureTable (textures/textures.py)
     media: object | None = None      # MediumData (media.py)
+    patches: BilinearPatchData | None = None
+    instanced: InstancedTriangles | None = None
     # The medium the camera sits in (index into media; -1: vacuum).
     camera_medium: int = -1
     # Some triangle declares a MediumInterface: per-lane medium tracking,
@@ -52,6 +61,8 @@ class Scene:
     image_infinite_indices: tuple = ()
     has_spheres: bool = False
     has_triangles: bool = False
+    has_patches: bool = False
+    has_instanced: bool = False
     has_normal_maps: bool = False
     has_bump_maps: bool = False
 
@@ -76,10 +87,11 @@ def _tensors_to(obj, device):
 
 
 def scene_intersect(scene: Scene, ray_o, ray_d, t_max, want_any=False):
-    """Closest hit over every shape of the scene: spheres first, then
-    triangles, so a sphere wins a tie at equal t.  Lanes flagged in
-    ``want_any`` stop the triangle leg at their first accepted hit (only
-    ``valid`` means anything there)."""
+    """Closest hit over every shape of the scene, the legs in the
+    reference's order (spheres, triangles, patches, instances), so the
+    earlier leg keeps an exact tie at equal t.  Lanes flagged in
+    ``want_any`` stop the triangle and instanced legs at their first
+    accepted hit (only ``valid`` means anything there)."""
     si = None
     if scene.has_spheres:
         si = sphere_intersect(scene.spheres, ray_o, ray_d, t_max)
@@ -87,6 +99,12 @@ def scene_intersect(scene: Scene, ray_o, ray_d, t_max, want_any=False):
         si_t = triangle_scene_intersect(scene.triangles, ray_o, ray_d, t_max,
                                         want_any=want_any)
         si = si_t if si is None else _closer(si, si_t)
+    if scene.has_patches:
+        si_p = bilinear_intersect(scene.patches, ray_o, ray_d, t_max)
+        si = si_p if si is None else _closer(si, si_p)
+    if scene.has_instanced:
+        si_i = instanced_intersect(scene.instanced, ray_o, ray_d, t_max, want_any=want_any)
+        si = si_i if si is None else _closer(si, si_i)
     if si is None:
         raise ValueError("the scene has no geometry")
     return si
@@ -97,13 +115,14 @@ def scene_intersect_merged(scene: Scene, ray_o, ray_d, t_max, n_ext):
     (closest hit, full interaction), lanes [n_ext:] are shadow rays (any
     hit, occlusion only).  Returns (si_ext, occluded).
 
-    Triangles alone: one raw traversal over all lanes, interactions for
-    the extension slice only.  With spheres: the union over all lanes,
-    sliced; a shadow lane's triangle leg stops at its first hit, so only
-    its ``valid`` is read."""
+    World triangles alone: one raw traversal over all lanes, interactions
+    for the extension slice only.  With spheres, patches or instances: the
+    union over all lanes, sliced; a shadow lane's triangle and instanced
+    legs stop at its first hit, so only its ``valid`` is read."""
     n_all = ray_o.shape[0]
     want_any = torch.arange(n_all, device=ray_o.device) >= n_ext
-    if scene.has_triangles and not scene.has_spheres:
+    if scene.has_triangles and not (scene.has_spheres or scene.has_patches
+                                    or scene.has_instanced):
         _, tri = _traverse_raw(scene.triangles, ray_o, ray_d, t_max, any_hit=want_any)
         si = triangle_interaction_from_raw(
             scene.triangles, ray_o[:n_ext], ray_d[:n_ext], tri[:n_ext]
@@ -150,6 +169,10 @@ def scene_intersect_predicate(scene: Scene, ray_o, ray_d, t_max):
         hit = hit | sphere_intersect(scene.spheres, ray_o, ray_d, t_max).valid
     if scene.has_triangles:
         hit = hit | triangle_scene_occluded(scene.triangles, ray_o, ray_d, t_max)
+    if scene.has_patches:
+        hit = hit | bilinear_occluded(scene.patches, ray_o, ray_d, t_max)
+    if scene.has_instanced:
+        hit = hit | instanced_occluded(scene.instanced, ray_o, ray_d, t_max)
     return hit
 
 

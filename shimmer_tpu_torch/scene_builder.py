@@ -1,9 +1,9 @@
 """Host-side scene assembly (port of ``shimmer_tpu/scene_builder.py``:
-analytic spheres and triangles, materials of every ported kind with the
-dense spectra table their IORs index and the texture table their texture
-columns index, point, spot and distant lights, area lights on spheres and
-triangles, uniform infinite lights, the image environment light and
-homogeneous media)."""
+analytic spheres, triangles, bilinear patches and instanced triangles,
+materials of every ported kind with the dense spectra table their IORs
+index and the texture table their texture columns index, point, spot and
+distant lights, area lights on spheres, triangles and patches, uniform
+infinite lights, the image environment light and homogeneous media)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from shimmer_tpu_torch.materials.material import make_material_table
 from shimmer_tpu_torch.media import make_media_table
 from shimmer_tpu_torch.ops.transform import Transform
 from shimmer_tpu_torch.scene import Scene
+from shimmer_tpu_torch.shapes.bilinear import make_bilinear_data
 from shimmer_tpu_torch.shapes.sphere import make_sphere_data, sphere_area
 from shimmer_tpu_torch.spectra.rgb2spec import fit_rgb_coeffs
 from shimmer_tpu_torch.spectra.spectrum import Spectrum, spectrum_to_photometric
@@ -38,6 +39,8 @@ def build_scene(
     env_spec: dict | None = None,
     media: list[dict] | None = None,
     camera_medium: int = -1,
+    patches: list[dict] | None = None,
+    instanced=None,
 ) -> Scene:
     """Assemble a device Scene from a TriangleSceneData (or None), sphere
     dicts and material / light dicts, as the reference's ``build_scene``
@@ -57,10 +60,14 @@ def build_scene(
     ``direction`` (spot: ``cone_angle`` and ``cone_delta`` in degrees).
     ``media`` are the medium dicts of ``media.make_media_table`` and
     ``camera_medium`` the index of the medium the camera sits in (-1:
-    vacuum).  ``device`` defaults to the triangles' device, else the CUDA
-    card."""
+    vacuum).  ``patches`` are the patch dicts of
+    ``shapes.bilinear.make_bilinear_data`` (world space, composed with
+    ``render_from_world`` here) and ``instanced`` an InstancedTriangles.
+    ``device`` defaults to the triangles' device, else the instanced
+    table's, else the CUDA card."""
     if device is None:
-        device = triangles.rows8.device if triangles is not None else resolve_device(None)
+        built = triangles if triangles is not None else instanced
+        device = built.rows8.device if built is not None else resolve_device(None)
     cs = colorspace or get_named_color_space("srgb")
     r_from_w = render_from_world or Transform.identity()
     spheres = [dict(sp) for sp in (spheres or [])]
@@ -83,18 +90,24 @@ def build_scene(
     material_kinds = tuple(sorted({int(m.get("kind", 0)) for m in mat_dicts})) or (mtl.DIFFUSE,)
 
     sphere_data = make_sphere_data(spheres, device) if spheres else None
+    patch_data = (make_bilinear_data(patches, render_from_object=r_from_w, device=device)
+                  if patches else None)
 
     # Scene bounds radius for the infinite lights: the spheres' extent (or
-    # 100 without spheres), then at least the triangles' bounding sphere.
+    # 100 without spheres), then at least the bounding sphere of the
+    # triangles and of the instances (not of the patches, as in the
+    # reference).
     if spheres:
         centers = np.stack([np.asarray(s["object_to_render"].m)[0:3, 3] for s in spheres])
         radii = np.array([s.get("radius", 1.0) for s in spheres])
         scene_radius = float(np.max(np.linalg.norm(centers, axis=-1) + radii))
     else:
         scene_radius = 100.0
-    if triangles is not None:
-        lo = triangles.world_min.cpu().numpy()
-        hi = triangles.world_max.cpu().numpy()
+    for geom in (triangles, instanced):
+        if geom is None:
+            continue
+        lo = geom.world_min.cpu().numpy()
+        hi = geom.world_max.cpu().numpy()
         scene_radius = max(
             scene_radius,
             float(np.linalg.norm(hi - lo) * 0.5 + np.linalg.norm((hi + lo) * 0.5)),
@@ -122,11 +135,12 @@ def build_scene(
     power = np.ones(n_l, np.float32)
     tri_area = triangles.tri_area.cpu().numpy() if triangles is not None else None
     sph_area = sphere_area(sphere_data).cpu().numpy() if sphere_data is not None else None
+    patch_area = patch_data.area.cpu().numpy() if patch_data is not None else None
     for i, ld in enumerate(lights):
         if ld["kind"] not in lt.PORTED_KINDS:
             raise NotImplementedError(f"light kind {ld['kind']} is not ported yet")
-        if ld["kind"] == lt.AREA and ld.get("shape_kind", 0) not in (lt.SPHERE_SHAPE,
-                                                                       lt.TRIANGLE_SHAPE):
+        if ld["kind"] == lt.AREA and ld.get("shape_kind", 0) not in (
+                lt.SPHERE_SHAPE, lt.TRIANGLE_SHAPE, lt.PATCH_SHAPE):
             raise NotImplementedError(
                 f"area lights on shape kind {ld.get('shape_kind', 0)} are not ported yet")
         kind[i] = ld["kind"]
@@ -151,6 +165,8 @@ def build_scene(
         if ld["kind"] == lt.AREA:
             if shape_kind[i] == lt.SPHERE_SHAPE and sph_area is not None:
                 area = float(sph_area[ld["shape_idx"]])
+            elif shape_kind[i] == lt.PATCH_SHAPE and patch_area is not None:
+                area = float(patch_area[ld["shape_idx"]])
             elif tri_area is not None:
                 area = float(tri_area[ld["shape_idx"]])
             else:
@@ -186,6 +202,8 @@ def build_scene(
     return Scene(
         triangles=triangles,
         spheres=sphere_data,
+        patches=patch_data,
+        instanced=instanced,
         env=env,
         textures=textures,
         media=media_table,
@@ -194,6 +212,8 @@ def build_scene(
         and triangles.has_iface_media,
         has_spheres=sphere_data is not None,
         has_triangles=triangles is not None,
+        has_patches=patch_data is not None,
+        has_instanced=instanced is not None,
         has_normal_maps=any(m.get("normal_tex", -1) >= 0 for m in mat_dicts),
         has_bump_maps=any(m.get("displacement_tex", -1) >= 0 for m in mat_dicts),
         materials=mat_table,

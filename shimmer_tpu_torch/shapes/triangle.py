@@ -311,6 +311,13 @@ def intersect_triangle_mt(ray_o, ray_d, t_max, p0, e1, e2):
     return hit, torch.where(hit, t_scaled * inv_det, torch.inf)
 
 
+def _popcount8(v):
+    """Popcount of int32 values in [0, 255]."""
+    v = v - ((v >> 1) & 0x55)
+    v = (v & 0x33) + ((v >> 2) & 0x33)
+    return (v + (v >> 4)) & 0x0F
+
+
 def _traverse_raw(tris: TriangleSceneData, ray_o, ray_d, t_max, any_hit):
     """Closest-hit / per-lane any-hit traversal returning ``(t, tri)`` with
     t = +inf on a miss.  Dispatches by the rays' device inside
@@ -364,9 +371,12 @@ def triangle_interaction_from_raw(tris: TriangleSceneData, ray_o, ray_d, tri) ->
     )
 
 
-def build_triangle_interaction(has_normals, ray_d, t, tri, b0, b1, b2, p0, p1, p2, attr):
+def build_triangle_interaction(has_normals, ray_d, t, tri, b0, b1, b2, p0, p1, p2, attr,
+                               ns_transform=None):
     """Interaction construction from a winning triangle and its
-    pre-gathered (N, 32) attribute rows."""
+    pre-gathered (N, 32) attribute rows.  The two-level instanced path
+    passes world-space vertices and ``ns_transform``, which maps the
+    interpolated shading normal from object to world space."""
     valid = tri >= 0
     p_hit = b0[..., None] * p0 + b1[..., None] * p1 + b2[..., None] * p2
     dp02 = p0 - p2
@@ -401,6 +411,8 @@ def build_triangle_interaction(has_normals, ray_d, t, tri, b0, b1, b2, p0, p1, p
         ns1 = attr[..., _A_NS + 3 : _A_NS + 6]
         ns2 = attr[..., _A_NS + 6 : _A_NS + 9]
         ns = b0[..., None] * ns0 + b1[..., None] * ns1 + b2[..., None] * ns2
+        if ns_transform is not None:
+            ns = ns_transform(ns)
         has_ns = length_squared(ns) > 1e-12
         ns = torch.where(has_ns[..., None], normalize(ns), n_geom)
         ns = torch.where(rev[..., None], torch.where(has_ns[..., None], -ns, ns), ns)

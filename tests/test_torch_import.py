@@ -116,6 +116,33 @@ if "shimmer_tpu_torch.textures.normal_bump" in runs:
         job = b.create(device="cpu")
         img = render(job.scene, job.camera, job.film, job.sampler, spp=1, max_depth=3)[0]
         assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+if "shimmer_tpu_torch.shapes.instanced" in runs:
+    # The instancing slice runs, not only imports: a scene with instances
+    # of an object, a patch floor and a patch area light, loaded and
+    # rendered at a small size on the CPU.
+    import torch
+    from shimmer_tpu_torch.loading.parser import parse_str
+    from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
+    from shimmer_tpu_torch.render import render
+    text = (
+        'LookAt 0 1 -4  0 0 0  0 1 0\\nCamera "perspective"\\n'
+        'Film "rgb" "integer xresolution" [8] "integer yresolution" [8]\\n'
+        'Sampler "zsobol" "integer pixelsamples" [1]\\n'
+        'Integrator "path" "string lightsampler" "power"\\nWorldBegin\\n'
+        'ObjectBegin "o"\\nShape "trianglemesh" "integer indices" [0 1 2 0 2 3 0 3 1]\\n'
+        '  "point3 P" [0 1 0  -0.5 0 0  0.5 0 0  0 0 0.5]\\nObjectEnd\\n'
+        'ObjectInstance "o"\\nAttributeBegin\\nTranslate 1 0 0.5\\nScale 0.5 0.5 0.5\\n'
+        'ObjectInstance "o"\\nAttributeEnd\\n'
+        'Shape "bilinearmesh" "integer indices" [0 1 2 3] "point3 P" [-3 0 -3 3 0 -3 -3 0 3 3 0 3]\\n'
+        'AttributeBegin\\nAreaLightSource "diffuse" "rgb L" [5 5 5]\\n'
+        'Shape "bilinearmesh" "integer indices" [0 1 2 3] "point3 P" [-1 2 -1 1 2 -1 -1 2 1 1 2 1]\\n'
+        'AttributeEnd\\n')
+    b = SceneBuilder()
+    parse_str(text, b)
+    job = b.create(device="cpu")
+    assert job.scene.has_instanced and job.scene.has_patches
+    img = render(job.scene, job.camera, job.film, job.sampler, spp=1, max_depth=3)[0]
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
 blocked = ("jax", "jaxlib", "shimmer_tpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -144,10 +171,12 @@ print(len(names))
          "shimmer_tpu_torch.cli"],
         ["shimmer_tpu_torch.ops.sampling", "shimmer_tpu_torch.textures.textures",
          "shimmer_tpu_torch.textures.normal_bump", "shimmer_tpu_torch.lights.env"],
+        ["shimmer_tpu_torch.shapes.bilinear", "shimmer_tpu_torch.shapes.instanced",
+         "shimmer_tpu_torch.scene", "shimmer_tpu_torch.convert"],
     ],
     ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules",
          "packet_step_modules", "kernel_ab_modules", "material_modules",
-         "scene_file_modules", "texture_modules"],
+         "scene_file_modules", "texture_modules", "instancing_modules"],
 )
 def test_imports_without_jax(names):
     # One torch thread: the subprocess runs beside the other xdist workers.

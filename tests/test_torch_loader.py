@@ -6,9 +6,11 @@ read_ply) against the reference's, on the CPU.
   scenes use only ported features give the reference's result: since the
   texture slice, the texture and image environment light cases too (their
   image files written here, as PNG and as PFM), with texture and env
-  tables equal to the reference loader's.  Cases that use an unported
-  feature (instancing, bilinear meshes, the jitter options, another
-  sampler, the camera render space) raise NotImplementedError.  Where a
+  tables equal to the reference loader's, and since the instancing slice
+  the instancing and bilinear mesh cases (instance, patch and light
+  tables byte-equal).  Cases that use an unported feature (the jitter
+  options, another sampler, the camera render space) raise
+  NotImplementedError.  Where a
   case's only unported feature is incidental (its sampler, or the jitter
   option of its header), a variant without it gives the reference's
   result.
@@ -279,11 +281,6 @@ Shape "sphere"
 @pytest.mark.parametrize(
     "text",
     [
-        # test_parser.py:119 and :129, instancing.
-        'WorldBegin\nObjectBegin "tree"\nShape "sphere" "float radius" [0.5]\nObjectEnd\n'
-        'ObjectInstance "tree"\n',
-        # :267, bilinear meshes.
-        _BILINEAR_SCENE,
         # :403, the jitter option (every TestOptionAttribute header has it).
         OPTION_BASE % 'Shape "sphere" "float radius" [1]',
         # :459, the camera render space.
@@ -292,13 +289,47 @@ Shape "sphere"
         # TestCreate / the CLI case: the independent sampler.
         CORNELL,
     ],
-    ids=["instancing", "bilinearmesh", "jitter_option", "rendercoordsys", "independent_sampler"],
+    ids=["jitter_option", "rendercoordsys", "independent_sampler"],
 )
 def test_parse_cases_with_unported_features_raise(text):
     b = SceneBuilder()
     with pytest.raises(NotImplementedError):
         parse_str(text, b)
         b.create(device="cpu")
+
+
+# test_parser.py:119 (test_object_instancing) and :267 (the bilinear mesh
+# scene), which raised before the instancing slice: each now loads with the
+# reference's tables.
+_INSTANCING_SCENE = """
+WorldBegin
+ObjectBegin "tree"
+  Shape "sphere" "float radius" [0.5]
+  Shape "trianglemesh"
+    "integer indices" [0 1 2]
+    "point3 P" [0 0 0  1 0 0  0 1 0]
+ObjectEnd
+ObjectInstance "tree"
+Translate 3 0 0
+ObjectInstance "tree"
+"""
+
+
+@pytest.mark.parametrize("text", [_INSTANCING_SCENE, _BILINEAR_SCENE],
+                         ids=["instancing", "bilinearmesh"])
+def test_parse_cases_with_lifted_features_load(text):
+    ensure_reference_sah()
+    jb, b = both(text)
+    scene = b.create(device="cpu").scene
+    assert_scene_tables_equal(scene, jb.create().scene)
+    if "ObjectBegin" in text:
+        # The spheres are copied per instance; the triangle mesh is not.
+        assert len(b.shapes) == 2 and all(r["kind"] == "sphere" for r in b.shapes)
+        assert [float(ctm[0, 3]) for _, ctm in b.instances] == [0.0, 3.0]
+        assert scene.has_instanced and int(scene.instanced.inst_fwd.shape[0]) == 2
+        assert not scene.has_triangles
+    else:
+        assert scene.has_patches and int(scene.patches.p00.shape[0]) == 1
 
 
 @pytest.mark.parametrize("case", ["textures", "image_env"])
@@ -542,12 +573,18 @@ def assert_scene_tables_equal(scene, jscene):
     """Every table of the port's scene equals the reference's (textures and
     the env light's nested tables included)."""
     arrays, census = jax_scene_to_numpy(jscene)
-    for key in ("has_spheres", "has_triangles", "has_normal_maps", "has_bump_maps"):
+    for key in ("has_spheres", "has_triangles", "has_patches", "has_instanced",
+                "has_normal_maps", "has_bump_maps"):
         assert getattr(scene, key) == census[key], key
     for key in ("camera_medium", "has_interface_media"):
         assert getattr(scene, key) == census[key], key
     if scene.triangles is not None:
         assert scene.triangles.has_iface_media == census["triangles.has_iface_media"]
+    if scene.patches is not None:
+        assert scene.patches.has_uv == census["patches.has_uv"]
+    if scene.instanced is not None:
+        for key in ("stack_depth", "has_normals", "has_uv"):
+            assert getattr(scene.instanced, key) == census[f"instanced.{key}"], key
     assert (scene.media is None) == ("media.g" not in arrays)
     for key in ("material_kinds", "light_kinds", "n_lights", "uniform_infinite_indices",
                 "image_infinite_indices"):
@@ -566,7 +603,7 @@ def assert_scene_tables_equal(scene, jscene):
         if got is None:
             continue  # a reference-only column (lights.position, tiles8, ...)
         got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
-        if key.startswith("triangles.") and key.endswith(("rows8", "attr_rows", "light_rows")):
+        if key.startswith(("triangles.", "instanced.", "patches.")) and got.dtype == np.float32:
             assert got.tobytes() == np.ascontiguousarray(want, got.dtype).tobytes(), key
         else:
             np.testing.assert_array_equal(got, want.astype(got.dtype), err_msg=key)
@@ -695,8 +732,11 @@ UNPORTED = {
     "uniformgrid_medium": ("", 'MakeNamedMedium "g" "string type" "uniformgrid"'),
     "goniometric_light": ("", 'LightSource "goniometric" "rgb I" [1 1 1]'),
     "projection_light": ("", 'LightSource "projection" "rgb I" [1 1 1]'),
-    "object_instance": ("", 'ObjectBegin "o"\nObjectEnd'),
-    "bilinearmesh": ("", 'Shape "bilinearmesh" "point3 P" [0 0 0 1 0 0 0 1 0 1 1 0]'),
+    # Neither package reads an area light inside an object (the reference
+    # drops it from the two-level BVH).
+    "object_area_light": ("", 'ObjectBegin "o"\nAreaLightSource "diffuse"\n'
+                              'Shape "trianglemesh" "integer indices" [0 1 2] '
+                              '"point3 P" [0 0 0 1 0 0 0 1 0]\nObjectEnd'),
     "disk": ("", 'Shape "disk"'),
     "goniometric_area": ("", 'AreaLightSource "goniometric"'),
     "measured_material": ("", 'Material "measured"'),
@@ -740,20 +780,52 @@ LIFTED = {
     "point_light": ("", 'LightSource "point" "rgb I" [1 1 1]'),
     "spot_light": ("", 'LightSource "spot" "rgb I" [1 1 1]'),
     "distant_light": ("", 'LightSource "distant" "rgb L" [1 1 1]'),
+    # And the instancing slice's.
+    "object_instance": ("", 'ObjectBegin "o"\nObjectEnd'),
+    "bilinearmesh": ("", 'Shape "bilinearmesh" "integer indices" [0 1 2 3] '
+                         '"point3 P" [0 0 0 1 0 0 0 1 0 1 1 0]'),
+    "patch_area_light": ("", 'AttributeBegin\nAreaLightSource "diffuse" "rgb L" [4 4 4]\n'
+                             'Shape "bilinearmesh" "integer indices" [0 1 2 3 1 4 3 5] '
+                             '"point3 P" [0 0 0 1 0 0 0 1 0 1 1 0.2 2 0 0 2 1 0]\nAttributeEnd'),
+    "instanced_plymesh": ("", 'ObjectBegin "o"\nMaterial "none"\nShape "plymesh" '
+                              '"string filename" "quads.ply"\nObjectEnd\nRotate 30 0 1 0\n'
+                              'ObjectInstance "o"\nTranslate 0 2 0\nObjectInstance "o"'),
 }
 
 
 @pytest.mark.parametrize("case", list(LIFTED))
-def test_lifted_feature_loads_as_the_reference(case):
+def test_lifted_feature_loads_as_the_reference(case, tmp_path):
     ensure_reference_sah()
     before, world = LIFTED[case]
-    jb, b = both(_BASE % (before, world))
+    _write_ply(tmp_path / "quads.ply", "binary_little_endian")
+    jb, b = both(_BASE % (before, world), search_dir=tmp_path)
     scene = b.create(device="cpu").scene
     assert_scene_tables_equal(scene, jb.create().scene)
     if case == "interface_material":
         assert int(scene.spheres.material_id[0]) == -1
     if case.endswith("_light"):
         assert len(scene.light_kinds) == 2
+    if case == "patch_area_light":
+        np.testing.assert_array_equal(scene.lights.shape_kind.numpy()[:2], [2, 2])
+        np.testing.assert_array_equal(scene.patches.area_light_id.numpy(), [0, 1])
+    if case == "instanced_plymesh":
+        # Material "none" reads as material 0 inside an object, as in the
+        # reference.
+        assert scene.has_instanced and (scene.instanced.attr_rows[:, 15] == 0).all()
+
+
+def test_bilinearmesh_without_indices_takes_the_vertices_in_order():
+    """A standing difference: without "indices" the port takes the
+    vertices four by four; the reference means to, but its test for a
+    missing array never fires (its getter returns an empty one), so it
+    loads no patch."""
+    ensure_reference_sah()
+    text = _BASE % ("", 'Shape "bilinearmesh" "point3 P" [0 0 0 1 0 0 0 1 0 1 1 0]')
+    jb, b = both(text)
+    scene = b.create(device="cpu").scene
+    assert not jb.create().scene.has_patches
+    assert scene.has_patches
+    np.testing.assert_array_equal(scene.patches.p11.numpy(), [[1, 1, 0]])
 
 
 # The texture and image-light cases that raised before the texture slice,

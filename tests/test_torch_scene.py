@@ -167,22 +167,26 @@ def test_scene_from_numpy_mt_leaves(jax_scene, torch_scene):
 
 @pytest.mark.parametrize(
     "change, error",
-    [({"has_patches": True}, (NotImplementedError, "not ported")),
-     ({"has_instanced": True}, (NotImplementedError, "not ported")),
+    [({"has_patches": True}, (ValueError, "no patch table")),
+     ({"has_instanced": True}, (ValueError, "no instance table")),
+     ({"triangles.differentiable_hits": True}, (NotImplementedError, "not ported")),
      ({"material_kinds": (0, 1), "materials.tex_reflectance": 0},
       (ValueError, "no texture table")),
      ({"image_infinite_indices": (1,)}, (ValueError, "no env table")),
      ({"camera_medium": 0}, (ValueError, "no media table"))],
-    ids=["patches", "instanced", "conductor", "image_light", "medium"],
+    ids=["patches_without_table", "instanced_without_table", "differentiable_hits",
+         "conductor", "image_light", "medium"],
 )
 def test_scene_from_numpy_refuses_unported(jax_scene, change, error):
     """Each case asks for something still unported, or for textures, an
-    image light or media without their tables: since the texture slice a
-    textured conductor and an image light convert (tests/test_torch_env.py
-    renders one), and since the media slice media and delta lights do
-    (test_scene_from_numpy_converts_delta_lights_and_media), so their
-    cases here lack the tables they index.  Spheres convert since they
-    were ported (tests/test_torch_scene_union.py)."""
+    image light, media, patches or instances without their tables: since
+    the texture slice a textured conductor and an image light convert
+    (tests/test_torch_env.py renders one), since the media slice media and
+    delta lights do (test_scene_from_numpy_converts_delta_lights_and_media)
+    and since the instancing slice patches and instances do
+    (test_scene_from_numpy_converts_patches_and_instances), so their cases
+    here lack the tables they index.  Spheres convert since they were
+    ported (tests/test_torch_scene_union.py)."""
     arrays, census = jax_scene_to_numpy(jax_scene)
     for key, value in change.items():
         if key in arrays:
@@ -191,6 +195,51 @@ def test_scene_from_numpy_refuses_unported(jax_scene, change, error):
             census[key] = value
     with pytest.raises(error[0], match=error[1]):
         scene_from_numpy(arrays, census, device="cpu")
+
+
+@pytest.mark.parametrize("group", ["patches", "instanced"])
+def test_scene_from_numpy_converts_patches_and_instances(jax_scene, group):
+    """A reference scene with bilinear patches (a patch area light among
+    them, under the power sampler) or with instances of a small object
+    beside the bench triangles, carried across: every table byte for byte
+    and the census."""
+    from shimmer_tpu.shapes.instanced import build_instanced as jax_build_instanced
+    from shimmer_tpu.spectra.spectrum import ConstantSpectrum as JaxConstant
+
+    kw = {}
+    lights = [{"kind": jlt.UNIFORM_INFINITE, "spectrum": JaxConstant(0.5)}]
+    if group == "patches":
+        kw["patches"] = [
+            {"p00": (-1, 0, -1), "p10": (1, 0, -1), "p01": (-1, 0.3, 1), "p11": (1, 0, 1),
+             "uv": ((0, 0), (2, 0), (0, 1), (2, 1)), "material_id": 0},
+            {"p00": (-0.5, 2, -0.5), "p10": (0.5, 2, -0.5), "p01": (-0.5, 2, 0.5),
+             "p11": (0.5, 2, 0.5), "material_id": 0, "area_light_id": 1, "reverse": True},
+        ]
+        lights.append({"kind": jlt.AREA, "spectrum": JaxConstant(3.0), "shape_kind": 2,
+                       "shape_idx": 1})
+    else:
+        obj = bench.make_displaced_sphere(80)
+        m = np.eye(4)
+        m[:3, 3] = (2.0, 0.0, 1.0)
+        kw["instanced"] = jax_build_instanced(
+            [[{"p": obj[0], "indices": obj[1], "material_id": 0}]],
+            [(0, np.diag([0.3, 0.3, 0.3, 1.0])), (0, m)])
+    jsc = jax_build_scene(triangles=jax_scene.triangles, materials=[{"kind": 0}],
+                          lights=lights, light_sampler="power", **kw)
+    arrays, census = jax_scene_to_numpy(jsc)
+    conv = scene_from_numpy(arrays, census, device="cpu")
+    assert (conv.has_patches, conv.has_instanced) == (group == "patches", group == "instanced")
+    obj = getattr(conv, group)
+    for f in dataclasses.fields(obj):
+        got = getattr(obj, f.name)
+        if isinstance(got, torch.Tensor):
+            key = f"{group}.{f.name}"
+            assert got.numpy().tobytes() == np.ascontiguousarray(arrays[key],
+                                                                got.numpy().dtype).tobytes(), key
+        else:
+            assert got == census[f"{group}.{f.name}"], f.name
+    np.testing.assert_array_equal(conv.light_sample_weights.numpy(), arrays["light_sample_weights"])
+    np.testing.assert_array_equal(conv.lights.scene_radius.numpy(), arrays["lights.scene_radius"])
 
 
 @pytest.mark.parametrize("camera_medium", [-1, 0], ids=["interface", "camera_medium"])
@@ -235,12 +284,14 @@ def test_builders_refuse_unported():
     cam, _ = bench_scene.bench_camera_film((8, 8))
     tris = build_triangle_scene(bench_scene.bench_meshes(20, cam.camera_transform.render_from_world()),
                                 device="cpu")
-    # Every light kind builds since the media slice; an area light on a
-    # bilinear patch (shape kind 2) does not.
+    # Every light kind builds since the media slice, and an area light on
+    # a bilinear patch (shape kind 2) since the instancing slice
+    # (test_torch_bilinear.py::test_build_scene_patch_light_matches_reference);
+    # a shape kind that neither package has does not.
     with pytest.raises(NotImplementedError):
         torch_build_scene(tris, materials=[{"kind": 0}],
                           lights=[{"kind": tlt.AREA, "spectrum": ConstantSpectrum(1.0),
-                                   "shape_kind": 2, "shape_idx": 0}])
+                                   "shape_kind": 7, "shape_idx": 0}])
 
 
 @pytest.mark.parametrize("variant", list(bench_scene.MATERIAL_VARIANTS))
