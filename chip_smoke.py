@@ -25,7 +25,9 @@ Phases, each printing its own numbers:
      unsorted ray layout with its visit statistics, SIMD efficiency,
      resident blocks per SM and bound;
   4. a small render (64x48, 4 spp) on the card and on the CPU under each
-     configuration, compared;
+     configuration, compared (this phase's and phases 10-15's CPU renders
+     run in two processes of their own, started after the build, beside
+     the card's phases);
   5. the full bench render under v1 through shimmer_tpu_torch.render.render;
   6. the full bench render under v2, v1 with MT leaves and v1 with the
      min-id winner, each compared with the v1 image;
@@ -63,26 +65,28 @@ Phases, each printing its own numbers:
      written as a binary PLY, with the bench camera, floor, emissive quad
      and infinite light and three analytic spheres (dielectric, rough
      gold, and a small sphere area light) in a .pbrt file, rendered at
-     1280x720, 16 spp, depth 5 through shimmer_tpu_torch.cli.main to a
-     PFM that must equal the image render returned, then the same file
-     at 64x48, 4 spp on the card and on the CPU, compared;
+     1280x720, LOADED_SPP (4) spp, depth 5 through
+     shimmer_tpu_torch.cli.main to a PFM that must equal the image render
+     returned, then the same file at 64x48, 4 spp on the card and on the
+     CPU, compared;
  12. textures and the image environment light: phase 11's scene with a
      2048^2 checker image on the floor (trilinear), a coated diffuse mesh
      with a cylindrical-mapped texture and a bump map, a gold sphere with
      a 1024^2 EWA roughness map through a scale texture, a mix sphere
      with a textured amount over a direction-mix diffuse, and a 2048x1024
      lat-long PFM environment light, written in code and rendered at
-     1280x720, 16 spp, depth 5 through shimmer_tpu_torch.cli.main with the
-     load split into image reads, pyramids and fits, the env bake, the PLY
-     read, the BVH build and the rest; then the same file at 64x48, 4 spp
-     on the card twice (film states torch.equal) and on the CPU, compared;
+     1280x720, LOADED_SPP (4) spp, depth 5 through
+     shimmer_tpu_torch.cli.main with the load split into image reads,
+     pyramids and fits, the env bake, the PLY read, the BVH build and the
+     rest; then the same file at 64x48, 4 spp on the card twice (film
+     states torch.equal) and on the CPU, compared;
  13. delta lights and homogeneous media: phase 11's scene in an exterior
      fog (the camera's medium, MediumInterface "" "fog" before Camera;
      its camera-to-floor transmittance 0.3-0.7, checked), a 12-triangle
      box of interface material turned 45 degrees about y holding a denser
      smoke (g 0.6) around the bench sphere, and a point, a spot (3000 K
      blackbody, cone 25 with 5 of falloff) and a distant light, written in
-     code and rendered at 1280x720, 16 spp, depth 5 through
+     code and rendered at 1280x720, LOADED_SPP (4) spp, depth 5 through
      shimmer_tpu_torch.cli.main to a PFM that must equal the returned
      image, with v1 launches exactly 4 an iteration (the merged trace and
      three shadow-march rounds) and the media's RGB fits timed apart;
@@ -104,12 +108,27 @@ Phases, each printing its own numbers:
      build, world BVH, patch table, the rest) and the instanced table's
      bytes beside 24 flattened copies'; then at 64x48, 4 spp on the card
      and on the CPU, compared, and tests/test_parser.py's instanced and
-     bilinear scenes (zsobol for their independent sampler) likewise.
+     bilinear scenes (zsobol for their independent sampler) likewise;
+ 15. the masked megakernel and the other estimators: (a) the bench scene
+     of phase 5 through render(..., wavefront=False) under v1 at
+     MEGAKERNEL_SPP (4) spp, with exactly n_blocks x spp x (1 + depth) v1
+     launches, against a wavefront render at that spp (the same estimator
+     and draws), with its seconds, rays, lane occupancy (rays / (launches
+     x 2 x BLOCK)), ms a bounce and peak memory; (b) at 64x48, 4 spp, the
+     card against the CPU through the loader: phase 11's file under the
+     megakernel, "simplepath" and "randomwalk", phase 13's interface
+     scene under the megakernel (each with its exact launch count), and
+     four small feature scenes holding the independent and stratified
+     samplers, the gaussian, mitchell, sinc and triangle filters, the
+     orthographic and spherical (both mappings) cameras, a thin lens with
+     a screen window, the camera and world render spaces, both jitter
+     options, ColorSpace rec2020 and the film's ISO and white balance.
 Launch counters are set to 0 just before each render path and each
 micro-benchmark entry point, and read just after it.  No phase catches its
-own failure.  The last lines are the kernel table as JSON, the card's name
-and power limit, and the result object; every log line before them also
-goes to chiprun_out/chip_smoke.log.
+own failure.  Each phase logs its wall seconds and the run's so far.  The
+last lines are the kernel table as JSON, the card's name and power limit,
+and the result object; every log line before them also goes to
+chiprun_out/chip_smoke.log.
 """
 
 from __future__ import annotations
@@ -117,6 +136,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import multiprocessing
+import os
+import shutil
 import subprocess
 import time
 from pathlib import Path
@@ -175,6 +197,10 @@ LARGE_BLOCK_WAVES = 3
 # Phase 10's full render runs at 4 spp, not the bench's 16: the layered
 # walks' host dispatch made it ~220 s, and phase 12 needs the time.
 MATERIAL_SPP = 4
+# Phases 11-13's full renders through the CLI run at 4 spp, not the
+# bench's 16 (33.4, 222.8 and 100.8 s at 16 on an H100 80GB HBM3 at 700
+# W): at 16 the whole run passed its 1,200 s limit.
+LOADED_SPP = 4
 # Image agreement between two renders of the same seeds (the CPU tests use
 # the same criteria against the JAX reference): at least 99% of pixels
 # within rtol 1e-3 / atol 1e-4 and image means within 1e-3 relative.  The
@@ -323,6 +349,18 @@ def log(msg):
         _log_file.flush()
 
 
+class PhaseWall:
+    """Logs each phase's wall seconds and the run's so far."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def mark(self, phase: int):
+        now = time.perf_counter()
+        log(f"phase {phase} wall: {now - self.last:.1f}s (run {now - self.start:.1f}s)")
+        self.last = now
+
+
 def check(ok, msg: str):
     """A failed check ends the run (kept under python -O, unlike assert)."""
     if not ok:
@@ -468,25 +506,30 @@ def with_config(scene, name):
     return dataclasses.replace(scene, triangles=scene.triangles.with_traverse(CONFIGS[name]))
 
 
-def phase4(scene_cpu, scene_gpu) -> dict:
+def small_bench_render(scene, name: str) -> np.ndarray:
+    """The bench scene (or phase 10's) at SMALL_RES and SMALL_SPP under
+    configuration ``name``, on the scene's device."""
     cam, film = bench_camera_film(SMALL_RES)
-    cpu_images = {}
+    img, _ = render(with_config(scene, name), cam, film, ZSobolSampler(SMALL_SPP, SMALL_RES),
+                    spp=SMALL_SPP, max_depth=MAX_DEPTH, wave_spp=SMALL_SPP, pixel_block=BLOCK)
+    return img.cpu().numpy()
+
+
+def phase4_cpu_config(name: str) -> str:
+    """The configuration whose CPU image phase 4 holds ``name``'s card
+    image to: the CPU runs the plain version, which v1 and v2 share."""
+    cfg = CONFIGS[name]
+    return next(n for n, c in CONFIGS.items() if (c.leaf, c.winner) == (cfg.leaf, cfg.winner))
+
+
+def phase4(scene_gpu) -> dict:
     out = {}
-    for name, cfg in CONFIGS.items():
+    for name in CONFIGS:
         images, seconds = {}, {}
-        # The CPU runs the plain version, which v1 and v2 share.
-        cpu_key = (cfg.leaf, cfg.winner)
-        targets = [("gpu", scene_gpu)] + ([("cpu", scene_cpu)] if cpu_key not in cpu_images else [])
-        for dev_name, scene in targets:
-            sampler = ZSobolSampler(SMALL_SPP, SMALL_RES)
-            t0 = time.perf_counter()
-            img, _ = render(with_config(scene, name), cam, film, sampler, spp=SMALL_SPP,
-                            max_depth=MAX_DEPTH, wave_spp=SMALL_SPP, pixel_block=BLOCK)
-            images[dev_name] = img.cpu().numpy()
-            seconds[dev_name] = time.perf_counter() - t0
-        if "cpu" in images:
-            cpu_images[cpu_key] = images["cpu"]
-        images["cpu"] = cpu_images[cpu_key]
+        t0 = time.perf_counter()
+        images["gpu"] = small_bench_render(scene_gpu, name)
+        seconds["gpu"] = time.perf_counter() - t0
+        images["cpu"], seconds["cpu"] = cpu_image(f"p4_{phase4_cpu_config(name)}")
         for dev_name, img in images.items():
             check(np.isfinite(img).all() and img.mean() > 0, f"phase 4 {name}: bad {dev_name} image")
         agree = check_agreement(f"phase 4 {name}", images["gpu"], images["cpu"])
@@ -902,17 +945,14 @@ def phase10(dev) -> dict:
     scene_gpu = scene_cpu.to(dev)
     log(f"phase 10 scene: {scene_cpu.triangles.orig_indices.shape[0]} triangles, material kinds "
         f"{list(scene_cpu.material_kinds)}, built in {time.perf_counter() - t0:.1f}s")
-    cam, film = bench_camera_film(SMALL_RES)
+    del scene_cpu
     images, seconds = {}, {}
-    for dev_name, scene in (("gpu", scene_gpu), ("cpu", scene_cpu)):
-        t0 = time.perf_counter()
-        img, _ = render(with_config(scene, "v1"), cam, film, ZSobolSampler(SMALL_SPP, SMALL_RES),
-                        spp=SMALL_SPP, max_depth=MAX_DEPTH, wave_spp=SMALL_SPP,
-                        pixel_block=BLOCK)
-        images[dev_name] = img.cpu().numpy()
-        seconds[dev_name] = time.perf_counter() - t0
-        check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
-              f"phase 10: bad {dev_name} small image")
+    t0 = time.perf_counter()
+    images["gpu"] = small_bench_render(scene_gpu, "v1")
+    seconds["gpu"] = time.perf_counter() - t0
+    images["cpu"], seconds["cpu"] = cpu_image("p10")
+    for dev_name, img in images.items():
+        check(np.isfinite(img).all() and img.mean() > 0, f"phase 10: bad {dev_name} small image")
     agree = check_agreement("phase 10 small render", images["gpu"], images["cpu"])
     log(f"phase 10 small render {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP}: "
         f"seconds {json.dumps(seconds)} {json.dumps(agree)}")
@@ -1011,6 +1051,14 @@ def render_job(job):
     return img, time.perf_counter() - t0
 
 
+def small_job_render(job, scene, collect_stats: bool = False):
+    """A loaded small job on ``scene`` (its copy on the card, or the CPU's)
+    at its in-file settings, one wave of its samples a block."""
+    return render(scene, job.camera, job.film, job.sampler, spp=job.spp,
+                  max_depth=job.max_depth, wave_spp=SMALL_SPP, pixel_block=BLOCK,
+                  collect_stats=collect_stats)
+
+
 def render_through_cli(scene_file: Path, pfm: Path, timers: dict | None = None):
     """``cli.main`` on a scene file at the bench's wave and block sizes,
     with its own render call watched (its returned image and the stats the
@@ -1092,7 +1140,7 @@ def phase11(dev) -> dict:
     verts, faces = make_displaced_sphere(BENCH_TRIS)
     write_ply(LOADED_DIR / LOADED_PLY, verts, faces)
     scene_file = LOADED_DIR / "loaded_bench.pbrt"
-    scene_file.write_text(loaded_scene_text(BENCH_RESOLUTION, SPP))
+    scene_file.write_text(loaded_scene_text(BENCH_RESOLUTION, LOADED_SPP))
     pfm = LOADED_DIR / "loaded_bench.pfm"
     seen, seconds, rc = render_through_cli(scene_file, pfm)
     launches = read_counts("phase 11 loaded scene", "v1")
@@ -1119,7 +1167,7 @@ def phase11(dev) -> dict:
     }
     check(res["spheres"] == 3 and res["triangles"] == faces.shape[0] + 4,
           "phase 11: the loaded scene lacks shapes")
-    log(f"phase 11 loaded scene {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {SPP} "
+    log(f"phase 11 loaded scene {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {LOADED_SPP} "
         f"(cli.main; cli_seconds add the parse, PLY read, BVH build and PFM write): "
         f"{json.dumps(res)}")
     out["loaded"] = res
@@ -1127,18 +1175,14 @@ def phase11(dev) -> dict:
     # The same file small, on the card and on the CPU.
     small = LOADED_DIR / "loaded_small.pbrt"
     small.write_text(loaded_scene_text(SMALL_RES, SMALL_SPP))
-    builder = SceneBuilder(search_dir=LOADED_DIR)
-    parse_file(str(small), builder)
-    job = builder.create(device="cpu", traverse=CONFIGS["v1"])
+    job = load_case(small)
     images, seconds = {}, {}
-    for dev_name, scene in (("gpu", job.scene.to(dev)), ("cpu", job.scene)):
-        t0 = time.perf_counter()
-        img, _ = render(scene, job.camera, job.film, job.sampler, spp=job.spp,
-                        max_depth=job.max_depth, wave_spp=SMALL_SPP, pixel_block=BLOCK)
-        images[dev_name] = img.cpu().numpy()
-        seconds[dev_name] = time.perf_counter() - t0
-        check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
-              f"phase 11: bad {dev_name} small image")
+    t0 = time.perf_counter()
+    images["gpu"] = small_job_render(job, job.scene.to(dev))[0].cpu().numpy()
+    seconds["gpu"] = time.perf_counter() - t0
+    images["cpu"], seconds["cpu"] = cpu_image("p11")
+    for dev_name, img in images.items():
+        check(np.isfinite(img).all() and img.mean() > 0, f"phase 11: bad {dev_name} small image")
     agree = check_agreement("phase 11 small loaded render", images["gpu"], images["cpu"])
     log(f"phase 11 small loaded render {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP}: "
         f"seconds {json.dumps(seconds)} {json.dumps(agree)}")
@@ -1280,7 +1324,7 @@ def _phase12(dev) -> dict:
     log(f"phase 12 files: {time.perf_counter() - t0:.1f}s; sky {SKY_SHAPE[1]}x{SKY_SHAPE[0]} "
         f"with {sky_colors} colors")
     scene_file = TEXTURED_DIR / "textured_bench.pbrt"
-    scene_file.write_text(textured_scene_text(BENCH_RESOLUTION, SPP))
+    scene_file.write_text(textured_scene_text(BENCH_RESOLUTION, LOADED_SPP))
     pfm = TEXTURED_DIR / "textured_bench.pfm"
     timers = {
         "image_read": (Image, "read"),
@@ -1337,27 +1381,25 @@ def _phase12(dev) -> dict:
     check(res["spheres"] == 3 and res["triangles"] == faces.shape[0] + 4
           and scene.image_infinite_indices and scene.has_bump_maps,
           "phase 12: the textured scene lacks shapes, its env light or its bump map")
-    log(f"phase 12 textured scene {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {SPP} "
+    log(f"phase 12 textured scene {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {LOADED_SPP} "
         f"(cli.main): {json.dumps(res)}")
     out["textured"] = res
 
     # The same file small: the card against the CPU, and the card twice.
     small = TEXTURED_DIR / "textured_small.pbrt"
     small.write_text(textured_scene_text(SMALL_RES, SMALL_SPP))
-    builder = SceneBuilder(search_dir=TEXTURED_DIR)
-    parse_file(str(small), builder)
-    job = builder.create(device="cpu", traverse=CONFIGS["v1"])
+    job = load_case(small)
     scene_gpu = job.scene.to(dev)
     images, seconds, states = {}, {}, []
-    for dev_name, sc in (("gpu", scene_gpu), ("gpu_again", scene_gpu), ("cpu", job.scene)):
+    for dev_name in ("gpu", "gpu_again"):
         t0 = time.perf_counter()
-        img, state = render(sc, job.camera, job.film, job.sampler, spp=job.spp,
-                            max_depth=job.max_depth, wave_spp=SMALL_SPP, pixel_block=BLOCK)
+        img, state = small_job_render(job, scene_gpu)
         images[dev_name] = img.cpu().numpy()
         seconds[dev_name] = time.perf_counter() - t0
         states.append(state)
-        check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
-              f"phase 12: bad {dev_name} small image")
+    images["cpu"], seconds["cpu"] = cpu_image("p12")
+    for dev_name, img in images.items():
+        check(np.isfinite(img).all() and img.mean() > 0, f"phase 12: bad {dev_name} small image")
     agree = check_agreement("phase 12 small textured render", images["gpu"], images["cpu"])
     # The film accumulates on the card by scatter-add: two renders must give
     # the same film state, bit for bit.
@@ -1497,7 +1539,7 @@ def _phase13(dev) -> dict:
     check(0.3 <= fog_tr <= 0.7, f"phase 13: the fog's camera-to-floor transmittance is {fog_tr}")
     # (a) the interface scene at full width, through the CLI.
     scene_file = MEDIA_DIR / "fog_bench.pbrt"
-    scene_file.write_text(media_scene_text(BENCH_RESOLUTION, SPP))
+    scene_file.write_text(media_scene_text(BENCH_RESOLUTION, LOADED_SPP))
     pfm = MEDIA_DIR / "fog_bench.pfm"
     timers = {"media_fits": (media_module, "fit_rgb_coeffs"),
               "ply_read": (mesh_module, "read_ply"),
@@ -1540,7 +1582,7 @@ def _phase13(dev) -> dict:
     }
     check(res["spheres"] == 3 and res["triangles"] == faces.shape[0] + 4 + 12,
           "phase 13: the fogged scene lacks shapes")
-    log(f"phase 13 fogged scene {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {SPP} "
+    log(f"phase 13 fogged scene {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {LOADED_SPP} "
         f"(cli.main): {json.dumps(res)}")
     out["fogged"] = res
 
@@ -1548,29 +1590,26 @@ def _phase13(dev) -> dict:
     for variant in MEDIA_VARIANTS:
         small = MEDIA_DIR / f"{variant}_small.pbrt"
         small.write_text(media_scene_text(SMALL_RES, SMALL_SPP, variant))
-        builder = SceneBuilder(search_dir=MEDIA_DIR)
-        parse_file(str(small), builder)
-        job = builder.create(device="cpu", traverse=CONFIGS["v1"])
+        job = load_case(small)
         check(job.scene.has_interface_media == (variant == "interface")
               and (job.scene.media is None) == (variant == "delta"),
               f"phase 13 {variant}: the scene's media census is wrong")
-        images, secs, card = {}, {}, {}
-        for dev_name, sc in (("gpu", job.scene.to(dev)), ("cpu", job.scene)):
-            reset_counts()
-            t0 = time.perf_counter()
-            img, _, st = render(sc, job.camera, job.film, job.sampler, spp=job.spp,
-                                max_depth=job.max_depth, wave_spp=SMALL_SPP, pixel_block=BLOCK,
-                                collect_stats=True)
-            images[dev_name] = img.cpu().numpy()
-            secs[dev_name] = time.perf_counter() - t0
-            if dev_name == "gpu":
-                n = read_counts(f"phase 13 small {variant}", "v1")
-                # The merged trace, and three march rounds with interface media.
-                per_iter = 4 if variant == "interface" else 1
-                check(n == per_iter * int(st["iters"]),
-                      f"phase 13 small {variant}: {n} v1 launches in {st['iters']} iterations")
-                card = {"iters": st["iters"], "rays": st["rays"], "kernel_launches": n}
-            check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
+        images, secs = {}, {}
+        sc = job.scene.to(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        img, _, st = small_job_render(job, sc, collect_stats=True)
+        images["gpu"] = img.cpu().numpy()
+        secs["gpu"] = time.perf_counter() - t0
+        n = read_counts(f"phase 13 small {variant}", "v1")
+        # The merged trace, and three march rounds with interface media.
+        per_iter = 4 if variant == "interface" else 1
+        check(n == per_iter * int(st["iters"]),
+              f"phase 13 small {variant}: {n} v1 launches in {st['iters']} iterations")
+        card = {"iters": st["iters"], "rays": st["rays"], "kernel_launches": n}
+        images["cpu"], secs["cpu"] = cpu_image(f"p13_{variant}")
+        for dev_name, img in images.items():
+            check(np.isfinite(img).all() and img.mean() > 0,
                   f"phase 13: bad {dev_name} small {variant} image")
         agree = check_agreement(f"phase 13 small {variant} render", images["gpu"], images["cpu"])
         log(f"phase 13 small {variant} render {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP}: "
@@ -1720,6 +1759,19 @@ AttributeEnd
 """
 
 
+def instanced_small_cases(d: Path) -> dict:
+    """Phase 14's small scene files, written into ``d`` (which holds the
+    PLY): the instanced scene at SMALL_RES, SMALL_SPP and the parser
+    scenes; name -> file."""
+    small = d / "instanced_small.pbrt"
+    small.write_text(instanced_scene_text(SMALL_RES, SMALL_SPP))
+    cases = {"instanced_small": small}
+    for name, text in PARSER_SCENES.items():
+        cases[name] = d / f"{name}.pbrt"
+        cases[name].write_text(text)
+    return cases
+
+
 def card_events(owner, attr: str, events: list):
     """Replace ``owner.attr`` by a wrapper that records a CUDA event pair
     around each call (no host sync); returns the original."""
@@ -1860,33 +1912,24 @@ def _phase14(dev) -> dict:
 
     # (b) the same file small, and (c) the reference's parser scenes: the
     # card against the CPU.
-    small = INSTANCED_DIR / "instanced_small.pbrt"
-    small.write_text(instanced_scene_text(SMALL_RES, SMALL_SPP))
-    cases = {"instanced_small": small}
-    for name, text in PARSER_SCENES.items():
-        cases[name] = INSTANCED_DIR / f"{name}.pbrt"
-        cases[name].write_text(text)
-    for name, path in cases.items():
-        builder = SceneBuilder(search_dir=INSTANCED_DIR)
-        parse_file(str(path), builder)
-        job = builder.create(device="cpu", traverse=CONFIGS["v1"])
-        images, secs, card = {}, {}, {}
-        for dev_name, sc in (("gpu", job.scene.to(dev)), ("cpu", job.scene)):
-            reset_counts()
-            t0 = time.perf_counter()
-            img, _, st = render(sc, job.camera, job.film, job.sampler, spp=job.spp,
-                                max_depth=job.max_depth, wave_spp=SMALL_SPP, pixel_block=BLOCK,
-                                collect_stats=True)
-            images[dev_name] = img.cpu().numpy()
-            secs[dev_name] = time.perf_counter() - t0
-            if dev_name == "gpu":
-                card = {"iters": st["iters"], "rays": st["rays"]}
-                if sc.has_triangles:
-                    n = read_counts(f"phase 14 {name}", "v1")
-                    check(n == int(st["iters"]),
-                          f"phase 14 {name}: {n} v1 launches in {st['iters']} iterations")
-                    card["kernel_launches"] = n
-            check(np.isfinite(images[dev_name]).all() and images[dev_name].mean() > 0,
+    for name, path in instanced_small_cases(INSTANCED_DIR).items():
+        job = load_case(path)
+        images, secs = {}, {}
+        sc = job.scene.to(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        img, _, st = small_job_render(job, sc, collect_stats=True)
+        images["gpu"] = img.cpu().numpy()
+        secs["gpu"] = time.perf_counter() - t0
+        card = {"iters": st["iters"], "rays": st["rays"]}
+        if sc.has_triangles:
+            n = read_counts(f"phase 14 {name}", "v1")
+            check(n == int(st["iters"]),
+                  f"phase 14 {name}: {n} v1 launches in {st['iters']} iterations")
+            card["kernel_launches"] = n
+        images["cpu"], secs["cpu"] = cpu_image(f"p14_{name}")
+        for dev_name, img in images.items():
+            check(np.isfinite(img).all() and img.mean() > 0,
                   f"phase 14: bad {dev_name} {name} image")
         agree = check_agreement(f"phase 14 {name} render", images["gpu"], images["cpu"])
         log(f"phase 14 {name} render {job.film.resolution[0]}x{job.film.resolution[1]} spp "
@@ -1895,8 +1938,334 @@ def _phase14(dev) -> dict:
     return out
 
 
+# Phase 15: the masked megakernel (render(..., wavefront=False), li_path),
+# the other estimators, samplers, filters, cameras, render spaces, color
+# spaces and the sensor.
+MEGAKERNEL_DIR = Path("chiprun_out") / "phase15"
+# (a)'s samples per pixel, cut from the bench's 16 (26.14-33.59 s) to 4,
+# held against a wavefront render at 4: at 16 the whole run passed 1,000 s.
+MEGAKERNEL_SPP = 4
+# The feature scenes of (b), each holding the features its name lists:
+# (before Camera, Camera, Sampler, PixelFilter, extra Film parameters).
+FEATURE_SCENES = {
+    "independent_gaussian_orthographic_screenwindow_cameraspace_rec2020": (
+        'ColorSpace "rec2020"\nOption "string rendercoordsys" "camera"',
+        'Camera "orthographic" "float screenwindow" [-2.4 2.4 -1.8 1.8]',
+        'Sampler "independent"', 'PixelFilter "gaussian"', ""),
+    "stratified_mitchell_spherical_equalarea_worldspace_iso_whitebalance": (
+        'Option "string rendercoordsys" "world"',
+        'Camera "spherical" "string mapping" "equalarea"',
+        'Sampler "stratified"', 'PixelFilter "mitchell"',
+        '"float iso" [200] "float whitebalance" [5000]'),
+    "sinc_spherical_equirect_disablepixeljitter": (
+        'Option "bool disablepixeljitter" true',
+        'Camera "spherical" "string mapping" "equirect"',
+        'Sampler "zsobol"', 'PixelFilter "sinc"', ""),
+    "triangle_thinlens_screenwindow_disablewavelengthjitter": (
+        'Option "bool disablewavelengthjitter" true',
+        'Camera "perspective" "float fov" [45] "float lensradius" [0.08] '
+        '"float focaldistance" [3.4] "float screenwindow" [-1.2 1.1 -0.8 0.9]',
+        'Sampler "zsobol"', 'PixelFilter "triangle"', ""),
+}
+
+
+def feature_scene_text(case: str) -> str:
+    """A small scene (floor, quad light, diffuse, glass and rough gold
+    spheres, a sky) under one FEATURE_SCENES case, at SMALL_RES and
+    SMALL_SPP."""
+    before, camera, sampler, pixel_filter, film = FEATURE_SCENES[case]
+    return f"""# Phase 15 feature scene: {case}.
+{before}
+LookAt 0 0.9 -3.4  0 0.3 0  0 1 0
+{camera}
+Film "rgb" "integer xresolution" [{SMALL_RES[0]}] "integer yresolution" [{SMALL_RES[1]}] {film}
+{sampler} "integer pixelsamples" [{SMALL_SPP}]
+{pixel_filter}
+Integrator "path" "integer maxdepth" [{MAX_DEPTH}]
+WorldBegin
+LightSource "infinite" "rgb L" [0.25 0.27 0.3]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [12 12 12]
+  Material "diffuse" "rgb reflectance" [0 0 0]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+      "point3 P" [-0.8 3 -0.8  0.8 3 -0.8  0.8 3 0.8  -0.8 3 0.8]
+AttributeEnd
+Material "diffuse" "rgb reflectance" [0.5 0.45 0.4]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point3 P" [-6 0 -6  6 0 -6  6 0 6  -6 0 6]
+AttributeBegin
+  Material "diffuse" "rgb reflectance" [0.7 0.2 0.15]
+  Translate -0.9 0.5 0.2
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+AttributeBegin
+  Material "dielectric" "float eta" [1.5]
+  Translate 0.2 0.45 -0.4
+  Shape "sphere" "float radius" [0.45]
+AttributeEnd
+AttributeBegin
+  Material "conductor" "spectrum eta" "metal-Au-eta" "spectrum k" "metal-Au-k"
+      "float roughness" [0.15]
+  Translate 1.1 0.5 0.5
+  Shape "sphere" "float radius" [0.5]
+AttributeEnd
+"""
+
+
+def megakernel_launches(integrator: str, max_depth: int, interface_media: bool) -> int:
+    """v1 launches of one estimator call on a scene with triangles: path
+    traces the camera rays, then one merged trace a bounce (and three
+    shadow-march rounds with interface media); simplepath a closest-hit
+    trace a depth and a shadow trace a bounce; randomwalk a trace a
+    depth."""
+    if integrator == "path":
+        return 1 + max_depth * (4 if interface_media else 1)
+    if integrator == "simplepath":
+        return 2 * max_depth + 1
+    return max_depth + 1
+
+
+def megakernel_full_render(dev, spp: int) -> tuple[dict, np.ndarray]:
+    """(a): the bench scene through render(..., wavefront=False) under v1."""
+    scene = build_bench_scene(BENCH_TRIS, BENCH_RESOLUTION, device="cpu")[0].to(dev)
+    cam, film = bench_camera_film(BENCH_RESOLUTION)
+    n_blocks = -(-BENCH_RESOLUTION[0] * BENCH_RESOLUTION[1] // BLOCK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    img, _, stats = render(with_config(scene, "v1"), cam, film, ZSobolSampler(spp, BENCH_RESOLUTION),
+                           spp=spp, max_depth=MAX_DEPTH, wave_spp=WAVE_SPP, pixel_block=BLOCK,
+                           wavefront=False, collect_stats=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts("phase 15 megakernel", "v1")
+    want = n_blocks * spp * megakernel_launches("path", MAX_DEPTH, False)
+    check(launches == want, f"phase 15: {launches} v1 launches, not n_blocks x spp x "
+          f"(1 + max_depth) = {want}")
+    img = img.cpu().numpy()
+    check(np.isfinite(img).all() and img.mean() > 0, "phase 15: bad megakernel image")
+    res = {
+        "spp": spp,
+        "seconds": seconds,
+        "rays": stats["rays"],
+        "mrays_per_s": stats["rays"] / seconds / 1e6,
+        "kernel_launches": launches,
+        "ms_per_bounce": seconds * 1e3 / launches,
+        "lane_occupancy": stats["rays"] / (launches * 2 * BLOCK),
+        "image_mean": float(img.mean()),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "card": nvidia_smi_line(),
+    }
+    return res, img
+
+
+def megakernel_cases(d: Path) -> dict:
+    """(b)'s scene files, written into ``d`` beside the bench sphere's PLY:
+    name -> (file, force the megakernel)."""
+    d.mkdir(parents=True, exist_ok=True)
+    verts, faces = make_displaced_sphere(BENCH_TRIS)
+    write_ply(d / LOADED_PLY, verts, faces)
+    loaded = loaded_scene_text(SMALL_RES, SMALL_SPP)
+    texts = {
+        "loaded_megakernel": (loaded, True),
+        "loaded_simplepath": (loaded.replace('Integrator "path"', 'Integrator "simplepath"'),
+                              False),
+        "loaded_randomwalk": (loaded.replace('Integrator "path"', 'Integrator "randomwalk"'),
+                              False),
+        "interface_media_megakernel": (media_scene_text(SMALL_RES, SMALL_SPP, "interface"), True),
+        **{case: (feature_scene_text(case), False) for case in FEATURE_SCENES},
+    }
+    cases = {}
+    for name, (text, megakernel) in texts.items():
+        (d / f"{name}.pbrt").write_text(text)
+        cases[name] = (d / f"{name}.pbrt", megakernel)
+    return cases
+
+
+def load_case(path: Path):
+    builder = SceneBuilder(search_dir=path.parent)
+    parse_file(str(path), builder)
+    return builder.create(device="cpu", traverse=CONFIGS["v1"])
+
+
+def render_case(job, scene, megakernel: bool):
+    """A (b) case at its in-file settings: the megakernel when forced, else
+    the dispatch of its integrator."""
+    return render(scene, job.camera, job.film, job.sampler, integrator=job.integrator,
+                  spp=job.spp, max_depth=job.max_depth, wave_spp=SMALL_SPP, pixel_block=BLOCK,
+                  wavefront=False if megakernel else None, collect_stats=True,
+                  disable_pixel_jitter=job.disable_pixel_jitter,
+                  disable_wavelength_jitter=job.disable_wavelength_jitter)
+
+
+def phase15(dev, v1_img: np.ndarray, v1_render: dict) -> dict:
+    try:
+        return _phase15(dev, v1_img, v1_render)
+    finally:
+        (MEGAKERNEL_DIR / LOADED_PLY).unlink(missing_ok=True)
+
+
+def _phase15(dev, v1_img: np.ndarray, v1_render: dict) -> dict:
+    out = {"launches": 0}
+    # (a) the bench scene through the megakernel, against a wavefront image
+    # of the same samples (the same estimator and draws).
+    res, img = megakernel_full_render(dev, MEGAKERNEL_SPP)
+    out["launches"] += res["kernel_launches"]
+    if MEGAKERNEL_SPP == SPP:
+        wf_img, wf = v1_img, v1_render
+    else:
+        wf, wf_img = full_render(build_bench_scene(BENCH_TRIS, BENCH_RESOLUTION, device="cpu")[0]
+                                 .to(dev), "v1", "phase 15", MEGAKERNEL_SPP)
+        out["launches"] += wf["kernel_launches"]
+    res["vs_wavefront"] = check_agreement("phase 15 megakernel vs wavefront", img, wf_img)
+    res["wavefront_seconds"] = wf["seconds"]
+    res["wavefront_iters"] = wf["iters"]
+    res["wavefront_ms_per_iteration"] = wf["seconds"] * 1e3 / wf["iters"]
+    res["wavefront_rays"] = wf["rays"]
+    res["wavefront_image_mean"] = wf["image_mean"]
+    log(f"phase 15 megakernel full render {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp "
+        f"{MEGAKERNEL_SPP}: {json.dumps(res)}")
+    out["full"] = res
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU at 64x48, 4 spp, through the loader.
+    for name, (path, megakernel) in megakernel_cases(MEGAKERNEL_DIR).items():
+        job = load_case(path)
+        on_megakernel = megakernel or job.integrator != "path"
+        sc = job.scene.to(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        img, _, st = render_case(job, sc, megakernel)
+        images, secs = {"gpu": img.cpu().numpy()}, {"gpu": time.perf_counter() - t0}
+        n = read_counts(f"phase 15 {name}", "v1")
+        images["cpu"], secs["cpu"] = cpu_image(f"p15_{name}")
+        if on_megakernel:
+            want = job.spp * megakernel_launches(job.integrator, job.max_depth,
+                                                 sc.has_interface_media)
+        else:
+            want = int(st["iters"])
+        check(n == want, f"phase 15 {name}: {n} v1 launches, expected {want}")
+        out["launches"] += n
+        for dev_name, im in images.items():
+            check(np.isfinite(im).all() and im.mean() > 0,
+                  f"phase 15: bad {dev_name} {name} image")
+        agree = check_agreement(f"phase 15 {name} render", images["gpu"], images["cpu"])
+        log(f"phase 15 {name} render {job.film.resolution[0]}x{job.film.resolution[1]} spp "
+            f"{job.spp} ({job.integrator}, {'megakernel' if on_megakernel else 'wavefront'}, "
+            f"{type(job.sampler).__name__}, {type(job.film.filter).__name__}, "
+            f"{type(job.camera).__name__}): seconds {json.dumps(secs)} card "
+            f"{json.dumps({'kernel_launches': n, **st})} {json.dumps(agree)}")
+        out[name] = agree
+    return out
+
+
+# The CPU halves of the card-against-CPU checks (phases 4 and 10-15) are
+# rendered in processes of their own, which main() starts after the build,
+# beside the card's phases: each image lands as <CPU_DIR>/<case>.npy with
+# its render seconds in <case>.json, and the card's half waits for it.
+CPU_DIR = Path("chiprun_out") / "cpu_half"
+# The phases each process renders, in the order main() reaches them, and
+# the threads each process takes of the host's cores.
+CPU_HALVES = ((4, 10, 11, 12, 14), (13, 15))
+CPU_THREADS = 2
+CPU_WAIT_S = 900
+_cpu_workers: list = []
+
+
+def cpu_cases(phase: int, d: Path):
+    """(case, render) pairs of ``phase``'s CPU half, each scene built
+    before its pair is yielded; scene files go into ``d``, which holds the
+    bench sphere's PLY."""
+    if phase in (4, 10):
+        build = build_bench_scene if phase == 4 else build_material_bench_scene
+        scene = build(BENCH_TRIS, BENCH_RESOLUTION, device="cpu")[0]
+        names = dict.fromkeys(map(phase4_cpu_config, CONFIGS)) if phase == 4 else ("v1",)
+        for name in names:
+            case = f"p4_{name}" if phase == 4 else "p10"
+            yield case, lambda name=name: small_bench_render(scene, name)
+        return
+    if phase == 15:
+        for name, (path, megakernel) in megakernel_cases(d).items():
+            job = load_case(path)
+            yield (f"p15_{name}",
+                   lambda job=job, mk=megakernel: render_case(job, job.scene, mk)[0].numpy())
+        return
+    if phase == 11:
+        files = {"p11": (d / "loaded_small.pbrt", loaded_scene_text(SMALL_RES, SMALL_SPP))}
+    elif phase == 12:
+        write_texture_files(d)
+        files = {"p12": (d / "textured_small.pbrt", textured_scene_text(SMALL_RES, SMALL_SPP))}
+    elif phase == 13:
+        files = {f"p13_{v}": (d / f"{v}_small.pbrt", media_scene_text(SMALL_RES, SMALL_SPP, v))
+                 for v in MEDIA_VARIANTS}
+    else:
+        files = {f"p14_{name}": (path, None) for name, path in instanced_small_cases(d).items()}
+    for case, (path, text) in files.items():
+        if text is not None:
+            path.write_text(text)
+        job = load_case(path)
+        yield case, lambda job=job: small_job_render(job, job.scene)[0].numpy()
+
+
+def cpu_half(phases: tuple, out_dir: str):
+    """One CPU-half process: renders its phases' cases in order, each
+    image written whole before its name appears."""
+    torch.set_num_threads(CPU_THREADS)
+    out = Path(out_dir)
+    d = out / ("scenes_" + "_".join(map(str, phases)))
+    d.mkdir(parents=True, exist_ok=True)
+    try:
+        verts, faces = make_displaced_sphere(BENCH_TRIS)
+        write_ply(d / LOADED_PLY, verts, faces)
+        for phase in phases:
+            for case, fn in cpu_cases(phase, d):
+                t0 = time.perf_counter()
+                img = fn()
+                (out / f"{case}.json").write_text(
+                    json.dumps({"seconds": time.perf_counter() - t0}))
+                np.save(out / f"{case}.tmp.npy", img)
+                os.replace(out / f"{case}.tmp.npy", out / f"{case}.npy")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def start_cpu_halves():
+    shutil.rmtree(CPU_DIR, ignore_errors=True)
+    CPU_DIR.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    for phases in CPU_HALVES:
+        # A daemon: it ends with this process, whatever happens to it.
+        worker = ctx.Process(target=cpu_half, args=(phases, str(CPU_DIR)), daemon=True)
+        worker.start()
+        _cpu_workers.append(worker)
+
+
+def cpu_image(case: str) -> tuple[np.ndarray, float]:
+    """The CPU half's image of ``case`` and its render seconds, once the
+    process that renders it has written them."""
+    path = CPU_DIR / f"{case}.npy"
+    t0 = time.monotonic()
+    while not path.exists():
+        codes = [w.exitcode for w in _cpu_workers]
+        check(all(c in (None, 0) for c in codes), f"{case}: a CPU-half process ended with {codes}")
+        check(None in codes or path.exists(), f"{case}: the CPU halves ended without it")
+        check(time.monotonic() - t0 < CPU_WAIT_S, f"{case}: no CPU image after {CPU_WAIT_S} s")
+        time.sleep(0.1)
+    waited = time.monotonic() - t0
+    if waited > 0.5:
+        log(f"waited {waited:.1f}s for the CPU half's {case}")
+    return np.load(path), json.loads((CPU_DIR / f"{case}.json").read_text())["seconds"]
+
+
+def stop_cpu_halves():
+    for worker in _cpu_workers:
+        worker.join(timeout=60)
+        check(worker.exitcode == 0, f"a CPU-half process ended with {worker.exitcode}")
+
+
 def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
-                packets: dict) -> list[dict]:
+                packets: dict, phase15_launches: int) -> list[dict]:
     rows = []
     for row, (cfg, source, replaces) in KERNEL_ROWS.items():
         if row.endswith("large_table"):
@@ -1906,6 +2275,8 @@ def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
         else:
             merged = batches[cfg][-1]
             launches = renders[cfg]["kernel_launches"]
+            if cfg == "v1":
+                launches += phase15_launches  # the megakernel phase's card renders
             err = max(b["max_abs_err_t"] for b in batches[cfg])
         rows.append({
             "name": row,
@@ -1947,6 +2318,7 @@ def main():
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build
+    wall = PhaseWall()
     t0 = time.perf_counter()
     build = cuda_build.build(force=True)
     log(f"phase 2 build: {time.perf_counter() - t0:.2f}s for {len(build)} libraries")
@@ -1957,6 +2329,9 @@ def main():
             log(f"phase 2 build {name} kernel: {json.dumps(kernel)}")
     check(native.sah_available(), f"the native SAH builder did not load: {native.sah_error()}")
     log("phase 2 BVH builder: native binned SAH (shimmer_tpu_torch/native/sah.cpp, g++)")
+    # The CPU halves of phases 4 and 10-15, beside the card's phases.
+    start_cpu_halves()
+    wall.mark(2)
 
     # The bench scene: tables built once on the host, copied to the card.
     t0 = time.perf_counter()
@@ -1970,41 +2345,60 @@ def main():
 
     # 3. every configuration against the plain version on the card
     batches = phase3(scene_gpu, bench_batches(scene_gpu, cam, film, dev))
+    wall.mark(3)
     # 4. small render, card against CPU, under every configuration
-    phase4(scene_cpu, scene_gpu)
+    del scene_cpu
+    phase4(scene_gpu)
+    wall.mark(4)
     # 5. the full bench render through the port's entry point (v1)
     renders = {}
     renders["v1"], v1_img = phase5(scene_gpu)
+    wall.mark(5)
     # 6. the full bench render under the other configurations
     renders.update(phase6(scene_gpu, v1_img))
-    del scene_cpu, scene_gpu, tris
+    wall.mark(6)
+    del scene_gpu, tris
     torch.cuda.empty_cache()
     # 7. the 1.3M-triangle leg
     large = phase7(dev)
+    wall.mark(7)
     torch.cuda.empty_cache()
     # 8. the row-gather kernels through their micro-benchmark entry point
     gathers = phase8(dev)
+    wall.mark(8)
     # 9. the packet-step kernels through theirs
     packets = phase9(dev, bench_tables)
+    wall.mark(9)
     del bench_tables
     torch.cuda.empty_cache()
     # 10. the material bench scene through the port's entry point (v1)
     phase10(dev)
+    wall.mark(10)
     torch.cuda.empty_cache()
     # 11. scene files through the loader: the goldens, a loaded bench scene
     phase11(dev)
+    wall.mark(11)
     torch.cuda.empty_cache()
     # 12. textures and the image environment light through the loader
     phase12(dev)
+    wall.mark(12)
     torch.cuda.empty_cache()
     # 13. delta lights and media through the loader
     phase13(dev)
+    wall.mark(13)
     torch.cuda.empty_cache()
     # 14. bilinear patches and instancing through the loader
     phase14(dev)
+    wall.mark(14)
+    torch.cuda.empty_cache()
+    # 15. the megakernel and the other estimators, samplers, filters and
+    # cameras
+    mk = phase15(dev, v1_img, renders["v1"])
+    wall.mark(15)
+    stop_cpu_halves()
 
-    print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets)}),
-          flush=True)
+    print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets,
+                                             mk["launches"])}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({
         "ok": True,

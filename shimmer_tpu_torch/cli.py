@@ -5,22 +5,23 @@ scene, render it on the CUDA card, write the image.
 
 ``--device cpu`` renders with the plain torch versions on the CPU; there
 is no silent fallback, so without a card and without ``--device cpu`` the
-command raises.  The flags of features the port does not have yet
-(another integrator, ``--shard``, ``--megakernel``, ``--checkpoint``,
-``--stats``) raise NotImplementedError naming the ROADMAP item that ports
-them.
+command raises.  ``--integrator`` picks the estimator (the scene's by
+default) and ``--megakernel`` forces the masked megakernel in place of the
+wavefront.  The flags of features the port does not have yet
+(``--shard``, ``--checkpoint``, ``--stats``) raise NotImplementedError
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import sys
 import time
 
 # Flags of unported features -> the ROADMAP queue 1 item that ports them.
 _UNPORTED_FLAGS = {
     "shard": "multi-GPU rendering, ROADMAP queue 1 item 10",
-    "megakernel": "the megakernel, ROADMAP queue 1 item 7",
     "checkpoint": "render checkpoints, ROADMAP queue 1 item 8",
     "stats": "the statistics report, ROADMAP queue 1 item 8",
 }
@@ -51,10 +52,6 @@ def main(argv=None):
     for flag, what in _UNPORTED_FLAGS.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {what}, is not ported yet")
-    if args.integrator not in (None, "path"):
-        raise NotImplementedError(
-            f"--integrator {args.integrator}: the other estimators, ROADMAP queue 1 item 7, "
-            "are not ported yet")
 
     from pathlib import Path
 
@@ -64,7 +61,6 @@ def main(argv=None):
     from shimmer_tpu_torch.loading.parser import parse_file
     from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
     from shimmer_tpu_torch.render import render
-    from shimmer_tpu_torch.samplers import ZSobolSampler
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -81,7 +77,9 @@ def main(argv=None):
     spp = args.spp or job.spp
     sampler = job.sampler
     if args.seed is not None:
-        sampler = ZSobolSampler(sampler.samples_per_pixel, job.film.resolution, args.seed)
+        # A sampler reads its seed only when it draws.
+        sampler = copy.copy(sampler)
+        sampler.seed = args.seed
 
     def progress(done, total):
         if not args.quiet:
@@ -90,8 +88,12 @@ def main(argv=None):
     t0 = time.time()
     image, _ = render(
         job.scene, job.camera, job.film, sampler,
-        integrator=job.integrator, spp=spp, max_depth=args.maxdepth or job.max_depth,
-        wave_spp=args.wave_spp, pixel_block=args.pixel_block, progress=progress,
+        integrator=args.integrator or job.integrator, spp=spp,
+        max_depth=args.maxdepth or job.max_depth, wave_spp=args.wave_spp,
+        pixel_block=args.pixel_block, progress=progress,
+        disable_pixel_jitter=job.disable_pixel_jitter,
+        disable_wavelength_jitter=job.disable_wavelength_jitter,
+        wavefront=False if args.megakernel else None,
     )
     img = image.cpu().numpy()
     if not args.quiet:

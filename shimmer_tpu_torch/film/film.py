@@ -1,6 +1,6 @@
 """Spectral film and pixel sensor (port of ``shimmer_tpu/film/film.py``:
-``PixelSensor`` with the CIE 1931 response and no white balance, which is
-what the slice's scenes use; ``RgbFilm``; ``FilmState``)."""
+``PixelSensor`` with ``create``, ``RgbFilm`` with the per-sample film
+scatter, ``FilmState``)."""
 
 from __future__ import annotations
 
@@ -10,38 +10,85 @@ import math
 import numpy as np
 import torch
 
+from shimmer_tpu_torch.color.color import white_balance, xyz_to_xy
 from shimmer_tpu_torch.config import resolve_device
 from shimmer_tpu_torch.ops.math import safe_div
 from shimmer_tpu_torch.spectra.sampled import SampledWavelengths
 from shimmer_tpu_torch.spectra.spectrum import (
+    Spectrum,
     cie_x_spectrum,
     cie_y_spectrum,
     cie_z_spectrum,
+    d_illuminant,
     dense_sample,
+    inner_product,
+    spectrum_xyz,
+    swatch_reflectances,
 )
 
 
 class PixelSensor:
-    """Spectral sensor response: the CIE XYZ matching functions, so sensor
-    RGB is XYZ (imaging ratio 1)."""
+    """Spectral sensor response and the sensor-RGB -> XYZ matrix.
 
-    def __init__(self, colorspace):
-        self.rgb_bar_dense = np.stack(
-            [
-                cie_x_spectrum().to_dense(),
-                cie_y_spectrum().to_dense(),
-                cie_z_spectrum().to_dense(),
-            ]
-        )
-        self.xyz_from_sensor_rgb = np.eye(3)
+    Without ``rgb_bar`` the response is the CIE XYZ matching functions,
+    white-balanced from ``sensor_illum`` to the color space's white when
+    one is given; with ``rgb_bar`` the matrix is the least-squares fit of
+    the 24 ColorChecker swatches as seen by the sensor under
+    ``sensor_illum`` against their XYZ under the color space's
+    illuminant."""
+
+    def __init__(self, colorspace, sensor_illum: Spectrum | None = None,
+                 imaging_ratio: float = 1.0, rgb_bar=None):
+        self.imaging_ratio = float(imaging_ratio)
+        if rgb_bar is None:
+            self.rgb_bar_dense = np.stack(
+                [cie_x_spectrum().to_dense(), cie_y_spectrum().to_dense(),
+                 cie_z_spectrum().to_dense()]
+            )
+            if sensor_illum is not None:
+                src_white = xyz_to_xy(spectrum_xyz(sensor_illum))
+                self.xyz_from_sensor_rgb = white_balance(src_white, colorspace.w)
+            else:
+                self.xyz_from_sensor_rgb = np.eye(3)
+        else:
+            if sensor_illum is None:
+                raise ValueError("a sensor with its own RGB response needs an illuminant")
+            r, g, b = rgb_bar
+            self.rgb_bar_dense = np.stack([r.to_dense(), g.to_dense(), b.to_dense()])
+            swatches = swatch_reflectances()
+            rgb_camera = np.stack([_project_reflectance(s, sensor_illum, r, g, b)
+                                   for s in swatches])
+            sensor_white_g = inner_product(sensor_illum, g)
+            sensor_white_y = inner_product(sensor_illum, cie_y_spectrum())
+            xyz_output = np.stack([
+                _project_reflectance(s, colorspace.illuminant, cie_x_spectrum(),
+                                     cie_y_spectrum(), cie_z_spectrum())
+                * (sensor_white_y / sensor_white_g)
+                for s in swatches
+            ])
+            m, *_ = np.linalg.lstsq(rgb_camera, xyz_output, rcond=None)
+            self.xyz_from_sensor_rgb = m.T
         self._bars = {}
+
+    @staticmethod
+    def create(colorspace, exposure_time: float = 1.0, iso: float = 100.0,
+               white_balance_temp: float = 0.0, sensor_name: str = "cie1931") -> "PixelSensor":
+        """The scene file's sensor: imaging ratio exposure * ISO / 100, a D
+        illuminant white balance at ``white_balance_temp`` (0: none); only
+        the CIE 1931 sensor is known, another name raises ValueError."""
+        if sensor_name != "cie1931" and white_balance_temp == 0.0:
+            white_balance_temp = 6500.0
+        imaging_ratio = exposure_time * iso / 100.0
+        sensor_illum = d_illuminant(white_balance_temp) if white_balance_temp != 0.0 else None
+        if sensor_name == "cie1931":
+            return PixelSensor(colorspace, sensor_illum, imaging_ratio)
+        raise ValueError(f"unknown sensor: {sensor_name}")
 
     def _bars_on(self, device):
         key = str(device)
         if key not in self._bars:
-            self._bars[key] = torch.as_tensor(
-                self.rgb_bar_dense, dtype=torch.float32, device=device
-            )
+            self._bars[key] = torch.as_tensor(self.rgb_bar_dense, dtype=torch.float32,
+                                              device=device)
         return self._bars[key]
 
     def to_sensor_rgb(self, L, swl: SampledWavelengths):
@@ -51,7 +98,19 @@ class PixelSensor:
         r = torch.mean(dense_sample(bars[0], swl.lam) * l, dim=-1)
         g = torch.mean(dense_sample(bars[1], swl.lam) * l, dim=-1)
         b = torch.mean(dense_sample(bars[2], swl.lam) * l, dim=-1)
-        return torch.stack([r, g, b], dim=-1)
+        return torch.stack([r, g, b], dim=-1) * self.imaging_ratio
+
+
+def _project_reflectance(refl, illum, b1, b2, b3):
+    """<b_i refl illum> / <b2 illum> over 1 nm bins."""
+    lam = np.arange(360.0, 831.0)
+    il = illum.get(lam)
+    g_int = np.sum(b2.get(lam) * il)
+    return np.array([
+        np.sum(b1.get(lam) * refl.get(lam) * il),
+        np.sum(b2.get(lam) * refl.get(lam) * il),
+        np.sum(b3.get(lam) * refl.get(lam) * il),
+    ]) / g_int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +157,28 @@ class RgbFilm:
             1.0,
         )
         return rgb * scale[..., None]
+
+    def add_samples(self, state: FilmState, pixel_xy, L, swl, weight) -> FilmState:
+        """Accumulate one filter-weighted sample per lane.  The lanes must
+        name distinct pixels; a lane whose pixel lies outside the image (a
+        padded lane is sent to (width, height)) is dropped: it adds to a
+        spare slot past the image that is cut off again."""
+        w, h = self.resolution
+        rgb = self._clamped_rgb(L, swl) * weight[..., None]
+        px = pixel_xy[..., 0].reshape(-1).long()
+        py = pixel_xy[..., 1].reshape(-1).long()
+        inside = (px >= 0) & (px < w) & (py >= 0) & (py < h)
+        flat = torch.where(inside, py * w + px, h * w)
+
+        def add(acc, v):
+            tail = acc.shape[2:]
+            spare = torch.cat([acc.reshape((h * w,) + tail),
+                               torch.zeros((1,) + tail, dtype=acc.dtype, device=acc.device)])
+            out = spare.index_put((flat,), v.reshape((-1,) + tail).to(acc.dtype), accumulate=True)
+            return out[: h * w].reshape(acc.shape)
+
+        return FilmState(rgb_sum=add(state.rgb_sum, rgb), weight_sum=add(state.weight_sum, weight),
+                         rgb_splat=state.rgb_splat)
 
     def get_image(self, state: FilmState, splat_scale: float = 1.0):
         """Resolve the accumulators to (H, W, 3) output-colorspace RGB."""

@@ -18,23 +18,14 @@ from pathlib import Path
 
 import numpy as np
 
+from shimmer_tpu_torch.color.color import linear_to_srgb, srgb_to_linear
+
 
 class WrapMode(enum.Enum):
     REPEAT = "repeat"
     CLAMP = "clamp"
     BLACK = "black"
     OCTAHEDRAL_SPHERE = "octahedralsphere"
-
-
-def srgb_to_linear(v):
-    """sRGB decode of values in [0, 1]."""
-    return np.where(v <= 0.04045, v / 12.92, ((v + 0.055) / 1.055) ** 2.4)
-
-
-def linear_to_srgb(v):
-    """sRGB encoding of linear values clipped to [0, 1]."""
-    v = np.clip(v, 0.0, 1.0)
-    return np.where(v <= 0.0031308, v * 12.92, 1.055 * v ** (1.0 / 2.4) - 0.055)
 
 
 class Image:

@@ -45,8 +45,9 @@ from shimmer_tpu_torch.integrators.path import (
     _infinite_le_with_mis,
     _prepare_hit,
     _resolve_mix,
-    _with_rng_key,
     _medium_segment,
+    _with_regularize,
+    _with_rng_key,
     sample_ld_medium_prepare,
     sample_ld_prepare,
     shadow_march_interfaces,
@@ -115,12 +116,18 @@ def render_wave_wavefront(
     pixel_xy,
     pixel_valid,
     max_depth: int = 5,
+    regularize: bool = False,
     pixel_spread: float = 0.0,
+    disable_pixel_jitter: bool = False,
+    disable_wavelength_jitter: bool = False,
 ):
     """Render every (pixel in block) x (sample index) pair with a
     regenerating wavefront.  Returns the updated FilmState and a stats
     dict with the traced ``rays`` and the loop ``iters``.  ``pixel_spread``
-    is the angular pixel footprint that sizes texture filtering."""
+    is the angular pixel footprint that sizes texture filtering;
+    ``regularize`` roughens near-specular lobes past a path's first
+    non-specular bounce; the jitter switches pin the filter or the
+    wavelength draw at 0.5."""
     dev = scene.device
     n = pixel_xy.shape[0]
     n_samples = int(sample_indices.shape[0])
@@ -151,8 +158,12 @@ def render_wave_wavefront(
 
         s_state = sampler.start_pixel_sample(px, samp)
         u_lam, s_state = sampler.get_1d(s_state)
+        if disable_wavelength_jitter:
+            u_lam = torch.full_like(u_lam, 0.5)
         swl = film.sample_wavelengths(u_lam)
         u_f, s_state = sampler.get_pixel_2d(s_state)
+        if disable_pixel_jitter:
+            u_f = torch.full_like(u_f, 0.5)
         u_l, s_state = sampler.get_2d(s_state)
         p_film, w, u_l = get_camera_sample(film.filter, px, u_f, u_l)
         ray = camera.generate_ray(p_film, u_l)
@@ -252,6 +263,8 @@ def render_wave_wavefront(
         beta0, lam_term = _apply_dispersion(scene, si, surf_shade, beta_st, st.lam_term)
         frame = si.shading_frame()
         bsdf_ctx = _with_rng_key(scene, _bsdf_ctx(scene, si, swl), s_state)
+        if regularize:
+            bsdf_ctx = _with_regularize(bsdf_ctx, st.any_ns)
 
         beta_nee = beta0
         ld_new, (sh_o, sh_d, sh_tmax, sh_usable), s_state = sample_ld_prepare(

@@ -18,7 +18,7 @@ from shimmer_tpu_torch.ops.math import smooth_step, take_clamped
 from shimmer_tpu_torch.ops.sampling import UNIFORM_SPHERE_PDF, sample_uniform_sphere
 from shimmer_tpu_torch.ops.vecmath import distance_squared, dot, normalize
 from shimmer_tpu_torch.shapes.sphere import sphere_pdf_with_context, sphere_sample_with_context
-from shimmer_tpu_torch.spectra.spectrum import dense_sample_rows
+from shimmer_tpu_torch.spectra.spectrum import dense_sample, dense_sample_rows
 
 POINT = 0
 DISTANT = 1
@@ -198,3 +198,15 @@ def area_light_l(lights: LightData, light_idx, n, w, swl):
     """Emitted radiance from a point on an area light toward w."""
     emits = take_clamped(lights.two_sided, light_idx) | (dot(n, w) > 0.0)
     return torch.where(emits[..., None], _spectrum_of(lights, light_idx, swl), 0.0)
+
+
+def infinite_le(lights: LightData, ray_d, swl, uniform_infinite_indices: tuple = (),
+                image_infinite_indices: tuple = (), env_eval=None):
+    """Sum of the infinite lights' emission toward escaped rays; the index
+    lists are the scene's census, so only the kinds present run."""
+    total = torch.zeros(ray_d.shape[:-1] + (4,), dtype=torch.float32, device=ray_d.device)
+    for i in uniform_infinite_indices:
+        total = total + dense_sample(lights.spectrum[i], swl.lam) * lights.scale[i]
+    for i in image_infinite_indices:
+        total = total + env_eval(i, ray_d, swl)
+    return total

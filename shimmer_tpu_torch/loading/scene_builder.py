@@ -26,10 +26,14 @@ lights on triangles, spheres and bilinear patches; ``point``, ``spot``
 and ``distant`` lights; the ``infinite`` light with a constant ``L`` or an image
 ``filename``; ``homogeneous`` media through ``MakeNamedMedium`` and
 ``MediumInterface`` (the camera sits in the outside medium current at
-``Camera``; triangle meshes carry the interface); the ``perspective`` camera
-with the default screen window and no lens; the ``rgb`` film with the CIE
-1931 sensor; the ``box`` filter; the ``zsobol`` sampler; the ``path``
-integrator.  Images are read by ``film.image.Image.read`` (PFM, and the
+``Camera``; triangle meshes carry the interface); the ``perspective``
+(pinhole or thin lens), ``orthographic`` and ``spherical`` cameras with
+the screen window, the shutter and the three render spaces of ``Option
+"rendercoordsys"``; the ``rgb`` film with the CIE 1931 sensor, its ISO and
+white balance; the ``box``, ``triangle``, ``gaussian``, ``mitchell`` and
+``sinc`` filters; the ``independent``, ``stratified`` and ``zsobol``
+samplers; the ``path`` (and ``volpath``), ``simplepath`` and
+``randomwalk`` integrators; ``ColorSpace``; the jitter options.  Images are read by ``film.image.Image.read`` (PFM, and the
 8-bit formats through PIL; not EXR).  Everything else raises
 NotImplementedError naming what it lacks, and so does any parameter that
 nothing looked up when the job was created: no directive or parameter is
@@ -136,11 +140,17 @@ class RenderJob:
     spp: int
     filename: str
     light_sampler: str = "uniform"
+    disable_pixel_jitter: bool = False
+    disable_wavelength_jitter: bool = False
 
 
-# Options the port carries out, and the value each unported option must keep.
-_OPTIONS = {"seed", "rendercoordsys", "forcediffuse", "disabletexturefiltering"}
-_UNPORTED_OPTIONS = {"disablepixeljitter": False, "disablewavelengthjitter": False}
+# The options the port carries out.
+_OPTIONS = {"seed", "rendercoordsys", "forcediffuse", "disabletexturefiltering",
+            "disablepixeljitter", "disablewavelengthjitter"}
+# The integrators by scene-file name (volpath is the path estimator, which
+# carries the media; the reference maps it so too).
+_INTEGRATORS = {"path": "path", "volpath": "path", "simplepath": "simplepath",
+                "randomwalk": "randomwalk"}
 
 
 # The graphics state's material after ``Material "interface"`` (or "" or
@@ -226,23 +236,16 @@ class SceneBuilder:
         self.colorspace = get_named_color_space(name)
 
     def option(self, params, loc):
-        """In-scene ``Option``: seed, forcediffuse, rendercoordsys (the
-        default cameraworld only) and disabletexturefiltering (recorded
-        with no effect, as in the reference: textures filter as their
-        ``filter`` parameter says); the jitter switches raise when set;
+        """In-scene ``Option``: seed, forcediffuse, rendercoordsys (camera,
+        cameraworld or world; another value raises at create, as in the
+        reference), disablepixeljitter, disablewavelengthjitter and
+        disabletexturefiltering (recorded with no effect, as in the
+        reference: textures filter as their ``filter`` parameter says);
         any other option warns and is ignored, as in the reference."""
         for p in params:
             v = p.values[0]
             if p.type == "bool":
                 v = v in (True, "true")
-            if p.name in _UNPORTED_OPTIONS:
-                if v != _UNPORTED_OPTIONS[p.name]:
-                    raise _unported(f"{loc}: Option {p.name!r}",
-                                    "the wavefront has no jitter switches")
-                continue
-            if p.name == "rendercoordsys" and v != "cameraworld":
-                raise _unported(f"{loc}: Option rendercoordsys {v!r}",
-                                "the camera transform takes only cameraworld")
             if p.name not in _OPTIONS:
                 warnings.warn(f"{loc}: unsupported Option {p.name!r} ignored")
                 continue
@@ -502,12 +505,17 @@ class SceneBuilder:
         """Build the RenderJob with every table on ``device`` (default: the
         CUDA card); ``traverse`` is the triangle table's TraverseConfig
         (default ``TraverseConfig()``)."""
-        from shimmer_tpu_torch.cameras import CameraTransform, PerspectiveCamera
+        from shimmer_tpu_torch.cameras import (
+            CameraTransform,
+            OrthographicCamera,
+            PerspectiveCamera,
+            SphericalCamera,
+        )
         from shimmer_tpu_torch.config import resolve_device
         from shimmer_tpu_torch.film.film import PixelSensor, RgbFilm
-        from shimmer_tpu_torch.film.filters import BoxFilter
+        from shimmer_tpu_torch.film.filters import Filter
         from shimmer_tpu_torch.lights import lights as lt
-        from shimmer_tpu_torch.samplers import ZSobolSampler
+        from shimmer_tpu_torch.samplers import create_sampler
         from shimmer_tpu_torch.scene_builder import build_scene
         from shimmer_tpu_torch.shapes.mesh import TriangleMesh, read_ply
         from shimmer_tpu_torch.shapes.triangle import build_triangle_scene
@@ -522,36 +530,52 @@ class SceneBuilder:
         used.append(("Film", fpd))
         xres = fpd.get_one_int("xresolution", 1280)
         yres = fpd.get_one_int("yresolution", 720)
-        for key, default in (("iso", 100.0), ("whitebalance", 0.0)):
-            if fpd.get_one_float(key, default) != default:
-                raise _unported(f"Film parameter {key!r}", "the sensor has no exposure or "
-                                "white balance")
-        if fpd.get_one_string("sensor", "cie1931") != "cie1931":
-            raise _unported("Film parameter 'sensor'", "only the CIE 1931 sensor")
         filt_name, filt_pd = self.filter_spec
-        if filt_name != "box":
-            raise _unported(f"PixelFilter {filt_name!r}")
         used.append(("PixelFilter", filt_pd))
-        filt = BoxFilter(filt_pd.get_one_float("xradius", 0.5), filt_pd.get_one_float("yradius", 0.5))
-        film = RgbFilm((xres, yres), filt, PixelSensor(self.colorspace), self.colorspace,
+        # Every filter reads the parameters of all of them, as in the
+        # reference.
+        filt_params = {}
+        for k in ("xradius", "yradius", "sigma", "B", "C", "tau"):
+            v = filt_pd.get_one_float(k, None)
+            if v is not None:
+                filt_params[k] = v
+        filt = Filter.create(filt_name, **filt_params)
+        sensor = PixelSensor.create(
+            self.colorspace, exposure_time=1.0, iso=fpd.get_one_float("iso", 100.0),
+            white_balance_temp=fpd.get_one_float("whitebalance", 0.0),
+            sensor_name=fpd.get_one_string("sensor", "cie1931"),
+        )
+        film = RgbFilm((xres, yres), filt, sensor, self.colorspace,
                        max_component_value=fpd.get_one_float("maxcomponentvalue", float("inf")))
         filename = fpd.get_one_string("filename", "shimmer.pfm")
 
         # -- camera --
         cname, cpd, cam_ctm = self.camera_spec
-        if cname != "perspective":
-            raise _unported(f"Camera {cname!r}")
         used.append(("Camera", cpd))
-        if len(cpd.get_float_array("screenwindow")):
-            raise _unported("Camera parameter 'screenwindow'", "only the default screen window")
-        if cpd.get_one_float("lensradius", 0.0) > 0.0:
-            raise _unported("Camera parameter 'lensradius'", "the pinhole camera only")
-        # Without a lens the focal distance does nothing, and without
-        # animated transforms (which raise) neither does the shutter.
-        for key in ("focaldistance", "shutteropen", "shutterclose"):
-            cpd.get_one_float(key, 0.0)
-        ct = CameraTransform(Transform.from_matrix(np.linalg.inv(cam_ctm)))
-        camera = PerspectiveCamera(ct, (xres, yres), fov=cpd.get_one_float("fov", 90.0))
+        ct = CameraTransform(Transform.from_matrix(np.linalg.inv(cam_ctm)),
+                             rendering_space=str(self.options.get("rendercoordsys",
+                                                                  "cameraworld")))
+        common = dict(
+            camera_transform=ct,
+            resolution=(xres, yres),
+            shutter_open=cpd.get_one_float("shutteropen", 0.0),
+            shutter_close=cpd.get_one_float("shutterclose", 1.0),
+        )
+        sw = cpd.get_float_array("screenwindow")
+        screen_window = ((sw[0], sw[2]), (sw[1], sw[3])) if len(sw) == 4 else None
+        if cname == "perspective":
+            camera = PerspectiveCamera(
+                fov=cpd.get_one_float("fov", 90.0), screen_window=screen_window,
+                lens_radius=cpd.get_one_float("lensradius", 0.0),
+                focal_distance=cpd.get_one_float("focaldistance", 1e6), **common)
+        elif cname == "orthographic":
+            camera = OrthographicCamera(
+                screen_window=screen_window, lens_radius=cpd.get_one_float("lensradius", 0.0),
+                focal_distance=cpd.get_one_float("focaldistance", 1e6), **common)
+        elif cname == "spherical":
+            camera = SphericalCamera(mapping=cpd.get_one_string("mapping", "equalarea"), **common)
+        else:
+            raise ValueError(f"unknown camera {cname!r}")
         r2w = ct.render_from_world()
         r2w_np = np.asarray(r2w.m, np.float64)
 
@@ -704,17 +728,13 @@ class SceneBuilder:
 
         # -- sampler and integrator --
         sname, spd = self.sampler_spec
-        if sname != "zsobol":
-            raise _unported(f"Sampler {sname!r}", "only zsobol")
         used.append(("Sampler", spd))
         spp = spd.get_one_int("pixelsamples", 16)
-        sampler = ZSobolSampler(spp, (xres, yres),
-                                spd.get_one_int("seed", int(self.options.get("seed", 0))))
+        sampler = create_sampler(sname, spp, (xres, yres),
+                                 spd.get_one_int("seed", int(self.options.get("seed", 0))))
         iname, ipd = self.integrator_spec
-        # volpath is the path estimator, which carries the media (the
-        # reference maps it so too).
-        if iname not in ("path", "volpath"):
-            raise _unported(f"Integrator {iname!r}", "only path")
+        if iname not in _INTEGRATORS:
+            raise _unported(f"Integrator {iname!r}", "only path, volpath, simplepath and randomwalk")
         used.append(("Integrator", ipd))
         max_depth = ipd.get_one_int("maxdepth", 5)
         light_sampler = ipd.get_one_string("lightsampler", "uniform")
@@ -749,8 +769,11 @@ class SceneBuilder:
             instanced=instanced,
         )
         return RenderJob(scene=scene, camera=camera, film=film, sampler=sampler,
-                         integrator="path", max_depth=max_depth, spp=spp, filename=filename,
-                         light_sampler=light_sampler)
+                         integrator=_INTEGRATORS[iname], max_depth=max_depth, spp=spp,
+                         filename=filename, light_sampler=light_sampler,
+                         disable_pixel_jitter=bool(self.options.get("disablepixeljitter", False)),
+                         disable_wavelength_jitter=bool(
+                             self.options.get("disablewavelengthjitter", False)))
 
     def _build_instanced(self, r2w_np, used, device):
         """The two-level BVH over the instanced objects' triangle meshes:

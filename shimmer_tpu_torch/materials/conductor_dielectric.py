@@ -53,11 +53,17 @@ def _tex(tex, name):
 
 
 def _material_alphas(materials, mat_id, tex=None):
-    """(alpha_x, alpha_y): the roughness columns, or their textures."""
+    """(alpha_x, alpha_y): the roughness columns, or their textures; a
+    lane flagged in the context's ``regularize`` mask (a path past its
+    first non-specular bounce) roughens a near-specular lobe."""
     ax = _tex(tex, "uroughness")
     ay = _tex(tex, "vroughness")
     ax = sc.roughness_to_alpha(small_gather(materials.uroughness, mat_id) if ax is None else ax)
     ay = sc.roughness_to_alpha(small_gather(materials.vroughness, mat_id) if ay is None else ay)
+    reg = _tex(tex, "regularize")
+    if reg is not None:
+        ax = torch.where(reg, sc.regularize_alpha(ax), ax)
+        ay = torch.where(reg, sc.regularize_alpha(ay), ay)
     return sc.clamp_alpha(ax, ay)
 
 

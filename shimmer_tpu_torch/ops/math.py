@@ -8,6 +8,8 @@ their values.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -110,6 +112,24 @@ def dot_lanes(terms):
     for a, b in rest:
         acc = fma(a, b, acc)
     return acc
+
+
+def sinc(x):
+    """Normalized sinc sin(pi x) / (pi x), 1 near 0."""
+    px = math.pi * x
+    small = torch.abs(x) < 1e-5
+    px_safe = torch.where(small, 1.0, px)
+    return torch.where(small, 1.0, torch.sin(px_safe) / px_safe)
+
+
+def windowed_sinc(x, radius, tau):
+    """Lanczos-windowed sinc, 0 beyond ``radius``."""
+    out = sinc(x) * sinc(x / tau)
+    return torch.where(torch.abs(x) > radius, 0.0, out)
+
+
+def erf_inv(x):
+    return torch.erfinv(x)
 
 
 def to_i32(x):

@@ -76,3 +76,41 @@ def u32_to_unit_float(u):
     f = (u32(u) >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return torch.clamp(f, max=ONE_MINUS_EPSILON)
 
+
+def pcg4d(v0, v1, v2, v3):
+    """4-in/4-out hash (Jarzynski & Olano pcg4d)."""
+    x, y, z, w = u32(v0), u32(v1), u32(v2), u32(v3)
+    x = add32(mul32(x, 1664525), 1013904223)
+    y = add32(mul32(y, 1664525), 1013904223)
+    z = add32(mul32(z, 1664525), 1013904223)
+    w = add32(mul32(w, 1664525), 1013904223)
+    x = add32(x, mul32(y, w))
+    y = add32(y, mul32(z, x))
+    z = add32(z, mul32(x, y))
+    w = add32(w, mul32(y, z))
+    x = x ^ (x >> 16)
+    y = y ^ (y >> 16)
+    z = z ^ (z >> 16)
+    w = w ^ (w >> 16)
+    x = add32(x, mul32(y, w))
+    y = add32(y, mul32(z, x))
+    z = add32(z, mul32(x, y))
+    w = add32(w, mul32(y, z))
+    return x, y, z, w
+
+
+def uniform_1d(pixel_hash, sample_index, dim):
+    """One uniform float per lane from the (pixel, sample, dim) counter."""
+    x, _, _ = pcg3d(pixel_hash, sample_index, dim)
+    return u32_to_unit_float(x)
+
+
+def uniform_2d(pixel_hash, sample_index, dim):
+    """Two uniform floats per lane."""
+    x, y, _ = pcg3d(pixel_hash, sample_index, dim)
+    return u32_to_unit_float(x), u32_to_unit_float(y)
+
+
+def uniform_3d(pixel_hash, sample_index, dim):
+    x, y, z = pcg3d(pixel_hash, sample_index, dim)
+    return u32_to_unit_float(x), u32_to_unit_float(y), u32_to_unit_float(z)

@@ -86,6 +86,14 @@ def sample_discrete(weights, u):
     return idx, pmf, u_remap
 
 
+def sample_tent(u, r):
+    """Tent filter sample over [-r, r]."""
+    take_neg = u < 0.5
+    u1 = torch.where(take_neg, u * 2.0, (u - 0.5) * 2.0)
+    x = sample_linear(u1, torch.ones_like(u1), torch.zeros_like(u1))
+    return torch.where(take_neg, -r * (1.0 - x), r * (1.0 - x))
+
+
 def sample_exponential(u, a):
     return -torch.log1p(-u) / a
 

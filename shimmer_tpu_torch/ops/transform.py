@@ -73,6 +73,14 @@ class Transform:
         )
 
     @staticmethod
+    def orthographic(z_near, z_far):
+        z_near, z_far = float(z_near), float(z_far)
+        m = np.eye(4, dtype=np.float64)
+        m[2, 2] = 1.0 / (z_far - z_near)
+        m[2, 3] = -z_near / (z_far - z_near)
+        return Transform(m=m.astype(np.float32), m_inv=np.linalg.inv(m).astype(np.float32))
+
+    @staticmethod
     def perspective(fov_deg, n, f):
         n, f = float(n), float(f)
         persp = np.array(

@@ -1,10 +1,11 @@
-"""Render orchestration (port of ``shimmer_tpu/render.py``: ``render`` with
-the reference's interface over its wavefront branch,
-``make_wavefront_renderer`` and ``pixel_blocks``).
+"""Render orchestration (port of ``shimmer_tpu/render.py``).
 
 The image is split into fixed-size pixel blocks; each wave renders
-``wave_spp`` sample indices of one block with the regenerating wavefront
-and scatter-adds into the film state.
+``wave_spp`` sample indices of one block and adds them into the film
+state.  The production path is the regenerating wavefront
+(``integrators/wavefront.py``); ``wavefront=False`` runs the masked
+megakernel instead, one estimator call (``INTEGRATORS``) per sample index
+over the block's lanes, each sample scattered into its own pixel.
 """
 
 from __future__ import annotations
@@ -14,26 +15,157 @@ import torch
 
 from shimmer_tpu_torch.config import resolve_device
 from shimmer_tpu_torch.film.film import FilmState, RgbFilm
+from shimmer_tpu_torch.film.filters import get_camera_sample
+from shimmer_tpu_torch.integrators.path import li_path, li_random_walk, li_simple_path
 from shimmer_tpu_torch.integrators.wavefront import render_wave_wavefront
 from shimmer_tpu_torch.scene import Scene
+from shimmer_tpu_torch.spectra.sampled import SampledWavelengths
 
+INTEGRATORS = {
+    "path": li_path,
+    "simplepath": li_simple_path,
+    "randomwalk": li_random_walk,
+}
 DEFAULT_PIXEL_BLOCK = 1 << 15
 
 
-def make_wavefront_renderer(scene: Scene, camera, film: RgbFilm, sampler,
-                            max_depth: int = 5):
+def _spp_spread(camera, sampler):
+    """The camera's pixel spread shrunk with the sample count (0 for a
+    camera without one)."""
+    spread = getattr(camera, "pixel_spread", 0.0)
+    if spread:
+        spread = spread * max(0.125, 1.0 / np.sqrt(max(sampler.samples_per_pixel, 1)))
+    return spread
+
+
+def render_pixel_samples(scene: Scene, camera, film: RgbFilm, sampler, li_fn, opts: dict,
+                         film_state: FilmState, sample_indices, pixel_xy, pixel_valid=None,
+                         max_depth: int = 5, use_visible_wavelengths: bool = True,
+                         disable_pixel_jitter: bool = False,
+                         disable_wavelength_jitter: bool = False):
+    """The megakernel's wave body: one estimator call per sample index over
+    the block's lanes, each lane's sample added to its pixel.  Returns the
+    film state and the traced rays (summed over the calls of an estimator
+    that counts them, else None).
+
+    Draws in the reference's order: wavelengths, filter, lens.  A
+    non-finite estimate is zeroed.  Padded lanes (``pixel_valid`` False)
+    get filter weight 0 and are sent outside the image, where the film
+    drops them; every other lane names a pixel of its own, so each call's
+    adds go to distinct pixels."""
+    rays = None
+    if pixel_valid is not None:
+        w_img, h_img = film.resolution
+        outside = torch.tensor([w_img, h_img], dtype=pixel_xy.dtype, device=pixel_xy.device)
+        scatter_xy = torch.where(pixel_valid[..., None], pixel_xy, outside)
+    else:
+        scatter_xy = pixel_xy
+    for sample_index in sample_indices:
+        s_state = sampler.start_pixel_sample(pixel_xy, sample_index)
+        u_lam, s_state = sampler.get_1d(s_state)
+        if disable_wavelength_jitter:
+            u_lam = torch.full_like(u_lam, 0.5)
+        if use_visible_wavelengths:
+            swl = film.sample_wavelengths(u_lam)
+        else:
+            swl = SampledWavelengths.sample_uniform(u_lam)
+        u_filter, s_state = sampler.get_pixel_2d(s_state)
+        if disable_pixel_jitter:
+            u_filter = torch.full_like(u_filter, 0.5)
+        u_lens, s_state = sampler.get_2d(s_state)
+        p_film, weight, u_lens = get_camera_sample(film.filter, pixel_xy, u_filter, u_lens)
+        if pixel_valid is not None:
+            weight = torch.where(pixel_valid, weight, 0.0)
+        ray = camera.generate_ray(p_film, u_lens)
+        out = li_fn(scene, ray, swl, sampler, s_state, max_depth, **opts)
+        if isinstance(out, tuple):
+            out, st = out
+            rays = st["rays"] if rays is None else rays + st["rays"]
+        bad = torch.any(~torch.isfinite(out), dim=-1)
+        l = torch.where(bad[..., None], 0.0, out)
+        film_state = film.add_samples(film_state, scatter_xy, l, swl, weight)
+    return film_state, rays
+
+
+def full_image_pixels(film: RgbFilm, device=None):
+    """(W * H, 2) int32 pixel coordinates in row-major order."""
+    w, h = film.resolution
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.int32), torch.arange(w, dtype=torch.int32),
+                            indexing="ij")
+    return torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1).to(resolve_device(device))
+
+
+def _megakernel_opts(integrator, regularize, integrator_options, camera, sampler):
+    opts = dict(integrator_options or {})
+    if integrator == "path" and regularize:
+        opts["regularize"] = True
+    spread = _spp_spread(camera, sampler)
+    if spread and "pixel_spread" not in opts:
+        opts["pixel_spread"] = spread
+    if integrator == "path":
+        opts.setdefault("return_stats", True)
+    return opts
+
+
+def make_wave_renderer(scene: Scene, camera, film: RgbFilm, sampler, integrator: str = "path",
+                       max_depth: int = 5, regularize: bool = False,
+                       use_visible_wavelengths: bool = True, integrator_options: dict | None = None,
+                       disable_pixel_jitter: bool = False, disable_wavelength_jitter: bool = False):
+    """Megakernel wave function (film_state, sample_indices, pixel_xy,
+    pixel_valid) -> (film_state, stats); stats['rays'] is the traced ray
+    count of the path estimator (None for the others)."""
+    li_fn = INTEGRATORS[integrator]
+    opts = _megakernel_opts(integrator, regularize, integrator_options, camera, sampler)
+
+    def render_samples(film_state, sample_indices, pixel_xy, pixel_valid):
+        fs, rays = render_pixel_samples(
+            scene, camera, film, sampler, li_fn, opts, film_state, sample_indices, pixel_xy,
+            pixel_valid=pixel_valid, max_depth=max_depth,
+            use_visible_wavelengths=use_visible_wavelengths,
+            disable_pixel_jitter=disable_pixel_jitter,
+            disable_wavelength_jitter=disable_wavelength_jitter,
+        )
+        return fs, {"rays": rays}
+
+    return render_samples
+
+
+def make_scan_wave_renderer(scene: Scene, camera, film: RgbFilm, sampler,
+                            integrator: str = "path", max_depth: int = 5,
+                            regularize: bool = False, use_visible_wavelengths: bool = True,
+                            integrator_options: dict | None = None):
+    """Whole-wave megakernel function (film_state, sample_indices, blocks,
+    valids) -> film_state over every pixel block in turn."""
+    li_fn = INTEGRATORS[integrator]
+    opts = _megakernel_opts(integrator, regularize, integrator_options, camera, sampler)
+
+    def render_wave(film_state: FilmState, sample_indices, blocks, valids):
+        for pixel_xy, pixel_valid in zip(blocks, valids):
+            film_state, _ = render_pixel_samples(
+                scene, camera, film, sampler, li_fn, opts, film_state, sample_indices, pixel_xy,
+                pixel_valid=pixel_valid, max_depth=max_depth,
+                use_visible_wavelengths=use_visible_wavelengths,
+            )
+        return film_state
+
+    return render_wave
+
+
+def make_wavefront_renderer(scene: Scene, camera, film: RgbFilm, sampler, max_depth: int = 5,
+                            regularize: bool = False, disable_pixel_jitter: bool = False,
+                            disable_wavelength_jitter: bool = False):
     """Wave function (film_state, sample_indices, pixel_xy, pixel_valid)
     -> (film_state, stats); stats['rays'] is the exact traced ray count of
     the wave and stats['iters'] its loop iterations.  The camera's pixel
     spread, shrunk with the sample count, sizes the texture footprints."""
-    spread = getattr(camera, "pixel_spread", 0.0)
-    if spread:
-        spread = spread * max(0.125, 1.0 / np.sqrt(max(sampler.samples_per_pixel, 1)))
+    spread = _spp_spread(camera, sampler)
 
     def render_samples(film_state, sample_indices, pixel_xy, pixel_valid):
         return render_wave_wavefront(
             scene, camera, film, sampler, film_state, sample_indices,
-            pixel_xy, pixel_valid, max_depth=max_depth, pixel_spread=spread,
+            pixel_xy, pixel_valid, max_depth=max_depth, regularize=regularize,
+            pixel_spread=spread, disable_pixel_jitter=disable_pixel_jitter,
+            disable_wavelength_jitter=disable_wavelength_jitter,
         )
 
     return render_samples
@@ -85,44 +217,51 @@ def render(
     interface (keyword names and order).
 
     Returns the (H, W, 3) image and the final FilmState; with
-    ``collect_stats`` also a dict with the traced ``rays`` and the loop
-    ``iters`` summed over all waves.  Passing a FilmState as
-    ``film_state`` resumes from it; ``progress(done_spp, spp)`` is called
-    after every wave.  Only the wavefront path integrator is ported:
-    another integrator, ``wavefront=False``, ``integrator_options``,
-    ``regularize``, either jitter switch and ``checkpoint_path`` raise
-    NotImplementedError."""
-    unported = {
-        f"integrator {integrator!r}": integrator != "path",
-        "wavefront=False (the megakernel)": wavefront is False,
-        "integrator_options": bool(integrator_options),
-        "regularize=True": regularize,
-        "disable_pixel_jitter": disable_pixel_jitter,
-        "disable_wavelength_jitter": disable_wavelength_jitter,
-        "checkpoint_path (render checkpoints)": checkpoint_path is not None,
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(f"render: {what} is not ported yet")
+    ``collect_stats`` also a dict: the traced ``rays`` (the wavefront and
+    the path megakernel count them) and the wavefront's loop ``iters``,
+    summed over all waves.  Passing a FilmState as ``film_state`` resumes
+    from it; ``progress(done_spp, spp)`` is called after every wave.
+
+    ``wavefront=None`` takes the regenerating wavefront for the path
+    estimator without options, and the megakernel otherwise; ``False``
+    forces the megakernel, ``True`` the wavefront.  ``checkpoint_path``
+    (render checkpoints) raises NotImplementedError."""
+    if checkpoint_path is not None:
+        raise NotImplementedError(
+            "render: checkpoint_path (render checkpoints, ROADMAP queue 1 item 8) "
+            "is not ported yet")
     dev = scene.device
     spp = spp if spp is not None else sampler.samples_per_pixel
-    wave_fn = make_wavefront_renderer(scene, camera, film, sampler, max_depth=max_depth)
+    use_wavefront = (integrator == "path" and not integrator_options
+                     if wavefront is None else wavefront)
+    if use_wavefront:
+        wave_fn = make_wavefront_renderer(
+            scene, camera, film, sampler, max_depth=max_depth, regularize=regularize,
+            disable_pixel_jitter=disable_pixel_jitter,
+            disable_wavelength_jitter=disable_wavelength_jitter,
+        )
+    else:
+        wave_fn = make_wave_renderer(
+            scene, camera, film, sampler, integrator, max_depth, regularize,
+            integrator_options=integrator_options, disable_pixel_jitter=disable_pixel_jitter,
+            disable_wavelength_jitter=disable_wavelength_jitter,
+        )
     state = film_state if film_state is not None else film.init_state(dev)
     blocks, valids = pixel_blocks(film, pixel_block, dev)
-    rays = torch.zeros((), device=dev)
-    iters = torch.zeros((), device=dev)
+    totals = {}
     start = 0
     while start < spp:
         n = min(wave_spp, spp - start)
         idx = torch.arange(start, start + n, dtype=torch.int64, device=dev)
         for b in range(blocks.shape[0]):
             state, st = wave_fn(state, idx, blocks[b], valids[b])
-            rays = rays + st["rays"]
-            iters = iters + st["iters"]
+            for key, v in st.items():
+                if v is not None:
+                    totals[key] = totals.get(key, 0.0) + v.to(torch.float64)
         start += n
         if progress is not None:
             progress(start, spp)
     image = film.get_image(state)
     if collect_stats:
-        return image, state, {"rays": float(rays), "iters": float(iters)}
+        return image, state, {key: float(v) for key, v in totals.items()}
     return image, state

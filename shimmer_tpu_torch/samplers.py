@@ -1,5 +1,6 @@
 """Samplers: per-lane random number streams (port of
-``shimmer_tpu/samplers.py``: ``SamplerState`` and ``ZSobolSampler``).
+``shimmer_tpu/samplers.py``: ``SamplerState``, ``IndependentSampler``,
+``ZSobolSampler``, ``StratifiedSampler`` and ``create_sampler``).
 
 A sampler is a pure function of (pixel, sample index, dimension), so the
 port needs no ``torch.Generator``.  uint32 words live in int64 tensors
@@ -27,6 +28,38 @@ class SamplerState:
 
     def advance(self, k: int) -> "SamplerState":
         return dataclasses.replace(self, dim=(self.dim + k) & MASK32)
+
+
+def _hashed_pixel_start(pixel_xy, sample_index, seed: int, dim0: int) -> SamplerState:
+    """The pixel's seeded hash, the sample index and the first dimension."""
+    px = srng.u32(pixel_xy[..., 0])
+    py = srng.u32(pixel_xy[..., 1])
+    ph = srng.hash_combine(px, py, seed)
+    si = srng.u32(sample_index, device=ph.device) * torch.ones_like(ph)
+    return SamplerState(pixel_hash=ph, sample_index=si, dim=torch.full_like(ph, dim0))
+
+
+class IndependentSampler:
+    """Counter-hash uniform sampler: every draw is pcg3d of (pixel hash,
+    sample index, dimension)."""
+
+    def __init__(self, samples_per_pixel: int, seed: int = 0):
+        self.samples_per_pixel = int(samples_per_pixel)
+        self.seed = int(seed)
+
+    def start_pixel_sample(self, pixel_xy, sample_index, dim0: int = 0) -> SamplerState:
+        return _hashed_pixel_start(pixel_xy, sample_index, self.seed, dim0)
+
+    def get_1d(self, state: SamplerState):
+        u = srng.uniform_1d(state.pixel_hash, state.sample_index, state.dim)
+        return u, state.advance(1)
+
+    def get_2d(self, state: SamplerState):
+        ux, uy = srng.uniform_2d(state.pixel_hash, state.sample_index, state.dim)
+        return vec2(ux, uy), state.advance(2)
+
+    def get_pixel_2d(self, state: SamplerState):
+        return self.get_2d(state)
 
 
 def _sobol_cols() -> np.ndarray:
@@ -167,3 +200,61 @@ class ZSobolSampler:
 
     def get_pixel_2d(self, state: SamplerState):
         return self.get_2d(state)
+
+
+class StratifiedSampler:
+    """Jittered stratified sampler: each dimension draws the stratum
+    (sample index + a hash of the pixel and dimension) mod spp, jittered
+    inside it by the independent draw (or centred without jitter).  spp is
+    x_samples * y_samples."""
+
+    def __init__(self, x_samples: int, y_samples: int, jitter: bool = True, seed: int = 0):
+        self.x_samples = int(x_samples)
+        self.y_samples = int(y_samples)
+        self.samples_per_pixel = self.x_samples * self.y_samples
+        self.jitter = bool(jitter)
+        self.seed = int(seed)
+
+    def start_pixel_sample(self, pixel_xy, sample_index, dim0: int = 0) -> SamplerState:
+        return _hashed_pixel_start(pixel_xy, sample_index, self.seed, dim0)
+
+    def _stratum(self, state):
+        """Per-dimension shuffled stratum; the uint32 sum wraps before the
+        modulo, as the reference's does."""
+        h = srng.hash_combine(state.pixel_hash, state.dim)
+        return srng.add32(state.sample_index, h) % self.samples_per_pixel
+
+    def get_1d(self, state: SamplerState):
+        s = self._stratum(state)
+        jit = (srng.uniform_1d(state.pixel_hash, state.sample_index, state.dim)
+               if self.jitter else 0.5)
+        return (s.to(torch.float32) + jit) / self.samples_per_pixel, state.advance(1)
+
+    def get_2d(self, state: SamplerState):
+        s = self._stratum(state)
+        x = s % self.x_samples
+        y = s // self.x_samples
+        if self.jitter:
+            jx, jy = srng.uniform_2d(state.pixel_hash, state.sample_index, state.dim)
+        else:
+            jx = jy = 0.5
+        u = vec2((x.to(torch.float32) + jx) / self.x_samples,
+                 (y.to(torch.float32) + jy) / self.y_samples)
+        return u, state.advance(2)
+
+    def get_pixel_2d(self, state: SamplerState):
+        return self.get_2d(state)
+
+
+def create_sampler(name: str, samples_per_pixel: int, resolution=(1280, 720), seed: int = 0):
+    """A sampler by its scene-file name; stratified takes the largest
+    square-root grid that spp allows."""
+    name = name.lower()
+    if name == "independent":
+        return IndependentSampler(samples_per_pixel, seed)
+    if name in ("zsobol", "sobol", "paddedsobol"):
+        return ZSobolSampler(samples_per_pixel, resolution, seed)
+    if name == "stratified":
+        n = int(np.sqrt(samples_per_pixel))
+        return StratifiedSampler(n, max(1, samples_per_pixel // n), True, seed)
+    raise ValueError(f"unknown sampler: {name}")

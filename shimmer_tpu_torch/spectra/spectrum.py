@@ -47,6 +47,12 @@ def dense_sample(values, lam):
     return torch.where(in_range, values[idx], 0.0)
 
 
+def cie_xyz_sample(lam):
+    """The CIE X, Y and Z matching functions at (..., 4) wavelengths."""
+    t = torch.as_tensor(cie_xyz_dense(), device=lam.device)
+    return dense_sample(t[0], lam), dense_sample(t[1], lam), dense_sample(t[2], lam)
+
+
 def dense_sample_rows(table, row_idx, lam):
     """``dense_sample(table[row_idx], lam)`` as one 2-D gather."""
     idx, in_range = _dense_index(lam)
@@ -143,6 +149,15 @@ def _planck(lam_nm, t):
     return (2.0 * h * c * c) / (l**5 * (np.exp((h * c) / (l * kb * t)) - 1.0))
 
 
+def planck_device(lam_nm, t):
+    """Planck's law on the device in float32: the 1e-34 constants would
+    underflow there, so they are folded (2hc^2 = 1.1910429e-16 W m^2,
+    hc/kb = 1.4387770e-2 m K)."""
+    l = lam_nm.to(torch.float32) * 1e-9
+    l5 = l * l * l * l * l
+    return 1.1910429e-16 / (l5 * torch.expm1(1.4387770e-2 / (l * t)))
+
+
 @functools.cache
 def cie_x_spectrum() -> DenselySampledSpectrum:
     return DenselySampledSpectrum(_data()["cie_x"])
@@ -186,6 +201,31 @@ def named_spectrum(name: str) -> PiecewiseLinearSpectrum | None:
         return None
     key, normalize = entry
     return PiecewiseLinearSpectrum.from_interleaved(_data()[key], normalize)
+
+
+def swatch_reflectances() -> list[PiecewiseLinearSpectrum]:
+    """The 24 BabelColor ColorChecker swatch reflectances."""
+    return [PiecewiseLinearSpectrum.from_interleaved(row, False)
+            for row in _data()["swatch_reflectances"]]
+
+
+def d_illuminant(temperature: float) -> DenselySampledSpectrum:
+    """The CIE D illuminant of a correlated color temperature (a
+    blackbody below 4000 K)."""
+    cct = temperature * 1.4388 / 1.4380
+    if cct < 4000.0:
+        return DenselySampledSpectrum(BlackbodySpectrum(cct).to_dense())
+    if cct <= 7000.0:
+        x = -4.607e9 / cct**3 + 2.9678e6 / cct**2 + 0.09911e3 / cct + 0.244063
+    else:
+        x = -2.0064e9 / cct**3 + 1.9018e6 / cct**2 + 0.24748e3 / cct + 0.23704
+    y = -3.0 * x * x + 2.870 * x - 0.275
+    m = 0.0241 + 0.2562 * x - 0.7341 * y
+    m1 = (-1.3515 - 1.7703 * x + 5.9114 * y) / m
+    m2 = (0.0300 - 31.4424 * x + 30.0717 * y) / m
+    d = _data()
+    values = (d["cie_s0"] + d["cie_s1"] * m1 + d["cie_s2"] * m2) * 0.01
+    return DenselySampledSpectrum(PiecewiseLinearSpectrum(d["cie_s_lambda"], values).to_dense())
 
 
 def inner_product(a: Spectrum, b: Spectrum) -> float:

@@ -2,9 +2,11 @@
 ``main`` renders tests/scenes/diffuse_box.pbrt at 1 spp with
 ``--device cpu`` to a PFM and a PNG; the PFM read back equals the image
 ``render`` returns for the same job; the PNG is the 8-bit sRGB encoding;
-``python -m shimmer_tpu_torch.cli`` runs; every flag of an unported
-feature raises NotImplementedError, and ``--device cuda`` without a card
-raises instead of falling back to the CPU."""
+``python -m shimmer_tpu_torch.cli`` runs; ``--integrator simplepath`` /
+``randomwalk`` and ``--megakernel`` write the image ``render`` gives with
+that estimator or the megakernel; every flag of an unported feature
+raises NotImplementedError, and ``--device cuda`` without a card raises
+instead of falling back to the CPU."""
 
 import os
 import subprocess
@@ -67,14 +69,35 @@ def test_cli_as_module(tmp_path):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--shard"], ["--megakernel"], ["--stats"], ["--checkpoint", "ck.npz"],
-     ["--integrator", "simplepath"], ["--integrator", "randomwalk"]],
-    ids=["shard", "megakernel", "stats", "checkpoint", "simplepath", "randomwalk"],
+    [["--shard"], ["--stats"], ["--checkpoint", "ck.npz"]],
+    ids=["shard", "stats", "checkpoint"],
 )
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         cli.main([str(SCENE), "--device", "cpu", "-q", "-o", str(tmp_path / "x.pfm"), *flags])
     assert not (tmp_path / "x.pfm").exists()
+
+
+@pytest.mark.parametrize(
+    "flags, kwargs",
+    [(["--integrator", "simplepath"], {"integrator": "simplepath"}),
+     (["--integrator", "randomwalk"], {"integrator": "randomwalk"}),
+     (["--megakernel"], {"wavefront": False})],
+    ids=["simplepath", "randomwalk", "megakernel"],
+)
+def test_estimator_flags_render(tmp_path, reference_image, flags, kwargs):
+    pfm = tmp_path / "est.pfm"
+    assert cli.main([str(SCENE), "--spp", "1", "--device", "cpu", "-q", "-o", str(pfm),
+                     *flags]) == 0
+    builder = SceneBuilder(search_dir=SCENE.parent)
+    parse_file(str(SCENE), builder)
+    job = builder.create(device="cpu")
+    want, _ = render(job.scene, job.camera, job.film, job.sampler, spp=1,
+                     max_depth=job.max_depth, **kwargs)
+    np.testing.assert_array_equal(Image.read(pfm).data, want.numpy())
+    if "--megakernel" in flags:
+        # The same estimator and draws as the wavefront's image.
+        np.testing.assert_allclose(want.numpy(), reference_image, rtol=1e-4, atol=1e-5)
 
 
 def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
@@ -87,7 +110,9 @@ def test_render_interface(reference_image):
     """``render`` takes the reference's keywords in the reference's order,
     returns (image, state), or (image, state, stats) with collect_stats;
     film_state accumulates onto a given state and progress sees every
-    wave; the unported options raise."""
+    wave; the megakernel, the other estimators, their options,
+    ``regularize`` and the jitter switches render; ``checkpoint_path``
+    raises."""
     import inspect
 
     from shimmer_tpu.render import render as jax_render
@@ -108,8 +133,10 @@ def test_render_interface(reference_image):
     assert (state2.weight_sum.numpy() == 2).all()
     np.testing.assert_array_equal(state2.rgb_sum.numpy(), 2 * state1.rgb_sum.numpy())
     for kwargs in ({"integrator": "simplepath"}, {"wavefront": False},
-                   {"integrator_options": {"x": 1}}, {"regularize": True},
-                   {"disable_pixel_jitter": True}, {"disable_wavelength_jitter": True},
-                   {"checkpoint_path": "ck.npz"}):
-        with pytest.raises(NotImplementedError):
-            render(*args, spp=1, **kwargs)
+                   {"integrator": "simplepath", "integrator_options": {"sample_bsdf": False}},
+                   {"regularize": True}, {"disable_pixel_jitter": True},
+                   {"disable_wavelength_jitter": True}):
+        img, _ = render(*args, spp=1, max_depth=2, **kwargs)
+        assert torch.isfinite(img).all() and float(img.mean()) > 0, kwargs
+    with pytest.raises(NotImplementedError, match="item 8"):
+        render(*args, spp=1, checkpoint_path="ck.npz")

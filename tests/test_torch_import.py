@@ -1,7 +1,9 @@
 """The PyTorch port imports neither JAX nor the JAX package: every module of
 shimmer_tpu_torch, the port's own copies of the host-only builders, and
 chip_smoke.py import in a fresh interpreter with ``jax`` and
-``shimmer_tpu`` blocked."""
+``shimmer_tpu`` blocked, and each slice's path runs there at a small
+size (since the megakernel slice: the samplers, filters, cameras, color
+spaces and sensor through the megakernel and each estimator)."""
 
 import os
 import subprocess
@@ -143,6 +145,38 @@ if "shimmer_tpu_torch.shapes.instanced" in runs:
     assert job.scene.has_instanced and job.scene.has_patches
     img = render(job.scene, job.camera, job.film, job.sampler, spp=1, max_depth=3)[0]
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+if "shimmer_tpu_torch.film.filters" in runs:
+    # The megakernel slice runs, not only imports: a scene with the
+    # stratified sampler, the Mitchell filter, a thin lens, the world
+    # render space, both jitter options, ColorSpace rec2020 and the film's
+    # ISO and white balance, rendered at a small size on the CPU through
+    # the megakernel and each estimator, and through the wavefront.
+    import torch
+    from shimmer_tpu_torch.loading.parser import parse_str
+    from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
+    from shimmer_tpu_torch.render import render
+    text = (
+        'ColorSpace "rec2020"\\nOption "string rendercoordsys" "world"\\n'
+        'Option "bool disablepixeljitter" true\\nOption "bool disablewavelengthjitter" true\\n'
+        'LookAt 0 1 -4  0 0 0  0 1 0\\n'
+        'Camera "perspective" "float lensradius" [0.05] "float focaldistance" [4]\\n'
+        'Film "rgb" "integer xresolution" [8] "integer yresolution" [8] "float iso" [200]\\n'
+        '  "float whitebalance" [5000]\\n'
+        'Sampler "stratified" "integer pixelsamples" [4]\\nPixelFilter "mitchell"\\n'
+        'WorldBegin\\nLightSource "infinite" "rgb L" [0.3 0.3 0.3]\\n'
+        'AttributeBegin\\nAreaLightSource "diffuse" "rgb L" [8 8 8]\\n'
+        'Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]\\n'
+        '  "point3 P" [-1 3 -1  1 3 -1  1 3 1  -1 3 1]\\nAttributeEnd\\n'
+        'Shape "sphere" "float radius" [1]\\n')
+    b = SceneBuilder()
+    parse_str(text, b)
+    job = b.create(device="cpu")
+    for kw in ({{"wavefront": False}}, {{"integrator": "simplepath"}},
+               {{"integrator": "randomwalk"}}, {{}}):
+        img = render(job.scene, job.camera, job.film, job.sampler, spp=4, max_depth=3,
+                     disable_pixel_jitter=job.disable_pixel_jitter,
+                     disable_wavelength_jitter=job.disable_wavelength_jitter, **kw)[0]
+        assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0, kw
 blocked = ("jax", "jaxlib", "shimmer_tpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -173,10 +207,14 @@ print(len(names))
          "shimmer_tpu_torch.textures.normal_bump", "shimmer_tpu_torch.lights.env"],
         ["shimmer_tpu_torch.shapes.bilinear", "shimmer_tpu_torch.shapes.instanced",
          "shimmer_tpu_torch.scene", "shimmer_tpu_torch.convert"],
+        ["shimmer_tpu_torch.ops.rng", "shimmer_tpu_torch.samplers",
+         "shimmer_tpu_torch.film.filters", "shimmer_tpu_torch.cameras",
+         "shimmer_tpu_torch.color.color", "shimmer_tpu_torch.color.colorspace",
+         "shimmer_tpu_torch.film.film", "shimmer_tpu_torch.render"],
     ],
     ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules",
          "packet_step_modules", "kernel_ab_modules", "material_modules",
-         "scene_file_modules", "texture_modules", "instancing_modules"],
+         "scene_file_modules", "texture_modules", "instancing_modules", "megakernel_modules"],
 )
 def test_imports_without_jax(names):
     # One torch thread: the subprocess runs beside the other xdist workers.

@@ -8,12 +8,10 @@ read_ply) against the reference's, on the CPU.
   image files written here, as PNG and as PFM), with texture and env
   tables equal to the reference loader's, and since the instancing slice
   the instancing and bilinear mesh cases (instance, patch and light
-  tables byte-equal).  Cases that use an unported feature (the jitter
-  options, another sampler, the camera render space) raise
-  NotImplementedError.  Where a
-  case's only unported feature is incidental (its sampler, or the jitter
-  option of its header), a variant without it gives the reference's
-  result.
+  tables byte-equal), and since the megakernel slice the jitter-option,
+  render-space and independent-sampler cases, whose jobs equal the
+  reference loader's (tests/test_parser.py:403, :459 and the CORNELL
+  scene).
 - For each golden scene (tests/scenes/*.pbrt) the port's
   ``SceneBuilder.create()`` gives the reference's tables: ``rows8`` and the
   other triangle tables byte-equal, the sphere table, materials, lights,
@@ -22,7 +20,13 @@ read_ply) against the reference's, on the CPU.
 - ``read_ply`` equals the reference's on ascii, binary little-endian and
   binary big-endian files with normals, uvs, triangles and quads.
 - Every unported directive, parameter and option raises
-  NotImplementedError naming it.
+  NotImplementedError naming it.  Each refusal the megakernel slice lifted
+  (the other cameras, the lens, screen window and shutter, the other
+  filters and samplers, simplepath and randomwalk, the film's ISO and
+  white balance, the render spaces, the jitter options, ColorSpace) is a
+  case whose loaded job equals the reference loader's: scene tables
+  (``rows8`` byte-equal), camera rays and differentials, sampler draws,
+  the filter's table, the sensor matrix, the integrator and the options.
 """
 
 import struct
@@ -278,24 +282,82 @@ Shape "sphere"
 """
 
 
+def _assert_jobs_equal(job, jjob, draws=True):
+    """The port's job equals the reference loader's: scene tables, camera
+    rays and differentials (within 1e-6: einsum against the spelled-out
+    sum, and an ulp of trig), sampler draws (bit-equal), filter (radius,
+    integral, table byte-equal where its values are), sensor and film
+    matrices, integrator, depth, spp and the jitter options."""
+    assert_scene_tables_equal(job.scene, jjob.scene)
+    assert (job.integrator, job.max_depth, job.spp, job.disable_pixel_jitter,
+            job.disable_wavelength_jitter) == (
+        jjob.integrator, jjob.max_depth, jjob.spp, jjob.disable_pixel_jitter,
+        jjob.disable_wavelength_jitter)
+    assert type(job.camera).__name__ == type(jjob.camera).__name__
+    for attr in ("render_from_camera", "world_from_render"):
+        np.testing.assert_array_equal(getattr(job.camera.camera_transform, attr).m,
+                                      np.asarray(getattr(jjob.camera.camera_transform, attr).m))
+    assert (job.camera.shutter_open, job.camera.shutter_close) == (
+        jjob.camera.shutter_open, jjob.camera.shutter_close)
+    w, h = job.film.resolution
+    rng = np.random.default_rng(3)
+    p_film = (rng.random((256, 2)) * [w, h]).astype(np.float32)
+    u = rng.random((256, 2)).astype(np.float32)
+    rd = job.camera.generate_ray_differential(torch.from_numpy(p_film), torch.from_numpy(u))
+    jrd = jjob.camera.generate_ray_differential(jnp.asarray(p_film), jnp.asarray(u))
+    for got, want in ((rd.ray.o, jrd.ray.o), (rd.ray.d, jrd.ray.d), (rd.rx_d, jrd.rx_d),
+                      (rd.ry_o, jrd.ry_o)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    f, jf = job.film.filter, jjob.film.filter
+    assert type(f).__name__ == type(jf).__name__ and f.radius == tuple(jf.radius)
+    assert job.film.filter_integral == pytest.approx(jjob.film.filter_integral, rel=1e-6)
+    if type(f).__name__ == "MitchellFilter":
+        for field in ("func", "cond_cdf", "marg_cdf"):
+            assert (getattr(f._dist, field).numpy().tobytes()
+                    == np.asarray(getattr(jf._dist, field)).tobytes()), field
+    sensor, jsensor = job.film.sensor, jjob.film.sensor
+    assert sensor.imaging_ratio == jsensor.imaging_ratio
+    np.testing.assert_array_equal(sensor.xyz_from_sensor_rgb, jsensor.xyz_from_sensor_rgb)
+    np.testing.assert_array_equal(job.film.output_rgb_from_sensor_rgb,
+                                  jjob.film.output_rgb_from_sensor_rgb)
+    s, js = job.sampler, jjob.sampler
+    assert type(s).__name__ == type(js).__name__
+    assert (s.samples_per_pixel, s.seed) == (js.samples_per_pixel, js.seed)
+    if draws:
+        px = np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1).reshape(-1, 2).astype(np.int32)
+        st = s.start_pixel_sample(torch.from_numpy(px), torch.tensor(1))
+        jst = js.start_pixel_sample(jnp.asarray(px), jnp.uint32(1))
+        for _ in range(3):
+            u2, st = s.get_2d(st)
+            ju2, jst = js.get_2d(jst)
+            np.testing.assert_array_equal(u2.numpy(), np.asarray(ju2))
+
+
 @pytest.mark.parametrize(
     "text",
     [
-        # :403, the jitter option (every TestOptionAttribute header has it).
+        # :403, the seed and the jitter option (every TestOptionAttribute
+        # header has it), with the independent sampler.
         OPTION_BASE % 'Shape "sphere" "float radius" [1]',
-        # :459, the camera render space.
-        ('Option "string rendercoordsys" ["camera"]\n' + OPTION_BASE_PORTED)
+        # :459, the camera render space: render_from_camera is the identity.
+        ('Option "string rendercoordsys" ["camera"]\n' + OPTION_BASE)
         % 'Shape "sphere" "float radius" [1]',
         # TestCreate / the CLI case: the independent sampler.
         CORNELL,
     ],
     ids=["jitter_option", "rendercoordsys", "independent_sampler"],
 )
-def test_parse_cases_with_unported_features_raise(text):
-    b = SceneBuilder()
-    with pytest.raises(NotImplementedError):
-        parse_str(text, b)
-        b.create(device="cpu")
+def test_parse_cases_with_lifted_options_load(text):
+    ensure_reference_sah()
+    jb, b = both(text)
+    job, jjob = b.create(device="cpu"), jb.create()
+    _assert_jobs_equal(job, jjob)
+    if "disablepixeljitter" in text:
+        assert job.disable_pixel_jitter and not job.disable_wavelength_jitter
+        assert job.sampler.seed == 7
+    if "rendercoordsys" in text:
+        np.testing.assert_allclose(job.camera.camera_transform.render_from_camera.m, np.eye(4),
+                                   atol=1e-6)
 
 
 # test_parser.py:119 (test_object_instancing) and :267 (the bilinear mesh
@@ -742,23 +804,10 @@ UNPORTED = {
     "measured_material": ("", 'Material "measured"'),
     "diffusetransmission": ("", 'Material "diffusetransmission"'),
     "shape_alpha": ("", 'Shape "sphere" "float alpha" [0.5]'),
-    "orthographic": ('Camera "orthographic"', ""),
-    "spherical": ('Camera "spherical"', ""),
-    "lensradius": ('Camera "perspective" "float lensradius" [0.1]', ""),
-    "screenwindow": ('Camera "perspective" "float screenwindow" [-1 1 -1 1]', ""),
-    "gaussian_filter": ('PixelFilter "gaussian"', ""),
-    "independent_sampler": ('Sampler "independent"', ""),
-    "stratified_sampler": ('Sampler "stratified"', ""),
-    "simplepath": ('Integrator "simplepath"', ""),
     "bdpt": ('Integrator "bdpt"', ""),
     "gbuffer_film": ('Film "gbuffer"', ""),
-    "film_iso": ('Film "rgb" "float iso" [400]', ""),
-    "rendercoordsys_world": ('Option "string rendercoordsys" "world"', ""),
-    "disablepixeljitter": ('Option "bool disablepixeljitter" true', ""),
-    "disablewavelengthjitter": ('Option "bool disablewavelengthjitter" true', ""),
     "active_transform": ("ActiveTransform StartTime", ""),
     "transform_times": ("TransformTimes 0 2", ""),
-    "color_space": ('ColorSpace "aces2065-1"', ""),
 }
 
 
@@ -769,6 +818,79 @@ def test_unported_feature_raises(case):
     with pytest.raises(NotImplementedError, match="not ported"):
         parse_str(_BASE % (before, world), b)
         b.create(device="cpu")
+
+
+# The megakernel slice's lifted refusals: each loads a job equal to the
+# reference loader's, over a scene with a triangle mesh (so rows8 is
+# compared under each render space).
+_JOB_BASE = """
+%s
+LookAt 0.4 1 -3  0 0.2 0  0 1 0
+Film "rgb" "integer xresolution" [12] "integer yresolution" [10] %s
+WorldBegin
+LightSource "infinite" "rgb L" [1 1 1]
+Material "diffuse" "rgb reflectance" [0.6 0.3 0.2]
+Shape "sphere"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point3 P" [-2 -1 -2  2 -1 -2  2 -1 2  -2 -1 2]
+"""
+LIFTED_JOBS = {
+    # (before WorldBegin, extra Film parameters)
+    "orthographic": ('Camera "orthographic"', ""),
+    "orthographic_lens": ('Camera "orthographic" "float lensradius" [0.1] '
+                          '"float focaldistance" [2] "float screenwindow" [-2 2 -1.5 1.5]', ""),
+    "spherical": ('Camera "spherical"', ""),
+    "spherical_equirect": ('Camera "spherical" "string mapping" "equirect"', ""),
+    "lensradius": ('Camera "perspective" "float lensradius" [0.1] "float focaldistance" [2.5]',
+                   ""),
+    "screenwindow": ('Camera "perspective" "float screenwindow" [-1 1 -0.7 0.9]', ""),
+    "shutter": ('Camera "perspective" "float shutteropen" [0.2] "float shutterclose" [0.6]', ""),
+    "gaussian_filter": ('PixelFilter "gaussian" "float sigma" [0.4]', ""),
+    "mitchell_filter": ('PixelFilter "mitchell" "float B" [0.5] "float C" [0.25]', ""),
+    "sinc_filter": ('PixelFilter "sinc" "float tau" [2]', ""),
+    "triangle_filter": ('PixelFilter "triangle" "float xradius" [1.5]', ""),
+    "independent_sampler": ('Sampler "independent" "integer pixelsamples" [4]', ""),
+    "stratified_sampler": ('Sampler "stratified" "integer pixelsamples" [9] "integer seed" [2]',
+                           ""),
+    "simplepath": ('Integrator "simplepath" "integer maxdepth" [3]', ""),
+    "randomwalk": ('Integrator "randomwalk"', ""),
+    "film_iso": ("", '"float iso" [400]'),
+    "film_whitebalance": ("", '"float whitebalance" [4500]'),
+    "rendercoordsys_world": ('Option "string rendercoordsys" "world"', ""),
+    "rendercoordsys_camera": ('Option "string rendercoordsys" "camera"', ""),
+    "disablepixeljitter": ('Option "bool disablepixeljitter" true', ""),
+    "disablewavelengthjitter": ('Option "bool disablewavelengthjitter" true', ""),
+    "color_space": ('ColorSpace "aces2065-1"', ""),
+    "color_space_dci_p3": ('ColorSpace "dci-p3"', ""),
+}
+
+
+@pytest.mark.parametrize("case", list(LIFTED_JOBS))
+def test_lifted_job_matches_the_reference(case):
+    ensure_reference_sah()
+    before, film = LIFTED_JOBS[case]
+    jb, b = both(_JOB_BASE % (before, film))
+    job, jjob = b.create(device="cpu"), jb.create()
+    _assert_jobs_equal(job, jjob)
+    assert job.scene.has_triangles
+
+
+@pytest.mark.parametrize("before, film, error", [
+    ('Camera "realistic"', "", "unknown camera"),
+    ('Sampler "halton"', "", "unknown sampler"),
+    ('PixelFilter "blackman"', "", "unknown filter"),
+    ("", '"string sensor" "canon_eos_100d"', "unknown sensor"),
+    ('ColorSpace "prophoto"', "", "unknown color space"),
+    ('Option "string rendercoordsys" "screen"', "", "rendering coordinate system"),
+])
+def test_unknown_names_raise_as_the_reference(before, film, error):
+    """Where the reference raises ValueError, so does the port."""
+    ensure_reference_sah()
+    for builder, parse, kw in ((SceneBuilder(), parse_str, {"device": "cpu"}),
+                               (JaxBuilder(), jax_parse, {})):
+        with pytest.raises(ValueError, match=error):
+            parse(_JOB_BASE % (before, film), builder)
+            builder.create(**kw)
 
 
 # The media and delta-light cases that raised before their slice: each now
