@@ -25,7 +25,7 @@ Phases, each printing its own numbers:
      unsorted ray layout with its visit statistics, SIMD efficiency,
      resident blocks per SM and bound;
   4. a small render (64x48, 4 spp) on the card and on the CPU under each
-     configuration, compared (this phase's and phases 10-15's CPU renders
+     configuration, compared (this phase's and phases 10-16's CPU halves
      run in two processes of their own, started after the build, beside
      the card's phases);
   5. the full bench render under v1 through shimmer_tpu_torch.render.render;
@@ -122,7 +122,23 @@ Phases, each printing its own numbers:
      samplers, the gaussian, mitchell, sinc and triangle filters, the
      orthographic and spherical (both mappings) cameras, a thin lens with
      a screen window, the camera and world render spaces, both jitter
-     options, ColorSpace rec2020 and the film's ISO and white balance.
+     options, ColorSpace rec2020 and the film's ISO and white balance;
+ 16. checkpoints, splats and gradients: (b) RgbFilm.add_splats of 2^20
+     samples (~114 a pixel, Gaussian footprints) twice on the card, the
+     same bits, and within rtol 1e-4 of the CPU; (a) a checkpointed render
+     of the bench scene at 320x180, 4 spp, one sample a wave, in a process
+     of its own that is killed after its second wave, resumed in another
+     new process, its final film state torch.equal to this process's
+     uninterrupted render; (c) tests/test_grad.py::TestGradients' four
+     scenes (the texture case twice) at its sizes: the card's AD against
+     its own central finite difference at that file's tolerances and
+     within 1e-3 of the CPU's AD; (d) the bench scene at 1280x720, 1 spp,
+     depth 5 through render(wavefront=False) with li_path(remat="full")
+     over all 8 pixel blocks, the gradient of the image mean with respect
+     to the floor's reflectance coefficients finite and nonzero, exactly
+     n_blocks x (1 + 2 x depth) v1 launches (each bounce's trace runs
+     again in its recompute), with forward and backward seconds and peak
+     device memory.
 Launch counters are set to 0 just before each render path and each
 micro-benchmark entry point, and read just after it.  No phase catches its
 own failure.  Each phase logs its wall seconds and the run's so far.  The
@@ -157,7 +173,13 @@ from shimmer_tpu_torch.bench_scene import (
     build_material_bench_scene,
     make_displaced_sphere,
 )
+from shimmer_tpu_torch.cameras import CameraTransform, PerspectiveCamera
+from shimmer_tpu_torch.color.colorspace import get_named_color_space
+from shimmer_tpu_torch.film.film import PixelSensor, RgbFilm
+from shimmer_tpu_torch.film.filters import BoxFilter, GaussianFilter, get_camera_sample
 from shimmer_tpu_torch.film.image import Image
+from shimmer_tpu_torch.integrators.path import li_path
+from shimmer_tpu_torch.lights import lights as lt
 from shimmer_tpu_torch.loading.parser import parse_file
 from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
 from shimmer_tpu_torch.experiments import gather as eg
@@ -175,19 +197,25 @@ from shimmer_tpu_torch.measure import (
     patterned_stack,
     ptxas_report,
 )
+from shimmer_tpu_torch.materials import material as mtl
 from shimmer_tpu_torch.ops import cuda_build
 from shimmer_tpu_torch.ops import gather as gk
 from shimmer_tpu_torch.ops import packet_step as pk
 from shimmer_tpu_torch.ops import traverse as tv
+from shimmer_tpu_torch.ops.transform import Transform
 from shimmer_tpu_torch.ops.traverse import TraverseConfig
 from shimmer_tpu_torch.render import make_wavefront_renderer, pixel_blocks, render
-from shimmer_tpu_torch.samplers import ZSobolSampler
+from shimmer_tpu_torch.samplers import IndependentSampler, ZSobolSampler
+from shimmer_tpu_torch.scene_builder import build_scene
 from shimmer_tpu_torch.shapes.triangle import (
     _A_P0,
     intersect_triangle,
     intersect_triangle_mt,
     triangle_interaction_from_raw,
 )
+from shimmer_tpu_torch.spectra.sampled import SampledWavelengths
+from shimmer_tpu_torch.spectra.spectrum import ConstantSpectrum
+from shimmer_tpu_torch.textures import textures as tx
 
 WAVE_SPP = 16
 MAX_DEPTH = 5
@@ -1069,13 +1097,14 @@ def render_through_cli(scene_file: Path, pfm: Path, timers: dict | None = None):
     real_render, seen = render_module.render, {"timers": {}, "colors_fitted": {}}
 
     def watched_render(*args, **kwargs):
+        asked = kwargs.pop("collect_stats", False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         image, state, stats = real_render(*args, **kwargs, collect_stats=True)
         torch.cuda.synchronize()
         seen.update(image=image.cpu().numpy(), stats=stats, scene=args[0],
                     seconds=time.perf_counter() - t0)
-        return image, state
+        return (image, state, stats) if asked else (image, state)
 
     def timed(name, fn):
         def wrapper(*args, **kwargs):
@@ -2160,14 +2189,361 @@ def _phase15(dev, v1_img: np.ndarray, v1_render: dict) -> dict:
     return out
 
 
-# The CPU halves of the card-against-CPU checks (phases 4 and 10-15) are
+PHASE16_DIR = Path("chiprun_out") / "phase16"
+# (a) a checkpointed wavefront render of the bench scene at a reduced
+# resolution, one sample a wave, killed after its second wave.
+CHECKPOINT_RES = (320, 180)
+CHECKPOINT_SPP = 4
+KILL_AFTER = 2
+KILLED_EXIT = 17
+# (b) many samples a pixel splatted over a Gaussian footprint (16 pixels a
+# sample), some hanging over the film's edges.
+SPLAT_RES = (128, 72)
+SPLAT_SAMPLES = 1 << 20
+SPLAT_RTOL, SPLAT_ATOL = 1e-4, 1e-6   # card vs CPU, the atol of the image's largest value
+# (c) tests/test_grad.py::TestGradients' scenes at its sizes, seed, steps
+# and tolerances; the card's AD against the CPU's within GRAD_RTOL.
+GRAD_RES, GRAD_SPP, GRAD_DEPTH, GRAD_SEED = 12, 32, 3, 7
+GRAD_RTOL = 1e-3
+# (d) the bench scene's backward through li_path(remat="full").
+BWD_SPP, BWD_DEPTH = 1, 5
+
+
+def checkpoint_render(dev, ckpt=None, kill_after=None, on_kill=None):
+    """(a)'s render: the bench scene at CHECKPOINT_RES through render(),
+    with ``ckpt`` as its checkpoint file; ``kill_after`` ends the process
+    (os._exit, no clean-up) once that many waves are done, after calling
+    ``on_kill``."""
+    scene, cam, film = build_bench_scene(BENCH_TRIS, CHECKPOINT_RES, device="cpu")
+
+    def progress(done, total):
+        if done == kill_after:
+            on_kill()
+            os._exit(KILLED_EXIT)
+
+    return render(with_config(scene.to(dev), "v1"), cam, film,
+                  ZSobolSampler(CHECKPOINT_SPP, CHECKPOINT_RES), spp=CHECKPOINT_SPP,
+                  max_depth=MAX_DEPTH, wave_spp=1, pixel_block=BLOCK, checkpoint_path=ckpt,
+                  progress=progress)
+
+
+def checkpoint_child(ckpt: str, kill_after, started: float, seconds_file: str):
+    """A process of its own for (a): killed after ``kill_after`` waves, or
+    (None) resuming from ``ckpt`` to the end.  Writes its seconds since
+    ``started`` (the parent's clock when it started the process, start-up
+    included) into ``seconds_file`` before it ends."""
+    torch.set_num_threads(CPU_THREADS)
+
+    def note():
+        Path(seconds_file).write_text(json.dumps(time.time() - started))
+
+    checkpoint_render(torch.device("cuda", 0), ckpt, kill_after, note)
+    note()
+
+
+def splat_inputs(device):
+    """(b)'s samples, made from a seed on the host, with their wavelengths
+    (sampled on the host: the card's transcendentals round an ulp apart,
+    which moved a few samples' colors by up to 4.3% when each device
+    sampled its own)."""
+    g = torch.Generator().manual_seed(16)
+    w, h = SPLAT_RES
+    p = torch.rand((SPLAT_SAMPLES, 2), generator=g) * torch.tensor([w + 2.0, h + 2.0]) - 1.0
+    lrad = torch.exp(torch.randn((SPLAT_SAMPLES, 4), generator=g))
+    swl = splat_film().sample_wavelengths(torch.rand(SPLAT_SAMPLES, generator=g))
+    return (p.to(device), lrad.to(device),
+            SampledWavelengths(lam=swl.lam.to(device), pdf=swl.pdf.to(device)))
+
+
+def splat_film():
+    cs = get_named_color_space("srgb")
+    return RgbFilm(SPLAT_RES, GaussianFilter(1.5, 1.5, 0.6), PixelSensor(cs), cs)
+
+
+def splat(device) -> torch.Tensor:
+    film = splat_film()
+    return film.add_splats(film.init_state(device), *splat_inputs(device)).rgb_splat
+
+
+def _grad_sphere_and_light(albedo, spectrum, scale):
+    return dict(
+        spheres=[{"radius": 1.0, "material_id": 0},
+                 {"radius": 0.3, "material_id": 1, "area_light_id": 0,
+                  "object_to_world": Transform.translate([0.0, 2.0, 0.0])}],
+        materials=[{"kind": mtl.DIFFUSE, "reflectance": albedo},
+                   {"kind": mtl.DIFFUSE, "reflectance": [0.0, 0.0, 0.0]}],
+        lights=[{"kind": lt.AREA, "spectrum": ConstantSpectrum(spectrum), "scale": scale,
+                 "shape_kind": 0, "shape_idx": 1}])
+
+
+def _grad_in_env(material):
+    cs = get_named_color_space("srgb")
+    return dict(
+        spheres=[{"radius": 1.0, "material_id": 0}], materials=[material],
+        lights=[{"kind": lt.UNIFORM_INFINITE, "spectrum": cs.illuminant, "photometric": True}])
+
+
+def _grad_textured(device):
+    b = tx.TextureBuilder()
+    tid = b.add_image(np.full((4, 4, 3), 0.5, np.float32), is_spectrum=True,
+                      filter_kind=tx.FILTER_POINT)
+    return dict(_grad_in_env({"kind": mtl.DIFFUSE, "reflectance": [0.5, 0.5, 0.5],
+                              "tex_reflectance": tid}), textures=b.build(device=device))
+
+
+# tests/test_grad.py::TestGradients' cases: scene, parameter (table,
+# fields, index; the texel row is relative to the level-0 offset; "add"
+# shifts instead of setting), finite-difference step and tolerances, and
+# its bound on |AD| (None: AD > 0).
+GRAD_CASES = {
+    "diffuse_reflectance": (lambda d: _grad_sphere_and_light([0.6, 0.5, 0.4], 20.0, 1.0),
+                            ("materials", ("reflectance",), (0, 1), False),
+                            dict(h=1e-2, rtol=2e-2, atol=0.0), 1e-6),
+    "emission_scale": (lambda d: _grad_sphere_and_light([0.7, 0.7, 0.7], 1.0, 20.0),
+                       ("lights", ("scale",), (0,), False), dict(h=0.5, rtol=1e-3, atol=0.0),
+                       None),
+    "conductor_roughness": (
+        lambda d: _grad_in_env({"kind": mtl.CONDUCTOR, "uroughness": 0.09, "vroughness": 0.09}),
+        ("materials", ("uroughness", "vroughness"), (0,), False),
+        dict(h=1e-2, rtol=5e-2, atol=1e-4), 1e-6),
+    "texture_texel": (_grad_textured, ("textures", ("atlas",), (5, 2), False),
+                      dict(h=5e-3, rtol=5e-2, atol=1e-7), 0.0),
+    "texture_whole_atlas": (_grad_textured, ("textures", ("atlas",), (slice(0, 16), 2), True),
+                            dict(h=5e-3, rtol=5e-2, atol=0.0), 1e-6),
+}
+
+
+def grad_setup(case: str, device):
+    """A case's f(theta) on ``device``: the mean per-lane radiance of
+    li_path over every pixel and sample (one call, a lane each), with the
+    parameter set to theta; and theta's value in the scene."""
+    build, (table, fields, index, add), _, _ = GRAD_CASES[case]
+    cs = get_named_color_space("srgb")
+    cam = PerspectiveCamera(CameraTransform(Transform.look_at([0.0, 0.0, -4.0], [0.0, 0.0, 0.0],
+                                                              [0.0, 1.0, 0.0])),
+                            (GRAD_RES, GRAD_RES), fov=45.0)
+    film = RgbFilm((GRAD_RES, GRAD_RES), BoxFilter(), PixelSensor(cs), cs)
+    scene = build_scene(None, render_from_world=cam.camera_transform.render_from_world(),
+                        device=device, **build(device))
+    if table == "textures":
+        off = int(scene.textures.level0_offset[0])
+        row = index[0]
+        index = (slice(off + row.start, off + row.stop) if isinstance(row, slice) else off + row,
+                 index[1])
+    ys, xs = torch.meshgrid(torch.arange(GRAD_RES, dtype=torch.int32),
+                            torch.arange(GRAD_RES, dtype=torch.int32), indexing="ij")
+    pixels = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)
+    # Every pixel's every sample as one lane of one li_path call.
+    pixel_xy = pixels.repeat(GRAD_SPP, 1).to(device)
+    sample_index = torch.arange(GRAD_SPP).repeat_interleave(pixels.shape[0]).to(device)
+    sampler = IndependentSampler(GRAD_SPP, seed=GRAD_SEED)
+
+    def f(theta):
+        tab = getattr(scene, table)
+        new = {}
+        for k in fields:
+            base = getattr(tab, k)
+            mask = torch.zeros(base.shape, dtype=torch.bool)
+            mask[index] = True
+            mask = mask.to(device)
+            new[k] = (base + torch.where(mask, theta, 0.0) if add
+                      else torch.where(mask, theta, base))
+        sc = dataclasses.replace(scene, **{table: dataclasses.replace(tab, **new)})
+        s_state = sampler.start_pixel_sample(pixel_xy, sample_index)
+        u_lam, s_state = sampler.get_1d(s_state)
+        swl = film.sample_wavelengths(u_lam)
+        u_f, s_state = sampler.get_pixel_2d(s_state)
+        u_l, s_state = sampler.get_2d(s_state)
+        p_film, _, u_l = get_camera_sample(film.filter, pixel_xy, u_f, u_l)
+        ray = cam.generate_ray(p_film, u_l)
+        return torch.mean(li_path(sc, ray, swl, sampler, s_state, GRAD_DEPTH))
+
+    base = getattr(getattr(scene, table), fields[0])
+    theta0 = 0.0 if add else float(base[index])
+    return f, theta0
+
+
+def grad_ad(case: str, device) -> float:
+    f, theta0 = grad_setup(case, device)
+    th = torch.tensor(theta0, device=device, requires_grad=True)
+    (g,) = torch.autograd.grad(f(th), th)
+    return float(g)
+
+
+def grad_fd(case: str, device) -> float:
+    f, theta0 = grad_setup(case, device)
+    h = GRAD_CASES[case][2]["h"]
+    th = torch.tensor(theta0, device=device)
+    with torch.no_grad():
+        return float((f(th + h) - f(th - h)) / (2.0 * h))
+
+
+def bench_backward(dev) -> dict:
+    """(d): the bench scene at full width, BWD_SPP spp, depth BWD_DEPTH,
+    through render(wavefront=False) with li_path(remat="full"), and the
+    gradient of the image mean with respect to the floor's reflectance
+    coefficients (material 1)."""
+    scene, cam, film = build_bench_scene(BENCH_TRIS, BENCH_RESOLUTION, device="cpu")
+    scene = with_config(scene.to(dev), "v1")
+    floor = scene.materials.reflectance[1].clone().requires_grad_(True)
+    refl = torch.cat([scene.materials.reflectance[:1], floor[None],
+                      scene.materials.reflectance[2:]])
+    scene = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials,
+                                                                     reflectance=refl))
+    n_blocks = -(-BENCH_RESOLUTION[0] * BENCH_RESOLUTION[1] // BLOCK)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    img, _ = render(scene, cam, film, ZSobolSampler(BWD_SPP, BENCH_RESOLUTION), spp=BWD_SPP,
+                    max_depth=BWD_DEPTH, wave_spp=BWD_SPP, pixel_block=BLOCK, wavefront=False,
+                    integrator_options={"remat": "full"})
+    loss = img.mean()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd_launches = dict(tv.traverse_raw.launches)["v1"]
+    fwd_peak = torch.cuda.max_memory_allocated()
+    (g,) = torch.autograd.grad(loss, floor)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_counts("phase 16 backward", "v1")
+    # Per block: the camera trace and one merged trace a bounce forward,
+    # each bounce's trace again in its recompute.
+    want = n_blocks * BWD_SPP * (1 + 2 * BWD_DEPTH)
+    check(fwd_launches == n_blocks * BWD_SPP * (1 + BWD_DEPTH),
+          f"phase 16 backward: {fwd_launches} v1 launches in the forward")
+    check(launches == want, f"phase 16 backward: {launches} v1 launches, not n_blocks x spp x "
+          f"(1 + 2 x depth) = {want}")
+    grad = g.cpu().numpy()
+    check(np.isfinite(grad).all() and np.abs(grad).sum() > 0,
+          f"phase 16 backward: gradient {grad.tolist()}")
+    return {
+        "resolution": list(BENCH_RESOLUTION), "spp": BWD_SPP, "max_depth": BWD_DEPTH,
+        "n_blocks": n_blocks, "image_mean": float(loss.detach()),
+        "grad_floor_reflectance": grad.tolist(),
+        "forward_seconds": t1 - t0, "backward_seconds": t2 - t1,
+        "kernel_launches": launches, "forward_launches": fwd_launches,
+        "forward_peak_device_bytes": fwd_peak,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "card": nvidia_smi_line(),
+    }
+
+
+def phase16(dev) -> dict:
+    """16. checkpoints, splats and gradients."""
+    PHASE16_DIR.mkdir(parents=True, exist_ok=True)
+    ckpt = PHASE16_DIR / "bench.ckpt.npz"
+    ckpt.unlink(missing_ok=True)
+    out = {"launches": 0}
+    ctx = multiprocessing.get_context("spawn")
+    children = []
+    try:
+        # (b) splats: twice on the card, the same bits; against the CPU.
+        t0 = time.perf_counter()
+        first = splat(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        second = splat(dev)
+        torch.cuda.synchronize()
+        check(torch.equal(first, second), "phase 16: two card runs of add_splats differ")
+        splats = {"samples": SPLAT_SAMPLES, "resolution": list(SPLAT_RES),
+                  "samples_per_pixel": SPLAT_SAMPLES / (SPLAT_RES[0] * SPLAT_RES[1]),
+                  "card_ms": (t1 - t0) * 1e3, "second_card_ms": (time.perf_counter() - t1) * 1e3,
+                  "repeat_equal": True}
+
+        # (a) a process renders with checkpoints and is killed after its
+        # second wave; while it starts, this process renders uninterrupted.
+        def child(kill_after, tag):
+            proc = ctx.Process(target=checkpoint_child,
+                               args=(str(ckpt), kill_after, time.time(),
+                                     str(PHASE16_DIR / f"{tag}.json")))
+            children.append(proc)
+            proc.start()
+            return proc
+
+        killed = child(KILL_AFTER, "killed")
+        reset_counts()
+        t0 = time.perf_counter()
+        _, whole = checkpoint_render(dev)
+        torch.cuda.synchronize()
+        res = {"uninterrupted_seconds": time.perf_counter() - t0}
+        n = read_counts("phase 16 checkpoint", "v1")
+        out["launches"] += n
+
+        cpu, cpu_s = cpu_image("p16_splats")
+        card = first.cpu().numpy()
+        err = np.abs(card - cpu) - SPLAT_RTOL * np.abs(cpu)
+        rel = float((np.abs(card - cpu) / np.maximum(np.abs(cpu), 1e-30)).max())
+        check(np.isfinite(card).all() and (err <= SPLAT_ATOL * np.abs(cpu).max()).all(),
+              f"phase 16: card splats beyond rtol {SPLAT_RTOL} of the CPU's (max rel {rel})")
+        splats.update(cpu_seconds=cpu_s, max_rel_err=rel)
+        log(f"phase 16 splats: {json.dumps(splats)}")
+
+        killed.join()
+        check(killed.exitcode == KILLED_EXIT, f"phase 16: the killed render ended with "
+              f"{killed.exitcode}, not {KILLED_EXIT}")
+        with np.load(ckpt) as z:
+            check(int(z["spp_done"]) == KILL_AFTER,
+                  f"phase 16: the killed render's checkpoint is at {int(z['spp_done'])} spp")
+        # The resume in a new process, beside (c).
+        resumed = child(None, "resumed")
+
+        # (c) the small gradients: the card's AD against its own central
+        # finite difference and against the CPU's AD.
+        grads = {}
+        for case, (_, _, fd, bound) in GRAD_CASES.items():
+            t0 = time.perf_counter()
+            ad = grad_ad(case, dev)
+            fd_g = grad_fd(case, dev)
+            cpu_ad = float(cpu_image(f"p16_grad_{case}")[0][0])
+            check(np.isfinite(ad), f"phase 16 {case}: AD {ad}")
+            check(abs(ad - fd_g) <= fd["atol"] + fd["rtol"] * abs(fd_g),
+                  f"phase 16 {case}: AD {ad} against FD {fd_g}")
+            check(abs(ad - cpu_ad) <= GRAD_RTOL * abs(cpu_ad),
+                  f"phase 16 {case}: card AD {ad} against CPU AD {cpu_ad}")
+            check(ad > 0 if bound is None else abs(ad) > bound, f"phase 16 {case}: AD {ad}")
+            grads[case] = {"ad": ad, "fd": fd_g, "cpu_ad": cpu_ad,
+                           "seconds": time.perf_counter() - t0}
+        log(f"phase 16 gradients {GRAD_RES}x{GRAD_RES} spp {GRAD_SPP} depth {GRAD_DEPTH}: "
+            f"{json.dumps(grads)}")
+
+        resumed.join()
+        check(resumed.exitcode == 0, f"phase 16: the resumed render ended with {resumed.exitcode}")
+        with np.load(ckpt) as z:
+            check(int(z["spp_done"]) == CHECKPOINT_SPP, "phase 16: the resume did not finish")
+            for name in ("rgb_sum", "weight_sum", "rgb_splat"):
+                check(torch.equal(torch.from_numpy(z[name]), getattr(whole, name).cpu()),
+                      f"phase 16: the resumed {name} differs from the uninterrupted render's")
+        res.update(resolution=list(CHECKPOINT_RES), spp=CHECKPOINT_SPP, killed_after=KILL_AFTER,
+                   kernel_launches=n, resumed_equal=True,
+                   **{f"{tag}_process_seconds": json.loads((PHASE16_DIR / f"{tag}.json")
+                                                           .read_text())
+                      for tag in ("killed", "resumed")})
+        log(f"phase 16 checkpoint: {json.dumps(res)}")
+
+        # (d) the bench-size backward, alone on the card.
+        bwd = bench_backward(dev)
+        out["launches"] += bwd["kernel_launches"]
+        log(f"phase 16 backward: {json.dumps(bwd)}")
+        out.update(checkpoint=res, splats=splats, gradients=grads, backward=bwd)
+        return out
+    finally:
+        for proc in children:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+        ckpt.unlink(missing_ok=True)
+
+
+# The CPU halves of the card-against-CPU checks (phases 4 and 10-16) are
 # rendered in processes of their own, which main() starts after the build,
 # beside the card's phases: each image lands as <CPU_DIR>/<case>.npy with
 # its render seconds in <case>.json, and the card's half waits for it.
 CPU_DIR = Path("chiprun_out") / "cpu_half"
 # The phases each process renders, in the order main() reaches them, and
 # the threads each process takes of the host's cores.
-CPU_HALVES = ((4, 10, 11, 12, 14), (13, 15))
+CPU_HALVES = ((4, 10, 11, 12, 14), (13, 15, 16))
 CPU_THREADS = 2
 CPU_WAIT_S = 900
 _cpu_workers: list = []
@@ -2184,6 +2560,11 @@ def cpu_cases(phase: int, d: Path):
         for name in names:
             case = f"p4_{name}" if phase == 4 else "p10"
             yield case, lambda name=name: small_bench_render(scene, name)
+        return
+    if phase == 16:
+        yield "p16_splats", lambda: splat("cpu").numpy()
+        for case in GRAD_CASES:
+            yield f"p16_grad_{case}", lambda case=case: np.array([grad_ad(case, "cpu")])
         return
     if phase == 15:
         for name, (path, megakernel) in megakernel_cases(d).items():
@@ -2265,7 +2646,7 @@ def stop_cpu_halves():
 
 
 def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
-                packets: dict, phase15_launches: int) -> list[dict]:
+                packets: dict, later_launches: int) -> list[dict]:
     rows = []
     for row, (cfg, source, replaces) in KERNEL_ROWS.items():
         if row.endswith("large_table"):
@@ -2276,7 +2657,7 @@ def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
             merged = batches[cfg][-1]
             launches = renders[cfg]["kernel_launches"]
             if cfg == "v1":
-                launches += phase15_launches  # the megakernel phase's card renders
+                launches += later_launches  # the card renders of phases 15 and 16
             err = max(b["max_abs_err_t"] for b in batches[cfg])
         rows.append({
             "name": row,
@@ -2329,7 +2710,7 @@ def main():
             log(f"phase 2 build {name} kernel: {json.dumps(kernel)}")
     check(native.sah_available(), f"the native SAH builder did not load: {native.sah_error()}")
     log("phase 2 BVH builder: native binned SAH (shimmer_tpu_torch/native/sah.cpp, g++)")
-    # The CPU halves of phases 4 and 10-15, beside the card's phases.
+    # The CPU halves of phases 4 and 10-16, beside the card's phases.
     start_cpu_halves()
     wall.mark(2)
 
@@ -2395,10 +2776,14 @@ def main():
     # cameras
     mk = phase15(dev, v1_img, renders["v1"])
     wall.mark(15)
+    torch.cuda.empty_cache()
+    # 16. checkpoints, splats and gradients
+    p16 = phase16(dev)
+    wall.mark(16)
     stop_cpu_halves()
 
     print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets,
-                                             mk["launches"])}), flush=True)
+                                             mk["launches"] + p16["launches"])}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({
         "ok": True,

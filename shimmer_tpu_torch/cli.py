@@ -7,9 +7,11 @@ scene, render it on the CUDA card, write the image.
 is no silent fallback, so without a card and without ``--device cpu`` the
 command raises.  ``--integrator`` picks the estimator (the scene's by
 default) and ``--megakernel`` forces the masked megakernel in place of the
-wavefront.  The flags of features the port does not have yet
-(``--shard``, ``--checkpoint``, ``--stats``) raise NotImplementedError
-naming the ROADMAP item that ports them.
+wavefront.  ``--checkpoint PATH`` saves the film state every
+``--checkpoint-every`` waves and resumes from a matching checkpoint
+there; ``--stats`` prints the statistics report after the render.
+``--shard`` (multi-GPU rendering, not ported yet) raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -22,8 +24,6 @@ import time
 # Flags of unported features -> the ROADMAP queue 1 item that ports them.
 _UNPORTED_FLAGS = {
     "shard": "multi-GPU rendering, ROADMAP queue 1 item 10",
-    "checkpoint": "render checkpoints, ROADMAP queue 1 item 8",
-    "stats": "the statistics report, ROADMAP queue 1 item 8",
 }
 
 
@@ -42,10 +42,13 @@ def main(argv=None):
                     help="the masked megakernel instead of the wavefront integrator")
     ap.add_argument("--seed", type=int, default=None,
                     help="override the sampler's seed (default: the scene's)")
-    ap.add_argument("--checkpoint", default=None, metavar="PATH")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="save the film state every --checkpoint-every waves and resume "
+                    "from PATH (bit-identical)")
     ap.add_argument("--checkpoint-every", type=int, default=1)
     ap.add_argument("--quiet", "-q", action="store_true")
-    ap.add_argument("--stats", action="store_true")
+    ap.add_argument("--stats", action="store_true",
+                    help="print a statistics report after rendering")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback from one to the other")
     args = ap.parse_args(argv)
@@ -86,7 +89,7 @@ def main(argv=None):
             print(f"\r{done}/{total} spp", end="", file=sys.stderr, flush=True)
 
     t0 = time.time()
-    image, _ = render(
+    image = render(
         job.scene, job.camera, job.film, sampler,
         integrator=args.integrator or job.integrator, spp=spp,
         max_depth=args.maxdepth or job.max_depth, wave_spp=args.wave_spp,
@@ -94,7 +97,10 @@ def main(argv=None):
         disable_pixel_jitter=job.disable_pixel_jitter,
         disable_wavelength_jitter=job.disable_wavelength_jitter,
         wavefront=False if args.megakernel else None,
-    )
+        collect_stats=args.stats,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+    )[0]
     img = image.cpu().numpy()
     if not args.quiet:
         print(f"\nrender: {time.time() - t0:.2f}s", file=sys.stderr)
@@ -102,6 +108,10 @@ def main(argv=None):
     Image(img).write(out)
     if not args.quiet:
         print(f"wrote {out}", file=sys.stderr)
+    if args.stats:
+        from shimmer_tpu_torch.utils import stats
+
+        print(stats.report(), file=sys.stderr)
     return 0
 
 

@@ -32,8 +32,6 @@ from shimmer_tpu_torch.shapes.sphere import SphereData
 from shimmer_tpu_torch.shapes.triangle import TriangleSceneData
 from shimmer_tpu_torch.textures import textures as tx
 
-# Census entries the slice cannot render, with the value it requires.
-_UNPORTED_CENSUS = {"triangles.differentiable_hits": False}
 _PATCH_F32 = ("p00", "p10", "p01", "p11", "uv", "area")
 _INSTANCED_F32 = ("rows8", "attr_rows", "inst_inv", "inst_fwd", "world_min", "world_max")
 _SPHERE_F32 = ("radius", "z_min", "z_max", "theta_z_min", "theta_z_max", "phi_max",
@@ -89,11 +87,8 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
     watertight leaves, so the table's configuration is
     ``TraverseConfig(leaf="watertight")`` (kernel and winner from the
     environment flags); ``scene.triangles.with_traverse(cfg)`` repacks it
-    for Moller-Trumbore leaves."""
-    for key, want in _UNPORTED_CENSUS.items():
-        got = census.get(key, want)
-        if (tuple(got) if isinstance(want, tuple) else got) != want:
-            raise NotImplementedError(f"scene census {key}={got!r} is not ported yet")
+    for Moller-Trumbore leaves.  ``triangles.differentiable_hits`` is
+    carried across."""
     mtl.check_kinds(tuple(census["material_kinds"]))
     lt.check_kinds(tuple(census["light_kinds"]))
     has_textures = "textures.kind" in arrays
@@ -141,6 +136,7 @@ def scene_from_numpy(arrays: dict, census: dict, device=None) -> Scene:
         has_uv=bool(census["triangles.has_uv"]),
         has_iface_media=bool(census.get("triangles.has_iface_media", False)),
         traverse=TraverseConfig(leaf="watertight"),
+        differentiable_hits=bool(census.get("triangles.differentiable_hits", False)),
     )
     spheres = None if not has_spheres else SphereData(
         **{c: f32(a(f"spheres.{c}"), device) for c in _SPHERE_F32},

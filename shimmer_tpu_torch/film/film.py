@@ -1,6 +1,7 @@
 """Spectral film and pixel sensor (port of ``shimmer_tpu/film/film.py``:
 ``PixelSensor`` with ``create``, ``RgbFilm`` with the per-sample film
-scatter, ``FilmState``)."""
+scatter, the splats over a filter's footprint and the merge of two
+states, ``FilmState``)."""
 
 from __future__ import annotations
 
@@ -179,6 +180,62 @@ class RgbFilm:
 
         return FilmState(rgb_sum=add(state.rgb_sum, rgb), weight_sum=add(state.weight_sum, weight),
                          rgb_splat=state.rgb_splat)
+
+    def add_splats(self, state: FilmState, p_film, L, swl) -> FilmState:
+        """Splat radiance over the filter's footprint: each sample at
+        continuous film position ``p_film`` (..., 2) adds ``rgb * f(offset)``
+        to every pixel of its static (2r+1)^2 window that lies on the film
+        and has a positive filter weight.
+
+        Many samples land on one pixel, and an accumulating scatter on the
+        card adds repeated indices in an order that changes from run to
+        run.  So the contributions are summed per pixel in a fixed order
+        first: laid out window offset by window offset (dy, then dx, as
+        the reference's loop adds them) and sample by sample within one,
+        stably sorted by pixel, then summed within each pixel's run by a
+        segmented doubling scan (step s adds the partial sum s places
+        back when it lies in the same run).  One add per distinct pixel
+        follows, as in ``add_samples``.  The same inputs give the same
+        bits on every run."""
+        w, h = self.resolution
+        rgb = self._clamped_rgb(L, swl).reshape(-1, 3)
+        p = p_film.reshape(-1, 2)
+        rx, ry = self.filter.radius
+        p_discrete = p - 0.5
+        x0 = torch.ceil(p_discrete[:, 0] - rx).to(torch.int64)
+        y0 = torch.ceil(p_discrete[:, 1] - ry).to(torch.int64)
+        nx = int(np.floor(2 * rx)) + 1
+        ny = int(np.floor(2 * ry)) + 1
+        keys, vals = [], []
+        for dy in range(ny):
+            for dx in range(nx):
+                px = x0 + dx
+                py = y0 + dy
+                offset = torch.stack([px.to(torch.float32) + 0.5 - p[:, 0],
+                                      py.to(torch.float32) + 0.5 - p[:, 1]], dim=-1)
+                fw = self.filter.evaluate(offset)
+                valid = (px >= 0) & (px < w) & (py >= 0) & (py < h) & (fw > 0)
+                keys.append(torch.where(valid, py * w + px, h * w))
+                vals.append(torch.where(valid[:, None], rgb * fw[:, None], 0.0))
+        key, order = torch.sort(torch.cat(keys), stable=True)
+        val = torch.cat(vals)[order]
+        pix, runs = torch.unique_consecutive(key, return_counts=True)
+        s, longest = 1, int(runs.max()) if runs.numel() else 0
+        while s < longest:
+            same = (key[s:] == key[:-s])[:, None]
+            val = torch.cat([val[:s], val[s:] + torch.where(same, val[:-s], 0.0)])
+            s *= 2
+        sums = val[torch.cumsum(runs, 0) - 1]
+        keep = pix < h * w  # the spare key h * w holds the dropped entries
+        flat = state.rgb_splat.reshape(h * w, 3).index_put(
+            (pix[keep],), sums[keep].to(state.rgb_splat.dtype), accumulate=True)
+        return FilmState(rgb_sum=state.rgb_sum, weight_sum=state.weight_sum,
+                         rgb_splat=flat.reshape(h, w, 3))
+
+    def merge(self, a: FilmState, b: FilmState) -> FilmState:
+        """Combine the accumulators of two waves or shards."""
+        return FilmState(rgb_sum=a.rgb_sum + b.rgb_sum, weight_sum=a.weight_sum + b.weight_sum,
+                         rgb_splat=a.rgb_splat + b.rgb_splat)
 
     def get_image(self, state: FilmState, splat_scale: float = 1.0):
         """Resolve the accumulators to (H, W, 3) output-colorspace RGB."""

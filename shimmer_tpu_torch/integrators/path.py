@@ -31,6 +31,7 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from shimmer_tpu_torch.lights import lights as lt
 from shimmer_tpu_torch.lights.env import env_le, env_pdf_li
@@ -419,12 +420,17 @@ def li_path(scene: Scene, ray, swl, sampler, s_state, max_depth: int = 5,
     non-specular bounce.  Per bounce the extension and the shadow rays go
     through one merged trace; with interface media the shadow half gets
     closest hits and the shadow march crosses material-less boundaries.
-    ``remat`` (the scan-over-bounces form for reverse-mode AD) belongs to
-    the differentiable render and raises."""
-    if remat:
-        raise NotImplementedError(
-            "li_path(remat=...): the scan-over-bounces form for reverse-mode AD, "
-            "ROADMAP queue 1 item 9, is not ported yet")
+
+    ``remat`` shapes reverse-mode AD through the bounces.  ``False`` and
+    ``True`` run the same unrolled bounces (the reference's ``True`` is a
+    scan over one traced bounce, which eager torch has no use for), and
+    autograd keeps every bounce's intermediates.  ``"full"`` wraps each
+    bounce in ``torch.utils.checkpoint``: the backward keeps only the
+    per-bounce carry and recomputes the bounce, so activation memory no
+    longer grows with the bounces' glue.  The forward is the same in
+    every form, and Russian roulette stays off on bounce 0."""
+    if remat not in (False, True, "full"):
+        raise ValueError(f"li_path: remat must be False, True or 'full', not {remat!r}")
     dev = ray.o.device
     n = ray.o.shape[:-1]
     flat = n[0] if n else 1
@@ -451,7 +457,9 @@ def li_path(scene: Scene, ray, swl, sampler, s_state, max_depth: int = 5,
     has_med = scene.media is not None and (scene.camera_medium >= 0 or iface_med)
     cur_med = torch.full(n, scene.camera_medium, dtype=torch.int32, device=dev)
 
-    for depth in range(max_depth):
+    def bounce(depth, carry):
+        (l, beta, alive, specular, p_b, eta_scale, prev_p, prev_ns, any_ns, lam_term, ray_o,
+         ray_d, si, s_state, rays, cur_med) = carry
         scattered = None
         if has_med:
             # Free-flight sampling over the segment just traced.
@@ -571,7 +579,9 @@ def li_path(scene: Scene, ray, swl, sampler, s_state, max_depth: int = 5,
         u_rr, s_state = sampler.get_1d(s_state)
         if depth > 0:
             rr_beta = torch.max(beta * eta_scale[..., None], dim=-1).values
-            q = torch.clamp(1.0 - rr_beta, min=0.0)
+            # Detached: the survival probability is part of the sampling
+            # measure, not the integrand.
+            q = torch.clamp(1.0 - rr_beta, min=0.0).detach()
             kill = alive & (u_rr < q)
             beta = torch.where(alive[..., None], beta / torch.clamp(1.0 - q, min=1e-6)[..., None],
                                beta)
@@ -590,6 +600,25 @@ def li_path(scene: Scene, ray, swl, sampler, s_state, max_depth: int = 5,
         else:
             si, occluded = scene_intersect_merged(scene, mo, md, mt, flat)
             l = l + torch.where((sh_live & ~occluded)[..., None], beta_nee * ld, 0.0)
+        return (l, beta, alive, specular, p_b, eta_scale, prev_p, prev_ns, any_ns, lam_term,
+                ray_o, ray_d, si, s_state, rays, cur_med)
+
+    carry = (l, beta, alive, specular, p_b, eta_scale, prev_p, prev_ns, any_ns, lam_term, ray_o,
+             ray_d, si, s_state, rays, cur_med)
+    for depth in range(max_depth):
+        if remat == "full":
+            # The recompute reruns the whole bounce, its traversal included
+            # (no early stop), so a block launches the kernel
+            # 1 + 2 * max_depth times over forward and backward.  Its
+            # outputs (the ray count among them) are dropped: only the
+            # forward's count is returned.
+            with set_checkpoint_early_stop(False):
+                carry = checkpoint(bounce, depth, carry, use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            carry = bounce(depth, carry)
+    (l, beta, alive, specular, p_b, eta_scale, prev_p, prev_ns, any_ns, lam_term, ray_o, ray_d,
+     si, s_state, rays, cur_med) = carry
 
     # Emission of the final segment, which gets the same free-flight
     # sampling as every segment before it.

@@ -364,7 +364,9 @@ def render_wave_wavefront(
         u_rr, s_state = sampler.get_1d(s_state)
         past_first = will_shade & (st.depth > 0)
         rr_beta = torch.max(beta * eta_scale[..., None], dim=-1).values
-        q = torch.clamp(1.0 - rr_beta, min=0.0)
+        # Detached: the survival probability is part of the sampling
+        # measure, not the integrand.
+        q = torch.clamp(1.0 - rr_beta, min=0.0).detach()
         kill = past_first & alive & (u_rr < q)
         beta = torch.where(
             (past_first & alive)[..., None],

@@ -1,9 +1,10 @@
 """Scalar math helpers, vectorized over tensors (port of
-``shimmer_tpu/ops/math.py``: the pieces the forward render path uses).
+``shimmer_tpu/ops/math.py``).
 
-The reference's ``safe_sqrt``, ``safe_asin`` and ``safe_acos`` carry
-custom JVPs for the differentiable renderer; the forward port needs only
-their values.
+``safe_sqrt``, ``safe_asin`` and ``safe_acos`` are autograd Functions
+with the reference's custom derivatives: clamped near the edges of their
+domain and zero beyond them, so masked dead lanes cannot poison a
+gradient with 0 * inf = NaN.  Their values are the plain clamped ones.
 """
 
 from __future__ import annotations
@@ -33,19 +34,59 @@ def sqrt(x):
     return torch.sqrt(x)
 
 
+class _SafeSqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = sqrt(torch.clamp(x, min=0.0))
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.where(x > 1e-12, 0.5 / torch.clamp(y, min=1e-12), 0.0)
+
+
+class _SafeArc(torch.autograd.Function):
+    """asin / acos of the input clamped to [-1, 1]; the derivative is
+    +-1 / sqrt(max(1 - xc^2, 1e-12)) inside |x| < 1 - 1e-7 and 0 outside."""
+
+    @staticmethod
+    def forward(ctx, x, sign):
+        xc = torch.clamp(x, -1.0, 1.0)
+        ctx.save_for_backward(x)
+        ctx.sign = sign
+        return torch.asin(xc) if sign > 0 else torch.acos(xc)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xc = torch.clamp(x, -1.0, 1.0)
+        denom = sqrt(torch.clamp(1.0 - xc * xc, min=1e-12))
+        inside = torch.abs(x) < 1.0 - 1e-7
+        return torch.where(inside, ctx.sign * g / denom, 0.0), None
+
+
+def stop_gradient(x):
+    """``x`` cut from the autograd graph (``x.detach()``); a number passes
+    through unchanged."""
+    return x.detach() if isinstance(x, torch.Tensor) else x
+
+
 def safe_sqrt(x):
-    """sqrt clamped to non-negative input."""
-    return sqrt(torch.clamp(x, min=0.0))
+    """sqrt clamped to non-negative input; derivative 0.5 / max(y, 1e-12)
+    where x > 1e-12, else 0."""
+    return _SafeSqrt.apply(x)
 
 
 def safe_asin(x):
     """asin clamped to [-1, 1]."""
-    return torch.asin(torch.clamp(x, -1.0, 1.0))
+    return _SafeArc.apply(x, 1.0)
 
 
 def safe_acos(x):
     """acos clamped to [-1, 1]."""
-    return torch.acos(torch.clamp(x, -1.0, 1.0))
+    return _SafeArc.apply(x, -1.0)
 
 
 def safe_div(a, b):

@@ -275,12 +275,18 @@ def traverse_raw(tris, ray_o, ray_d, t_max, any_hit=False, sort_rays=True,
     t_max: scalar or (N,); lanes with t_max <= 0 are dead and miss.
     any_hit: bool or (N,) bool; those lanes stop at their first hit (only
     their occlusion bit is meaningful).
+
+    The traversal has no backward: the rays must not require grad (the
+    callers detach them; the ray sort and the launch, which reads
+    ``data_ptr``, never see the autograd graph).
     """
     n = ray_o.shape[0]
     dev = ray_o.device
     for name, x in (("ray_o", ray_o), ("ray_d", ray_d), ("t_max", t_max)):
         if isinstance(x, torch.Tensor) and x.dtype != torch.float32:
             raise TypeError(f"{name} has dtype {x.dtype}, expected torch.float32")
+        if isinstance(x, torch.Tensor) and x.requires_grad:
+            raise ValueError(f"{name} requires grad: detach the rays before the traversal")
     ray_o = ray_o.contiguous()
     ray_d = ray_d.contiguous()
     t_max = torch.broadcast_to(

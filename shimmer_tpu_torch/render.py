@@ -13,13 +13,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from shimmer_tpu_torch.config import resolve_device
+from shimmer_tpu_torch.config import f32, resolve_device
 from shimmer_tpu_torch.film.film import FilmState, RgbFilm
 from shimmer_tpu_torch.film.filters import get_camera_sample
 from shimmer_tpu_torch.integrators.path import li_path, li_random_walk, li_simple_path
 from shimmer_tpu_torch.integrators.wavefront import render_wave_wavefront
 from shimmer_tpu_torch.scene import Scene
 from shimmer_tpu_torch.spectra.sampled import SampledWavelengths
+from shimmer_tpu_torch.utils import stats
+from shimmer_tpu_torch.utils.checkpoint import RenderCheckpointer
 
 INTEGRATORS = {
     "path": li_path,
@@ -224,12 +226,17 @@ def render(
 
     ``wavefront=None`` takes the regenerating wavefront for the path
     estimator without options, and the megakernel otherwise; ``False``
-    forces the megakernel, ``True`` the wavefront.  ``checkpoint_path``
-    (render checkpoints) raises NotImplementedError."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "render: checkpoint_path (render checkpoints, ROADMAP queue 1 item 8) "
-            "is not ported yet")
+    forces the megakernel, ``True`` the wavefront.
+
+    ``checkpoint_path`` persists the film state every ``checkpoint_every``
+    waves (and after the last) and resumes from a checkpoint there whose
+    fingerprint matches this render; a stale one is ignored with a
+    warning.  The sampler is counter-based, so a resumed render's film
+    state equals an uninterrupted one's bit for bit
+    (``utils/checkpoint.py``).  ``collect_stats`` also fills the
+    ``utils/stats`` registry: the pixel samples, the wave time (each
+    block waited for on the card) and, for the wavefront, the traced
+    rays and loop iterations."""
     dev = scene.device
     spp = spp if spp is not None else sampler.samples_per_pixel
     use_wavefront = (integrator == "path" and not integrator_options
@@ -250,15 +257,45 @@ def render(
     blocks, valids = pixel_blocks(film, pixel_block, dev)
     totals = {}
     start = 0
+    ckpt = None
+    if checkpoint_path is not None:
+        ckpt = RenderCheckpointer(checkpoint_path, fingerprint={
+            "resolution": tuple(int(r) for r in film.resolution),
+            "spp": int(spp),
+            "max_depth": int(max_depth),
+            "integrator": integrator,
+            "wavefront": bool(use_wavefront),
+            "seed": int(getattr(sampler, "seed", 0)),
+            "wave_spp": int(wave_spp),
+        })
+        loaded = ckpt.load()
+        if loaded is not None:
+            arrays, start = loaded
+            state = FilmState(**{k: f32(v, dev) for k, v in arrays.items()})
+    if collect_stats:
+        stats.counter("Render/Pixel samples").add(film.resolution[0] * film.resolution[1] * spp)
+        wave_timer = stats.timer("Render/Wave time")
     while start < spp:
         n = min(wave_spp, spp - start)
         idx = torch.arange(start, start + n, dtype=torch.int64, device=dev)
         for b in range(blocks.shape[0]):
-            state, st = wave_fn(state, idx, blocks[b], valids[b])
+            if collect_stats:
+                with wave_timer:
+                    state, st = wave_fn(state, idx, blocks[b], valids[b])
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                if use_wavefront:
+                    stats.counter("Integrator/Rays traced").add(st["rays"])
+                    stats.counter("Integrator/Wavefront iterations").add(st["iters"])
+            else:
+                state, st = wave_fn(state, idx, blocks[b], valids[b])
             for key, v in st.items():
                 if v is not None:
                     totals[key] = totals.get(key, 0.0) + v.to(torch.float64)
         start += n
+        if ckpt is not None and ((start // max(wave_spp, 1)) % max(checkpoint_every, 1) == 0
+                                 or start >= spp):
+            ckpt.save(state, start)
         if progress is not None:
             progress(start, spp)
     image = film.get_image(state)

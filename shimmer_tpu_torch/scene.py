@@ -18,6 +18,7 @@ import torch
 
 from shimmer_tpu_torch.lights.lights import LightData
 from shimmer_tpu_torch.materials.material import MaterialTable
+from shimmer_tpu_torch.ops.math import stop_gradient
 from shimmer_tpu_torch.ops.sampling import sample_discrete
 from shimmer_tpu_torch.shapes.bilinear import BilinearPatchData, bilinear_intersect, bilinear_occluded
 from shimmer_tpu_torch.shapes.instanced import (
@@ -123,7 +124,8 @@ def scene_intersect_merged(scene: Scene, ray_o, ray_d, t_max, n_ext):
     want_any = torch.arange(n_all, device=ray_o.device) >= n_ext
     if scene.has_triangles and not (scene.has_spheres or scene.has_patches
                                     or scene.has_instanced):
-        _, tri = _traverse_raw(scene.triangles, ray_o, ray_d, t_max, any_hit=want_any)
+        _, tri = _traverse_raw(scene.triangles, stop_gradient(ray_o), stop_gradient(ray_d),
+                               stop_gradient(t_max), any_hit=want_any)
         si = triangle_interaction_from_raw(
             scene.triangles, ray_o[:n_ext], ray_d[:n_ext], tri[:n_ext]
         )

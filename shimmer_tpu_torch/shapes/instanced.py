@@ -38,7 +38,7 @@ import torch
 
 from shimmer_tpu_torch.config import f32, resolve_device
 from shimmer_tpu_torch.ops.bvh8 import MAX_LEAF8, build_bvh8, pack_bvh8
-from shimmer_tpu_torch.ops.math import dot_lanes
+from shimmer_tpu_torch.ops.math import dot_lanes, stop_gradient
 from shimmer_tpu_torch.shapes.triangle import (
     _attr_for,
     _concat_meshes,
@@ -367,8 +367,9 @@ def instanced_intersect(data: InstancedTriangles, ray_o, ray_d, t_max, want_any=
     """Closest hit against the instanced geometry, as an interaction in
     world space.  Lanes flagged in ``want_any`` stop at their first
     accepted hit (only ``valid`` means anything there)."""
-    t, tri, b0, b1, b2, verts_obj, inst = _traverse_inst(data, ray_o, ray_d, t_max,
-                                                         any_hit=want_any)
+    t, tri, b0, b1, b2, verts_obj, inst = _traverse_inst(
+        data, stop_gradient(ray_o), stop_gradient(ray_d), stop_gradient(t_max),
+        any_hit=want_any)
     inst_c = torch.clamp(inst, min=0).long()
     fwd = data.inst_fwd[inst_c]
     p0 = _apply12(fwd, verts_obj[..., 0:3], 1.0)
@@ -383,5 +384,6 @@ def instanced_intersect(data: InstancedTriangles, ray_o, ray_d, t_max, want_any=
 
 
 def instanced_occluded(data: InstancedTriangles, ray_o, ray_d, t_max):
-    _, tri, *_ = _traverse_inst(data, ray_o, ray_d, t_max, any_hit=True)
+    _, tri, *_ = _traverse_inst(data, stop_gradient(ray_o), stop_gradient(ray_d),
+                                stop_gradient(t_max), any_hit=True)
     return tri >= 0

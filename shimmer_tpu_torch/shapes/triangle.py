@@ -20,7 +20,7 @@ import torch
 
 from shimmer_tpu_torch.config import f32, i32, resolve_device
 from shimmer_tpu_torch.ops.bvh8 import pack_bvh8, pack_leaves_mt
-from shimmer_tpu_torch.ops.math import difference_of_products, take_clamped
+from shimmer_tpu_torch.ops.math import difference_of_products, stop_gradient, take_clamped
 from shimmer_tpu_torch.ops.traverse import TraverseConfig, child_leaf_mask
 from shimmer_tpu_torch.ops.sampling import (
     sample_spherical_triangle,
@@ -78,6 +78,9 @@ class TriangleSceneData:
     has_iface_media: bool = False
     # Which traversal kernel runs and how leaf rows are packed.
     traverse: TraverseConfig = dataclasses.field(default_factory=TraverseConfig)
+    # The hit rebuild gathers the vertex pool and keeps the ray attached,
+    # so gradients reach vertex positions (triangle_interaction_from_raw).
+    differentiable_hits: bool = False
     # (R,) int32 child-leaf words the v2 kernel reads (child_leaf_mask of
     # meta), made from meta when not given.
     child_leaf: torch.Tensor | None = None
@@ -167,14 +170,16 @@ def _attr_for(cat: dict, perm: np.ndarray) -> np.ndarray:
 
 
 def build_triangle_scene(meshes: list[dict], device=None,
-                         traverse: TraverseConfig | None = None) -> TriangleSceneData:
+                         traverse: TraverseConfig | None = None,
+                         differentiable_hits: bool = False) -> TriangleSceneData:
     """Host: concatenate meshes, build the BVH8, pack the tables, and move
     them to ``device`` (default: the CUDA card).  Mesh dicts as in the
     reference (``p``, ``indices``, optional ``n``, ``uv``, ``material_id``,
     ``area_light_id``, ``reverse_orientation``, ``medium_inside`` and
     ``medium_outside``: media-table ids, -1 vacuum, -2 undeclared).  ``traverse`` defaults to
     ``TraverseConfig()`` (the reference's environment flags); ``leaf="mt"``
-    packs the leaf rows as ``(p0, e1, e2)``."""
+    packs the leaf rows as ``(p0, e1, e2)``.  ``differentiable_hits``
+    lets hit gradients reach the vertex pool ``p``."""
     device = resolve_device(device)
     traverse = TraverseConfig() if traverse is None else traverse
     cat = _concat_meshes(meshes)
@@ -209,6 +214,7 @@ def build_triangle_scene(meshes: list[dict], device=None,
         has_uv=bool(cat["has_uv"]),
         has_iface_media=bool((cat["medium_in"] > -2).any() or (cat["medium_out"] > -2).any()),
         traverse=traverse,
+        differentiable_hits=bool(differentiable_hits),
     )
 
 
@@ -333,14 +339,17 @@ def triangle_scene_intersect(tris: TriangleSceneData, ray_o, ray_d, t_max,
                              want_any=False) -> SurfaceInteraction:
     """Closest hit and its interaction: the union's triangle leg.
     ``want_any`` flags lanes that stop at their first accepted hit (only
-    ``valid`` means anything there)."""
-    _, tri = _traverse_raw(tris, ray_o, ray_d, t_max, any_hit=want_any)
+    ``valid`` means anything there).  The traversal runs on detached rays:
+    which triangle wins is discrete, and the kernel has no backward."""
+    _, tri = _traverse_raw(tris, stop_gradient(ray_o), stop_gradient(ray_d),
+                           stop_gradient(t_max), any_hit=want_any)
     return triangle_interaction_from_raw(tris, ray_o, ray_d, tri)
 
 
 def triangle_scene_occluded(tris: TriangleSceneData, ray_o, ray_d, t_max):
-    """Any-hit shadow query."""
-    _, tri = _traverse_raw(tris, ray_o, ray_d, t_max, any_hit=True)
+    """Any-hit shadow query, on detached rays (visibility is discrete)."""
+    _, tri = _traverse_raw(tris, stop_gradient(ray_o), stop_gradient(ray_d),
+                           stop_gradient(t_max), any_hit=True)
     return tri >= 0
 
 
@@ -354,13 +363,27 @@ def triangle_interaction_from_raw(tris: TriangleSceneData, ray_o, ray_d, tri) ->
     Moller-Trumbore leaf test can accept a triangle that the watertight
     test misses at an edge; such a lane becomes a clean miss (tri = -1,
     t = inf, ids -1) instead of reaching shading with t = inf.  The
-    reference keeps ``tri >= 0`` there."""
-    attr = tris.attr_rows[torch.clamp(tri, min=0).long()]
-    p0 = attr[..., _A_P0 + 0 : _A_P0 + 3]
-    p1 = attr[..., _A_P0 + 3 : _A_P0 + 6]
-    p2 = attr[..., _A_P0 + 6 : _A_P0 + 9]
+    reference keeps ``tri >= 0`` there.
+
+    With ``tris.differentiable_hits`` the vertices come from the vertex
+    pool (``indices`` into ``p``) and the ray stays attached, so gradients
+    reach the vertex positions and the ray through t and the
+    barycentrics.  Otherwise the rebuild runs on the detached ray and the
+    attribute row's vertex copy: the hit's (t, b0, b1, b2) carry no ray
+    gradient, as in the reference."""
+    tri_c = torch.clamp(tri, min=0).long()
+    attr = tris.attr_rows[tri_c]
+    if tris.differentiable_hits:
+        idx = tris.indices[tri_c].long()
+        p0, p1, p2 = tris.p[idx[..., 0]], tris.p[idx[..., 1]], tris.p[idx[..., 2]]
+        ro, rd = ray_o, ray_d
+    else:
+        p0 = attr[..., _A_P0 + 0 : _A_P0 + 3]
+        p1 = attr[..., _A_P0 + 3 : _A_P0 + 6]
+        p2 = attr[..., _A_P0 + 6 : _A_P0 + 9]
+        ro, rd = stop_gradient(ray_o), stop_gradient(ray_d)
     t_inf = torch.full(ray_o.shape[:-1], torch.inf, device=ray_o.device)
-    rehit, t, b0, b1, b2 = intersect_triangle(ray_o, ray_d, t_inf, p0, p1, p2)
+    rehit, t, b0, b1, b2 = intersect_triangle(ro, rd, t_inf, p0, p1, p2)
     hit = (tri >= 0) & rehit
     tri = torch.where(hit, tri, -1)
     b0 = torch.where(hit, b0, 0.0)
@@ -479,7 +502,14 @@ def triangle_light_sample(tris: TriangleSceneData, tri_idx, ref_p, ref_ns, u):
         0.0,
     )
 
-    bary_s, pdf_s = sample_spherical_triangle(p0, p1, p2, ref_p, u)
+    # The spherical sample counts only where use_area is off.  Elsewhere it
+    # starts from a stand-in point one unit off the centroid along the
+    # normal: from a point in the triangle's plane (a floor lane sampling
+    # its own triangle) it is 0/0, and the backward of the unselected
+    # branch would spread that NaN (0 * NaN) into the gradient.
+    centroid = (p0 + p1 + p2) * (1.0 / 3.0)
+    ref_s = torch.where(use_area[..., None], centroid + n_norm, ref_p)
+    bary_s, pdf_s = sample_spherical_triangle(p0, p1, p2, ref_s, u)
     p_s = bary_s[..., 0:1] * p0 + bary_s[..., 1:2] * p1 + bary_s[..., 2:3] * p2
 
     p_out = torch.where(use_area[..., None], p_a, p_s)

@@ -4,13 +4,16 @@
 ``render`` returns for the same job; the PNG is the 8-bit sRGB encoding;
 ``python -m shimmer_tpu_torch.cli`` runs; ``--integrator simplepath`` /
 ``randomwalk`` and ``--megakernel`` write the image ``render`` gives with
-that estimator or the megakernel; every flag of an unported feature
-raises NotImplementedError, and ``--device cuda`` without a card raises
-instead of falling back to the CPU."""
+that estimator or the megakernel; ``--checkpoint`` resumes a killed
+render to the uninterrupted image and ``--stats`` prints the report;
+``--shard``, the one flag of an unported feature, raises
+NotImplementedError, and ``--device cuda`` without a card raises instead
+of falling back to the CPU."""
 
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -67,11 +70,7 @@ def test_cli_as_module(tmp_path):
     assert "wrote" in proc.stderr and np.isfinite(Image.read(out).data).all()
 
 
-@pytest.mark.parametrize(
-    "flags",
-    [["--shard"], ["--stats"], ["--checkpoint", "ck.npz"]],
-    ids=["shard", "stats", "checkpoint"],
-)
+@pytest.mark.parametrize("flags", [["--shard"]], ids=["shard"])
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         cli.main([str(SCENE), "--device", "cpu", "-q", "-o", str(tmp_path / "x.pfm"), *flags])
@@ -112,7 +111,7 @@ def test_render_interface(reference_image):
     film_state accumulates onto a given state and progress sees every
     wave; the megakernel, the other estimators, their options,
     ``regularize`` and the jitter switches render; ``checkpoint_path``
-    raises."""
+    saves and resumes."""
     import inspect
 
     from shimmer_tpu.render import render as jax_render
@@ -138,5 +137,57 @@ def test_render_interface(reference_image):
                    {"disable_wavelength_jitter": True}):
         img, _ = render(*args, spp=1, max_depth=2, **kwargs)
         assert torch.isfinite(img).all() and float(img.mean()) > 0, kwargs
-    with pytest.raises(NotImplementedError, match="item 8"):
-        render(*args, spp=1, checkpoint_path="ck.npz")
+    # A checkpoint saved after the last wave: a second call resumes at
+    # the end and gives the same image without rendering.
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Path(tmp) / "ck.npz"
+        first, _ = render(*args, spp=1, max_depth=job.max_depth, checkpoint_path=ck)
+        again, _ = render(*args, spp=1, max_depth=job.max_depth, checkpoint_path=ck,
+                          progress=lambda d, t: seen.append("rendered"))
+    assert torch.equal(first, again) and "rendered" not in seen
+    np.testing.assert_array_equal(first.numpy(), reference_image)
+
+
+class _Killed(Exception):
+    pass
+
+
+def test_cli_checkpoint_resumes(tmp_path):
+    """A render killed after its first wave leaves a checkpoint under the
+    CLI's fingerprint; ``--checkpoint`` resumes it to the image of an
+    uninterrupted ``main`` run."""
+    builder = SceneBuilder(search_dir=SCENE.parent)
+    parse_file(str(SCENE), builder)
+    job = builder.create(device="cpu")
+    ck = tmp_path / "box.ckpt.npz"
+
+    def kill(done, total):
+        raise _Killed
+
+    with pytest.raises(_Killed):
+        render(job.scene, job.camera, job.film, job.sampler, integrator=job.integrator, spp=2,
+               max_depth=job.max_depth, wave_spp=1, checkpoint_path=ck, progress=kill)
+    flags = ["--spp", "2", "--wave-spp", "1", "--device", "cpu", "-q"]
+    resumed, whole = tmp_path / "resumed.pfm", tmp_path / "whole.pfm"
+    assert cli.main([str(SCENE), *flags, "--checkpoint", str(ck), "-o", str(resumed)]) == 0
+    assert cli.main([str(SCENE), *flags, "-o", str(whole)]) == 0
+    with np.load(ck) as z:
+        assert int(z["spp_done"]) == 2
+    np.testing.assert_array_equal(Image.read(resumed).data, Image.read(whole).data)
+
+
+def test_cli_stats_prints_report(tmp_path):
+    import contextlib
+    import io
+
+    from shimmer_tpu_torch.utils import stats
+
+    stats.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        assert cli.main([str(SCENE), "--spp", "1", "--device", "cpu", "-q", "--stats",
+                         "-o", str(tmp_path / "s.pfm")]) == 0
+    err = buf.getvalue()
+    stats.clear()
+    assert "Statistics:" in err and "Rays traced" in err and "Wave time" in err
+    assert "Pixel samples" in err and "4.10k" in err

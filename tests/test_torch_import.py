@@ -3,7 +3,9 @@ shimmer_tpu_torch, the port's own copies of the host-only builders, and
 chip_smoke.py import in a fresh interpreter with ``jax`` and
 ``shimmer_tpu`` blocked, and each slice's path runs there at a small
 size (since the megakernel slice: the samplers, filters, cameras, color
-spaces and sensor through the megakernel and each estimator)."""
+spaces and sensor through the megakernel and each estimator; since the
+gradient slice: checkpoints, statistics, splats and a gradient through
+the megakernel)."""
 
 import os
 import subprocess
@@ -177,6 +179,36 @@ if "shimmer_tpu_torch.film.filters" in runs:
                      disable_pixel_jitter=job.disable_pixel_jitter,
                      disable_wavelength_jitter=job.disable_wavelength_jitter, **kw)[0]
         assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0, kw
+if "shimmer_tpu_torch.utils.checkpoint" in runs:
+    # The gradient slice runs, not only imports: a checkpointed render
+    # resumed, the statistics report, splats, and a gradient through the
+    # megakernel with per-bounce checkpoints, at a small size on the CPU.
+    import dataclasses, pathlib, tempfile
+    import torch
+    from shimmer_tpu_torch import bench_scene
+    from shimmer_tpu_torch.render import make_wave_renderer, pixel_blocks, render
+    from shimmer_tpu_torch.samplers import ZSobolSampler
+    from shimmer_tpu_torch.utils import stats
+    scene, cam, film = bench_scene.build_bench_scene(320, (8, 8), device="cpu")
+    sampler = ZSobolSampler(2, (8, 8))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = pathlib.Path(tmp) / "ck.npz"
+        whole = render(scene, cam, film, sampler, spp=2, max_depth=3, wave_spp=1)[1]
+        resumed = render(scene, cam, film, sampler, spp=2, max_depth=3, wave_spp=1,
+                         checkpoint_path=ck, collect_stats=True)[1]
+        assert torch.equal(whole.rgb_sum, resumed.rgb_sum)
+    assert "Rays traced" in stats.report()
+    splat = film.add_splats(film.init_state("cpu"), torch.rand(64, 2) * 8, torch.ones(64, 4),
+                            film.sample_wavelengths(torch.rand(64)))
+    assert float(splat.rgb_splat.sum()) > 0
+    refl = scene.materials.reflectance.clone().requires_grad_(True)
+    sc = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, reflectance=refl))
+    wave = make_wave_renderer(sc, cam, film, sampler, max_depth=3,
+                              integrator_options={{"remat": "full"}})
+    blocks, valids = pixel_blocks(film, 64, device="cpu")
+    state, _ = wave(film.init_state("cpu"), torch.arange(1), blocks[0], valids[0])
+    (g,) = torch.autograd.grad(film.get_image(state).mean(), refl)
+    assert bool(torch.isfinite(g).all()) and float(g[1].abs().sum()) > 0
 blocked = ("jax", "jaxlib", "shimmer_tpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -211,10 +243,14 @@ print(len(names))
          "shimmer_tpu_torch.film.filters", "shimmer_tpu_torch.cameras",
          "shimmer_tpu_torch.color.color", "shimmer_tpu_torch.color.colorspace",
          "shimmer_tpu_torch.film.film", "shimmer_tpu_torch.render"],
+        ["shimmer_tpu_torch.utils.checkpoint", "shimmer_tpu_torch.utils.stats",
+         "shimmer_tpu_torch.ops.math", "shimmer_tpu_torch.integrators.path",
+         "shimmer_tpu_torch.film.film", "shimmer_tpu_torch.render", "shimmer_tpu_torch.cli"],
     ],
     ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules",
          "packet_step_modules", "kernel_ab_modules", "material_modules",
-         "scene_file_modules", "texture_modules", "instancing_modules", "megakernel_modules"],
+         "scene_file_modules", "texture_modules", "instancing_modules", "megakernel_modules",
+         "gradient_modules"],
 )
 def test_imports_without_jax(names):
     # One torch thread: the subprocess runs beside the other xdist workers.

@@ -290,8 +290,9 @@ def test_scan_wave_renderer_and_full_image_pixels(wavefront_scene):
 
 def test_li_path_alive_mask_stats_and_remat(wavefront_scene):
     """Dead lanes (alive_mask) trace nothing and return zero; the rays
-    count only live lanes; remat belongs to the differentiable render and
-    raises."""
+    count only live lanes; since the gradient slice, remat True and "full"
+    give the same estimate and rays bit for bit (their gradients are held
+    in tests/test_torch_grad_remat.py), and an unknown form raises."""
     from shimmer_tpu_torch.film.filters import get_camera_sample
     from shimmer_tpu_torch.integrators.path import li_path
 
@@ -312,8 +313,11 @@ def test_li_path_alive_mask_stats_and_remat(wavefront_scene):
     assert (l_half[~mask] == 0).all()
     assert torch.equal(l_half[mask], l_all[mask])
     assert 0 < float(st_half["rays"]) < float(st_all["rays"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        li_path(scene, ray, swl, sampler, s, 3, remat=True)
+    for remat in (True, "full"):
+        l_r, st_r = li_path(scene, ray, swl, sampler, s, 3, return_stats=True, remat=remat)
+        assert torch.equal(l_r, l_all) and torch.equal(st_r["rays"], st_all["rays"])
+    with pytest.raises(ValueError, match="remat"):
+        li_path(scene, ray, swl, sampler, s, 3, remat="scan")
 
 
 def test_film_drops_samples_outside_the_image():

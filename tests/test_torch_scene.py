@@ -169,12 +169,11 @@ def test_scene_from_numpy_mt_leaves(jax_scene, torch_scene):
     "change, error",
     [({"has_patches": True}, (ValueError, "no patch table")),
      ({"has_instanced": True}, (ValueError, "no instance table")),
-     ({"triangles.differentiable_hits": True}, (NotImplementedError, "not ported")),
      ({"material_kinds": (0, 1), "materials.tex_reflectance": 0},
       (ValueError, "no texture table")),
      ({"image_infinite_indices": (1,)}, (ValueError, "no env table")),
      ({"camera_medium": 0}, (ValueError, "no media table"))],
-    ids=["patches_without_table", "instanced_without_table", "differentiable_hits",
+    ids=["patches_without_table", "instanced_without_table",
          "conductor", "image_light", "medium"],
 )
 def test_scene_from_numpy_refuses_unported(jax_scene, change, error):
@@ -195,6 +194,18 @@ def test_scene_from_numpy_refuses_unported(jax_scene, change, error):
             census[key] = value
     with pytest.raises(error[0], match=error[1]):
         scene_from_numpy(arrays, census, device="cpu")
+
+
+def test_scene_from_numpy_carries_differentiable_hits(jax_scene):
+    """Since the gradient slice the census flag ``differentiable_hits``
+    converts (it was refused before): the flag is carried across and the
+    tables are unchanged."""
+    arrays, census = jax_scene_to_numpy(jax_scene)
+    assert scene_from_numpy(arrays, census, device="cpu").triangles.differentiable_hits is False
+    census["triangles.differentiable_hits"] = True
+    conv = scene_from_numpy(arrays, census, device="cpu")
+    assert conv.triangles.differentiable_hits is True
+    assert np.array_equal(conv.triangles.rows8.numpy(), arrays["triangles.rows8"])
 
 
 @pytest.mark.parametrize("group", ["patches", "instanced"])
