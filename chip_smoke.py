@@ -25,7 +25,7 @@ Phases, each printing its own numbers:
      unsorted ray layout with its visit statistics, SIMD efficiency,
      resident blocks per SM and bound;
   4. a small render (64x48, 4 spp) on the card and on the CPU under each
-     configuration, compared (this phase's and phases 10-16's CPU halves
+     configuration, compared (this phase's and phases 10-18's CPU halves
      run in two processes of their own, started after the build, beside
      the card's phases);
   5. the full bench render under v1 through shimmer_tpu_torch.render.render;
@@ -138,7 +138,24 @@ Phases, each printing its own numbers:
      to the floor's reflectance coefficients finite and nonzero, exactly
      n_blocks x (1 + 2 x depth) v1 launches (each bounce's trace runs
      again in its recompute), with forward and backward seconds and peak
-     device memory.
+     device memory;
+ 17. the replay wavefront (render.make_replay_wavefront_renderer): (a)
+     tests/test_grad.py::TestReplayWavefrontGradients' scene at its sizes,
+     the replay value against the wavefront's, its gradient against the
+     megakernel's, both against the CPU's; (b) phase 16 (d)'s bench
+     backward through the replay over all 8 pixel blocks, its gradient
+     against phase 16 (d)'s, v1 launches exactly the wavefront's
+     iterations plus n_blocks x (1 + depth) for the replay, with forward
+     and backward seconds and peak device memory;
+ 18. sharding (shimmer_tpu_torch.parallel): the bench at 1280x720,
+     SHARD_SPP (4) spp, depth 5 over two row bands of the card in tiles
+     mode (a) and in spp mode over two waves (b), each against phase
+     15's unsharded wavefront image of the same samples, v1 launches
+     exactly the bands' iterations; (c) a process of its own joins a
+     world of one over NCCL (one card: NCCL puts no two ranks on one
+     card) and renders the flagship through render_multihost, its image
+     against this process's, and runs the sharded training step; (d)
+     flagship.dryrun_multichip on two bands of the card against the CPU.
 Launch counters are set to 0 just before each render path and each
 micro-benchmark entry point, and read just after it.  No phase catches its
 own failure.  Each phase logs its wall seconds and the run's so far.  The
@@ -178,6 +195,7 @@ from shimmer_tpu_torch.color.colorspace import get_named_color_space
 from shimmer_tpu_torch.film.film import PixelSensor, RgbFilm
 from shimmer_tpu_torch.film.filters import BoxFilter, GaussianFilter, get_camera_sample
 from shimmer_tpu_torch.film.image import Image
+from shimmer_tpu_torch.flagship import dryrun_multichip, flagship
 from shimmer_tpu_torch.integrators.path import li_path
 from shimmer_tpu_torch.lights import lights as lt
 from shimmer_tpu_torch.loading.parser import parse_file
@@ -204,6 +222,8 @@ from shimmer_tpu_torch.ops import packet_step as pk
 from shimmer_tpu_torch.ops import traverse as tv
 from shimmer_tpu_torch.ops.transform import Transform
 from shimmer_tpu_torch.ops.traverse import TraverseConfig
+from shimmer_tpu_torch.parallel.distributed import initialize_distributed, render_multihost
+from shimmer_tpu_torch.parallel.render import make_tile_mesh, render_sharded
 from shimmer_tpu_torch.render import make_wavefront_renderer, pixel_blocks, render
 from shimmer_tpu_torch.samplers import IndependentSampler, ZSobolSampler
 from shimmer_tpu_torch.scene_builder import build_scene
@@ -2153,6 +2173,7 @@ def _phase15(dev, v1_img: np.ndarray, v1_render: dict) -> dict:
     res["wavefront_ms_per_iteration"] = wf["seconds"] * 1e3 / wf["iters"]
     res["wavefront_rays"] = wf["rays"]
     res["wavefront_image_mean"] = wf["image_mean"]
+    out["wavefront_image"] = wf_img  # phase 18 shards the same samples
     log(f"phase 15 megakernel full render {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp "
         f"{MEGAKERNEL_SPP}: {json.dumps(res)}")
     out["full"] = res
@@ -2536,14 +2557,304 @@ def phase16(dev) -> dict:
         ckpt.unlink(missing_ok=True)
 
 
-# The CPU halves of the card-against-CPU checks (phases 4 and 10-16) are
+# 17. The replay wavefront: (a) tests/test_grad.py::
+# TestReplayWavefrontGradients' scene at its sizes; (b) the bench backward
+# of phase 16 (d) through the replay.
+REPLAY_RES, REPLAY_SPP, REPLAY_DEPTH = 12, 2, 3
+REPLAY_VALUE_RTOL = 1e-5  # replay value against the wavefront's
+REPLAY_GRAD_RTOL = 1e-4   # replay gradient against the megakernel's (atomic adds)
+# 18. Sharding: the bench in tiles and spp mode over two bands of one card
+# (the samples of phase 15's wavefront image), a world-1 NCCL child, and
+# the sharded training step card against CPU.
+SHARD_BANDS = 2
+SHARD_SPP = MEGAKERNEL_SPP
+SHARD_TILES_RTOL = 1e-6
+SHARD_SPP_RTOL = 1e-5
+FLAGSHIP_RES, FLAGSHIP_SPP, FLAGSHIP_DEPTH = (16, 16), 2, 2
+PHASE18_DIR = Path("chiprun_out") / "phase18"
+
+
+def replay_values(device) -> dict:
+    """(a): the value and the gradient with respect to reflectance
+    coefficient (0, 1) of the mean film sum, through the replay wavefront,
+    the megakernel and (value only) the wavefront."""
+    cs = get_named_color_space("srgb")
+    cam = PerspectiveCamera(CameraTransform(Transform.look_at([0.0, 0.0, -4.0], [0.0, 0.0, 0.0],
+                                                              [0.0, 1.0, 0.0])),
+                            (REPLAY_RES, REPLAY_RES), fov=45.0)
+    film = RgbFilm((REPLAY_RES, REPLAY_RES), BoxFilter(), PixelSensor(cs), cs)
+    scene = build_scene(None, render_from_world=cam.camera_transform.render_from_world(),
+                        device=device, **_grad_sphere_and_light([0.6, 0.5, 0.4], 20.0, 1.0))
+    sampler = IndependentSampler(REPLAY_SPP)
+    pixel_xy = render_module.full_image_pixels(film, device)
+    valid = torch.ones(pixel_xy.shape[0], dtype=torch.bool, device=device)
+    idx = torch.arange(REPLAY_SPP, device=device)
+    mask = torch.zeros(scene.materials.reflectance.shape, dtype=torch.bool)
+    mask[0, 1] = True
+    mask = mask.to(device)
+    theta0 = float(scene.materials.reflectance[0, 1])
+
+    def with_theta(theta):
+        refl = torch.where(mask, theta, scene.materials.reflectance)
+        return dataclasses.replace(scene, materials=dataclasses.replace(scene.materials,
+                                                                        reflectance=refl))
+
+    def value_grad(render_fn):
+        th = torch.tensor(theta0, device=device, requires_grad=True)
+        v = render_fn(with_theta(th)).rgb_sum.sum() / pixel_xy.shape[0]
+        (g,) = torch.autograd.grad(v, th)
+        return float(v.detach()), float(g)
+
+    replay = render_module.make_replay_wavefront_renderer(scene, cam, film, sampler,
+                                                          max_depth=REPLAY_DEPTH)
+    out = {}
+    out["replay_value"], out["replay_grad"] = value_grad(
+        lambda sc: replay(sc, film.init_state(device), idx, pixel_xy, valid))
+    out["megakernel_value"], out["megakernel_grad"] = value_grad(
+        lambda sc: render_module.render_pixel_samples(
+            sc, cam, film, sampler, li_path, {}, film.init_state(device), idx, pixel_xy,
+            pixel_valid=valid, max_depth=REPLAY_DEPTH)[0])
+    fs, _ = make_wavefront_renderer(scene, cam, film, sampler, max_depth=REPLAY_DEPTH)(
+        film.init_state(device), idx, pixel_xy, valid)
+    out["wavefront_value"] = float(fs.rgb_sum.sum() / pixel_xy.shape[0])
+    return out
+
+
+def replay_bench(dev, megakernel_grad: list) -> dict:
+    """(b): phase 16 (d)'s bench backward (1280x720, BWD_SPP spp, depth
+    BWD_DEPTH, the floor's reflectance) through the replay wavefront over
+    every pixel block: the wavefront forward, then each block's paths
+    replayed by the megakernel in the backward."""
+    scene, cam, film = build_bench_scene(BENCH_TRIS, BENCH_RESOLUTION, device="cpu")
+    scene = with_config(scene.to(dev), "v1")
+    floor = scene.materials.reflectance[1].clone().requires_grad_(True)
+    refl = torch.cat([scene.materials.reflectance[:1], floor[None],
+                      scene.materials.reflectance[2:]])
+    scene = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials,
+                                                                     reflectance=refl))
+    sampler = ZSobolSampler(BWD_SPP, BENCH_RESOLUTION)
+    wave = render_module.make_replay_wavefront_renderer(scene, cam, film, sampler,
+                                                        max_depth=BWD_DEPTH, with_stats=True)
+    blocks, valids = pixel_blocks(film, BLOCK, dev)
+    n_blocks = blocks.shape[0]
+    idx = torch.arange(BWD_SPP, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, iters = film.init_state(dev), 0.0
+    for b in range(n_blocks):
+        state, st = wave(scene, state, idx, blocks[b], valids[b])
+        iters += float(st["iters"])
+    loss = film.get_image(state).mean()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd_launches = dict(tv.traverse_raw.launches)["v1"]
+    fwd_peak = torch.cuda.max_memory_allocated()
+    (g,) = torch.autograd.grad(loss, floor)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_counts("phase 17 backward", "v1")
+    replay_launches = n_blocks * BWD_SPP * (1 + BWD_DEPTH)
+    check(fwd_launches == int(iters),
+          f"phase 17 backward: {fwd_launches} v1 launches in the forward, {iters} iterations")
+    check(launches == int(iters) + replay_launches,
+          f"phase 17 backward: {launches} v1 launches, not the wavefront's {int(iters)} "
+          f"iterations + n_blocks x spp x (1 + depth) = {replay_launches}")
+    grad = g.cpu().numpy()
+    want = np.asarray(megakernel_grad)
+    rel = float(np.max(np.abs(grad - want) / np.abs(want)))
+    check(np.isfinite(grad).all() and rel <= REPLAY_GRAD_RTOL,
+          f"phase 17 backward: gradient {grad.tolist()} against phase 16's {want.tolist()}")
+    return {
+        "resolution": list(BENCH_RESOLUTION), "spp": BWD_SPP, "max_depth": BWD_DEPTH,
+        "n_blocks": n_blocks, "image_mean": float(loss.detach()),
+        "grad_floor_reflectance": grad.tolist(), "megakernel_grad": want.tolist(),
+        "grad_max_rel_err": rel, "forward_seconds": t1 - t0, "backward_seconds": t2 - t1,
+        "wavefront_iters": int(iters), "forward_launches": fwd_launches,
+        "replay_launches": launches - fwd_launches, "kernel_launches": launches,
+        "forward_peak_device_bytes": fwd_peak,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(), "card": nvidia_smi_line(),
+    }
+
+
+def phase17(dev, megakernel_grad: list) -> dict:
+    """17. the replay wavefront's gradients."""
+    t0 = time.perf_counter()
+    card = replay_values(dev)
+    card["seconds"] = time.perf_counter() - t0
+    cpu, cpu_s = cpu_image("p17_replay")
+    check(abs(card["replay_value"] - card["wavefront_value"])
+          <= REPLAY_VALUE_RTOL * abs(card["wavefront_value"]),
+          f"phase 17: replay value {card['replay_value']} against the wavefront's "
+          f"{card['wavefront_value']}")
+    check(card["replay_grad"] != 0.0 and abs(card["replay_grad"] - card["megakernel_grad"])
+          <= REPLAY_GRAD_RTOL * abs(card["megakernel_grad"]),
+          f"phase 17: replay gradient {card['replay_grad']} against the megakernel's "
+          f"{card['megakernel_grad']}")
+    for i, key in enumerate(("replay_value", "replay_grad")):
+        check(abs(card[key] - cpu[i]) <= GRAD_RTOL * abs(cpu[i]),
+              f"phase 17: card {key} {card[key]} against the CPU's {cpu[i]}")
+    card.update(cpu_replay_value=float(cpu[0]), cpu_replay_grad=float(cpu[1]), cpu_seconds=cpu_s)
+    log(f"phase 17 replay {REPLAY_RES}x{REPLAY_RES} spp {REPLAY_SPP} depth {REPLAY_DEPTH}: "
+        f"{json.dumps(card)}")
+    torch.cuda.empty_cache()
+    bench = replay_bench(dev, megakernel_grad)
+    log(f"phase 17 replay backward: {json.dumps(bench)}")
+    return {"launches": bench["kernel_launches"], "small": card, "backward": bench}
+
+
+def max_rel(a: np.ndarray, b: np.ndarray) -> float:
+    """max |a - b| / |b|, with |b| floored at 1e-6 of max |b|."""
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6 * np.abs(b).max())))
+
+
+def flagship_render(mesh):
+    """The flagship at FLAGSHIP_RES, rendered in tiles mode over ``mesh``
+    (the numbers of experiments/dryrun_multihost.py)."""
+    scene, cam, film = flagship(FLAGSHIP_RES, mesh.devices[0])
+    return render_sharded(scene, cam, film, IndependentSampler(FLAGSHIP_SPP, seed=3), mesh,
+                          spp=FLAGSHIP_SPP, max_depth=FLAGSHIP_DEPTH, wave_spp=FLAGSHIP_SPP)[0]
+
+
+def nccl_child(port: int, out_dir: str, started: float, device: str):
+    """(c): a process of its own joins a world of one (NCCL on a card),
+    renders the flagship through render_multihost and runs
+    dryrun_multichip."""
+    torch.set_num_threads(CPU_THREADS)
+    out = Path(out_dir)
+    initialize_distributed(f"localhost:{port}", 1, 0, device=device)
+    try:
+        backend = torch.distributed.get_backend()
+        scene, cam, film = flagship(FLAGSHIP_RES, device)
+        img = render_multihost(scene, cam, film, IndependentSampler(FLAGSHIP_SPP, seed=3),
+                               spp=FLAGSHIP_SPP, max_depth=FLAGSHIP_DEPTH,
+                               wave_spp=FLAGSHIP_SPP)
+        np.save(out / "multihost.npy", img.cpu().numpy())
+        dry = dryrun_multichip([device])
+        (out / "child.json").write_text(json.dumps({
+            "backend": backend, "world_size": torch.distributed.get_world_size(),
+            "loss": dry["loss"], "grad": dry["grad"].tolist(),
+            "step_seconds": dry["step_seconds"], "wave_image_mean": dry["wave_image_mean"],
+            "process_seconds": time.time() - started}))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def shard_bench(dev, wf_img: np.ndarray, mode: str) -> dict:
+    """(a) / (b): the bench at full width over SHARD_BANDS bands of the
+    card, against phase 15's unsharded wavefront image of the same
+    samples; v1 launches exactly the bands' iterations."""
+    scene, cam, film = build_bench_scene(BENCH_TRIS, BENCH_RESOLUTION, device="cpu")
+    scene = with_config(scene.to(dev), "v1")
+    mesh = make_tile_mesh([dev] * SHARD_BANDS)
+    # tiles: one wave of every sample; spp: two waves, a sample a band each.
+    wave_spp = SHARD_SPP if mode == "tiles" else SHARD_SPP // (2 * SHARD_BANDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    img, _, st = render_sharded(scene, cam, film, ZSobolSampler(SHARD_SPP, BENCH_RESOLUTION),
+                                mesh, spp=SHARD_SPP, max_depth=MAX_DEPTH, wave_spp=wave_spp,
+                                mode=mode, collect_stats=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(f"phase 18 {mode}", "v1")
+    check(launches == int(st["iters"]),
+          f"phase 18 {mode}: {launches} v1 launches, the bands' iterations {st['iters']}")
+    img = img.cpu().numpy()
+    rel = max_rel(img, wf_img)
+    tol = SHARD_TILES_RTOL if mode == "tiles" else SHARD_SPP_RTOL
+    check(np.isfinite(img).all() and rel <= tol,
+          f"phase 18 {mode}: max relative {rel} from the unsharded image, over {tol}")
+    return {"mode": mode, "bands": SHARD_BANDS, "spp": SHARD_SPP, "wave_spp": wave_spp,
+            "seconds": seconds, "kernel_launches": launches, "iters": st["iters"],
+            "rays": st["rays"], "max_rel_err": rel, "equal": bool(np.array_equal(img, wf_img)),
+            "image_mean": float(img.mean()), "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "card": nvidia_smi_line()}
+
+
+def phase18(dev, wf_img: np.ndarray) -> dict:
+    """18. sharding: tiles and spp mode, the NCCL world-1 child, the
+    sharded training step."""
+    PHASE18_DIR.mkdir(parents=True, exist_ok=True)
+    for name in ("multihost.npy", "child.json"):
+        (PHASE18_DIR / name).unlink(missing_ok=True)
+    out = {"launches": 0}
+    ctx = multiprocessing.get_context("spawn")
+    # (c) first, in a process of its own, beside (a) and (b).
+    child = ctx.Process(target=nccl_child,
+                        args=(free_port(), str(PHASE18_DIR), time.time(), str(dev)))
+    child.start()
+    try:
+        for mode in ("tiles", "spp"):
+            res = shard_bench(dev, wf_img, mode)
+            out["launches"] += res["kernel_launches"]
+            out[mode] = res
+            log(f"phase 18 {mode} {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]}: {json.dumps(res)}")
+            torch.cuda.empty_cache()
+
+        # (d) the sharded training step on two bands, card against CPU.
+        reset_counts()
+        t0 = time.perf_counter()
+        dry = dryrun_multichip([dev] * SHARD_BANDS)
+        seconds = time.perf_counter() - t0
+        n = read_counts("phase 18 dryrun", "v1")
+        out["launches"] += n
+        cpu_grad, cpu_s = cpu_image("p18_dryrun_grad")
+        card_grad = dry["grad"].reshape(-1)
+        rel = float(np.max(np.abs(card_grad - cpu_grad) / np.abs(cpu_grad).max()))
+        check(rel <= GRAD_RTOL, f"phase 18 dryrun: card gradient {card_grad.tolist()} against "
+              f"the CPU's {cpu_grad.tolist()}")
+        dryrun = {"bands": dry["bands"], "resolution": dry["resolution"], "loss": dry["loss"],
+                  "grad": card_grad.tolist(), "cpu_grad": cpu_grad.tolist(),
+                  "max_rel_err_of_max": rel, "step_seconds": dry["step_seconds"],
+                  "seconds": seconds, "cpu_seconds": cpu_s, "kernel_launches": n}
+        log(f"phase 18 dryrun_multichip: {json.dumps(dryrun)}")
+
+        # (c) the child's image against this process's render of the same
+        # bands.
+        reset_counts()
+        mine = flagship_render(make_tile_mesh([dev])).cpu().numpy()
+        out["launches"] += read_counts("phase 18 flagship", "v1")
+        child.join(timeout=CPU_WAIT_S)
+        check(child.exitcode == 0, f"phase 18: the NCCL child ended with {child.exitcode}")
+        theirs = np.load(PHASE18_DIR / "multihost.npy")
+        info = json.loads((PHASE18_DIR / "child.json").read_text())
+        rel = max_rel(theirs, mine)
+        check(info["backend"] == ("nccl" if dev.type == "cuda" else "gloo")
+              and info["world_size"] == 1,
+              f"phase 18: the child ran {info['backend']} over {info['world_size']}")
+        check(rel <= SHARD_TILES_RTOL, f"phase 18: render_multihost's image {rel} from this "
+              f"process's")
+        info.update(max_rel_err=rel, equal=bool(np.array_equal(theirs, mine)),
+                    image_mean=float(theirs.mean()))
+        log(f"phase 18 NCCL world 1 child: {json.dumps(info)}")
+        out.update(dryrun=dryrun, nccl=info)
+        return out
+    finally:
+        if child.is_alive():
+            child.terminate()
+            child.join()
+
+
+# The CPU halves of the card-against-CPU checks (phases 4 and 10-18) are
 # rendered in processes of their own, which main() starts after the build,
 # beside the card's phases: each image lands as <CPU_DIR>/<case>.npy with
 # its render seconds in <case>.json, and the card's half waits for it.
 CPU_DIR = Path("chiprun_out") / "cpu_half"
 # The phases each process renders, in the order main() reaches them, and
 # the threads each process takes of the host's cores.
-CPU_HALVES = ((4, 10, 11, 12, 14), (13, 15, 16))
+CPU_HALVES = ((4, 10, 11, 12, 14), (13, 15, 16, 17, 18))
 CPU_THREADS = 2
 CPU_WAIT_S = 900
 _cpu_workers: list = []
@@ -2560,6 +2871,13 @@ def cpu_cases(phase: int, d: Path):
         for name in names:
             case = f"p4_{name}" if phase == 4 else "p10"
             yield case, lambda name=name: small_bench_render(scene, name)
+        return
+    if phase == 17:
+        yield "p17_replay", lambda: np.array([replay_values("cpu")[k]
+                                              for k in ("replay_value", "replay_grad")])
+        return
+    if phase == 18:
+        yield "p18_dryrun_grad", lambda: dryrun_multichip(["cpu"] * SHARD_BANDS)["grad"].reshape(-1)
         return
     if phase == 16:
         yield "p16_splats", lambda: splat("cpu").numpy()
@@ -2657,7 +2975,7 @@ def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
             merged = batches[cfg][-1]
             launches = renders[cfg]["kernel_launches"]
             if cfg == "v1":
-                launches += later_launches  # the card renders of phases 15 and 16
+                launches += later_launches  # the card renders of phases 15-18
             err = max(b["max_abs_err_t"] for b in batches[cfg])
         rows.append({
             "name": row,
@@ -2780,10 +3098,19 @@ def main():
     # 16. checkpoints, splats and gradients
     p16 = phase16(dev)
     wall.mark(16)
+    torch.cuda.empty_cache()
+    # 17. the replay wavefront's gradients
+    p17 = phase17(dev, p16["backward"]["grad_floor_reflectance"])
+    wall.mark(17)
+    torch.cuda.empty_cache()
+    # 18. sharding: row bands, spp, a world-1 NCCL process, the training step
+    p18 = phase18(dev, mk["wavefront_image"])
+    wall.mark(18)
     stop_cpu_halves()
 
-    print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets,
-                                             mk["launches"] + p16["launches"])}), flush=True)
+    later = mk["launches"] + p16["launches"] + p17["launches"] + p18["launches"]
+    print(json.dumps({"kernels": kernel_rows(batches, renders, large, gathers, packets, later)}),
+          flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({
         "ok": True,

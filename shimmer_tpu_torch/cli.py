@@ -10,8 +10,11 @@ default) and ``--megakernel`` forces the masked megakernel in place of the
 wavefront.  ``--checkpoint PATH`` saves the film state every
 ``--checkpoint-every`` waves and resumes from a matching checkpoint
 there; ``--stats`` prints the statistics report after the render.
-``--shard`` (multi-GPU rendering, not ported yet) raises
-NotImplementedError naming the ROADMAP item that ports it.
+``--shard`` splits the film's rows over every local card (over one CPU
+band with ``--device cpu``) through ``parallel.render.render_sharded``;
+it keeps no checkpoint and no statistics, so with ``--checkpoint`` or
+``--stats`` it raises, and it renders each band whole (no
+``--pixel-block``).
 """
 
 from __future__ import annotations
@@ -20,11 +23,6 @@ import argparse
 import copy
 import sys
 import time
-
-# Flags of unported features -> the ROADMAP queue 1 item that ports them.
-_UNPORTED_FLAGS = {
-    "shard": "multi-GPU rendering, ROADMAP queue 1 item 10",
-}
 
 
 def main(argv=None):
@@ -37,7 +35,8 @@ def main(argv=None):
     ap.add_argument("--integrator", default=None, choices=["path", "simplepath", "randomwalk"])
     ap.add_argument("--wave-spp", type=int, default=4)
     ap.add_argument("--pixel-block", type=int, default=1 << 15)
-    ap.add_argument("--shard", action="store_true", help="shard across all local devices")
+    ap.add_argument("--shard", action="store_true",
+                    help="split the film's rows over every local card")
     ap.add_argument("--megakernel", action="store_true",
                     help="the masked megakernel instead of the wavefront integrator")
     ap.add_argument("--seed", type=int, default=None,
@@ -52,9 +51,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback from one to the other")
     args = ap.parse_args(argv)
-    for flag, what in _UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what}, is not ported yet")
+    if args.shard and (args.checkpoint or args.stats):
+        raise NotImplementedError("--shard keeps no checkpoint and no statistics: "
+                                  "drop --checkpoint and --stats, or --shard")
 
     from pathlib import Path
 
@@ -89,18 +88,24 @@ def main(argv=None):
             print(f"\r{done}/{total} spp", end="", file=sys.stderr, flush=True)
 
     t0 = time.time()
-    image = render(
-        job.scene, job.camera, job.film, sampler,
+    common = dict(
         integrator=args.integrator or job.integrator, spp=spp,
-        max_depth=args.maxdepth or job.max_depth, wave_spp=args.wave_spp,
-        pixel_block=args.pixel_block, progress=progress,
+        max_depth=args.maxdepth or job.max_depth, wave_spp=args.wave_spp, progress=progress,
         disable_pixel_jitter=job.disable_pixel_jitter,
         disable_wavelength_jitter=job.disable_wavelength_jitter,
         wavefront=False if args.megakernel else None,
-        collect_stats=args.stats,
-        checkpoint_path=args.checkpoint,
-        checkpoint_every=args.checkpoint_every,
-    )[0]
+    )
+    if args.shard:
+        from shimmer_tpu_torch.parallel.render import make_tile_mesh, render_sharded
+
+        mesh = make_tile_mesh([device] if device.type == "cpu" else None)
+        image = render_sharded(job.scene, job.camera, job.film, sampler, mesh, **common)[0]
+    else:
+        image = render(
+            job.scene, job.camera, job.film, sampler, pixel_block=args.pixel_block,
+            collect_stats=args.stats, checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every, **common,
+        )[0]
     img = image.cpu().numpy()
     if not args.quiet:
         print(f"\nrender: {time.time() - t0:.2f}s", file=sys.stderr)

@@ -114,6 +114,23 @@ def _project_reflectance(refl, illum, b1, b2, b3):
     ]) / g_int
 
 
+def add_at_pixels(acc: torch.Tensor, pixel_xy, values) -> torch.Tensor:
+    """``acc`` (H, W, ...) with ``values`` (N, ...) added at the (x, y)
+    pixels ``pixel_xy`` (N, 2), H and W read from ``acc``.  A lane whose
+    pixel lies outside the H x W grid is dropped: it adds to a spare slot
+    past the grid that is cut off again."""
+    h, w = acc.shape[:2]
+    px = pixel_xy[..., 0].reshape(-1).long()
+    py = pixel_xy[..., 1].reshape(-1).long()
+    inside = (px >= 0) & (px < w) & (py >= 0) & (py < h)
+    flat = torch.where(inside, py * w + px, h * w)
+    tail = acc.shape[2:]
+    spare = torch.cat([acc.reshape((h * w,) + tail),
+                       torch.zeros((1,) + tail, dtype=acc.dtype, device=acc.device)])
+    out = spare.index_put((flat,), values.reshape((-1,) + tail).to(acc.dtype), accumulate=True)
+    return out[: h * w].reshape(acc.shape)
+
+
 @dataclasses.dataclass(frozen=True)
 class FilmState:
     """Per-pixel accumulators, (H, W, ...) tensors."""
@@ -161,24 +178,13 @@ class RgbFilm:
 
     def add_samples(self, state: FilmState, pixel_xy, L, swl, weight) -> FilmState:
         """Accumulate one filter-weighted sample per lane.  The lanes must
-        name distinct pixels; a lane whose pixel lies outside the image (a
-        padded lane is sent to (width, height)) is dropped: it adds to a
-        spare slot past the image that is cut off again."""
-        w, h = self.resolution
+        name distinct pixels of ``state``, whose rows may be a band of the
+        image (``parallel.render.LocalBandFilm``); a lane whose pixel lies
+        outside them (a padded lane is sent to (width, height)) is
+        dropped."""
         rgb = self._clamped_rgb(L, swl) * weight[..., None]
-        px = pixel_xy[..., 0].reshape(-1).long()
-        py = pixel_xy[..., 1].reshape(-1).long()
-        inside = (px >= 0) & (px < w) & (py >= 0) & (py < h)
-        flat = torch.where(inside, py * w + px, h * w)
-
-        def add(acc, v):
-            tail = acc.shape[2:]
-            spare = torch.cat([acc.reshape((h * w,) + tail),
-                               torch.zeros((1,) + tail, dtype=acc.dtype, device=acc.device)])
-            out = spare.index_put((flat,), v.reshape((-1,) + tail).to(acc.dtype), accumulate=True)
-            return out[: h * w].reshape(acc.shape)
-
-        return FilmState(rgb_sum=add(state.rgb_sum, rgb), weight_sum=add(state.weight_sum, weight),
+        return FilmState(rgb_sum=add_at_pixels(state.rgb_sum, pixel_xy, rgb),
+                         weight_sum=add_at_pixels(state.weight_sum, pixel_xy, weight),
                          rgb_splat=state.rgb_splat)
 
     def add_splats(self, state: FilmState, p_film, L, swl) -> FilmState:

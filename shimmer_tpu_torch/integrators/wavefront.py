@@ -35,6 +35,7 @@ import dataclasses
 
 import torch
 
+from shimmer_tpu_torch.film.film import add_at_pixels
 from shimmer_tpu_torch.film.filters import get_camera_sample
 from shimmer_tpu_torch.integrators.path import (
     INF,
@@ -444,19 +445,24 @@ def render_wave_wavefront(
 
     # One dense per-pixel reduction over the sample axis, then one n-lane
     # scatter-add into the film (item = s_idx * n + p_idx).  Within a wave
-    # each pixel index comes once; only the padding lanes of the last block
-    # repeat pixel (0, 0), and they add zero weight and zero color.  So the
-    # order of the scatter's adds cannot change a bit of the film, and two
-    # renders give equal film states (chip_smoke phase 12 checks this with
-    # torch.equal).  Keep it so: a wave that sent one pixel twice with
-    # nonzero values would make the film's sums depend on the add order.
+    # each pixel index comes once; the padding lanes of the last block are
+    # sent to (width, height), outside the image and outside any band of
+    # it, and dropped.  So the order of the scatter's adds cannot change a
+    # bit of the film, and two renders give equal film states (chip_smoke
+    # phase 12 checks this with torch.equal).  Keep it so: a wave that sent
+    # one pixel twice with nonzero values would make the film's sums depend
+    # on the add order.  A sharded render hands a film view whose scatter
+    # space is band-local (parallel/render.py, LocalBandFilm.local_xy).
     per_px_rgb = st.out_rgb.reshape(n_samples, n, 3).sum(0)
     per_px_w = st.out_w.reshape(n_samples, n).sum(0)
-    px = pixel_xy[..., 0].long()
-    py = pixel_xy[..., 1].long()
+    w_img, h_img = film.resolution
+    outside = torch.tensor([w_img, h_img], dtype=pixel_xy.dtype, device=dev)
+    scatter_xy = torch.where(pixel_valid[:, None], pixel_xy, outside)
+    if hasattr(film, "local_xy"):
+        scatter_xy = film.local_xy(scatter_xy)
     fs = type(film_state)(
-        rgb_sum=film_state.rgb_sum.index_put((py, px), per_px_rgb, accumulate=True),
-        weight_sum=film_state.weight_sum.index_put((py, px), per_px_w, accumulate=True),
+        rgb_sum=add_at_pixels(film_state.rgb_sum, scatter_xy, per_px_rgb),
+        weight_sum=add_at_pixels(film_state.weight_sum, scatter_xy, per_px_w),
         rgb_splat=film_state.rgb_splat,
     )
     return fs, {"rays": st.rays, "iters": st.iters}

@@ -6,6 +6,8 @@ state.  The production path is the regenerating wavefront
 (``integrators/wavefront.py``); ``wavefront=False`` runs the masked
 megakernel instead, one estimator call (``INTEGRATORS``) per sample index
 over the block's lanes, each sample scattered into its own pixel.
+``make_replay_wavefront_renderer`` differentiates the wavefront: its
+backward replays the wave's paths through the megakernel.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from shimmer_tpu_torch.film.film import FilmState, RgbFilm
 from shimmer_tpu_torch.film.filters import get_camera_sample
 from shimmer_tpu_torch.integrators.path import li_path, li_random_walk, li_simple_path
 from shimmer_tpu_torch.integrators.wavefront import render_wave_wavefront
-from shimmer_tpu_torch.scene import Scene
+from shimmer_tpu_torch.scene import Scene, grad_tensor_fields, with_tensor_fields
 from shimmer_tpu_torch.spectra.sampled import SampledWavelengths
 from shimmer_tpu_torch.utils import stats
 from shimmer_tpu_torch.utils.checkpoint import RenderCheckpointer
@@ -91,10 +93,16 @@ def render_pixel_samples(scene: Scene, camera, film: RgbFilm, sampler, li_fn, op
 
 def full_image_pixels(film: RgbFilm, device=None):
     """(W * H, 2) int32 pixel coordinates in row-major order."""
-    w, h = film.resolution
-    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.int32), torch.arange(w, dtype=torch.int32),
-                            indexing="ij")
-    return torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1).to(resolve_device(device))
+    return band_pixels(film, 0, film.resolution[1], resolve_device(device))
+
+
+def band_pixels(film: RgbFilm, row0: int, rows: int, device) -> torch.Tensor:
+    """(rows * W, 2) int32 pixel coordinates of rows ``row0 .. row0 +
+    rows - 1``, row-major."""
+    w = film.resolution[0]
+    ys, xs = torch.meshgrid(torch.arange(row0, row0 + rows, dtype=torch.int32),
+                            torch.arange(w, dtype=torch.int32), indexing="ij")
+    return torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1).to(device)
 
 
 def _megakernel_opts(integrator, regularize, integrator_options, camera, sampler):
@@ -171,6 +179,114 @@ def make_wavefront_renderer(scene: Scene, camera, film: RgbFilm, sampler, max_de
         )
 
     return render_samples
+
+
+class _ReplayWave(torch.autograd.Function):
+    """One wavefront wave whose backward replays its paths through the
+    megakernel.  Inputs: the replay's settings (``_Replay``), the film
+    state's three tensors, the sample indices, ``pixel_xy``,
+    ``pixel_valid``, then the scene's tensors that require grad.
+    Outputs: the film state's three tensors, and the wave's traced rays
+    and loop iterations (not differentiable)."""
+
+    @staticmethod
+    def forward(ctx, replay, rgb_sum, weight_sum, rgb_splat, sample_indices, pixel_xy,
+                pixel_valid, *leaves):
+        # Only the wave's inputs are kept: nothing per bounce.
+        ctx.replay = replay
+        ctx.save_for_backward(sample_indices, pixel_xy, pixel_valid, *leaves)
+        fs, st = replay.forward(FilmState(rgb_sum, weight_sum, rgb_splat), sample_indices,
+                                pixel_xy, pixel_valid)
+        ctx.mark_non_differentiable(st["rays"], st["iters"])
+        return fs.rgb_sum, fs.weight_sum, fs.rgb_splat, st["rays"], st["iters"]
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_w, g_splat, _g_rays, _g_iters):
+        sample_indices, pixel_xy, pixel_valid, *leaves = ctx.saved_tensors
+        with torch.enable_grad():
+            params = [leaf.detach().requires_grad_(True) for leaf in leaves]
+            grads = ctx.replay.vjp(params, (g_rgb, g_w, g_splat), sample_indices, pixel_xy,
+                                   pixel_valid)
+        # The wave adds into the film state, so its gradient passes through.
+        return (None, g_rgb, g_w, g_splat, None, None, None, *grads)
+
+
+class _Replay:
+    """What the replay wave closes over: the camera, film, sampler and
+    options, and the scene with its gradient tensors detached (``paths``
+    says where they go back in)."""
+
+    def __init__(self, scene: Scene, paths, camera, film, sampler, max_depth, regularize,
+                 spread):
+        self.scene, self.paths = scene, paths
+        self.camera, self.film, self.sampler = camera, film, sampler
+        self.max_depth, self.regularize, self.spread = max_depth, regularize, spread
+        self.opts = {"remat": True}
+        if regularize:
+            self.opts["regularize"] = True
+        if spread:
+            self.opts["pixel_spread"] = spread
+
+    def forward(self, film_state, sample_indices, pixel_xy, pixel_valid):
+        return render_wave_wavefront(
+            self.scene, self.camera, self.film, self.sampler, film_state, sample_indices,
+            pixel_xy, pixel_valid, max_depth=self.max_depth, regularize=self.regularize,
+            pixel_spread=self.spread)
+
+    def vjp(self, params, grads, sample_indices, pixel_xy, pixel_valid):
+        """The gradients of the wave's film sums, weighted by ``grads``,
+        with respect to ``params`` (the scene's gradient tensors, in
+        place), through the same (pixel, sample) paths replayed by the
+        megakernel.  The add is linear, so the replay adds into zeros."""
+        scene = with_tensor_fields(self.scene, zip(self.paths, params))
+        zero = FilmState(*(torch.zeros(g.shape, dtype=g.dtype, device=g.device) for g in grads))
+        fs, _ = render_pixel_samples(
+            scene, self.camera, self.film, self.sampler, li_path, self.opts, zero,
+            sample_indices, pixel_xy, pixel_valid=pixel_valid, max_depth=self.max_depth)
+        pairs = [(out, g) for out, g in zip((fs.rgb_sum, fs.weight_sum, fs.rgb_splat), grads)
+                 if out.requires_grad]
+        if not pairs or not params:
+            return [None] * len(params)
+        outs, gs = zip(*pairs)
+        return torch.autograd.grad(outs, params, gs, allow_unused=True)
+
+
+def make_replay_wavefront_renderer(scene: Scene, camera, film: RgbFilm, sampler,
+                                   max_depth: int = 5, regularize: bool = False,
+                                   with_stats: bool = False):
+    """Differentiable wavefront wave: path-replay backprop.
+
+    Returns ``wave(scene, film_state, sample_indices, pixel_xy,
+    pixel_valid) -> film_state`` (``(film_state, stats)`` with
+    ``with_stats``: the wave's traced ``rays`` and loop ``iters``), a
+    ``torch.autograd.Function`` differentiable with respect to the film
+    state and to every tensor of ``scene`` that requires grad (material
+    tables, textures, light scales, ...; nested tables included).
+
+    The forward is the regenerating wavefront, run without a graph, and
+    keeps only the wave's inputs.  The backward rebuilds the scene on
+    detached copies of those tensors and replays every (pixel, sample)
+    path through the megakernel (``li_path(remat=True)``, the camera's
+    spread shrunk with the sample count): the counter-based sampler gives
+    both integrators the same draws, so the replayed estimator equals the
+    forward one and its gradient is the wave's.  ``scene`` here is the
+    reference's argument and unused: the wave takes its scene per call."""
+    spread = _spp_spread(camera, sampler)
+
+    def wave(scene: Scene, film_state: FilmState, sample_indices, pixel_xy, pixel_valid):
+        fields = grad_tensor_fields(scene)
+        paths = [path for path, _ in fields]
+        leaves = [t for _, t in fields]
+        skeleton = with_tensor_fields(scene, [(path, t.detach()) for path, t in fields])
+        replay = _Replay(skeleton, paths, camera, film, sampler, max_depth, regularize, spread)
+        idx = torch.as_tensor(sample_indices, device=scene.device).to(torch.int64)
+        rgb, w, splat, rays, iters = _ReplayWave.apply(
+            replay, film_state.rgb_sum, film_state.weight_sum, film_state.rgb_splat, idx,
+            pixel_xy, pixel_valid, *leaves)
+        fs = FilmState(rgb_sum=rgb, weight_sum=w, rgb_splat=splat)
+        return (fs, {"rays": rays, "iters": iters}) if with_stats else fs
+
+    return wave
 
 
 def pixel_blocks(film: RgbFilm, block: int, device=None):

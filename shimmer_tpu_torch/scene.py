@@ -87,6 +87,35 @@ def _tensors_to(obj, device):
     return dataclasses.replace(obj, **changes)
 
 
+def grad_tensor_fields(obj, path: tuple = ()) -> list:
+    """(path, tensor) of every tensor field of ``obj`` that requires grad,
+    nested tables included (the walk of ``Scene.to``); a path is the
+    tuple of field names from ``obj`` down."""
+    found = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            if v.requires_grad:
+                found.append((path + (f.name,), v))
+        elif dataclasses.is_dataclass(v):
+            found.extend(grad_tensor_fields(v, path + (f.name,)))
+    return found
+
+
+def with_tensor_fields(obj, fields):
+    """``obj`` with each (path, tensor) of ``fields`` put in at its path."""
+    for path, value in fields:
+        obj = _replace_at(obj, path, value)
+    return obj
+
+
+def _replace_at(obj, path: tuple, value):
+    head = path[0]
+    if len(path) > 1:
+        value = _replace_at(getattr(obj, head), path[1:], value)
+    return dataclasses.replace(obj, **{head: value})
+
+
 def scene_intersect(scene: Scene, ray_o, ray_d, t_max, want_any=False):
     """Closest hit over every shape of the scene, the legs in the
     reference's order (spheres, triangles, patches, instances), so the

@@ -6,9 +6,10 @@
 ``randomwalk`` and ``--megakernel`` write the image ``render`` gives with
 that estimator or the megakernel; ``--checkpoint`` resumes a killed
 render to the uninterrupted image and ``--stats`` prints the report;
-``--shard``, the one flag of an unported feature, raises
-NotImplementedError, and ``--device cuda`` without a card raises instead
-of falling back to the CPU."""
+``--shard --device cpu`` writes the image the run without it writes
+(wavefront and ``--megakernel``), ``--shard`` with ``--checkpoint`` or
+``--stats`` raises NotImplementedError, and ``--device cuda`` without a
+card raises instead of falling back to the CPU."""
 
 import os
 import subprocess
@@ -70,10 +71,21 @@ def test_cli_as_module(tmp_path):
     assert "wrote" in proc.stderr and np.isfinite(Image.read(out).data).all()
 
 
-@pytest.mark.parametrize("flags", [["--shard"]], ids=["shard"])
-def test_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        cli.main([str(SCENE), "--device", "cpu", "-q", "-o", str(tmp_path / "x.pfm"), *flags])
+@pytest.mark.parametrize("flags", [[], ["--megakernel"]], ids=["wavefront", "megakernel"])
+def test_shard_writes_the_unsharded_image(tmp_path, flags):
+    plain, sharded = tmp_path / "plain.pfm", tmp_path / "sharded.pfm"
+    args = [str(SCENE), "--spp", "1", "--device", "cpu", "-q", *flags]
+    assert cli.main([*args, "-o", str(plain)]) == 0
+    assert cli.main([*args, "--shard", "-o", str(sharded)]) == 0
+    np.testing.assert_array_equal(Image.read(sharded).data, Image.read(plain).data)
+
+
+@pytest.mark.parametrize("flags", [["--checkpoint", "ck.npz"], ["--stats"]],
+                         ids=["checkpoint", "stats"])
+def test_shard_refuses_checkpoint_and_stats(tmp_path, flags):
+    with pytest.raises(NotImplementedError, match="--shard keeps no checkpoint"):
+        cli.main([str(SCENE), "--device", "cpu", "-q", "--shard", "-o", str(tmp_path / "x.pfm"),
+                  *flags])
     assert not (tmp_path / "x.pfm").exists()
 
 

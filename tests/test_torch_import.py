@@ -5,7 +5,8 @@ chip_smoke.py import in a fresh interpreter with ``jax`` and
 size (since the megakernel slice: the samplers, filters, cameras, color
 spaces and sensor through the megakernel and each estimator; since the
 gradient slice: checkpoints, statistics, splats and a gradient through
-the megakernel)."""
+the megakernel; since the sharding slice: the replay wavefront's
+gradient, row-band and spp sharding and the sharded training step)."""
 
 import os
 import subprocess
@@ -209,6 +210,31 @@ if "shimmer_tpu_torch.utils.checkpoint" in runs:
     state, _ = wave(film.init_state("cpu"), torch.arange(1), blocks[0], valids[0])
     (g,) = torch.autograd.grad(film.get_image(state).mean(), refl)
     assert bool(torch.isfinite(g).all()) and float(g[1].abs().sum()) > 0
+if "shimmer_tpu_torch.parallel.distributed" in runs:
+    # The sharding slice runs, not only imports: the replay wavefront's
+    # gradient, the flagship in tiles and spp mode over two CPU bands, and
+    # the sharded training step.
+    import dataclasses
+    import torch
+    from shimmer_tpu_torch import bench_scene
+    from shimmer_tpu_torch.flagship import dryrun_multichip, flagship
+    from shimmer_tpu_torch.parallel.render import make_tile_mesh, render_sharded
+    from shimmer_tpu_torch.render import make_replay_wavefront_renderer, pixel_blocks
+    from shimmer_tpu_torch.samplers import IndependentSampler, ZSobolSampler
+    scene, cam, film = bench_scene.build_bench_scene(320, (8, 8), device="cpu")
+    refl = scene.materials.reflectance.clone().requires_grad_(True)
+    sc = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, reflectance=refl))
+    wave = make_replay_wavefront_renderer(sc, cam, film, ZSobolSampler(1, (8, 8)), max_depth=3)
+    blocks, valids = pixel_blocks(film, 64, device="cpu")
+    state = wave(sc, film.init_state("cpu"), torch.arange(1), blocks[0], valids[0])
+    (g,) = torch.autograd.grad(film.get_image(state).mean(), refl)
+    assert bool(torch.isfinite(g).all()) and float(g[1].abs().sum()) > 0
+    scene, cam, film = flagship((8, 8), "cpu")
+    for mode in ("tiles", "spp"):
+        img = render_sharded(scene, cam, film, IndependentSampler(2), make_tile_mesh(["cpu"] * 2),
+                             spp=2, max_depth=2, mode=mode)[0]
+        assert img.shape == (8, 8, 3) and float(img.mean()) > 0, mode
+    assert dryrun_multichip(["cpu"] * 2)["wave_image_mean"] > 0
 blocked = ("jax", "jaxlib", "shimmer_tpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -246,11 +272,14 @@ print(len(names))
         ["shimmer_tpu_torch.utils.checkpoint", "shimmer_tpu_torch.utils.stats",
          "shimmer_tpu_torch.ops.math", "shimmer_tpu_torch.integrators.path",
          "shimmer_tpu_torch.film.film", "shimmer_tpu_torch.render", "shimmer_tpu_torch.cli"],
+        ["shimmer_tpu_torch.parallel.render", "shimmer_tpu_torch.parallel.distributed",
+         "shimmer_tpu_torch.flagship", "shimmer_tpu_torch.experiments.dryrun_multihost",
+         "shimmer_tpu_torch.render", "shimmer_tpu_torch.cli"],
     ],
     ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules",
          "packet_step_modules", "kernel_ab_modules", "material_modules",
          "scene_file_modules", "texture_modules", "instancing_modules", "megakernel_modules",
-         "gradient_modules"],
+         "gradient_modules", "sharding_modules"],
 )
 def test_imports_without_jax(names):
     # One torch thread: the subprocess runs beside the other xdist workers.
