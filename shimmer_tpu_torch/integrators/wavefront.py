@@ -26,7 +26,13 @@ in every iteration, in the reference's order.
 The reference's ``lax.while_loop`` becomes a Python loop here.  Its stop
 test ``busy.any()`` and the done-lane write (which indexes the done lanes)
 each cost one device-to-host sync per iteration; at the bench size that is
-a few hundred per wave, accepted for now.
+a few hundred per wave, accepted for now, and each is timed by a
+``wavefront/sync`` span.
+
+Each stage runs inside a span of ``utils/stats`` (``wavefront/wave``
+around the whole, then ``regen``, ``trace``, ``medium``, ``emission``,
+``hit``, ``nee``, ``bsdf``, ``roulette``, ``retire`` and ``film``), so a
+device trace can be read by stage.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from shimmer_tpu_torch.ops.vecmath import abs_dot, dot, length
 from shimmer_tpu_torch.samplers import SamplerState
 from shimmer_tpu_torch.scene import Scene, scene_intersect_merged, scene_intersect_merged_full
 from shimmer_tpu_torch.spectra.sampled import SampledWavelengths, ss_is_black
+from shimmer_tpu_torch.utils import stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +114,7 @@ def _where_merge(cond, new, old):
     return torch.where(c, new, old)
 
 
+@stats.span("wavefront/wave")
 def render_wave_wavefront(
     scene: Scene,
     camera,
@@ -145,6 +153,7 @@ def render_wave_wavefront(
     iface_med = scene.media is not None and scene.has_interface_media
     has_med = scene.media is not None and (scene.camera_medium >= 0 or iface_med)
 
+    @stats.span("wavefront/regen")
     def regen(st: _WaveState) -> _WaveState:
         free = ~st.busy
         navail = pool_total - st.pool_next
@@ -210,200 +219,212 @@ def render_wave_wavefront(
         s_state = SamplerState(pixel_hash=st.s_ph, sample_index=st.s_si, dim=st.s_dim)
 
         # --- 1. merged trace: extension (closest) + shadow (any hit) ---
-        rays = st.rays + torch.sum(st.alive.to(torch.float32)) + torch.sum(
-            st.pend_sh.to(torch.float32)
-        )
-        mo = torch.cat([st.ray_o, st.sh_o], dim=0)
-        md = torch.cat([st.ray_d, st.sh_d], dim=0)
-        mt = torch.cat(
-            [
-                torch.where(st.alive, INF, -INF),
-                torch.where(st.pend_sh, st.sh_tmax, -INF),
-            ],
-            dim=0,
-        )
-        if iface_med:
-            # Closest hits on both halves: the march crosses material-less
-            # boundaries, three more traversals of the shadow lanes.
-            si, si_sh = scene_intersect_merged_full(scene, mo, md, mt, n)
-            visible, tr_sh = shadow_march_interfaces(
-                scene, swl, st.sh_o, st.sh_d, st.sh_tmax, st.pend_sh, st.sh_med, si0=si_sh)
-            shadow_add = torch.where(visible[..., None], st.ld * tr_sh, 0.0)
-        else:
-            si, occluded = scene_intersect_merged(scene, mo, md, mt, n)
-            shadow_add = torch.where((st.pend_sh & ~occluded)[..., None], st.ld, 0.0)
+        with stats.span("wavefront/trace"):
+            rays = st.rays + torch.sum(st.alive.to(torch.float32)) + torch.sum(
+                st.pend_sh.to(torch.float32)
+            )
+            mo = torch.cat([st.ray_o, st.sh_o], dim=0)
+            md = torch.cat([st.ray_d, st.sh_d], dim=0)
+            mt = torch.cat(
+                [
+                    torch.where(st.alive, INF, -INF),
+                    torch.where(st.pend_sh, st.sh_tmax, -INF),
+                ],
+                dim=0,
+            )
+            if iface_med:
+                # Closest hits on both halves: the march crosses material-less
+                # boundaries, three more traversals of the shadow lanes.
+                si, si_sh = scene_intersect_merged_full(scene, mo, md, mt, n)
+                visible, tr_sh = shadow_march_interfaces(
+                    scene, swl, st.sh_o, st.sh_d, st.sh_tmax, st.pend_sh, st.sh_med, si0=si_sh)
+                shadow_add = torch.where(visible[..., None], st.ld * tr_sh, 0.0)
+            else:
+                si, occluded = scene_intersect_merged(scene, mo, md, mt, n)
+                shadow_add = torch.where((st.pend_sh & ~occluded)[..., None], st.ld, 0.0)
 
         # --- 2. shadow resolution + emission + shading ---
-        l = st.l + shadow_add
         alive = st.alive
         beta_st = st.beta
         scattered = None
         if has_med:
             # Free-flight sampling over the traced segment, before any
             # surface draw.
-            mid = st.cur_med if iface_med else cam_med
-            s_state, beta_st, scattered, (sig_t, g_m, t_m) = _medium_segment(
-                scene, sampler, swl, s_state, mid, si, alive, beta_st)
-        reach = alive if scattered is None else alive & ~scattered
-        miss = reach & ~si.valid
-        l = _infinite_le_with_mis(
-            scene, st.ray_d, swl, beta_st, st.p_b, st.specular,
-            st.prev_p, st.prev_ns, l, miss,
-        )
-        l = _area_le_with_mis(
-            scene, si, swl, beta_st, st.p_b, st.specular,
-            st.prev_p, st.prev_ns, l, reach,
-        )
-        alive = alive & (si.valid if scattered is None else si.valid | scattered)
-        will_shade = alive & (st.depth < max_depth)
-        surf_shade = will_shade if scattered is None else will_shade & si.valid & ~scattered
-        med_shade = None if scattered is None else will_shade & scattered
-
-        si = _prepare_hit(scene, si, st.ray_d, pixel_spread)
-        si, s_state = _resolve_mix(scene, si, sampler, s_state)
-        beta0, lam_term = _apply_dispersion(scene, si, surf_shade, beta_st, st.lam_term)
-        frame = si.shading_frame()
-        bsdf_ctx = _with_rng_key(scene, _bsdf_ctx(scene, si, swl), s_state)
-        if regularize:
-            bsdf_ctx = _with_regularize(bsdf_ctx, st.any_ns)
-
-        beta_nee = beta0
-        ld_new, (sh_o, sh_d, sh_tmax, sh_usable), s_state = sample_ld_prepare(
-            scene, si, frame, swl, sampler, s_state, bsdf_ctx
-        )
-        pend_sh = surf_shade & sh_usable
-
-        u2, s_state = sampler.get_2d(s_state)
-        uc, s_state = sampler.get_1d(s_state)
-        bs = bsdf_sample(
-            scene.materials, scene.material_kinds, si.material_id,
-            frame, si.ns, si.wo, u2, uc, swl, **bsdf_ctx,
-        )
-        cos_f = abs_dot(bs.wi, si.ns)
-        step = torch.where(
-            (bs.pdf > 0.0)[..., None],
-            bs.f * (cos_f / torch.clamp(bs.pdf, min=1e-20))[..., None],
-            0.0,
-        )
-        beta = torch.where(surf_shade[..., None], beta0 * step, beta0)
-        p_b_new = bs.pdf
-        if _has_proportional_pdfs(scene):
-            # A layered coat's sample pdf is proportional only: MIS on the
-            # next hit needs the true (estimated) pdf.
-            p_b_new = torch.where(
-                bs.pdf_is_proportional,
-                bsdf_pdf(
-                    scene.materials, scene.material_kinds, si.material_id,
-                    frame, si.ns, si.wo, bs.wi, swl, **bsdf_ctx,
-                ),
-                bs.pdf,
+            with stats.span("wavefront/medium"):
+                mid = st.cur_med if iface_med else cam_med
+                s_state, beta_st, scattered, (sig_t, g_m, t_m) = _medium_segment(
+                    scene, sampler, swl, s_state, mid, si, alive, beta_st)
+        with stats.span("wavefront/emission"):
+            l = st.l + shadow_add
+            reach = alive if scattered is None else alive & ~scattered
+            miss = reach & ~si.valid
+            l = _infinite_le_with_mis(
+                scene, st.ray_d, swl, beta_st, st.p_b, st.specular,
+                st.prev_p, st.prev_ns, l, miss,
             )
-        p_b = torch.where(surf_shade, p_b_new, st.p_b)
-        specular = torch.where(surf_shade, bs.is_specular(), st.specular)
-        any_ns = st.any_ns | (surf_shade & ~bs.is_specular())
-        eta_scale = torch.where(surf_shade, st.eta_scale * bs.eta * bs.eta, st.eta_scale)
-        prev_p = _where_merge(surf_shade, si.p, st.prev_p)
-        prev_ns = _where_merge(surf_shade, si.ns, st.prev_ns)
-        new_o = offset_ray_origin(si.p, si.n, bs.wi)
-        ray_o = _where_merge(surf_shade, new_o, st.ray_o)
-        ray_d = _where_merge(surf_shade, bs.wi, st.ray_d)
-        alive = surf_shade & bs.valid & ~ss_is_black(beta)
+            l = _area_le_with_mis(
+                scene, si, swl, beta_st, st.p_b, st.specular,
+                st.prev_p, st.prev_ns, l, reach,
+            )
+            alive = alive & (si.valid if scattered is None else si.valid | scattered)
+            will_shade = alive & (st.depth < max_depth)
+            surf_shade = will_shade if scattered is None else will_shade & si.valid & ~scattered
+            med_shade = None if scattered is None else will_shade & scattered
+
+        with stats.span("wavefront/hit"):
+            si = _prepare_hit(scene, si, st.ray_d, pixel_spread)
+            si, s_state = _resolve_mix(scene, si, sampler, s_state)
+            beta0, lam_term = _apply_dispersion(scene, si, surf_shade, beta_st, st.lam_term)
+            frame = si.shading_frame()
+            bsdf_ctx = _with_rng_key(scene, _bsdf_ctx(scene, si, swl), s_state)
+            if regularize:
+                bsdf_ctx = _with_regularize(bsdf_ctx, st.any_ns)
+
+        with stats.span("wavefront/nee"):
+            beta_nee = beta0
+            ld_new, (sh_o, sh_d, sh_tmax, sh_usable), s_state = sample_ld_prepare(
+                scene, si, frame, swl, sampler, s_state, bsdf_ctx
+            )
+            pend_sh = surf_shade & sh_usable
+
+        with stats.span("wavefront/bsdf"):
+            u2, s_state = sampler.get_2d(s_state)
+            uc, s_state = sampler.get_1d(s_state)
+            bs = bsdf_sample(
+                scene.materials, scene.material_kinds, si.material_id,
+                frame, si.ns, si.wo, u2, uc, swl, **bsdf_ctx,
+            )
+            cos_f = abs_dot(bs.wi, si.ns)
+            step = torch.where(
+                (bs.pdf > 0.0)[..., None],
+                bs.f * (cos_f / torch.clamp(bs.pdf, min=1e-20))[..., None],
+                0.0,
+            )
+            beta = torch.where(surf_shade[..., None], beta0 * step, beta0)
+            p_b_new = bs.pdf
+            if _has_proportional_pdfs(scene):
+                # A layered coat's sample pdf is proportional only: MIS on the
+                # next hit needs the true (estimated) pdf.
+                p_b_new = torch.where(
+                    bs.pdf_is_proportional,
+                    bsdf_pdf(
+                        scene.materials, scene.material_kinds, si.material_id,
+                        frame, si.ns, si.wo, bs.wi, swl, **bsdf_ctx,
+                    ),
+                    bs.pdf,
+                )
+            p_b = torch.where(surf_shade, p_b_new, st.p_b)
+            specular = torch.where(surf_shade, bs.is_specular(), st.specular)
+            any_ns = st.any_ns | (surf_shade & ~bs.is_specular())
+            eta_scale = torch.where(surf_shade, st.eta_scale * bs.eta * bs.eta, st.eta_scale)
+            prev_p = _where_merge(surf_shade, si.p, st.prev_p)
+            prev_ns = _where_merge(surf_shade, si.ns, st.prev_ns)
+            new_o = offset_ray_origin(si.p, si.n, bs.wi)
+            ray_o = _where_merge(surf_shade, new_o, st.ray_o)
+            ray_d = _where_merge(surf_shade, bs.wi, st.ray_d)
+            alive = surf_shade & bs.valid & ~ss_is_black(beta)
 
         if has_med:
             # --- medium-vertex shading ---
-            p_med = st.ray_o + t_m[..., None] * st.ray_d
-            wo_m = -st.ray_d
-            ld_med, (sh_o_m, sh_d_m, sh_tmax_m, usable_m), s_state = sample_ld_medium_prepare(
-                scene, p_med, wo_m, g_m, swl, sampler, s_state)
-            u2_m, s_state = sampler.get_2d(s_state)
-            wi_m, pdf_ph = sample_henyey_greenstein(wo_m, g_m, u2_m)
-            scat3 = med_shade[..., None]
-            ld_new = torch.where(scat3, ld_med, ld_new)
-            sh_o = torch.where(scat3, sh_o_m, sh_o)
-            sh_d = torch.where(scat3, sh_d_m, sh_d)
-            sh_tmax = torch.where(med_shade, sh_tmax_m, sh_tmax)
-            pend_sh = pend_sh | (med_shade & usable_m)
-            if not iface_med:
-                # Exact for one exterior medium; an interface scene takes
-                # the march's transmittance instead.
-                ld_new = ld_new * torch.exp(-sig_t * length(sh_d)[..., None])
-            p_b = torch.where(med_shade, pdf_ph, p_b)
-            specular = torch.where(med_shade, False, specular)
-            any_ns = any_ns | med_shade
-            prev_p = _where_merge(med_shade, p_med, prev_p)
-            prev_ns = torch.where(scat3, 0.0, prev_ns)
-            ray_o = _where_merge(med_shade, p_med, ray_o)
-            ray_d = _where_merge(med_shade, wi_m, ray_d)
-            alive = alive | (med_shade & (pdf_ph > 0.0) & ~ss_is_black(beta))
+            with stats.span("wavefront/medium"):
+                p_med = st.ray_o + t_m[..., None] * st.ray_d
+                wo_m = -st.ray_d
+                ld_med, (sh_o_m, sh_d_m, sh_tmax_m, usable_m), s_state = (
+                    sample_ld_medium_prepare(scene, p_med, wo_m, g_m, swl, sampler, s_state))
+                u2_m, s_state = sampler.get_2d(s_state)
+                wi_m, pdf_ph = sample_henyey_greenstein(wo_m, g_m, u2_m)
+                scat3 = med_shade[..., None]
+                ld_new = torch.where(scat3, ld_med, ld_new)
+                sh_o = torch.where(scat3, sh_o_m, sh_o)
+                sh_d = torch.where(scat3, sh_d_m, sh_d)
+                sh_tmax = torch.where(med_shade, sh_tmax_m, sh_tmax)
+                pend_sh = pend_sh | (med_shade & usable_m)
+                if not iface_med:
+                    # Exact for one exterior medium; an interface scene takes
+                    # the march's transmittance instead.
+                    ld_new = ld_new * torch.exp(-sig_t * length(sh_d)[..., None])
+                p_b = torch.where(med_shade, pdf_ph, p_b)
+                specular = torch.where(med_shade, False, specular)
+                any_ns = any_ns | med_shade
+                prev_p = _where_merge(med_shade, p_med, prev_p)
+                prev_ns = torch.where(scat3, 0.0, prev_ns)
+                ray_o = _where_merge(med_shade, p_med, ray_o)
+                ray_d = _where_merge(med_shade, wi_m, ray_d)
+                alive = alive | (med_shade & (pdf_ph > 0.0) & ~ss_is_black(beta))
 
         cur_med = st.cur_med
         sh_med = st.sh_med
         if iface_med:
             # --- interface crossing and material-less pass-through ---
-            declared = si.med_in > -2
-            pass_thru = surf_shade & (si.material_id < 0)
-            dirn = -si.wo
-            pt3 = pass_thru[..., None]
-            ray_o = torch.where(pt3, offset_ray_origin(si.p, si.n, dirn), ray_o)
-            ray_d = torch.where(pt3, dirn, ray_d)
-            beta = torch.where(pt3, beta_nee, beta)
-            p_b = torch.where(pass_thru, st.p_b, p_b)
-            specular = torch.where(pass_thru, st.specular, specular)
-            prev_p = torch.where(pt3, st.prev_p, prev_p)
-            prev_ns = torch.where(pt3, st.prev_ns, prev_ns)
-            pend_sh = pend_sh & ~pass_thru
-            alive = alive | pass_thru
-            # The medium at the new shadow ray's origin.
-            sh_side = torch.where(dot(sh_d, si.n) < 0.0, si.med_in, si.med_out)
-            sh_med = torch.where(surf_shade & declared, torch.clamp(sh_side, min=-1), cur_med)
-            crossed = surf_shade & declared & alive
-            entering = dot(ray_d, si.n) < 0.0
-            new_med = torch.where(entering, si.med_in, si.med_out)
-            cur_med = torch.where(crossed, torch.clamp(new_med, min=-1), cur_med)
+            with stats.span("wavefront/medium"):
+                declared = si.med_in > -2
+                pass_thru = surf_shade & (si.material_id < 0)
+                dirn = -si.wo
+                pt3 = pass_thru[..., None]
+                ray_o = torch.where(pt3, offset_ray_origin(si.p, si.n, dirn), ray_o)
+                ray_d = torch.where(pt3, dirn, ray_d)
+                beta = torch.where(pt3, beta_nee, beta)
+                p_b = torch.where(pass_thru, st.p_b, p_b)
+                specular = torch.where(pass_thru, st.specular, specular)
+                prev_p = torch.where(pt3, st.prev_p, prev_p)
+                prev_ns = torch.where(pt3, st.prev_ns, prev_ns)
+                pend_sh = pend_sh & ~pass_thru
+                alive = alive | pass_thru
+                # The medium at the new shadow ray's origin.
+                sh_side = torch.where(dot(sh_d, si.n) < 0.0, si.med_in, si.med_out)
+                sh_med = torch.where(surf_shade & declared, torch.clamp(sh_side, min=-1),
+                                     cur_med)
+                crossed = surf_shade & declared & alive
+                entering = dot(ray_d, si.n) < 0.0
+                new_med = torch.where(entering, si.med_in, si.med_out)
+                cur_med = torch.where(crossed, torch.clamp(new_med, min=-1), cur_med)
 
         # Russian roulette on beta * eta_scale past the first bounce.
-        u_rr, s_state = sampler.get_1d(s_state)
-        past_first = will_shade & (st.depth > 0)
-        rr_beta = torch.max(beta * eta_scale[..., None], dim=-1).values
-        # Detached: the survival probability is part of the sampling
-        # measure, not the integrand.
-        q = torch.clamp(1.0 - rr_beta, min=0.0).detach()
-        kill = past_first & alive & (u_rr < q)
-        beta = torch.where(
-            (past_first & alive)[..., None],
-            beta / torch.clamp(1.0 - q, min=1e-6)[..., None],
-            beta,
-        )
-        alive = alive & ~kill
-        depth = st.depth + will_shade.to(torch.int32)
+        with stats.span("wavefront/roulette"):
+            u_rr, s_state = sampler.get_1d(s_state)
+            past_first = will_shade & (st.depth > 0)
+            rr_beta = torch.max(beta * eta_scale[..., None], dim=-1).values
+            # Detached: the survival probability is part of the sampling
+            # measure, not the integrand.
+            q = torch.clamp(1.0 - rr_beta, min=0.0).detach()
+            kill = past_first & alive & (u_rr < q)
+            beta = torch.where(
+                (past_first & alive)[..., None],
+                beta / torch.clamp(1.0 - q, min=1e-6)[..., None],
+                beta,
+            )
+            alive = alive & ~kill
+            depth = st.depth + will_shade.to(torch.int32)
 
         # --- 3. per-item output for completed paths ---
         # Each pool item retires exactly once, so the done lanes' slots are
         # distinct: index assignment on the done lanes only.
-        done = st.busy & ~alive & ~pend_sh
-        fw = torch.where(done, st.weight, 0.0)
-        rgb = film._clamped_rgb(l, swl) * fw[..., None]
-        lanes = torch.nonzero(done).squeeze(1)
-        slots = st.item[lanes]
-        out_rgb = st.out_rgb.index_copy_(0, slots, rgb[lanes])
-        out_w = st.out_w.index_copy_(0, slots, fw[lanes])
-        busy = st.busy & ~done
+        with stats.span("wavefront/retire"):
+            done = st.busy & ~alive & ~pend_sh
+            fw = torch.where(done, st.weight, 0.0)
+            rgb = film._clamped_rgb(l, swl) * fw[..., None]
+            with stats.span("wavefront/sync"):
+                lanes = torch.nonzero(done).squeeze(1)
+            slots = st.item[lanes]
+            out_rgb = st.out_rgb.index_copy_(0, slots, rgb[lanes])
+            out_w = st.out_w.index_copy_(0, slots, fw[lanes])
+            busy = st.busy & ~done
 
-        st = dataclasses.replace(
-            st,
-            busy=busy, alive=alive, pend_sh=pend_sh, depth=depth,
-            ray_o=ray_o, ray_d=ray_d,
-            sh_o=_where_merge(pend_sh, sh_o, st.sh_o),
-            sh_d=_where_merge(pend_sh, sh_d, st.sh_d),
-            sh_tmax=torch.where(pend_sh, sh_tmax, st.sh_tmax),
-            ld=_where_merge(pend_sh, beta_nee * ld_new, st.ld),
-            l=l, beta=beta, p_b=p_b, eta_scale=eta_scale,
-            specular=specular, any_ns=any_ns, lam_term=lam_term,
-            cur_med=cur_med, sh_med=torch.where(pend_sh, sh_med, st.sh_med),
-            prev_p=prev_p, prev_ns=prev_ns,
-            s_ph=s_state.pixel_hash, s_si=s_state.sample_index, s_dim=s_state.dim,
-            out_rgb=out_rgb, out_w=out_w, rays=rays, iters=st.iters + 1.0,
-        )
+            st = dataclasses.replace(
+                st,
+                busy=busy, alive=alive, pend_sh=pend_sh, depth=depth,
+                ray_o=ray_o, ray_d=ray_d,
+                sh_o=_where_merge(pend_sh, sh_o, st.sh_o),
+                sh_d=_where_merge(pend_sh, sh_d, st.sh_d),
+                sh_tmax=torch.where(pend_sh, sh_tmax, st.sh_tmax),
+                ld=_where_merge(pend_sh, beta_nee * ld_new, st.ld),
+                l=l, beta=beta, p_b=p_b, eta_scale=eta_scale,
+                specular=specular, any_ns=any_ns, lam_term=lam_term,
+                cur_med=cur_med, sh_med=torch.where(pend_sh, sh_med, st.sh_med),
+                prev_p=prev_p, prev_ns=prev_ns,
+                s_ph=s_state.pixel_hash, s_si=s_state.sample_index, s_dim=s_state.dim,
+                out_rgb=out_rgb, out_w=out_w, rays=rays, iters=st.iters + 1.0,
+            )
         # --- 4. regenerate free lanes ---
         return regen(st)
 
@@ -440,7 +461,11 @@ def render_wave_wavefront(
         iters=torch.zeros((), device=dev),
     )
     st = regen(st)
-    while bool(st.busy.any()):
+    while True:
+        with stats.span("wavefront/sync"):
+            more = bool(st.busy.any())
+        if not more:
+            break
         st = body(st)
 
     # One dense per-pixel reduction over the sample axis, then one n-lane
@@ -453,16 +478,17 @@ def render_wave_wavefront(
     # one pixel twice with nonzero values would make the film's sums depend
     # on the add order.  A sharded render hands a film view whose scatter
     # space is band-local (parallel/render.py, LocalBandFilm.local_xy).
-    per_px_rgb = st.out_rgb.reshape(n_samples, n, 3).sum(0)
-    per_px_w = st.out_w.reshape(n_samples, n).sum(0)
-    w_img, h_img = film.resolution
-    outside = torch.tensor([w_img, h_img], dtype=pixel_xy.dtype, device=dev)
-    scatter_xy = torch.where(pixel_valid[:, None], pixel_xy, outside)
-    if hasattr(film, "local_xy"):
-        scatter_xy = film.local_xy(scatter_xy)
-    fs = type(film_state)(
-        rgb_sum=add_at_pixels(film_state.rgb_sum, scatter_xy, per_px_rgb),
-        weight_sum=add_at_pixels(film_state.weight_sum, scatter_xy, per_px_w),
-        rgb_splat=film_state.rgb_splat,
-    )
+    with stats.span("wavefront/film"):
+        per_px_rgb = st.out_rgb.reshape(n_samples, n, 3).sum(0)
+        per_px_w = st.out_w.reshape(n_samples, n).sum(0)
+        w_img, h_img = film.resolution
+        outside = torch.tensor([w_img, h_img], dtype=pixel_xy.dtype, device=dev)
+        scatter_xy = torch.where(pixel_valid[:, None], pixel_xy, outside)
+        if hasattr(film, "local_xy"):
+            scatter_xy = film.local_xy(scatter_xy)
+        fs = type(film_state)(
+            rgb_sum=add_at_pixels(film_state.rgb_sum, scatter_xy, per_px_rgb),
+            weight_sum=add_at_pixels(film_state.weight_sum, scatter_xy, per_px_w),
+            rgb_splat=film_state.rgb_splat,
+        )
     return fs, {"rays": st.rays, "iters": st.iters}

@@ -28,6 +28,7 @@ from shimmer_tpu_torch.ops.math import small_gather
 from shimmer_tpu_torch.ops.sampling import UNIFORM_HEMISPHERE_PDF, sample_uniform_hemisphere
 from shimmer_tpu_torch.spectra.rgb2spec import sigmoid_poly_sample
 from shimmer_tpu_torch.textures.textures import textured_params
+from shimmer_tpu_torch.utils import stats
 
 DIFFUSE = 0
 CONDUCTOR = cd.CONDUCTOR
@@ -37,6 +38,13 @@ COATED_DIFFUSE = layered.COATED_DIFFUSE
 COATED_CONDUCTOR = layered.COATED_CONDUCTOR
 MIX = 6
 DIFFUSE_TRANSMISSION = 7
+
+# The dispatch's entry points (bsdf_f, bsdf_sample, bsdf_pdf, resolve_mix)
+# run inside material/eval, /sample, /pdf and /mix spans, and each BxDF
+# family they enter inside a span of its own.
+_DIFFUSE_SPAN = stats.span("material/diffuse")
+_CD_SPAN = stats.span("material/conductor_dielectric")
+_LAYERED_SPAN = stats.span("material/layered")
 
 PORTED_KINDS = (DIFFUSE, CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC, COATED_DIFFUSE,
                 COATED_CONDUCTOR, MIX)
@@ -135,6 +143,7 @@ def make_material_table(mats: list[dict], device=None) -> MaterialTable:
     )
 
 
+@stats.span("material/mix")
 def resolve_mix(materials: MaterialTable, kinds_present: tuple, mat_id, u, amt_override=None):
     """Resolve mix materials to a concrete material id: m1 with
     probability ``amount``.  Two rounds resolve a mix of mixes.
@@ -173,6 +182,7 @@ def _any(kinds_present, *kinds):
     return any(k in kinds_present for k in kinds)
 
 
+@stats.span("material/eval")
 def bsdf_f(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, swl,
            tex=None, spectra_table=None, rng_key=None):
     """Render-space BSDF value over lanes."""
@@ -182,17 +192,21 @@ def bsdf_f(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, sw
     kind = small_gather(materials.kind, mat_id)
     f = torch.zeros(wo.shape[:-1] + (4,), device=wo.device)
     if DIFFUSE in kinds_present:
-        refl = _diffuse_reflectance(materials, mat_id, swl, tex)
-        f = torch.where((kind == DIFFUSE)[..., None], bx.diffuse_f(refl, wo, wi), f)
+        with _DIFFUSE_SPAN:
+            refl = _diffuse_reflectance(materials, mat_id, swl, tex)
+            f = torch.where((kind == DIFFUSE)[..., None], bx.diffuse_f(refl, wo, wi), f)
     if _any(kinds_present, CONDUCTOR, DIELECTRIC):
-        f = cd.rough_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f,
-                       tex=tex, spectra_table=spectra_table)
+        with _CD_SPAN:
+            f = cd.rough_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f,
+                           tex=tex, spectra_table=spectra_table)
     if _any(kinds_present, COATED_DIFFUSE, COATED_CONDUCTOR):
-        f = layered.coated_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f,
-                             _rng_key(rng_key, wo), tex=tex, spectra_table=spectra_table)
+        with _LAYERED_SPAN:
+            f = layered.coated_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f,
+                                 _rng_key(rng_key, wo), tex=tex, spectra_table=spectra_table)
     return torch.where((torch.abs(wo[..., 2]) < 1e-9)[..., None], 0.0, f)
 
 
+@stats.span("material/sample")
 def bsdf_sample(materials, kinds_present, mat_id, frame, ns, wo_render, u2, uc, swl,
                 tex=None, spectra_table=None, rng_key=None) -> BSDFSample:
     """Render-space BSDF sampling; ``wi`` comes back in render space."""
@@ -201,21 +215,25 @@ def bsdf_sample(materials, kinds_present, mat_id, frame, ns, wo_render, u2, uc, 
     kind = small_gather(materials.kind, mat_id)
     out = BSDFSample.invalid(wo.shape[:-1], wo.device)
     if DIFFUSE in kinds_present:
-        refl = _diffuse_reflectance(materials, mat_id, swl, tex)
-        out = select_sample(kind == DIFFUSE, bx.diffuse_sample_f(refl, wo, u2, uc), out)
+        with _DIFFUSE_SPAN:
+            refl = _diffuse_reflectance(materials, mat_id, swl, tex)
+            out = select_sample(kind == DIFFUSE, bx.diffuse_sample_f(refl, wo, u2, uc), out)
     if _any(kinds_present, CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC):
-        out = cd.rough_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out,
-                              tex=tex, spectra_table=spectra_table)
+        with _CD_SPAN:
+            out = cd.rough_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out,
+                                  tex=tex, spectra_table=spectra_table)
     if _any(kinds_present, COATED_DIFFUSE, COATED_CONDUCTOR):
-        out = layered.coated_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl,
-                                    out, _rng_key(rng_key, wo), tex=tex,
-                                    spectra_table=spectra_table)
+        with _LAYERED_SPAN:
+            out = layered.coated_sample(materials, kinds_present, mat_id, kind, wo, u2, uc,
+                                        swl, out, _rng_key(rng_key, wo), tex=tex,
+                                        spectra_table=spectra_table)
     degenerate = torch.abs(wo[..., 2]) < 1e-9
     return dataclasses.replace(
         out, wi=frame.from_local(out.wi), valid=out.valid & ~degenerate & (out.pdf > 0.0)
     )
 
 
+@stats.span("material/pdf")
 def bsdf_pdf(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, swl,
              tex=None, spectra_table=None, rng_key=None):
     """Render-space BSDF pdf."""
@@ -225,13 +243,17 @@ def bsdf_pdf(materials, kinds_present, mat_id, frame, ns, wo_render, wi_render, 
     kind = small_gather(materials.kind, mat_id)
     pdf = torch.zeros(wo.shape[:-1], device=wo.device)
     if DIFFUSE in kinds_present:
-        pdf = torch.where(kind == DIFFUSE, bx.diffuse_pdf(wo, wi), pdf)
+        with _DIFFUSE_SPAN:
+            pdf = torch.where(kind == DIFFUSE, bx.diffuse_pdf(wo, wi), pdf)
     if _any(kinds_present, CONDUCTOR, DIELECTRIC):
-        pdf = cd.rough_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf,
-                           tex=tex, spectra_table=spectra_table)
+        with _CD_SPAN:
+            pdf = cd.rough_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf,
+                               tex=tex, spectra_table=spectra_table)
     if _any(kinds_present, COATED_DIFFUSE, COATED_CONDUCTOR):
-        pdf = layered.coated_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf,
-                                 _rng_key(rng_key, wo), tex=tex, spectra_table=spectra_table)
+        with _LAYERED_SPAN:
+            pdf = layered.coated_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf,
+                                     _rng_key(rng_key, wo), tex=tex,
+                                     spectra_table=spectra_table)
     return torch.where(torch.abs(wo[..., 2]) < 1e-9, 0.0, pdf)
 
 

@@ -47,6 +47,7 @@ import threading
 import torch
 
 from shimmer_tpu_torch.ops import cuda_build
+from shimmer_tpu_torch.utils import stats
 
 # Per-thread internal stack entries in the kernels (traverse_body.cuh
 # kMaxStack).
@@ -265,6 +266,7 @@ def ray_order(tris, ray_o, ray_d, t_max, want):
     return torch.argsort(keys, stable=True)
 
 
+@stats.span("traverse/launch")
 def traverse_raw(tris, ray_o, ray_d, t_max, any_hit=False, sort_rays=True,
                  return_steps=False):
     """Closest-hit traversal with per-lane any-hit, in the original ray

@@ -195,15 +195,16 @@ class _ReplayWave(torch.autograd.Function):
         # Only the wave's inputs are kept: nothing per bounce.
         ctx.replay = replay
         ctx.save_for_backward(sample_indices, pixel_xy, pixel_valid, *leaves)
-        fs, st = replay.forward(FilmState(rgb_sum, weight_sum, rgb_splat), sample_indices,
-                                pixel_xy, pixel_valid)
+        with stats.span("replay/forward"):
+            fs, st = replay.forward(FilmState(rgb_sum, weight_sum, rgb_splat), sample_indices,
+                                    pixel_xy, pixel_valid)
         ctx.mark_non_differentiable(st["rays"], st["iters"])
         return fs.rgb_sum, fs.weight_sum, fs.rgb_splat, st["rays"], st["iters"]
 
     @staticmethod
     def backward(ctx, g_rgb, g_w, g_splat, _g_rays, _g_iters):
         sample_indices, pixel_xy, pixel_valid, *leaves = ctx.saved_tensors
-        with torch.enable_grad():
+        with stats.span("replay/backward"), torch.enable_grad():
             params = [leaf.detach().requires_grad_(True) for leaf in leaves]
             grads = ctx.replay.vjp(params, (g_rgb, g_w, g_splat), sample_indices, pixel_xy,
                                    pixel_valid)
@@ -240,15 +241,17 @@ class _Replay:
         megakernel.  The add is linear, so the replay adds into zeros."""
         scene = with_tensor_fields(self.scene, zip(self.paths, params))
         zero = FilmState(*(torch.zeros(g.shape, dtype=g.dtype, device=g.device) for g in grads))
-        fs, _ = render_pixel_samples(
-            scene, self.camera, self.film, self.sampler, li_path, self.opts, zero,
-            sample_indices, pixel_xy, pixel_valid=pixel_valid, max_depth=self.max_depth)
+        with stats.span("replay/remat"):
+            fs, _ = render_pixel_samples(
+                scene, self.camera, self.film, self.sampler, li_path, self.opts, zero,
+                sample_indices, pixel_xy, pixel_valid=pixel_valid, max_depth=self.max_depth)
         pairs = [(out, g) for out, g in zip((fs.rgb_sum, fs.weight_sum, fs.rgb_splat), grads)
                  if out.requires_grad]
         if not pairs or not params:
             return [None] * len(params)
         outs, gs = zip(*pairs)
-        return torch.autograd.grad(outs, params, gs, allow_unused=True)
+        with stats.span("replay/vjp"):
+            return torch.autograd.grad(outs, params, gs, allow_unused=True)
 
 
 def make_replay_wavefront_renderer(scene: Scene, camera, film: RgbFilm, sampler,
@@ -352,7 +355,9 @@ def render(
     (``utils/checkpoint.py``).  ``collect_stats`` also fills the
     ``utils/stats`` registry: the pixel samples, the wave time (each
     block waited for on the card) and, for the wavefront, the traced
-    rays and loop iterations."""
+    rays and loop iterations.  Spans are recorded either way: a
+    ``render/wave`` span around each block-wave, the layers' own inside
+    it."""
     dev = scene.device
     spp = spp if spp is not None else sampler.samples_per_pixel
     use_wavefront = (integrator == "path" and not integrator_options
@@ -391,23 +396,26 @@ def render(
     if collect_stats:
         stats.counter("Render/Pixel samples").add(film.resolution[0] * film.resolution[1] * spp)
         wave_timer = stats.timer("Render/Wave time")
+    wave_span = stats.span("render/wave")
     while start < spp:
         n = min(wave_spp, spp - start)
         idx = torch.arange(start, start + n, dtype=torch.int64, device=dev)
         for b in range(blocks.shape[0]):
-            if collect_stats:
-                with wave_timer:
+            with wave_span:
+                if collect_stats:
+                    with wave_timer:
+                        state, st = wave_fn(state, idx, blocks[b], valids[b])
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
+                else:
                     state, st = wave_fn(state, idx, blocks[b], valids[b])
-                    if dev.type == "cuda":
-                        torch.cuda.synchronize(dev)
+            if collect_stats:
                 if use_wavefront:
                     stats.counter("Integrator/Rays traced").add(st["rays"])
                     stats.counter("Integrator/Wavefront iterations").add(st["iters"])
-            else:
-                state, st = wave_fn(state, idx, blocks[b], valids[b])
-            for key, v in st.items():
-                if v is not None:
-                    totals[key] = totals.get(key, 0.0) + v.to(torch.float64)
+                for key, v in st.items():
+                    if v is not None:
+                        totals[key] = totals.get(key, 0.0) + v.to(torch.float64)
         start += n
         if ckpt is not None and ((start // max(wave_spp, 1)) % max(checkpoint_every, 1) == 0
                                  or start >= spp):

@@ -6,6 +6,10 @@ A sampler is a pure function of (pixel, sample index, dimension), so the
 port needs no ``torch.Generator``.  uint32 words live in int64 tensors
 with values in [0, 2^32) (see ``ops/rng.py``); every stream is bit-exact
 against the reference.
+
+Every draw runs inside a ``sampler/draw`` span and every pixel sample's
+start inside ``sampler/start`` (``utils/stats``); ``get_pixel_2d`` is
+``get_2d``'s draw.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 from shimmer_tpu_torch.ops import rng as srng
 from shimmer_tpu_torch.ops.rng import MASK32, mul32
 from shimmer_tpu_torch.ops.vecmath import vec2
+from shimmer_tpu_torch.utils import stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,13 +52,16 @@ class IndependentSampler:
         self.samples_per_pixel = int(samples_per_pixel)
         self.seed = int(seed)
 
+    @stats.span("sampler/start")
     def start_pixel_sample(self, pixel_xy, sample_index, dim0: int = 0) -> SamplerState:
         return _hashed_pixel_start(pixel_xy, sample_index, self.seed, dim0)
 
+    @stats.span("sampler/draw")
     def get_1d(self, state: SamplerState):
         u = srng.uniform_1d(state.pixel_hash, state.sample_index, state.dim)
         return u, state.advance(1)
 
+    @stats.span("sampler/draw")
     def get_2d(self, state: SamplerState):
         ux, uy = srng.uniform_2d(state.pixel_hash, state.sample_index, state.dim)
         return vec2(ux, uy), state.advance(2)
@@ -145,6 +153,7 @@ class ZSobolSampler:
         self.n_base4_digits = max(1, (res - 1).bit_length()) + log4_spp
         self._index_bits = min(32, 2 * self.n_base4_digits)
 
+    @stats.span("sampler/start")
     def start_pixel_sample(self, pixel_xy, sample_index, dim0: int = 0) -> SamplerState:
         px = srng.u32(pixel_xy[..., 0])
         py = srng.u32(pixel_xy[..., 1])
@@ -182,12 +191,14 @@ class ZSobolSampler:
             )
         return sample_index
 
+    @stats.span("sampler/draw")
     def get_1d(self, state: SamplerState):
         idx = self._sample_index(state)
         h = srng.hash_combine(state.dim, self.seed)
         v = fast_owen_scramble(sobol_sample_u32(idx, 0, self._index_bits), h)
         return srng.u32_to_unit_float(v), state.advance(1)
 
+    @stats.span("sampler/draw")
     def get_2d(self, state: SamplerState):
         idx = self._sample_index(state)
         h = srng.hash_combine(state.dim, self.seed)
@@ -215,6 +226,7 @@ class StratifiedSampler:
         self.jitter = bool(jitter)
         self.seed = int(seed)
 
+    @stats.span("sampler/start")
     def start_pixel_sample(self, pixel_xy, sample_index, dim0: int = 0) -> SamplerState:
         return _hashed_pixel_start(pixel_xy, sample_index, self.seed, dim0)
 
@@ -224,12 +236,14 @@ class StratifiedSampler:
         h = srng.hash_combine(state.pixel_hash, state.dim)
         return srng.add32(state.sample_index, h) % self.samples_per_pixel
 
+    @stats.span("sampler/draw")
     def get_1d(self, state: SamplerState):
         s = self._stratum(state)
         jit = (srng.uniform_1d(state.pixel_hash, state.sample_index, state.dim)
                if self.jitter else 0.5)
         return (s.to(torch.float32) + jit) / self.samples_per_pixel, state.advance(1)
 
+    @stats.span("sampler/draw")
     def get_2d(self, state: SamplerState):
         s = self._stratum(state)
         x = s % self.x_samples
