@@ -14,7 +14,7 @@ against its plain torch version on the card.
 Phases, each printing its own numbers:
   1. device: a CUDA card is required (no card -> exception, non-zero exit);
   2. build: every kernel library from shimmer_tpu_torch/csrc (traverse.cu,
-     gather.cu and packet_step.cu, one nvcc process each, started
+     gather.cu, packet_step.cu and sampler.cu, one nvcc process each, started
      together), with each kernel's registers, stack frame, spills and
      static shared memory, and the native SAH BVH builder (g++), which
      must load: the scenes' tables are built with it;
@@ -28,7 +28,13 @@ Phases, each printing its own numbers:
      configuration, compared (this phase's and phases 10-18's CPU halves
      run in two processes of their own, started after the build, beside
      the card's phases);
-  5. the full bench render under v1 through shimmer_tpu_torch.render.render;
+  5. the full bench render under v1 through shimmer_tpu_torch.render.render,
+     with ZSobol's start and draws launched as their kernels
+     (csrc/sampler.cu, counted); then each ZSobol kernel (start, get_1d,
+     get_2d) against the torch code it replaces on the same card tensors
+     at the diffuse cell's sampler (1280x720, 16 spp, a seed above 2^31,
+     921,600 lanes), torch.equal, timed A B B A with its bound
+     (shimmer_tpu_torch.experiments.sampler_ab);
   6. the full bench render under v2, v1 with MT leaves and v1 with the
      min-id winner, each compared with the v1 image;
   7. the 1.3M-triangle leg: v1 and v2 against the plain version on one
@@ -172,7 +178,6 @@ import json
 import multiprocessing
 import os
 import shutil
-import subprocess
 import time
 from pathlib import Path
 
@@ -202,6 +207,7 @@ from shimmer_tpu_torch.loading.parser import parse_file
 from shimmer_tpu_torch.loading.scene_builder import SceneBuilder
 from shimmer_tpu_torch.experiments import gather as eg
 from shimmer_tpu_torch.experiments import packet_step as eps
+from shimmer_tpu_torch.experiments import sampler_ab
 from shimmer_tpu_torch.measure import (
     BLOCK,
     FP32_OPS_PER_S,
@@ -212,6 +218,7 @@ from shimmer_tpu_torch.measure import (
     launch_bound,
     launch_kwargs,
     layouts,
+    nvidia_smi_line,
     patterned_stack,
     ptxas_report,
 )
@@ -219,6 +226,7 @@ from shimmer_tpu_torch.materials import material as mtl
 from shimmer_tpu_torch.ops import cuda_build
 from shimmer_tpu_torch.ops import gather as gk
 from shimmer_tpu_torch.ops import packet_step as pk
+from shimmer_tpu_torch.ops import sampler as zk
 from shimmer_tpu_torch.ops import traverse as tv
 from shimmer_tpu_torch.ops.transform import Transform
 from shimmer_tpu_torch.ops.traverse import TraverseConfig
@@ -286,6 +294,14 @@ KERNEL_ROWS = {
                                     "shimmer_tpu/ops/pallas/traverse.py:295"),
     "bvh8_traverse_v2": ("v2", "shimmer_tpu_torch/csrc/traverse.cu",
                          "shimmer_tpu/ops/pallas/traverse.py:456"),
+}
+# The ZSobol kernels -> (phase 5's sampler_ab call whose times the kernel
+# table carries, the reference code they port: plain jnp, no Pallas kernel).
+SAMPLER_SOURCE = "shimmer_tpu_torch/csrc/sampler.cu"
+SAMPLER_ROWS = {
+    "zsobol_start": ("start", "shimmer_tpu/samplers.py:212 (ZSobolSampler.start_pixel_sample)"),
+    "zsobol_draw<1>": ("get_1d", "shimmer_tpu/samplers.py:264 (ZSobolSampler.get_1d)"),
+    "zsobol_draw<2>": ("get_2d", "shimmer_tpu/samplers.py:276 (ZSobolSampler.get_2d)"),
 }
 # The row-gather kernels of kernel-table rows 6-9 -> (the entry point's
 # case whose times the kernel table carries, the TPU functions it ports).
@@ -415,17 +431,10 @@ def check(ok, msg: str):
         raise RuntimeError(msg)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def reset_counts():
     tv.traverse_raw.launches = dict.fromkeys(tv.KERNEL_NAMES, 0)
     tv.traverse_raw_plain.calls = 0
+    zk.reset_launches()
 
 
 def read_counts(name: str, expect: str) -> int:
@@ -602,6 +611,8 @@ def full_render(scene_gpu, name: str, phase: str, spp: int = SPP) -> tuple[dict,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts(f"{phase} {name}", name)
+    sampler_launches = zk.launch_counts()
+    check(min(sampler_launches.values()) > 0, f"{phase} {name}: ZSobol ran without its kernels")
     img = img.cpu().numpy()
     check(np.isfinite(img).all(), f"{phase} {name}: non-finite image")
     check(img.mean() > 0, f"{phase} {name}: black image")
@@ -616,6 +627,7 @@ def full_render(scene_gpu, name: str, phase: str, spp: int = SPP) -> tuple[dict,
         "lane_occupancy": stats["rays"] / (stats["iters"] * 2 * BLOCK),
         "image_mean": float(img.mean()),
         "kernel_launches": launches,
+        "sampler_launches": sampler_launches,
     }
     return res, img
 
@@ -624,6 +636,15 @@ def phase5(scene_gpu) -> tuple[dict, np.ndarray]:
     res, img = full_render(scene_gpu, "v1", "phase 5")
     log(f"phase 5 full render {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {SPP}: "
         f"{json.dumps(res)}")
+    ab = sampler_ab.run()
+    log(f"phase 5 ZSobol SASS instructions by kernel {ab['sass_static']}, "
+        f"the build the bound's counts come from: {ab['sass_as_counted']}")
+    for call, r in ab["calls"].items():
+        check(r["same_output"], f"phase 5 ZSobol {call}: the kernel differs from the torch code")
+        check(sum(r["launches"].values()) == 1,
+              f"phase 5 ZSobol {call}: {r['launches']} kernel launches, not one")
+        log(f"phase 5 ZSobol {call} at {ab['sampler']}, {ab['lanes']} lanes: {json.dumps(r)}")
+    res["sampler_ab"] = ab
     return res, img
 
 
@@ -3001,6 +3022,21 @@ def kernel_rows(batches: dict, renders: dict, large: dict, gathers: dict,
                                    "bound_by", "library_ms")},
         })
     rows.extend(packets.values())
+    for kernel, (call, replaces) in SAMPLER_ROWS.items():
+        res = renders["v1"]["sampler_ab"]["calls"][call]
+        rows.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": SAMPLER_SOURCE,
+            "replaces": replaces,
+            "launches": renders["v1"]["sampler_launches"][kernel],
+            "max_abs_err": res["max_abs_err"],
+            "ms": res["kernel_cold_ms"],  # L2 flushed: the bound counts device-memory bytes
+            "plain_ms": res["torch_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a ZSobol draw
+        })
     return rows
 
 

@@ -1,6 +1,6 @@
 """The nvcc build of the port's CUDA kernel libraries, shared by every
 kernel wrapper (``ops/traverse.py``, ``ops/gather.py``,
-``ops/packet_step.py``).
+``ops/packet_step.py``, ``ops/sampler.py``).
 
 Each library is one ``.cu`` source in ``csrc/`` (plus the headers it
 includes) with a plain C interface, compiled by nvcc
@@ -32,6 +32,7 @@ LIBRARIES = {
     "traverse": ("traverse.cu", ("traverse_body.cuh", "traverse_v2_body.cuh")),
     "gather": ("gather.cu", ("gather_body.cuh",)),
     "packet_step": ("packet_step.cu", ("packet_step_body.cuh", "traverse_body.cuh")),
+    "sampler": ("sampler.cu", ("sampler_body.cuh",)),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -5,7 +5,9 @@
 A sampler is a pure function of (pixel, sample index, dimension), so the
 port needs no ``torch.Generator``.  uint32 words live in int64 tensors
 with values in [0, 2^32) (see ``ops/rng.py``); every stream is bit-exact
-against the reference.
+against the reference.  On CUDA tensors ZSobol's start and draws are one
+kernel launch each (``ops/sampler.py``, ``csrc/sampler.cu``), bit for bit
+the torch code below, which runs on the CPU.
 
 Every draw runs inside a ``sampler/draw`` span and every pixel sample's
 start inside ``sampler/start`` (``utils/stats``); ``get_pixel_2d`` is
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from shimmer_tpu_torch.ops import rng as srng
+from shimmer_tpu_torch.ops import sampler as zsobol_kernels
 from shimmer_tpu_torch.ops.rng import MASK32, mul32
 from shimmer_tpu_torch.ops.vecmath import vec2
 from shimmer_tpu_torch.utils import stats
@@ -129,6 +132,11 @@ def fast_owen_scramble(v, seed):
     return _reverse_bits32(v)
 
 
+def _on_card(t) -> bool:
+    """ZSobol runs its kernels for CUDA tensors, its torch code otherwise."""
+    return isinstance(t, torch.Tensor) and t.device.type == "cuda"
+
+
 def _encode_morton2(x, y):
     def spread(v):
         v = (v | (v << 8)) & 0x00FF00FF
@@ -155,6 +163,13 @@ class ZSobolSampler:
 
     @stats.span("sampler/start")
     def start_pixel_sample(self, pixel_xy, sample_index, dim0: int = 0) -> SamplerState:
+        if _on_card(pixel_xy):
+            # Any integer type to the kernel's: the low 32 bits are kept, as u32 keeps them.
+            if isinstance(sample_index, torch.Tensor):
+                sample_index = sample_index.to(torch.int64)
+            morton, si, dim = zsobol_kernels.zsobol_start(
+                pixel_xy.to(torch.int32).contiguous(), sample_index, self.log2_spp, dim0)
+            return SamplerState(pixel_hash=morton, sample_index=si, dim=dim)
         px = srng.u32(pixel_xy[..., 0])
         py = srng.u32(pixel_xy[..., 1])
         si = srng.u32(sample_index, device=px.device) * torch.ones_like(px)
@@ -191,8 +206,16 @@ class ZSobolSampler:
             )
         return sample_index
 
+    def _draw_on_card(self, state: SamplerState, width: int):
+        u, dim = zsobol_kernels.zsobol_draw(
+            state.pixel_hash.contiguous(), state.dim.contiguous(), self.seed, self.log2_spp,
+            self.n_base4_digits, self._index_bits, width)
+        return u, dataclasses.replace(state, dim=dim)
+
     @stats.span("sampler/draw")
     def get_1d(self, state: SamplerState):
+        if _on_card(state.pixel_hash):
+            return self._draw_on_card(state, 1)
         idx = self._sample_index(state)
         h = srng.hash_combine(state.dim, self.seed)
         v = fast_owen_scramble(sobol_sample_u32(idx, 0, self._index_bits), h)
@@ -200,6 +223,8 @@ class ZSobolSampler:
 
     @stats.span("sampler/draw")
     def get_2d(self, state: SamplerState):
+        if _on_card(state.pixel_hash):
+            return self._draw_on_card(state, 2)
         idx = self._sample_index(state)
         h = srng.hash_combine(state.dim, self.seed)
         vx = fast_owen_scramble(sobol_sample_u32(idx, 0, self._index_bits), h)
