@@ -12,7 +12,14 @@ wavefront.  ``--checkpoint PATH`` saves the film state every
 there; ``--stats`` prints the statistics report after the render.
 ``--shard`` splits the film's rows over every local card (over one CPU
 band with ``--device cpu``) through ``parallel.render.render_sharded``;
-it keeps no checkpoint and no statistics, so with ``--checkpoint`` or
+under ``torchrun`` (``WORLD_SIZE`` set) each process joins the job
+(``parallel.distributed.initialize_distributed``: NCCL, its card the
+``LOCAL_RANK``'s; gloo with ``--device cpu``), renders its band through
+``render_multihost``, and rank 0 alone writes the image:
+
+    torchrun --nproc-per-node 4 -m shimmer_tpu_torch.cli scene.pbrt --shard -o out.pfm
+
+It keeps no checkpoint and no statistics, so with ``--checkpoint`` or
 ``--stats`` it raises, and it renders each band whole (no
 ``--pixel-block``).
 """
@@ -21,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import os
 import sys
 import time
 
@@ -68,6 +76,16 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA card is available; "
                            "pass --device cpu to render on the CPU")
+    rank = None
+    if args.shard and os.environ.get("WORLD_SIZE"):
+        import torch.distributed as dist
+
+        from shimmer_tpu_torch.parallel.distributed import initialize_distributed
+
+        initialize_distributed(device=device if device.type == "cpu" else None)
+        rank = dist.get_rank()
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
 
     t0 = time.time()
     builder = SceneBuilder(search_dir=Path(args.scene).parent)
@@ -95,7 +113,14 @@ def main(argv=None):
         disable_wavelength_jitter=job.disable_wavelength_jitter,
         wavefront=False if args.megakernel else None,
     )
-    if args.shard:
+    if rank is not None:
+        from shimmer_tpu_torch.parallel.distributed import render_multihost
+
+        image = render_multihost(job.scene, job.camera, job.film, sampler, **common)
+        dist.destroy_process_group()
+        if rank != 0:
+            return 0
+    elif args.shard:
         from shimmer_tpu_torch.parallel.render import make_tile_mesh, render_sharded
 
         mesh = make_tile_mesh([device] if device.type == "cpu" else None)

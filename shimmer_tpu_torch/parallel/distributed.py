@@ -17,6 +17,7 @@ Two CPU processes of four bands each:
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
@@ -24,6 +25,7 @@ import torch.distributed as dist
 
 from shimmer_tpu_torch.config import resolve_device
 from shimmer_tpu_torch.parallel.render import TileMesh, render_sharded
+from shimmer_tpu_torch.utils import stats
 
 
 def _setting(given, *names):
@@ -37,7 +39,7 @@ def _setting(given, *names):
 
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None, process_id: int | None = None,
-                           device=None) -> bool:
+                           device=None, timeout: float | None = None) -> bool:
     """Join this process to the job; returns whether a job is set up.
 
     The arguments default to ``SHIMMER_COORDINATOR`` (``host:port``),
@@ -47,6 +49,9 @@ def initialize_distributed(coordinator_address: str | None = None,
     with some but not all it raises.  The group uses ``tcp://`` init,
     NCCL on the card (``device``, default the CUDA card, ``LOCAL_RANK``'s
     where torchrun sets it) and gloo only when ``device`` is the CPU.
+    ``timeout`` (seconds; default the backend's own, 10 minutes for
+    NCCL) bounds the wait for every process to join and each collective
+    after: a process that never joins makes the others raise then.
     Calling it again once the group exists does nothing."""
     if dist.is_initialized():
         return True
@@ -68,7 +73,8 @@ def initialize_distributed(coordinator_address: str | None = None,
         torch.cuda.set_device(device.index or 0)
     dist.init_process_group("gloo" if device.type == "cpu" else "nccl",
                             init_method=f"tcp://{address}", world_size=int(world),
-                            rank=int(rank))
+                            rank=int(rank), timeout=None if timeout is None
+                            else datetime.timedelta(seconds=timeout))
     return True
 
 
@@ -93,16 +99,21 @@ def global_mesh(devices=None, axis: str = "tiles") -> TileMesh:
 
 def render_multihost(scene, camera, film, sampler, integrator: str = "path",
                      spp: int | None = None, max_depth: int = 5, wave_spp: int = 4,
-                     devices=None):
+                     devices=None, **options):
     """Row-band render over the global mesh; every process calls it with
     the same scene and gets the whole (H, W, 3) image: each renders its
     bands (tiles mode), then the equal-sized band images are gathered
-    with ``dist.all_gather`` in rank order."""
+    with ``dist.all_gather`` in rank order, the gather and the
+    concatenation a ``shard/gather`` span.  ``options`` go to
+    ``render_sharded`` (``progress``, ``wavefront``, the jitter
+    switches, ``integrator_options``)."""
     mesh = global_mesh(devices)
     image, _ = render_sharded(scene, camera, film, sampler, mesh, integrator=integrator,
-                              spp=spp, max_depth=max_depth, wave_spp=wave_spp, mode="tiles")
+                              spp=spp, max_depth=max_depth, wave_spp=wave_spp, mode="tiles",
+                              **options)
     if not dist.is_initialized():
         return image
-    parts = [torch.empty_like(image) for _ in range(mesh.process_count)]
-    dist.all_gather(parts, image.contiguous())
-    return torch.cat(parts, dim=0)
+    with stats.span("shard/gather"):
+        parts = [torch.empty_like(image) for _ in range(mesh.process_count)]
+        dist.all_gather(parts, image.contiguous())
+        return torch.cat(parts, dim=0)

@@ -5,7 +5,9 @@ A mesh is a list of devices, one per shard; a device may be listed more
 than once (two bands on one card, or several CPU "devices").  Each
 distinct device gets one replica of the scene (``Scene.to``, which
 autograd differentiates), and the shards render in turn, the semantics of
-the reference's ``shard_map``.
+the reference's ``shard_map``, each with its card the current device:
+the hand-written kernels launch on the current stream of their tensors'
+card, which CUDA runs only on the current device.
 
 ``mode="tiles"``: the film's rows are split into equal bands, one a
 shard.  Camera rays and sampler seeds take global pixel coordinates; the
@@ -20,10 +22,14 @@ So a render of any number of waves sums every sample once.  (The
 reference adds each shard's running state into its psum, which counts
 every earlier wave once per device from the second wave on; the port
 does not copy that.)
+
+In both modes each shard's render is a ``shard/band`` span, and each adds
+1 to the counter ``Shard/Band waves``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -32,6 +38,7 @@ from shimmer_tpu_torch.film.film import FilmState, RgbFilm
 from shimmer_tpu_torch.integrators.wavefront import render_wave_wavefront
 from shimmer_tpu_torch.render import (INTEGRATORS, _megakernel_opts, _spp_spread, band_pixels,
                                       full_image_pixels, render_pixel_samples)
+from shimmer_tpu_torch.utils import stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,12 +147,14 @@ def make_sharded_wave_renderer(scene, camera, film: RgbFilm, sampler, mesh: Tile
 
     def render_shard(dev, shard_film, state, sample_indices, pixel_xy):
         idx = torch.as_tensor(sample_indices, device=dev).to(torch.int64)
-        if use_wavefront:
-            return render_wave_wavefront(replicas[dev], camera, shard_film, sampler, state, idx,
-                                         pixel_xy, None, max_depth=max_depth,
-                                         pixel_spread=spread, **jitter)
-        fs, rays = render_pixel_samples(replicas[dev], camera, shard_film, sampler, li_fn, opts,
-                                        state, idx, pixel_xy, max_depth=max_depth, **jitter)
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            if use_wavefront:
+                return render_wave_wavefront(replicas[dev], camera, shard_film, sampler, state,
+                                             idx, pixel_xy, None, max_depth=max_depth,
+                                             pixel_spread=spread, **jitter)
+            fs, rays = render_pixel_samples(replicas[dev], camera, shard_film, sampler, li_fn,
+                                            opts, state, idx, pixel_xy, max_depth=max_depth,
+                                            **jitter)
         return fs, {"rays": rays}
 
     def add_stats(total, st):
@@ -154,30 +163,36 @@ def make_sharded_wave_renderer(scene, camera, film: RgbFilm, sampler, mesh: Tile
                 total[key] = total.get(key, 0.0) + v.to(torch.float64).cpu()
         return total
 
+    band_span = stats.span("shard/band")
+
     if mode == "tiles":
         def wave(states, sample_indices):
-            out, stats = [], {}
+            out, totals = [], {}
             for i, dev in enumerate(mesh.devices):
                 row0 = (mesh.first_shard + i) * rows
-                fs, st = render_shard(dev, LocalBandFilm(film, row0), states[i], sample_indices,
-                                      band_pixels(film, row0, rows, dev))
+                with band_span:
+                    fs, st = render_shard(dev, LocalBandFilm(film, row0), states[i],
+                                          sample_indices, band_pixels(film, row0, rows, dev))
+                    totals = add_stats(totals, st)
+                stats.counter("Shard/Band waves").add(1)
                 out.append(fs)
-                stats = add_stats(stats, st)
-            return out, stats
+            return out, totals
 
         return wave
 
     first = mesh.devices[0]
 
     def wave(state, sample_indices):
-        total, stats = None, {}
+        total, totals = None, {}
         for i, dev in enumerate(mesh.devices):
-            fs, st = render_shard(dev, film, film.init_state(dev), sample_indices[i],
-                                  full_image_pixels(film, dev))
+            with band_span:
+                fs, st = render_shard(dev, film, film.init_state(dev), sample_indices[i],
+                                      full_image_pixels(film, dev))
+                totals = add_stats(totals, st)
+            stats.counter("Shard/Band waves").add(1)
             fs = FilmState(*(t.to(first) for t in (fs.rgb_sum, fs.weight_sum, fs.rgb_splat)))
             total = fs if total is None else film.merge(total, fs)
-            stats = add_stats(stats, st)
-        return film.merge(state, total), stats
+        return film.merge(state, total), totals
 
     return wave
 
