@@ -62,7 +62,9 @@ Phases, each printing its own numbers:
      sphere and a coated diffuse floor): a small render (64x48, 4 spp) on
      the card and on the CPU, compared, then the full render under v1
      through shimmer_tpu_torch.render.render at 1280x720 and MATERIAL_SPP
-     (4) samples per pixel;
+     (4) samples per pixel, its layered walks replayed from CUDA graphs
+     (the walk counters printed; image mean, rays and launches equal to
+     the eager walks' line, MATERIAL_EAGER_LINE);
  11. scene files through the port's pbrt-v4 loader: (a) the three
      committed golden scenes (tests/scenes/*.pbrt, analytic spheres beside
      triangles) rendered on the card under v1 at their in-file settings
@@ -223,6 +225,7 @@ from shimmer_tpu_torch.measure import (
     ptxas_report,
 )
 from shimmer_tpu_torch.materials import material as mtl
+from shimmer_tpu_torch.materials import walk_graph
 from shimmer_tpu_torch.ops import cuda_build
 from shimmer_tpu_torch.ops import gather as gk
 from shimmer_tpu_torch.ops import packet_step as pk
@@ -244,6 +247,7 @@ from shimmer_tpu_torch.shapes.triangle import (
 from shimmer_tpu_torch.spectra.sampled import SampledWavelengths
 from shimmer_tpu_torch.spectra.spectrum import ConstantSpectrum
 from shimmer_tpu_torch.textures import textures as tx
+from shimmer_tpu_torch.utils import stats as registry
 
 WAVE_SPP = 16
 MAX_DEPTH = 5
@@ -253,6 +257,12 @@ LARGE_BLOCK_WAVES = 3
 # Phase 10's full render runs at 4 spp, not the bench's 16: the layered
 # walks' host dispatch made it ~220 s, and phase 12 needs the time.
 MATERIAL_SPP = 4
+# Phase 10's full render with every layered walk run op by op (the line
+# before the walks were replayed from CUDA graphs; NVIDIA H100 80GB HBM3,
+# 700 W, 100.4 s): the graphs run the same kernels on the same inputs, so
+# the image mean, the rays and the v1 launches may not move.
+MATERIAL_EAGER_LINE = {"image_mean": 7.696863651275635, "rays": 10379317.0,
+                       "kernel_launches": 104}
 # Phases 11-13's full renders through the CLI run at 4 spp, not the
 # bench's 16 (33.4, 222.8 and 100.8 s at 16 on an H100 80GB HBM3 at 700
 # W): at 16 the whole run passed its 1,200 s limit.
@@ -1025,7 +1035,16 @@ def phase10(dev) -> dict:
     agree = check_agreement("phase 10 small render", images["gpu"], images["cpu"])
     log(f"phase 10 small render {SMALL_RES[0]}x{SMALL_RES[1]} spp {SMALL_SPP}: "
         f"seconds {json.dumps(seconds)} {json.dumps(agree)}")
+    before = registry.as_dict()
     res, _ = full_render(scene_gpu, "v1", "phase 10", spp=MATERIAL_SPP)
+    walks = {k: v - before.get(k, 0.0) for k, v in registry.as_dict().items()
+             if k.startswith("Material/Walk")}
+    log(f"phase 10 full render walks: {json.dumps(walks)}")
+    for key, want in MATERIAL_EAGER_LINE.items():
+        check(res[key] == want, f"phase 10: {key} {res[key]} is not the eager walks' {want}")
+    check(walks.get(walk_graph.REPLAYS, 0.0) > 0 and not walks.get(walk_graph.EAGER),
+          f"phase 10: walks not replayed from their graphs: {walks}")
+    res["walks"] = walks
     res["small_render"] = agree
     res["card"] = nvidia_smi_line()
     log(f"phase 10 full render {BENCH_RESOLUTION[0]}x{BENCH_RESOLUTION[1]} spp {MATERIAL_SPP}: "

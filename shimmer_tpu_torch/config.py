@@ -9,6 +9,8 @@ promote whole ray buffers.  Entry points that build tensors take
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -28,6 +30,14 @@ def resolve_device(device=None) -> torch.device:
             'pass device="cpu" to run the plain torch versions on the CPU'
         )
     return torch.device("cuda")
+
+
+@functools.cache
+def const_f32(values: tuple, device: torch.device) -> torch.Tensor:
+    """A small float32 constant on ``device``, made once a device and
+    shared: made per call, each would be a pageable host-to-device copy,
+    which a CUDA graph's capture refuses.  Never write into it."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def f32(x, device=None) -> torch.Tensor:

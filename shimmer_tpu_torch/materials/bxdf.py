@@ -10,6 +10,7 @@ import dataclasses
 
 import torch
 
+from shimmer_tpu_torch.config import const_f32
 from shimmer_tpu_torch.ops.sampling import (
     INV_PI,
     cosine_hemisphere_pdf,
@@ -107,7 +108,7 @@ def diffuse_sample_f(reflectance, wo, u, uc=None, sample_flags=SAMPLE_ALL) -> BS
     if not sample_flags & SAMPLE_REFLECTION:
         return BSDFSample.invalid(batch, wo.device)
     wi = sample_cosine_hemisphere(u)
-    flip = torch.tensor([1.0, 1.0, -1.0], device=wo.device)
+    flip = const_f32((1.0, 1.0, -1.0), wo.device)
     wi = torch.where((wo[..., 2] < 0.0)[..., None], wi * flip, wi)
     pdf = cosine_hemisphere_pdf(abs_cos_theta(wi))
     return BSDFSample(

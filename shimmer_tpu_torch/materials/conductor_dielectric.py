@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from shimmer_tpu_torch.config import const_f32
 from shimmer_tpu_torch.materials import bxdf as bx
 from shimmer_tpu_torch.materials import scattering as sc
 from shimmer_tpu_torch.materials.bxdf import BSDFSample, select_sample
@@ -40,7 +41,7 @@ def _full(batch, value, dtype, device):
 
 
 def _plus_z(like):
-    return torch.tensor([0.0, 0.0, 1.0], device=like.device).expand(like.shape)
+    return const_f32((0.0, 0.0, 1.0), like.device).expand(like.shape)
 
 
 def _mirror(wo):
@@ -67,33 +68,34 @@ def _material_alphas(materials, mat_id, tex=None):
     return sc.clamp_alpha(ax, ay)
 
 
-def _conductor_eta_k(materials, mat_id, swl, spectra_table, tex=None):
-    """Per-wavelength (eta, k): dense-spectrum rows or reflectance mode (the
-    reflectance column, or its texture)."""
+def _conductor_eta_k(materials, mat_id, lam, spectra_table, tex=None):
+    """Per-wavelength (eta, k) at wavelengths ``lam``: dense-spectrum rows
+    or reflectance mode (the reflectance column, or its texture)."""
     eta_idx = small_gather(materials.eta_spec, mat_id)
     k_idx = small_gather(materials.k_spec, mat_id)
     use_spec = (eta_idx >= 0)[..., None]
     if spectra_table is not None:
-        eta_s = dense_sample_rows(spectra_table, torch.clamp(eta_idx, min=0), swl.lam)
-        k_s = dense_sample_rows(spectra_table, torch.clamp(k_idx, min=0), swl.lam)
+        eta_s = dense_sample_rows(spectra_table, torch.clamp(eta_idx, min=0), lam)
+        k_s = dense_sample_rows(spectra_table, torch.clamp(k_idx, min=0), lam)
     else:
-        eta_s = torch.ones_like(swl.lam)
-        k_s = torch.ones_like(swl.lam)
+        eta_s = torch.ones_like(lam)
+        k_s = torch.ones_like(lam)
     refl = _tex(tex, "reflectance")
     if refl is None:
-        refl = sigmoid_poly_sample(small_gather(materials.reflectance, mat_id), swl.lam)
+        refl = sigmoid_poly_sample(small_gather(materials.reflectance, mat_id), lam)
     refl = torch.clamp(refl, 0.0, 0.9999)
     k_r = 2.0 * sqrt(refl) / safe_sqrt(1.0 - refl)
     return torch.where(use_spec, eta_s, 1.0), torch.where(use_spec, k_s, k_r)
 
 
-def _dielectric_eta(materials, mat_id, swl, spectra_table):
-    """Relative IOR per lane; a spectral eta at the hero wavelength."""
+def _dielectric_eta(materials, mat_id, lam, spectra_table):
+    """Relative IOR per lane; a spectral eta at the hero wavelength of
+    ``lam``."""
     eta_idx = small_gather(materials.eta_spec, mat_id)
     eta_f = small_gather(materials.eta_float, mat_id)
     if spectra_table is None:
         return eta_f
-    eta_s = dense_sample_rows(spectra_table, torch.clamp(eta_idx, min=0), swl.lam)[..., 0]
+    eta_s = dense_sample_rows(spectra_table, torch.clamp(eta_idx, min=0), lam)[..., 0]
     return torch.where(eta_idx >= 0, eta_s, eta_f)
 
 
@@ -364,11 +366,11 @@ def rough_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f, tex=None,
             spectra_table=None):
     if CONDUCTOR in kinds_present:
         ax, ay = _material_alphas(materials, mat_id, tex)
-        eta, k = _conductor_eta_k(materials, mat_id, swl, spectra_table, tex)
+        eta, k = _conductor_eta_k(materials, mat_id, swl.lam, spectra_table, tex)
         f = torch.where((kind == CONDUCTOR)[..., None], conductor_f(eta, k, wo, wi, ax, ay), f)
     if DIELECTRIC in kinds_present:
         ax, ay = _material_alphas(materials, mat_id, tex)
-        eta = _dielectric_eta(materials, mat_id, swl, spectra_table)
+        eta = _dielectric_eta(materials, mat_id, swl.lam, spectra_table)
         f = torch.where((kind == DIELECTRIC)[..., None], dielectric_f(eta, wo, wi, ax, ay), f)
     # THIN_DIELECTRIC is purely specular: f() == 0.
     return f
@@ -378,14 +380,14 @@ def rough_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out, t
                  spectra_table=None):
     if CONDUCTOR in kinds_present:
         ax, ay = _material_alphas(materials, mat_id, tex)
-        eta, k = _conductor_eta_k(materials, mat_id, swl, spectra_table, tex)
+        eta, k = _conductor_eta_k(materials, mat_id, swl.lam, spectra_table, tex)
         out = select_sample(kind == CONDUCTOR, conductor_sample(eta, k, wo, u2, ax, ay), out)
     if DIELECTRIC in kinds_present:
         ax, ay = _material_alphas(materials, mat_id, tex)
-        eta = _dielectric_eta(materials, mat_id, swl, spectra_table)
+        eta = _dielectric_eta(materials, mat_id, swl.lam, spectra_table)
         out = select_sample(kind == DIELECTRIC, dielectric_sample(eta, wo, u2, uc, ax, ay), out)
     if THIN_DIELECTRIC in kinds_present:
-        eta = _dielectric_eta(materials, mat_id, swl, spectra_table)
+        eta = _dielectric_eta(materials, mat_id, swl.lam, spectra_table)
         out = select_sample(kind == THIN_DIELECTRIC, thin_dielectric_sample(eta, wo, uc), out)
     return out
 
@@ -397,7 +399,7 @@ def rough_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf, tex=None
         pdf = torch.where(kind == CONDUCTOR, conductor_pdf(wo, wi, ax, ay), pdf)
     if DIELECTRIC in kinds_present:
         ax, ay = _material_alphas(materials, mat_id, tex)
-        eta = _dielectric_eta(materials, mat_id, swl, spectra_table)
+        eta = _dielectric_eta(materials, mat_id, swl.lam, spectra_table)
         pdf = torch.where(kind == DIELECTRIC, dielectric_pdf(eta, wo, wi, ax, ay), pdf)
     # thin dielectric: specular only, pdf 0
     return pdf

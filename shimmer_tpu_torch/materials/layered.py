@@ -16,12 +16,14 @@ pdf are stochastic random walks between the interfaces:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from shimmer_tpu_torch.materials import bxdf as bx
 from shimmer_tpu_torch.materials import scattering as sc
+from shimmer_tpu_torch.materials import walk_graph
 from shimmer_tpu_torch.materials.bxdf import BSDFSample, select_sample
 from shimmer_tpu_torch.materials.conductor_dielectric import (
     _conductor_eta_k,
@@ -380,68 +382,104 @@ def layered_pdf(top: _TopInterface, bottom, wo, wi, rng_key, n_samples: int = LA
 # --- material-table dispatch glue (called from materials.material) ---
 
 
-def _interfaces(materials, mat_id, swl, spectra_table, tex=None):
-    """Top interface and both bottoms from material-table rows.  A
-    textured reflectance (in ``tex``) drives the diffuse bottom and the
-    conductor's reflectance mode; the roughnesses stay the columns'."""
+def _interfaces(materials, mk, mat_id, lam, spectra_table, refl=None):
+    """The top interface and coated kind ``mk``'s bottom from
+    material-table rows.  A textured reflectance (``refl``) drives the
+    diffuse bottom and the conductor's reflectance mode; the roughnesses
+    stay the columns'."""
     ax = sc.roughness_to_alpha(small_gather(materials.uroughness, mat_id))
     ay = sc.roughness_to_alpha(small_gather(materials.vroughness, mat_id))
     ax, ay = sc.clamp_alpha(ax, ay)
     # The coat's eta is always the constant column.
-    top = _TopInterface(_dielectric_eta(materials, mat_id, swl, None), ax, ay)
-    refl = tex.get("reflectance") if tex else None
-    if refl is None:
-        refl = sigmoid_poly_sample(small_gather(materials.reflectance, mat_id), swl.lam)
-    bot_d = _DiffuseBottom(refl)
+    top = _TopInterface(_dielectric_eta(materials, mat_id, lam, None), ax, ay)
+    if mk == COATED_DIFFUSE:
+        if refl is None:
+            refl = sigmoid_poly_sample(small_gather(materials.reflectance, mat_id), lam)
+        return top, _DiffuseBottom(refl)
     bax = sc.roughness_to_alpha(small_gather(materials.bot_uroughness, mat_id))
     bay = sc.roughness_to_alpha(small_gather(materials.bot_vroughness, mat_id))
     bax, bay = sc.clamp_alpha(bax, bay)
-    c_eta, c_k = _conductor_eta_k(materials, mat_id, swl, spectra_table, tex)
-    return top, bot_d, _ConductorBottom(c_eta, c_k, bax, bay)
+    c_eta, c_k = _conductor_eta_k(materials, mat_id, lam, spectra_table, {"reflectance": refl})
+    return top, _ConductorBottom(c_eta, c_k, bax, bay)
 
 
-def _layer_params(materials, mat_id, swl):
+def _layer_params(materials, mat_id, lam):
     thickness = small_gather(materials.thickness, mat_id)
     g = small_gather(materials.hg_g, mat_id)
-    albedo = sigmoid_poly_sample(small_gather(materials.albedo, mat_id), swl.lam)
+    albedo = sigmoid_poly_sample(small_gather(materials.albedo, mat_id), lam)
     return thickness, g, albedo
 
 
-def _coats(materials, kinds_present, mat_id, kind, swl, spectra_table, tex):
-    """(kind, top, bottom) for each coated kind in the scene that a lane
-    has.  A walk costs thousands of small kernels, so a kind no lane has
-    is skipped: its lanes would all be deselected, and each lane's stream
-    is its own, so no other lane's draws change."""
-    for mk, is_cond in ((COATED_DIFFUSE, False), (COATED_CONDUCTOR, True)):
+def _coats(kinds_present, kind):
+    """The coated kinds in the scene that a lane has.  A walk costs
+    thousands of small kernels, so a kind no lane has is skipped: its
+    lanes would all be deselected, and each lane's stream is its own, so
+    no other lane's draws change."""
+    for mk in (COATED_DIFFUSE, COATED_CONDUCTOR):
         if mk in kinds_present and bool(torch.any(kind == mk)):
-            top, bot_d, bot_c = _interfaces(materials, mat_id, swl, spectra_table, tex)
-            yield mk, top, bot_c if is_cond else bot_d
+            yield mk
+
+
+# Each walk's stream: the lane's key combined with this offset plus the kind.
+_STREAMS = {"f": 0, "sample": 16, "pdf": 32}
+
+
+def _walk(name, mk, materials, spectra_table, tex, body, mat_id, lam, rng_key, *args):
+    """``body(top, bottom, key, mat_id, lam, *args)`` for coated kind
+    ``mk``, its interfaces read from the tables and its stream keyed by
+    the walk and ``mk``: one walk, replayed from a CUDA graph where
+    ``walk_graph`` allows.  The graph's inputs are the lanes' tensors
+    (and a textured reflectance); the material columns and the spectra
+    table it reads by address."""
+    refl = tex.get("reflectance") if tex else None
+    n = len(args)
+
+    def walk(mat_id, lam, rng_key, *rest):
+        top, bot = _interfaces(materials, mk, mat_id, lam, spectra_table, *rest[n:])
+        key = srng.hash_combine(rng_key, _STREAMS[name] + mk)
+        return body(top, bot, key, mat_id, lam, *rest[:n])
+
+    inputs = (mat_id, lam, rng_key, *args) + (() if refl is None else (refl,))
+    tables = [v for v in vars(materials).values() if isinstance(v, torch.Tensor)]
+    return walk_graph.run((name, mk, materials.layer_medium), walk, inputs,
+                          tables + [spectra_table])
 
 
 def coated_f(materials, kinds_present, mat_id, kind, wo, wi, swl, f, rng_key,
              tex=None, spectra_table=None):
-    thickness, g, albedo = _layer_params(materials, mat_id, swl)
-    for mk, top, bot in _coats(materials, kinds_present, mat_id, kind, swl, spectra_table, tex):
-        key = srng.hash_combine(rng_key, mk)
-        val = layered_f(top, bot, wo, wi, key, thickness, albedo, g, materials.layer_medium)
+    def body(top, bot, key, mat_id, lam, wo, wi):
+        thickness, g, albedo = _layer_params(materials, mat_id, lam)
+        return (layered_f(top, bot, wo, wi, key, thickness, albedo, g, materials.layer_medium),)
+
+    for mk in _coats(kinds_present, kind):
+        val, = _walk("f", mk, materials, spectra_table, tex, body, mat_id, swl.lam, rng_key,
+                     wo, wi)
         f = torch.where((kind == mk)[..., None], val, f)
     return f
 
 
 def coated_sample(materials, kinds_present, mat_id, kind, wo, u2, uc, swl, out, rng_key,
                   tex=None, spectra_table=None):
-    thickness, g, albedo = _layer_params(materials, mat_id, swl)
-    for mk, top, bot in _coats(materials, kinds_present, mat_id, kind, swl, spectra_table, tex):
-        key = srng.hash_combine(rng_key, 16 + mk)
+    def body(top, bot, key, mat_id, lam, wo, uc, u2):
+        thickness, g, albedo = _layer_params(materials, mat_id, lam)
         s = layered_sample(top, bot, wo, uc, u2, key, thickness, albedo, g,
                            materials.layer_medium)
-        out = select_sample(kind == mk, s, out)
+        return tuple(getattr(s, f.name) for f in dataclasses.fields(s))
+
+    for mk in _coats(kinds_present, kind):
+        s = _walk("sample", mk, materials, spectra_table, tex, body, mat_id, swl.lam, rng_key,
+                  wo, uc, u2)
+        out = select_sample(kind == mk, BSDFSample(*s), out)
     return out
 
 
 def coated_pdf(materials, kinds_present, mat_id, kind, wo, wi, swl, pdf, rng_key,
                tex=None, spectra_table=None):
-    for mk, top, bot in _coats(materials, kinds_present, mat_id, kind, swl, spectra_table, tex):
-        key = srng.hash_combine(rng_key, 32 + mk)
-        pdf = torch.where(kind == mk, layered_pdf(top, bot, wo, wi, key), pdf)
+    def body(top, bot, key, mat_id, lam, wo, wi):
+        return (layered_pdf(top, bot, wo, wi, key),)
+
+    for mk in _coats(kinds_present, kind):
+        val, = _walk("pdf", mk, materials, spectra_table, tex, body, mat_id, swl.lam, rng_key,
+                     wo, wi)
+        pdf = torch.where(kind == mk, val, pdf)
     return pdf

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from shimmer_tpu_torch.config import const_f32
 from shimmer_tpu_torch.ops.math import lerp, safe_sqrt, sqr, sqrt
 from shimmer_tpu_torch.ops.sampling import sample_uniform_disk_polar
 from shimmer_tpu_torch.ops.vecmath import (
@@ -36,7 +37,7 @@ EFFECTIVELY_SMOOTH = 1e-3
 
 
 def _const(values, like):
-    return torch.tensor(values, dtype=torch.float32, device=like.device).expand(like.shape)
+    return const_f32(tuple(values), like.device).expand(like.shape)
 
 
 def clamp_alpha(alpha_x, alpha_y):
