@@ -4,7 +4,7 @@ A subdivided, displaced icosphere (327,680 triangles at the bench size)
 above a floor quad, lit by an emissive quad and a uniform infinite light,
 seen by a 40-degree perspective camera; three diffuse materials.  The
 geometry generator is ``bench.py::make_displaced_sphere``, repeated here
-so that the port and ``chip_smoke.py`` do not import the reference's
+so that the port and its card tests do not import the reference's
 benchmark script (tests hold the two generators equal).
 
 Two legs, as in ``bench.py``: ``bench`` (``BENCH_TRIS``, the main render)

@@ -2,7 +2,7 @@
 before/after comparison of two checkouts on one card.
 
 Builds the bench scene and its 1.3M-triangle leg, makes the traversal
-batches chip_smoke.py's phases 3 and 7 hold the kernels to
+batches tests/test_torch_traverse_card.py holds the kernels to
 (shimmer_tpu_torch/measure.py, ``bench_batches``), and times, on the card:
 
 * each v1 template (v1, v1_mt, v1_min) and v2 on the bounce and merged
@@ -125,6 +125,25 @@ TIMED_SECTIONS = ("chase", "attrib", "scalar_rows", "ablate", "wide_chase", "gat
 # Per traversal layout: what the summary averages over the runs of a side.
 SUMMARY_KEYS = ("ms", "steps_mean", "steps_p50", "steps_p99", "steps_max", "simd_efficiency",
                 "bound_ms", "visits", "internal_rows_read", "leaf_rows_read")
+# The packet-step kernels of rows 10-16 (csrc/packet_step.cu) -> (kernel,
+# the packet-step entry point's case whose times the row carries, the TPU
+# function it ports).
+PACKET_ROWS = {
+    "10": ("packet_slab_chase", "10 make packet_slab_chase/slab transposed",
+           "experiments/exp_scaling.py:38 (make; pallas_call :47)"),
+    "11": ("packet_slab_chase", "11 step_kernel packet_slab_chase/slab_stack transposed",
+           "experiments/exp_packet_step.py:40 (step_kernel; pallas_call :87)"),
+    "12": ("packet_slab_chase", "12 A roll packet_slab_chase/slab transposed",
+           "experiments/exp_packet_step2.py:65 (make, fetch A-D; pallas_call :66)"),
+    "13": ("packet_slab_chase", "13 A roll packet_slab_chase/slab transposed",
+           "experiments/exp_fetch_honest.py:82 (make, empty and A-D; pallas_call :92)"),
+    "14": ("packet_slab_chase", "14 k6 fetch+slab while packet_slab_chase/slab transposed",
+           "experiments/exp_loop_overhead.py:57 (make, k1-k6; pallas_call :58)"),
+    "15": ("step_attrib", "15 full step_attrib/full",
+           "experiments/exp_step_attrib.py:43 (kern; pallas_call :208)"),
+    "16": ("step_ablate", "16 v4 step_ablate/v4",
+           "experiments/exp_ablate_step.py:32 (kern; run :127, pallas_call :128)"),
+}
 
 
 def time_traversal(tris, batch) -> dict:

@@ -71,7 +71,7 @@ REPS = 3
 # count as operations): the packet slab test of one box is 6 subtractions,
 # 6 multiplies, 10 min / max, 2 comparisons and an and (25), plus 8 adds
 # for the hit count and 1 into acc; row 15's box adds the 1.0001 slack
-# and the t_best test (26, as chip_smoke.py counts a traversal visit) and
+# and the t_best test (26, as measure.py counts a traversal visit) and
 # a watertight triangle costs 65 (9 subtractions, 12 for the shear, 21 for
 # the three error-compensated edge products, 16 comparisons and sums for
 # the sign and scaled-distance tests, a division and a multiply); row 16's
@@ -81,7 +81,7 @@ SLAB_OPS = 8 * 25 + 9
 ATTRIB_BOX_OPS, ATTRIB_TRIANGLE_OPS = 26, 65
 ABLATE_SLOT_OPS = 17
 # The bound's rates: the H100 SXM's HBM and non-tensor-core float32 peak
-# (NVIDIA's data sheet), as chip_smoke.py uses them.
+# (NVIDIA's data sheet), as measure.py uses them.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 

@@ -181,16 +181,6 @@ def _unoccluded(scene, p, n, p_light, n_light=None):
     return ~scene_intersect_predicate(scene, o, target - o, t_max)
 
 
-def sample_ld(scene: Scene, si, frame, swl, sampler, s_state, bsdf_ctx):
-    """NEE with its visibility traced at once (an any-hit trace of its
-    own): the contribution where unoccluded, and the sampler state."""
-    contrib, (sh_o, sh_d, sh_tmax, usable), s_state = sample_ld_prepare(
-        scene, si, frame, swl, sampler, s_state, bsdf_ctx
-    )
-    occ = scene_intersect_predicate(scene, sh_o, sh_d, sh_tmax)
-    return torch.where((usable & ~occ)[..., None], contrib, 0.0), s_state
-
-
 def sample_ld_medium_prepare(scene: Scene, p_m, wo, g, swl, sampler, s_state):
     """Next-event estimation from a medium scatter vertex: the HG phase
     value is both f and the scattering pdf of the MIS weight, visibility

@@ -473,8 +473,8 @@ def render_wave_wavefront(
     # each pixel index comes once; the padding lanes of the last block are
     # sent to (width, height), outside the image and outside any band of
     # it, and dropped.  So the order of the scatter's adds cannot change a
-    # bit of the film, and two renders give equal film states (chip_smoke
-    # phase 12 checks this with torch.equal).  Keep it so: a wave that sent
+    # bit of the film, and two renders give equal film states
+    # (tests/test_torch_loader_card.py checks this with torch.equal).  Keep it so: a wave that sent
     # one pixel twice with nonzero values would make the film's sums depend
     # on the add order.  A sharded render hands a film view whose scatter
     # space is band-local (parallel/render.py, LocalBandFilm.local_xy).

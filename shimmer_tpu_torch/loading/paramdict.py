@@ -48,14 +48,6 @@ class Param:
         self.looked_up = False
 
 
-def parse_param_declaration(decl: str):
-    """'float roughness' -> ('float', 'roughness')."""
-    parts = decl.strip().split()
-    if len(parts) != 2 or parts[0] not in PARAM_TYPES:
-        raise ParameterError(f"bad parameter declaration: {decl!r}")
-    return parts[0], parts[1]
-
-
 class ParameterDictionary:
     """Typed lookups with defaults."""
 

@@ -42,18 +42,6 @@ def flags_is_specular(flags):
     return (flags & SPECULAR) != 0
 
 
-def flags_is_transmissive(flags):
-    return (flags & TRANSMISSION) != 0
-
-
-def flags_is_diffuse(flags):
-    return (flags & DIFFUSE) != 0
-
-
-def flags_is_non_specular(flags):
-    return (flags & (DIFFUSE | GLOSSY)) != 0
-
-
 @dataclasses.dataclass(frozen=True)
 class BSDFSample:
     f: torch.Tensor                    # (..., 4)

@@ -1,9 +1,8 @@
-"""Measurement helpers shared by chip_smoke.py and the experiments
-(kernel_ab.py, sampler_ab.py): the bench traversal batches, the ray
-layouts the kernel is timed on, a CUDA-event timer, visit statistics, the
-bound of a traversal launch, a patterned stack for the step attribution
-(row 15), a reader of nvcc's ``-Xptxas -v`` log and of the card's
-nvidia-smi fields.
+"""Measurement helpers of experiments/kernel_ab.py and the card tests: the
+bench traversal batches, the ray layouts the kernel is timed on, a
+CUDA-event timer, visit statistics, the bound of a traversal launch, a
+patterned stack for the step attribution (row 15) and a reader of nvcc's
+``-Xptxas -v`` log.
 
 It imports nothing of shimmer_tpu_torch when it is imported, only inside
 its functions: kernel_ab.py loads this file from its own checkout while
@@ -123,16 +122,6 @@ def layouts(tris, o, d, t_max, want) -> dict:
                    t_max[order].contiguous(), want[order].contiguous()),
         "unsorted": (*table, o, d, t_max, want.contiguous()),
     }
-
-
-def nvidia_smi_line(fields: str = "name,power.limit", units: bool = True) -> str:
-    """The first card's ``fields`` as nvidia-smi prints them (the card's
-    name and power limit by default), without units if ``units`` is
-    False."""
-    fmt = "csv,noheader" if units else "csv,noheader,nounits"
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", f"--format={fmt}"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int = 20) -> float:

@@ -127,8 +127,8 @@ def load_host(name: str) -> ctypes.CDLL:
     """``csrc/{name}_host.cpp``, the host build of a library's kernel bodies
     (the kernels' own order of operations on the CPU), compiled with g++
     without FMA contraction (as nvcc builds the kernels, -fmad=false) into
-    ``_build/`` and loaded.  chip_smoke.py holds the card's results to it;
-    no wrapper loads it."""
+    ``_build/`` and loaded.  tests/test_torch_gather_card.py holds the
+    card's results to it; no wrapper loads it."""
     source = CSRC / f"{name}_host.cpp"
     lib = BUILD_DIR / f"libshimmer_{name}_host.so"
     with _lock:

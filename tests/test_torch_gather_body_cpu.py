@@ -555,8 +555,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_load_host_builds_the_bodies_the_card_is_held_to(host, tmp_path, monkeypatch):
-    """cuda_build.load_host, which chip_smoke.py holds the card's gather-sums
-    to, builds the same host bodies as this file's build: the same bounds
+    """cuda_build.load_host, which tests/test_torch_gather_card.py holds the
+    card's gather-sums to, builds the same host bodies as this file's build: the same bounds
     and the same bits on a case of each sum."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the host build of the kernel bodies needs it")

@@ -1,8 +1,9 @@
 """The PyTorch port imports neither JAX nor the JAX package: every module of
 shimmer_tpu_torch, the port's own copies of the host-only builders, and
-chip_smoke.py import in a fresh interpreter with ``jax`` and
-``shimmer_tpu`` blocked, and each slice's path runs there at a small
-size (since the megakernel slice: the samplers, filters, cameras, color
+the card tests (tests/test_torch_*_card.py, which run on a machine without
+JAX) import in a fresh interpreter with ``jax`` and ``shimmer_tpu``
+blocked, and each slice's path runs there at a small size (since the
+megakernel slice: the samplers, filters, cameras, color
 spaces and sensor through the megakernel and each estimator; since the
 gradient slice: checkpoints, statistics, splats and a gradient through
 the megakernel; since the sharding slice: the replay wavefront's
@@ -25,14 +26,19 @@ sys.modules["shimmer_tpu"] = None
 import torch
 torch.set_num_threads(1)
 given = {names}
-# The run checks below branch on the given list, so the "package" case only
-# imports: each run check belongs to the one dedicated case that names it.
-runs = set() if given == "package" else set(given)
+# The run checks below branch on the given list, so the "package" and
+# "card" cases only import: each run check belongs to the one dedicated case
+# that names it.
+runs = set(given) if isinstance(given, list) else set()
 if given == "package":
     import shimmer_tpu_torch
     names = ["shimmer_tpu_torch"] + [
         m.name for m in pkgutil.walk_packages(shimmer_tpu_torch.__path__, "shimmer_tpu_torch.")
     ]
+elif given == "card":
+    import pathlib
+    sys.path.insert(0, "tests")
+    names = sorted(p.stem for p in pathlib.Path("tests").glob("test_torch_*_card.py"))
 else:
     names = given
 for name in names:
@@ -247,7 +253,7 @@ print(len(names))
     [
         "package",
         ["shimmer_tpu_torch.ops.bvh", "shimmer_tpu_torch.ops.bvh8", "shimmer_tpu_torch.native"],
-        ["chip_smoke"],
+        "card",
         ["shimmer_tpu_torch.ops.cuda_build", "shimmer_tpu_torch.ops.gather",
          "shimmer_tpu_torch.experiments.gather"],
         ["shimmer_tpu_torch.ops.cuda_build", "shimmer_tpu_torch.ops.packet_step",
@@ -276,7 +282,7 @@ print(len(names))
          "shimmer_tpu_torch.flagship", "shimmer_tpu_torch.experiments.dryrun_multihost",
          "shimmer_tpu_torch.render", "shimmer_tpu_torch.cli"],
     ],
-    ids=["shimmer_tpu_torch", "own_host_modules", "chip_smoke", "gather_modules",
+    ids=["shimmer_tpu_torch", "own_host_modules", "card_tests", "gather_modules",
          "packet_step_modules", "kernel_ab_modules", "material_modules",
          "scene_file_modules", "texture_modules", "instancing_modules", "megakernel_modules",
          "gradient_modules", "sharding_modules"],

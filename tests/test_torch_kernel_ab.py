@@ -1,5 +1,5 @@
 """The before/after timing entry point (shimmer_tpu_torch/experiments/
-kernel_ab.py) and the measurement helpers it shares with chip_smoke.py
+kernel_ab.py) and the measurement helpers it shares with the card tests
 (shimmer_tpu_torch/measure.py) on the CPU: the statistics, the bench
 batches at a small size, the ray layouts, the traversal bound, the ptxas
 log reader and the A/B summary.  The timings themselves need the card."""

@@ -263,14 +263,14 @@ def test_entry_point_inputs_are_the_scripts(data):
     assert_bits(x["rays"].numpy(), data["rays"])
 
 
-def test_chip_smoke_rows_name_entry_point_cases():
-    """chip_smoke.py's kernel-table rows 10-16 carry cases the entry point
+def test_kernel_ab_rows_name_entry_point_cases():
+    """kernel_ab.py's kernel-table rows 10-16 carry cases the entry point
     runs, of the kernel they name."""
-    import chip_smoke
+    from shimmer_tpu_torch.experiments import kernel_ab
 
     by_name = {c.name: c for c in eps.cases()}
-    assert sorted(chip_smoke.PACKET_ROWS) == [str(r) for r in range(10, 17)]
-    for row, (kernel, case, _) in chip_smoke.PACKET_ROWS.items():
+    assert sorted(kernel_ab.PACKET_ROWS) == [str(r) for r in range(10, 17)]
+    for row, (kernel, case, _) in kernel_ab.PACKET_ROWS.items():
         assert by_name[case].row == row and by_name[case].kernel == kernel
 
 

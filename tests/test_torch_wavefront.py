@@ -6,7 +6,7 @@ the port runs the same estimator through its plain traversal, on tables
 carried across with ``scene_from_numpy`` and on tables from its own
 builders.  The sampler is counter-based, so the two renders agree per
 sample up to float32 rounding (XLA contracts FMAs, transcendentals differ
-in the last ulp).  Criteria, as chip_smoke.py uses them: images finite
+in the last ulp).  Criteria, as tests/card_checks.py has them: images finite
 with a positive mean, at least 99% of pixels within rtol 1e-3 / atol 1e-4,
 image means within 1e-3 relative; the margin covers a path that branches
 differently on a last-ulp difference.  The traced-ray count must match
