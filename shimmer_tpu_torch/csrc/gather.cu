@@ -95,6 +95,30 @@
 //     chunks of lanes, one 8-byte shared load and an add a step: ~17 MB of
 //     staging at 132 blocks instead of 268 MB of row sectors.  The per-lane
 //     form stays for larger tables (R > kChaseStageMaxRows).
+//
+// And one kernel that replaces no TPU kernel (the reference leaves the
+// gradient of a gather to XLA):
+//   row_scatter_add   out[r, c] = sum over lanes i with idx[i] == r of
+//                     grad[i, c], for a table of at most 32 rows of 2-32
+//                     floats: the backward of the port's small-table
+//                     gathers (ops/gather.py gather_rows).
+//   * Its order is fixed: from 0.0f, one float32 add a lane, in ascending
+//     lane order, which is the order torch's own backward of table[idx]
+//     adds in on the card (a stable sort of the ids, then one thread a
+//     (row, column) walks the row's lanes: indexing_backward_kernel_
+//     small_stride), so the two agree bit for bit.  The bound is then that
+//     chain of dependent adds, ~4 cycles a lane of the longest row (0.3 ms
+//     for 131,072 lanes), where torch's walk pays dependent global loads a
+//     lane (~22 ms a call at that size).  So one block a row streams the
+//     ids in chunks: 16 warps compact the row's lanes of a chunk (a ballot a
+//     32 lanes, a scan over the warps) and stage their gradient values in
+//     shared memory, column by column in lane order, while a 17th warp,
+//     one lane a column, walks the chunk staged before (two buffers): four
+//     16-byte loads for each 16 values, issued ahead of the adds, its sum in a
+//     register across chunks.  No sort, no atomics, one launch.  A first
+//     form that staged whole rows and walked them with strided loads in
+//     branches ran ~25 cycles a lane, the loads' latency exposed (PERF.md
+//     §6).
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (ops/cuda_build.py).  Each entry point launches on `stream`, does not
@@ -363,6 +387,142 @@ __global__ void __launch_bounds__(kWalkThreads)
   }
 }
 
+// row_scatter_add: kScatterWarps warps compact a chunk of lanes, then one
+// more warp walks it.  A chunk is kScatterWarps * 32 * rounds lanes
+// (scatter_rounds: as many rounds of 32 lanes a warp, up to
+// kScatterMaxRounds, as keep a buffer of the chunk's gradient values within
+// kScatterStageFloats).  A buffer holds the chunk's matched values column by
+// column, each column scatter_stride(rounds) floats: the chunk and
+// kScatterPad floats that the walk may read and never adds.
+constexpr int kScatterMaxRows = 32;
+constexpr int kScatterMinWidth = 2;
+constexpr int kScatterMaxWidth = 32;
+constexpr int kScatterWarps = 16;
+constexpr int kScatterThreads = (kScatterWarps + 1) * kWarp;
+constexpr int kScatterMaxRounds = 8;
+constexpr int kScatterStageFloats = kScatterWarps * kWarp * kScatterMaxWidth;  // 64 KB
+constexpr int kScatterPad = 16;
+
+int scatter_rounds(int width) {
+  const int rounds = kScatterStageFloats / (kScatterWarps * kWarp * width);
+  return rounds < kScatterMaxRounds ? rounds : kScatterMaxRounds;
+}
+
+__host__ __device__ int scatter_stride(int rounds) {
+  return kScatterWarps * kWarp * rounds + kScatterPad;
+}
+
+// Compacts the lanes [begin, begin + chunk) whose id is `row` into `buf`, in
+// lane order: value c of the k-th such lane at buf[c * stride + k]; `*count`
+// gets how many.  Run by the kScatterWarps compacting warps, each over its
+// own `rounds` x 32 consecutive lanes.
+__device__ void scatter_compact(const float* __restrict__ grad,
+                                const long long* __restrict__ idx, long long n,
+                                int width, int rounds, int row, long long begin,
+                                float* __restrict__ buf, int* warp_count,
+                                int* count) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int stride = scatter_stride(rounds);
+  const long long seg = begin + static_cast<long long>(warp) * rounds * kWarp;
+  long long ids[kScatterMaxRounds];
+#pragma unroll
+  for (int r = 0; r < kScatterMaxRounds; ++r) {
+    const long long i = seg + r * kWarp + lane;
+    ids[r] = r < rounds && i < n ? __ldg(idx + i) : -1;
+  }
+  unsigned masks[kScatterMaxRounds];
+  int total = 0;
+#pragma unroll
+  for (int r = 0; r < kScatterMaxRounds; ++r) {
+    masks[r] = __ballot_sync(0xffffffffu, ids[r] == row);
+    total += __popc(masks[r]);
+  }
+  if (lane == 0) warp_count[warp] = total;
+  // The compacting warps alone (barrier 0 is __syncthreads').
+  asm volatile("bar.sync 1, %0;\n" ::"r"(kScatterWarps * kWarp) : "memory");
+  int base = 0;
+  for (int w = 0; w < warp; ++w) base += warp_count[w];
+  if (warp == kScatterWarps - 1 && lane == 0) *count = base + total;
+  // A matched lane copies its gradient row, four values in flight at a
+  // time (the rounds past `rounds` matched none).
+#pragma unroll
+  for (int r = 0; r < kScatterMaxRounds; ++r) {
+    const unsigned m = masks[r];
+    if (m >> lane & 1u) {
+      float* dst = buf + base + __popc(m & ((1u << lane) - 1u));
+      const float* src = grad + (seg + r * kWarp + lane) * width;
+      for (int c0 = 0; c0 < width; c0 += 4) {
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = c0 + u < width ? __ldg(src + c0 + u) : 0.0f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (c0 + u < width) dst[(c0 + u) * stride] = v[u];
+        }
+      }
+    }
+    base += __popc(m);
+  }
+}
+
+// Adds a column's `count` staged values (16-byte aligned, followed by
+// kScatterPad readable floats) to `acc`, one add a value in order.  Sixteen
+// values a step come in four 16-byte loads, issued for the next step before
+// this step's adds, so the chain of adds sets the pace.
+__device__ float scatter_walk(const float* col, int count, float acc) {
+  const float4* q = reinterpret_cast<const float4*>(col);
+  float4 a0 = q[0], a1 = q[1], a2 = q[2], a3 = q[3];
+  int j = 0;
+  for (; j + 16 <= count; j += 16) {
+    const float4* nq = q + (j + 16) / 4;
+    const float4 b0 = nq[0], b1 = nq[1], b2 = nq[2], b3 = nq[3];
+    acc += a0.x; acc += a0.y; acc += a0.z; acc += a0.w;
+    acc += a1.x; acc += a1.y; acc += a1.z; acc += a1.w;
+    acc += a2.x; acc += a2.y; acc += a2.z; acc += a2.w;
+    acc += a3.x; acc += a3.y; acc += a3.z; acc += a3.w;
+    a0 = b0; a1 = b1; a2 = b2; a3 = b3;
+  }
+  for (; j < count; ++j) acc += col[j];
+  return acc;
+}
+
+// One block a table row.  Warps 0-15 compact chunk k + 1 while warp 16
+// walks chunk k, lane c column c; a __syncthreads between chunks hands the
+// buffers over.
+__global__ void __launch_bounds__(kScatterThreads)
+    row_scatter_add_kernel(const float* __restrict__ grad,
+                           const long long* __restrict__ idx, long long n,
+                           int width, int rounds, float* __restrict__ out) {
+  extern __shared__ __align__(16) float stage[];
+  __shared__ int warp_count[kScatterWarps];
+  __shared__ int chunk_count[2];
+  const int row = blockIdx.x;
+  const bool walker = threadIdx.x / kWarp == kScatterWarps;
+  const int c = threadIdx.x % kWarp;
+  const int chunk = kScatterWarps * kWarp * rounds;
+  const int stride = scatter_stride(rounds);
+  const int buf_floats = stride * width;
+  const long long chunks = (n + chunk - 1) / chunk;
+  if (!walker && chunks > 0) {
+    scatter_compact(grad, idx, n, width, rounds, row, 0, stage, warp_count,
+                    &chunk_count[0]);
+  }
+  float acc = 0.0f;
+  for (long long k = 0; k < chunks; ++k) {
+    __syncthreads();
+    const int b = static_cast<int>(k & 1);
+    if (walker) {
+      if (c < width) {
+        acc = scatter_walk(stage + b * buf_floats + c * stride, chunk_count[b], acc);
+      }
+    } else if (k + 1 < chunks) {
+      scatter_compact(grad, idx, n, width, rounds, row, (k + 1) * chunk,
+                      stage + (1 - b) * buf_floats, warp_count, &chunk_count[1 - b]);
+    }
+  }
+  if (walker && c < width) out[row * width + c] = acc;
+}
+
 int blocks_for(int n, int per_block) { return (n + per_block - 1) / per_block; }
 
 int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
@@ -531,6 +691,33 @@ extern "C" int shimmer_chase_walk(const int* pairs, int n_rows, const int* idx,
   return launch_walk(reinterpret_cast<const ChasePair*>(pairs), n_rows, idx, n,
                      steps, out, static_cast<cudaStream_t>(stream));
 }
+
+// grad (n, W) float32, W in [kScatterMinWidth, kScatterMaxWidth]; idx (n,)
+// int64; out (n_rows, W), 1 <= n_rows <= kScatterMaxRows, every element
+// written.  An id outside [0, n_rows) adds nothing.  One launch, n_rows
+// blocks.
+extern "C" int shimmer_row_scatter_add(const float* grad, const long long* idx,
+                                       int n, int n_rows, int width, float* out,
+                                       void* stream) {
+  if (n < 0 || n_rows < 1 || n_rows > kScatterMaxRows || width < kScatterMinWidth ||
+      width > kScatterMaxWidth) {
+    return invalid();
+  }
+  const int rounds = scatter_rounds(width);
+  const int smem = static_cast<int>(sizeof(float)) * 2 * scatter_stride(rounds) * width;
+  const cudaError_t err = cudaFuncSetAttribute(
+      row_scatter_add_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  row_scatter_add_kernel<<<n_rows, kScatterThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      grad, idx, n, width, rounds, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int shimmer_scatter_max_rows() { return kScatterMaxRows; }
+
+extern "C" int shimmer_scatter_min_width() { return kScatterMinWidth; }
+
+extern "C" int shimmer_scatter_max_width() { return kScatterMaxWidth; }
 
 // The dispatch rule's bounds, which the wrapper's copy of the rule
 // (ops/gather.py chase_staged) is checked against.

@@ -23,7 +23,12 @@ function it replaces):
   pass writes each row's (next index, row sum) (:func:`chase_pairs_plain`
   computes the same), and a grid of blocks, each with the pairs staged in
   its shared memory, walks the lanes (:func:`chase_walk`, which also
-  takes the pairs alone).
+  takes the pairs alone);
+* :func:`row_scatter_add` -- ``out[r] = sum_{i: idx[i] == r} grad[i]``
+  for a table of at most 32 rows of 2-32 floats, added from 0 in lane
+  order, so equal bit for bit to torch's ``index_put_(accumulate=True)``
+  on the card; :func:`gather_rows` is ``table[idx]`` with it for a
+  backward where :func:`backward_reason` allows.
 
 An index outside [0, R) reads a row of zeros in every function (the
 reference's one-hot product does so with an index that bf16 rounding
@@ -43,8 +48,10 @@ import ctypes
 import threading
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from shimmer_tpu_torch.ops import cuda_build
+from shimmer_tpu_torch.utils import stats
 
 # Columns a chase step reads (csrc/gather_body.cuh kChaseCols).
 CHASE_COLS = 9
@@ -75,6 +82,13 @@ STAGE_MIN_STEPS = 256
 WIDE_MIN_STEPS = 32
 MANY_LANES = 131072
 MANY_LANES_MIN_STEPS = 8
+# The scatter-add (csrc/gather.cu kScatter*): tables of at most
+# SCATTER_MAX_ROWS rows of SCATTER_MIN_WIDTH to SCATTER_MAX_WIDTH floats
+# (the widths torch's backward of an index adds in lane order on the card,
+# its small-stride kernel).
+SCATTER_MAX_ROWS = 32
+SCATTER_MIN_WIDTH = 2
+SCATTER_MAX_WIDTH = 32
 _INT_MAX = 2**31 - 1
 
 # The bounds the library reports, in the order _library reads them.
@@ -82,7 +96,8 @@ LIBRARY_BOUNDS = (SUM_MAX_WIDTH, STAGE_MAX_LANES, STAGE_MAX_ROWS, STAGE_MIN_STEP
                   WIDE_MIN_STEPS, MANY_LANES, MANY_LANES_MIN_STEPS, SUM_MAX_BLOCKS,
                   SUM_COUNTED_MAX_N, SUM_COUNTED_INDICES_PER_ROW, SUM_COUNTED_MIN_ROWS,
                   SUM_COUNTED_MIN_WIDTH,
-                  COL_SUM_MAX_BLOCKS, COL_SUM_MAX_REPEATS)
+                  COL_SUM_MAX_BLOCKS, COL_SUM_MAX_REPEATS,
+                  SCATTER_MAX_ROWS, SCATTER_MIN_WIDTH, SCATTER_MAX_WIDTH)
 
 _lock = threading.Lock()
 _lib = None
@@ -106,6 +121,7 @@ def _library():
             lib.shimmer_row_gather_col_sum.argtypes = [p, ci, ci, p, ci, ci, ci, p, p, p, p]
             lib.shimmer_row_chase.argtypes = [ci, p, ci, ci, p, ci, ci, p, p, p]
             lib.shimmer_chase_walk.argtypes = [p, ci, p, ci, ci, p, p]
+            lib.shimmer_row_scatter_add.argtypes = [p, p, ci, ci, ci, p, p]
             bounds = (lib.shimmer_gather_sum_max_width, lib.shimmer_chase_stage_max_lanes,
                       lib.shimmer_chase_stage_max_rows, lib.shimmer_chase_stage_min_steps,
                       lib.shimmer_chase_wide_min_steps, lib.shimmer_chase_many_lanes,
@@ -114,10 +130,13 @@ def _library():
                       lib.shimmer_gather_sum_counted_indices_per_row,
                       lib.shimmer_gather_sum_counted_min_rows,
                       lib.shimmer_gather_sum_counted_min_width,
-                      lib.shimmer_col_sum_max_blocks, lib.shimmer_col_sum_max_repeats)
+                      lib.shimmer_col_sum_max_blocks, lib.shimmer_col_sum_max_repeats,
+                      lib.shimmer_scatter_max_rows, lib.shimmer_scatter_min_width,
+                      lib.shimmer_scatter_max_width)
             for fn in (lib.shimmer_row_gather, lib.shimmer_row_gather_cols,
                        lib.shimmer_row_gather_sum, lib.shimmer_row_gather_col_sum,
-                       lib.shimmer_row_chase, lib.shimmer_chase_walk, *bounds):
+                       lib.shimmer_row_chase, lib.shimmer_chase_walk,
+                       lib.shimmer_row_scatter_add, *bounds):
                 fn.restype = ci
             for fn in bounds:
                 fn.argtypes = []
@@ -341,11 +360,115 @@ def chase_walk(pairs, idx, steps: int):
 
 chase_walk.launches = {"chase_walk": 0}
 
+
+def row_scatter_add(grad, idx, n_rows: int):
+    """``torch.zeros(n_rows, W).index_put_((idx,), grad, accumulate=True)``
+    of (N, W) float32 gradient rows, W in [SCATTER_MIN_WIDTH,
+    SCATTER_MAX_WIDTH], and (N,) int64 ids in [0, n_rows), at
+    most SCATTER_MAX_ROWS rows -> (n_rows, W).  On the card one launch
+    that adds each row's lanes from 0 in lane order, the same bits as
+    torch's own there, and in which an id outside [0, n_rows) adds
+    nothing; on the CPU the plain version, in the same order (it raises on
+    such an id)."""
+    n_rows = int(n_rows)
+    if grad.dim() != 2 or idx.dim() != 1 or grad.shape[0] != idx.shape[0]:
+        raise ValueError(f"grad must be (N, W) and idx (N,), got {tuple(grad.shape)} and "
+                         f"{tuple(idx.shape)}")
+    if grad.dtype != torch.float32:
+        raise TypeError(f"grad has dtype {grad.dtype}, expected torch.float32")
+    if idx.dtype != torch.int64:
+        raise TypeError(f"idx has dtype {idx.dtype}, expected torch.int64")
+    if idx.device != grad.device:
+        raise ValueError(f"idx is on {idx.device}, grad on {grad.device}")
+    if not grad.is_contiguous() or not idx.is_contiguous():
+        raise ValueError("grad and idx must be contiguous")
+    width = grad.shape[1]
+    if not 1 <= n_rows <= SCATTER_MAX_ROWS or not SCATTER_MIN_WIDTH <= width <= SCATTER_MAX_WIDTH:
+        raise ValueError(f"{n_rows} rows of {width}: expected 1-{SCATTER_MAX_ROWS} rows of "
+                         f"{SCATTER_MIN_WIDTH}-{SCATTER_MAX_WIDTH} floats")
+    if idx.shape[0] > _INT_MAX:
+        raise ValueError("the lanes must fit int32")
+    if grad.device.type == "cpu":
+        return row_scatter_add_plain(grad, idx, n_rows)
+    if grad.device.type != "cuda":
+        raise ValueError(f"no scatter-add for device {grad.device}")
+    out = torch.empty(n_rows, width, dtype=torch.float32, device=grad.device)
+    cuda_build.raise_on_error(_library().shimmer_row_scatter_add(
+        grad.data_ptr(), idx.data_ptr(), idx.shape[0], n_rows, width, out.data_ptr(),
+        cuda_build.stream_of(grad)), "row_scatter_add")
+    row_scatter_add.launches["row_scatter_add"] += 1
+    return out
+
+
+row_scatter_add.launches = {"row_scatter_add": 0}
+
+# The kernels of the gather experiments (experiments/gather.py).
 WRAPPERS = (row_gather, row_gather_cols, row_gather_sum, row_gather_col_sum, row_chase, chase_walk)
+
+# The registry's counts of the small-table gathers under grad
+# (utils/stats.py): backwards taken by the kernel, and gathers left to
+# aten's backward, by reason.
+BACKWARD_KERNEL = "Gather/Backward kernel"
+BACKWARD_ATEN = "Gather/Backward aten"
+
+
+def backward_reason(device_type: str, dtype, shape, lanes: int) -> str | None:
+    """Why the backward of a gather of ``lanes`` rows from a table of
+    ``shape`` and ``dtype`` on ``device_type`` keeps aten's, or None where
+    :func:`row_scatter_add` takes it: a 2-D float32 table on the card of at
+    most SCATTER_MAX_ROWS rows of SCATTER_MIN_WIDTH-SCATTER_MAX_WIDTH
+    floats (aten adds those in lane order too; a 1-float row goes to its
+    parallel kernel), fewer than 2^31 lanes."""
+    if device_type != "cuda":
+        return "cpu"
+    if len(shape) != 2 or not SCATTER_MIN_WIDTH <= shape[1] <= SCATTER_MAX_WIDTH:
+        return "columns"
+    if shape[0] > SCATTER_MAX_ROWS:
+        return "rows"
+    if dtype != torch.float32:
+        return "dtype"
+    if lanes > _INT_MAX:
+        return "lanes"
+    return None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[idx]`` whose backward is :func:`row_scatter_add`."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        stats.counter(BACKWARD_KERNEL if grad.is_cuda else f"{BACKWARD_ATEN}: cpu").add(1)
+        width = grad.shape[-1]
+        return row_scatter_add(grad.reshape(-1, width).contiguous(), idx.reshape(-1),
+                               ctx.n_rows), None
+
+
+def gather_rows(table, idx):
+    """``table[idx]`` for int64 ids ``idx`` (any shape) within the table.
+    Under grad, where :func:`backward_reason` allows, its backward is one
+    :func:`row_scatter_add` launch in place of aten's sort and serial walk
+    (the same bits); the registry counts each such backward under
+    ``Gather/Backward kernel`` and each other gather under grad under
+    ``Gather/Backward aten: <reason>``."""
+    if not (table.requires_grad and torch.is_grad_enabled()):
+        return table[idx]
+    reason = backward_reason(table.device.type, table.dtype, table.shape, idx.numel())
+    if reason is not None:
+        stats.counter(f"{BACKWARD_ATEN}: {reason}").add(1)
+        return table[idx]
+    return _GatherRows.apply(table, idx)
 
 
 def launch_counts() -> dict:
-    """Kernel launches by kernel name, over all the wrappers."""
+    """Kernel launches by kernel name, over the experiments' wrappers."""
     return {k: v for w in WRAPPERS for k, v in w.launches.items()}
 
 
@@ -410,6 +533,16 @@ def row_chase_plain(table, idx, steps: int, stats: dict | None = None):
         stats["rows_read"] = rows_read
         stats["oob_lanes"] = oob
     return acc
+
+
+def row_scatter_add_plain(grad, idx, n_rows: int):
+    """Plain torch version of :func:`row_scatter_add`: ``index_add_``,
+    which on the CPU adds each lane to its row one at a time in lane order,
+    as the kernel does.  (The CPU's ``index_put_(accumulate=True)``, the
+    backward of ``table[idx]`` there, adds in that order only up to a few
+    tens of thousands of values, and with threads in any order beyond.)"""
+    out = torch.zeros(int(n_rows), grad.shape[1], dtype=grad.dtype, device=grad.device)
+    return out.index_add_(0, idx, grad)
 
 
 def chase_pairs_plain(table):

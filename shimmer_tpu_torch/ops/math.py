@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from shimmer_tpu_torch.ops.gather import gather_rows
+
 
 def sqr(x):
     return x * x
@@ -199,18 +201,20 @@ def smooth_step(x, a, b):
 def take_clamped(table, idx):
     """``table[idx]`` with out-of-range ids clamped into the table: a plain
     gather for ids that are valid or whose lanes are masked.  Material-id
-    gathers that must read the reference's row use ``small_gather``."""
+    gathers that must read the reference's row use ``small_gather``.  Its
+    backward is ``ops.gather.gather_rows``'s."""
     k = table.shape[0]
-    return table[torch.clamp(idx.long(), 0, k - 1)]
+    return gather_rows(table, torch.clamp(idx.long(), 0, k - 1))
 
 
 def take_wrapped(table, idx):
     """``table[idx]`` with the reference's plain indexing: a negative id
     counts from the end, then ids are clamped into the table (a lane that
-    reads a row it then discards never faults)."""
+    reads a row it then discards never faults).  Its backward is
+    ``ops.gather.gather_rows``'s."""
     k = table.shape[0]
     idx = idx.long()
-    return table[torch.clamp(torch.where(idx < 0, idx + k, idx), 0, k - 1)]
+    return gather_rows(table, torch.clamp(torch.where(idx < 0, idx + k, idx), 0, k - 1))
 
 
 # The reference's ``small_gather`` clamps ids into tables of up to this

@@ -16,7 +16,10 @@
   at 1280x720, 1 spp, depth 5, in 2^17-pixel blocks): exactly the
   wavefront's iterations of launches forward, and n_blocks x spp x (1 +
   depth) more in the backward, each block's paths replayed by the
-  megakernel; the gradient finite and nonzero.
+  megakernel; the gradient finite and nonzero; and there every
+  reflectance gather's backward is one ``row_scatter_add`` launch, none is
+  left to aten, and the leaf's gradient is ``torch.equal`` to the same
+  step's with the gathers' backward left to aten.
 
 Marked ``card``; run on the card as tests/card_checks.py says.
 """
@@ -37,12 +40,15 @@ from shimmer_tpu_torch.film.filters import BoxFilter, get_camera_sample
 from shimmer_tpu_torch.integrators.path import li_path
 from shimmer_tpu_torch.lights import lights as lt
 from shimmer_tpu_torch.materials import material as mtl
+from shimmer_tpu_torch.ops import gather as gk
+from shimmer_tpu_torch.ops import math as om
 from shimmer_tpu_torch.ops.transform import Transform
 from shimmer_tpu_torch.render import make_wavefront_renderer
 from shimmer_tpu_torch.samplers import IndependentSampler, ZSobolSampler
 from shimmer_tpu_torch.scene_builder import build_scene
 from shimmer_tpu_torch.spectra.spectrum import ConstantSpectrum
 from shimmer_tpu_torch.textures import textures as tx
+from shimmer_tpu_torch.utils import stats
 
 pytestmark = pytest.mark.card
 
@@ -295,3 +301,46 @@ def test_replay_backward_at_the_cell_size_replays_each_block(card):
     assert launches("v1") == iters + n_blocks * CELL_SPP * (1 + MAX_DEPTH)
     grad = grad.cpu().numpy()
     assert np.isfinite(grad).all() and np.abs(grad).sum() > 0
+
+
+def test_replay_backward_at_the_cell_size_takes_the_scatter_kernel(card, monkeypatch):
+    """The same step as above, twice on one scene: with the port's gathers,
+    where every gather under grad (each reads the reflectance table) has
+    its backward in one ``row_scatter_add`` launch; then with the gathers
+    made plain indexing, whose backward is aten's.  The floor's gradient is
+    the same bits."""
+    scene, cam, film, floor = bench_with_floor_leaf(BENCH_RESOLUTION, card)
+    blocks, valids = render_module.pixel_blocks(film, CELL_BLOCK, card)
+    idx = torch.arange(CELL_SPP, device=card)
+
+    def step_grad():
+        wave = render_module.make_replay_wavefront_renderer(
+            scene, cam, film, ZSobolSampler(CELL_SPP, BENCH_RESOLUTION), max_depth=MAX_DEPTH)
+        state = film.init_state(card)
+        for b in range(blocks.shape[0]):
+            state = wave(scene, state, idx, blocks[b], valids[b])
+        (grad,) = torch.autograd.grad(film.get_image(state).mean(), floor)
+        return grad
+
+    under_grad = []
+
+    def spy(table, ids):
+        if table.requires_grad and torch.is_grad_enabled():
+            under_grad.append(tuple(table.shape))
+        return gk.gather_rows(table, ids)
+
+    monkeypatch.setattr(om, "gather_rows", spy)
+    stats.clear()
+    before = gk.row_scatter_add.launches["row_scatter_add"]
+    got = step_grad()
+    launched = gk.row_scatter_add.launches["row_scatter_add"] - before
+    counted = {k: v for k, v in stats.as_dict().items() if k.startswith("Gather/")}
+    stats.clear()
+    assert set(under_grad) == {tuple(scene.materials.reflectance.shape)}
+    assert len(under_grad) >= 2 * MAX_DEPTH * blocks.shape[0]
+    assert launched == len(under_grad)
+    assert counted == {gk.BACKWARD_KERNEL: float(len(under_grad))}
+    monkeypatch.setattr(om, "gather_rows", lambda table, ids: table[ids])
+    want = step_grad()
+    assert torch.equal(got, want)
+    assert torch.isfinite(got).all() and got.abs().sum() > 0
